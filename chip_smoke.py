@@ -22,16 +22,41 @@ Phases (any failure exits nonzero before the result lines):
    through ``TrainSession`` for 8 steps (two ``delta_sync`` rounds, one
    device replan), then one ``grad_sync`` step under a plan that puts the
    11 parameter groups round-robin on all 8 ladder rungs.  Every kernel's
-   launch count is reset just before and read just after; each must have
-   launched, and every loss must be finite.
+   launch count is reset just before and read just after; each of K1-K4
+   must have launched, and every loss must be finite;
+6. hold each decode-accumulate kernel (K5-K11) against its plain version
+   on the card, bit for bit: small cases (omega 0.37 / 0 / 1, denormal,
+   zero and -0 accumulator entries, a zero and a denormal scale,
+   fixed_bits 16 and a width where the clip saturates, top-k at every k
+   of the ladder) and one call over all 443,697 rows of paper-350m, which
+   is timed;
+7. the multi-pod main path: P pods as processes sharing the card (the
+   pod group is gloo, staged through pinned host memory), paper-350m at
+   full width under ``acesync`` with the one-shot exchange
+   (``ring_chunks=-1``) and ``replan_every=4``: P = 2 with global batch 8
+   for 8 steps at full depth, P = 3 with global batch 6 for 4 steps at
+   16 layers (three full-depth pods do not fit the card; a P = 3 run that
+   does not fit fails), each then one all-rungs ``grad_sync``.
+   The parameters after every ``delta_sync`` and the all-rungs aggregate
+   must be bit-identical on every pod, the bytes gathered equal to
+   ``plan_wire_bytes`` of the gather rungs, the losses finite, and K1-K8
+   (P = 2) and K8-K11 (P = 3) must have launched (launches of all pods).
+   Per step kind: step times, the transport's host time, peak memory per
+   pod.  Pods that share one card time-share it: these are not a
+   deployment's step times.
 
 Output: progress lines, then the ``nvidia-smi`` line, the kernels' JSON
-line, and as the last line ``{"ok": true, "device": {...}}``.
+line (each kernel's launches in total and per main path: ``one_pod``
+(phase 5), ``p2`` and ``p3`` (phase 7, all pods), each counted from 0
+just before its run; ``paths`` gives each path's pods and depth), and as
+the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -59,6 +84,31 @@ KERNELS = {
 #: the timed call uses the 10 % rung's
 TOPK_KS = (256, 104, 16)
 TOPK_K = 104
+DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_accum.cu"
+#: decode-accumulate kernel -> (TPU kernel it replaces, bytes per row:
+#: the accumulator read and written, the payload row and its scale)
+DECODE = {
+    "decode_accum_int8": ("src/repro/kernels/decode.py:100", 9220),
+    "decode_accum_int4": ("src/repro/kernels/decode.py:122", 8708),
+    "sign_vote_accum": ("src/repro/kernels/decode.py:146", 8332),
+    "topk_scatter_accum": ("src/repro/kernels/decode.py:256",
+                           8192 + 3 * TOPK_K + 4),
+    "decode_accum_int8_fp": ("src/repro/kernels/decode.py:185", 9220),
+    "decode_accum_int4_fp": ("src/repro/kernels/decode.py:209", 8708),
+    "sign_vote_accum_fp": ("src/repro/kernels/decode.py:236", 8332),
+}
+#: (fixed_bits, payload scale) of the fixed-point checks: the default
+#: width, and one where the clip to +-2^31 saturates
+FP_CASES = ((16, 1.0), (30, 50.0))
+#: phase 7's paths: pods, global batch, TrainSession steps, depth (None:
+#: the architecture's 24 layers), and the least delta_sync rounds and
+#: device replans those steps must hold
+PATHS = {
+    "p2": {"pods": 2, "batch": 8, "steps": 8, "n_layers": None,
+           "min_delta": 2, "min_replans": 1},
+    "p3": {"pods": 3, "batch": 6, "steps": 4, "n_layers": 16,
+           "min_delta": 1, "min_replans": 0},
+}
 
 
 def fail(msg: str):
@@ -212,6 +262,125 @@ def kernel_phase(np, torch, ops, ref, dev) -> dict:
     return results
 
 
+def decode_inputs(np, torch, dev, rows, seed, k=TOPK_K, scale=1.0):
+    """One fold's operands on the card: f32 and int32 accumulators (with
+    zero, denormal and -0 entries), int8 values, nibbles, sign bits, top-k
+    values and distinct indices, per-row scales (a zero and a denormal
+    one), and a second magnitude vector for the sign folds."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    acc = torch.randn((rows, LANES), generator=g, device=dev)
+    acc[1 % rows] = 0.0
+    acc[2 % rows, ::3] *= 1e-41
+    acc[3 % rows, ::5] = -0.0
+    s = torch.rand((rows,), generator=g, device=dev) * (0.01 * scale)
+    s[5 % rows] = 0.0
+    s[6 % rows] = 3e-39
+    i32 = torch.iinfo(torch.int32)
+    idx = torch.rand((rows, LANES), generator=g, device=dev).argsort(
+        dim=1)[:, :k].to(torch.int32).to(torch.uint16)
+    return {
+        "acc": acc, "s": s,
+        "iacc": torch.randint(i32.min, i32.max, (rows, LANES), generator=g,
+                              device=dev, dtype=torch.int32),
+        "q": torch.randint(-127, 128, (rows, LANES), generator=g,
+                           device=dev, dtype=torch.int8),
+        "nib": torch.randint(0, 256, (rows, LANES // 2), generator=g,
+                             device=dev, dtype=torch.uint8),
+        "sgn": torch.randint(0, 256, (rows, LANES // 8), generator=g,
+                             device=dev, dtype=torch.uint8),
+        "mag": torch.randn((rows,), generator=g, device=dev),
+        "imag": torch.randint(i32.min, i32.max, (rows,), generator=g,
+                              device=dev, dtype=torch.int32),
+        "qk": torch.randint(-127, 128, (rows, k), generator=g, device=dev,
+                            dtype=torch.int8),
+        "idx": idx}
+
+
+def decode_fns(ops, ref, name, x, w, bits=16):
+    """(kernel wrapper, plain version) of decode kernel ``name`` as
+    zero-argument calls on the operands ``x``; both return a tuple."""
+    s2 = x["s"].reshape(-1, 1)
+    if name in ("decode_accum_int8", "decode_accum_int4"):
+        src = x["q"] if name.endswith("int8") else x["nib"]
+        plain = (ref.dequant_accum_int8_ref if name.endswith("int8")
+                 else ref.dequant_accum_int4_ref)
+        return (lambda: (getattr(ops, name)(x["acc"], src, x["s"], w),),
+                lambda: (plain(x["acc"], src, s2, w),))
+    if name in ("decode_accum_int8_fp", "decode_accum_int4_fp"):
+        src = x["q"] if "int8" in name else x["nib"]
+        kern = getattr(ops, name[:-3])
+        plain = (ref.dequant_accum_int8_fp_ref if "int8" in name
+                 else ref.dequant_accum_int4_fp_ref)
+        return (lambda: (kern(x["iacc"], src, x["s"], w, fixed_bits=bits),),
+                lambda: (plain(x["iacc"], src, s2, w, bits),))
+    if name == "sign_vote_accum":
+        return (lambda: ops.sign_vote_accum(x["acc"], x["mag"], x["sgn"],
+                                            x["s"], w),
+                lambda: tuple(t.reshape(-1) if t.shape[-1] == 1 else t
+                              for t in ref.sign_vote_accum_ref(
+                                  x["acc"], x["mag"][:, None], x["sgn"], s2,
+                                  w)))
+    if name == "sign_vote_accum_fp":
+        return (lambda: ops.sign_vote_accum(x["iacc"], x["imag"], x["sgn"],
+                                            x["s"], w, fixed_bits=bits),
+                lambda: tuple(t.reshape(-1) if t.shape[-1] == 1 else t
+                              for t in ref.sign_vote_accum_fp_ref(
+                                  x["iacc"], x["imag"][:, None], x["sgn"],
+                                  s2, w, bits)))
+    return (lambda: (ops.topk_scatter_accum(x["acc"], x["qk"], x["idx"],
+                                            x["s"], w),),
+            lambda: (ref.topk_scatter_accum_ref(x["acc"], x["qk"], x["idx"],
+                                                s2, w),))
+
+
+def decode_phase(np, torch, ops, ref, dev) -> dict:
+    """Phase 6: K5-K11 bit for bit against their plain versions on small
+    cases (omega 0.37 / 0 / 1, a saturating fixed-point width, top-k at
+    every k of the ladder) and on one call over all NB_350M rows of
+    paper-350m, which is also timed."""
+    results = {name: {"max_abs_err": 0.0} for name in DECODE}
+    n_cases = 0
+    for wv in (0.37, 0.0, 1.0):
+        w = torch.tensor(wv, dtype=torch.float32, device=dev)
+        for bits, scale in FP_CASES:
+            for k in TOPK_KS:
+                x = decode_inputs(np, torch, dev, 16, 100 + k, k, scale)
+                for name in DECODE:
+                    if name == "topk_scatter_accum" and bits != 16:
+                        continue
+                    kern, plain = decode_fns(ops, ref, name, x, w, bits)
+                    r = results[name]
+                    r["max_abs_err"] = max(r["max_abs_err"],
+                                           compare(torch, kern(), plain()))
+                    n_cases += 1
+    log(f"phase 6: K5-K11 bit-exact on {n_cases} small cases (omega "
+        f"0.37 / 0 / 1, fixed_bits 16 and 30, top-k k = {TOPK_KS})")
+    w = torch.tensor(0.37, dtype=torch.float32, device=dev)
+    x = decode_inputs(np, torch, dev, NB_350M, 7)
+    for name, (_, row_bytes) in DECODE.items():
+        kern, plain = decode_fns(ops, ref, name, x, w)
+        err = compare(torch, kern(), plain())
+        torch.cuda.empty_cache()
+        ms = time_ms(torch, kern, 10)
+        plain_ms = time_ms(torch, plain, 2)
+        torch.cuda.empty_cache()
+        nbytes = NB_350M * row_bytes
+        nops = NB_350M * LANES * 3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = nops / FP32_FLOPS * 1e3
+        r = results[name]
+        r.update(max_abs_err=max(r["max_abs_err"], err), ms=ms,
+                 plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                 bytes=nbytes, gbps=nbytes / (ms * 1e-3) / 1e9)
+        log(f"phase 6: {name} over {NB_350M} rows bit-exact; kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, {r['gbps']:.0f} GB/s, "
+            f"bound {r['bound_ms']:.3f} ms")
+    del x
+    torch.cuda.empty_cache()
+    return results
+
+
 def small_agreement(torch):
     """Phase 4: one smoke-model grad_sync step on the card and on the CPU
     from the same state and batch; the losses and updated weights must
@@ -309,7 +478,7 @@ def main_path(torch, ops) -> dict:
     if not all(bool(torch.isfinite(p).all())
                for p in T.leaves(state["params"])):
         fail("non-finite parameters after the main path")
-    missing = [k for k, n in launches.items() if n < 1]
+    missing = [k for k in KERNELS if launches[k] < 1]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
 
@@ -334,6 +503,223 @@ def main_path(torch, ops) -> dict:
     log(f"phase 5: launches {launches}; peak memory "
         f"{peak / 2**30:.2f} GiB; wall {wall:.1f} s")
     return launches
+
+
+def bits_hash(torch, t):
+    """A position-sensitive hash of a tensor's bits (int64, on device)."""
+    b = t.detach().contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+    w = torch.arange(b.numel(), device=b.device, dtype=torch.int64)
+    return (b * (w % 65521 + 1)).sum()
+
+
+def rung_bytes(ep, n_pods, codecs) -> int:
+    """Analytic wire bytes (``plan_wire_bytes``) of an executed plan's
+    rungs whose codec is in ``codecs``, summed over the backward
+    segments' padded signatures."""
+    sigs = ep.seg_sig if ep.segmented else (ep.sig,)
+    return sum(ep.levels[r].wire_bytes(S * ep.block, n_pods, ep.block)
+               for sig in sigs for r, S in enumerate(sig)
+               if S and ep.levels[r].codec.name in codecs)
+
+
+#: the payload-gather codecs (one coalesced all_gather per segment)
+GATHER_CODECS = ("int8", "int4", "topk", "sign")
+
+
+def pod_main_path(group, spec):
+    """Phase 7, one pod process: paper-350m at full width through
+    TrainSession (``spec["steps"]`` steps, one device replan), then one
+    grad_sync step with all 8 rungs.  Returns this pod's hashes, counts,
+    bytes and times; the parent compares the pods."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import (ACESyncConfig, RunConfig,
+                                          ShapeConfig)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.session import TrainSession
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    P = group.size
+    cfg = ARCHS["paper-350m"]
+    if spec["n_layers"] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    run = RunConfig(model=cfg,
+                    shape=ShapeConfig("session", 1024, spec["batch"],
+                                      "train"),
+                    total_steps=100, warmup_steps=2,
+                    acesync=ACESyncConfig(replan_every=4, ring_chunks=-1))
+    sess = TrainSession(build_model(cfg, run, device=group.device), run,
+                        strategy="acesync", pods=group)
+    cfg = sess.model.cfg
+    trainer = sess.trainer
+    step = trainer.step
+    out = {"times": [], "param_hashes": [], "agg_hashes": [],
+           "bytes": [], "width": (cfg.d_model, cfg.vocab_size),
+           "layers": cfg.n_layers}
+
+    def timed(state, batch, plan, kind="grad_sync"):
+        log0 = len(group.log)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = step(state, batch, plan, kind)
+        e1.record()
+        new = group.log[log0:]
+        out["times"].append((kind, e0, e1, sum(x["seconds"] for x in new),
+                             sum(x["sync_seconds"] for x in new)))
+        if kind in ("delta_sync", "grad_sync"):
+            ep = trainer.exec_plan(plan)
+            out["bytes"].append((kind, sum(x["bytes"] for x in new
+                                           if x["op"] == "gather"),
+                                 rung_bytes(ep, P, GATHER_CODECS),
+                                 sum(x["bytes"] for x in new
+                                     if x["op"] == "full"),
+                                 rung_bytes(ep, P, ("full",))))
+        if kind == "delta_sync":
+            out["param_hashes"].append(
+                [bits_hash(torch, x) for x in T.leaves(res[0]["params"])])
+        return res
+
+    trainer.step = timed
+    sess.init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    group.barrier()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sess.run(spec["steps"], log_every=1 if group.rank == 0 else 0)
+    plan = trainer.scheduler.plan_from_levels(
+        [i % 8 for i in range(len(trainer.sizes))], sess.loop.plan.omega)
+    # the aggregate rows each rung hands to AdamW, hashed in rung order
+    update_rows = adamw.update_rows
+
+    def hashed(p, g_rows, *a, **k):
+        out["agg_hashes"].append(bits_hash(torch, g_rows))
+        return update_rows(p, g_rows, *a, **k)
+
+    adamw.update_rows = hashed
+    try:
+        state, metrics = trainer.step(sess.state, next(sess.pipeline), plan,
+                                      "grad_sync")
+    finally:
+        adamw.update_rows = update_rows
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    losses = sess.losses + [float(metrics["loss"])]
+    kinds = [k for h in sess.history for k in h["kinds"]]
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in T.leaves(state["params"]))
+    per_kind: dict = {}
+    for kind, e0, e1, comm_s, sync_s in out.pop("times"):
+        per_kind.setdefault(kind, []).append(
+            (e0.elapsed_time(e1), comm_s * 1e3, sync_s * 1e3))
+    return {
+        "pod": group.rank, "backend": group.backend,
+        "losses": losses, "kinds": kinds, "finite": finite,
+        "replans": sess.loop.device_replans, "launches": launches,
+        "peak": torch.cuda.max_memory_allocated(),
+        "reserved": torch.cuda.max_memory_reserved(), "wall": wall,
+        "per_kind": per_kind, "bytes": out["bytes"],
+        "param_hashes": [[int(h) for h in hs]
+                         for hs in out["param_hashes"]],
+        "agg_hashes": [int(h) for h in out["agg_hashes"]],
+        "layers": out["layers"], "width": out["width"],
+        "plan": list(sess.loop.plan.level_idx)}
+
+
+def multipod_run(spec) -> dict:
+    """Drive one path of phase 7 and check what the pods return."""
+    from repro_torch.launch.mesh import spawn_pods
+    n_pods = spec["pods"]
+    t0 = time.perf_counter()
+    pods = spawn_pods(pod_main_path, n_pods, "cuda", args=(spec,),
+                      timeout=900)
+    wall = time.perf_counter() - t0
+    tag = f"phase 7 (P={n_pods})"
+    first = pods[0]
+    if first["width"] != (1024, 50304):
+        fail(f"{tag}: not the full width: {first['width']}")
+    if first["layers"] != (spec["n_layers"] or 24):
+        fail(f"{tag}: ran {first['layers']} layers, not "
+             f"{spec['n_layers'] or 24}")
+    for pod in pods:
+        if not pod["finite"] or not all(math.isfinite(x)
+                                        for x in pod["losses"]):
+            fail(f"{tag}: non-finite loss or parameters on pod "
+                 f"{pod['pod']}: {pod['losses']}")
+        if pod["kinds"].count("delta_sync") < spec["min_delta"]:
+            fail(f"{tag}: only {pod['kinds'].count('delta_sync')} "
+                 f"delta_sync rounds")
+        if pod["replans"] < spec["min_replans"]:
+            fail(f"{tag}: {pod['replans']} device replans applied")
+        for kind, got, want, _, _ in pod["bytes"]:
+            if got != want:
+                fail(f"{tag}: pod {pod['pod']} gathered {got} bytes in a "
+                     f"{kind} step, plan_wire_bytes of the gather rungs "
+                     f"is {want}")
+    for key, what in (("param_hashes", "parameters after delta_sync"),
+                      ("agg_hashes", "all-rungs aggregate"),
+                      ("losses", "pod-mean losses"), ("plan", "plans")):
+        if any(pod[key] != first[key] for pod in pods[1:]):
+            fail(f"{tag}: {what} differ across pods")
+    if not first["param_hashes"] or not first["agg_hashes"]:
+        fail(f"{tag}: nothing was hashed")
+    launches = {k: sum(pod["launches"][k] for pod in pods)
+                for k in first["launches"]}
+    for kind in sorted(first["per_kind"]):
+        for pod in pods:
+            rows = pod["per_kind"][kind]
+            ms = [round(r[0], 2) for r in rows]
+            steady = rows[1:] or rows
+            mean = sum(r[0] for r in steady) / len(steady)
+            comm = sum(r[1] for r in steady) / len(steady)
+            sync = sum(r[2] for r in steady) / len(steady)
+            log(f"{tag}: pod {pod['pod']} {kind}: {len(rows)} steps, ms "
+                f"{ms}; steady mean {mean:.2f} ms, of it transport "
+                f"{comm:.2f} ms host time ({sync:.2f} ms waiting for the "
+                f"card before the staged copies)")
+    for kind, got, want, full, full_priced in first["bytes"]:
+        log(f"{tag}: {kind} gathered {got} B = plan_wire_bytes of the "
+            f"gather rungs {want} B; FULL's pod-order sum gathered {full} B "
+            f"per pod, FullCodec.wire_bytes prices {full_priced} B (a bf16 "
+            f"ring all-reduce)")
+    log(f"{tag}: {first['layers']} layers, backend {first['backend']}, "
+        f"losses {[round(x, 4) for x in first['losses']]}; "
+        f"{len(first['param_hashes'])} delta_sync rounds and the "
+        f"all-rungs aggregate bit-identical on {n_pods} pods; peak memory "
+        f"per pod {[round(p['peak'] / 2**30, 2) for p in pods]} GiB "
+        f"(reserved {[round(p['reserved'] / 2**30, 2) for p in pods]}); "
+        f"launches (all pods) {launches}; wall {wall:.1f} s")
+    return launches
+
+
+def multipod_phase(torch) -> dict:
+    """Phase 7: the multi-pod main paths, pods as processes sharing the
+    card: P = 2 (global batch 8, 8 steps) reaches K1-K8, P = 3 (global
+    batch 6, 4 steps, 16 layers) K8-K11.  Returns each path's launch
+    counts (all pods)."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    # pods share the card: let each one's cache grow in place instead of
+    # holding fragments
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    runs = {path: multipod_run(spec) for path, spec in PATHS.items()}
+    r2, r3 = runs["p2"], runs["p3"]
+    missing2 = [k for k in DECODE if r2[k] < 1 and not k.endswith("_fp")]
+    missing3 = [k for k in DECODE if r3[k] < 1
+                and (k.endswith("_fp") or k == "topk_scatter_accum")]
+    missing = [k for k in KERNELS if r2[k] < 1 or r3[k] < 1]
+    if missing2 or missing3 or missing:
+        fail(f"phase 7: kernels never launched: P=2 {missing2 + missing}, "
+             f"P=3 {missing3 + missing}")
+    return runs
 
 
 def main() -> int:
@@ -362,21 +748,33 @@ def main() -> int:
 
     results = kernel_phase(np, torch, ops, ref, dev)
     small_agreement(torch)
-    launches = main_path(torch, ops)
+    by_path = {"one_pod": main_path(torch, ops)}
+    results.update(decode_phase(np, torch, ops, ref, dev))
+    by_path.update(multipod_phase(torch))
 
     kernels = []
-    for name, (replaces, _, _) in KERNELS.items():
+    table = [(n, SOURCE, rep) for n, (rep, _, _) in KERNELS.items()]
+    table += [(n, DECODE_SOURCE, rep) for n, (rep, _) in DECODE.items()]
+    for name, source, replaces in table:
         r = results[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": replaces, "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            # phase 5 (one pod) + phase 7 (every pod at P = 2 and 3)
+            "launches": sum(n.get(name, 0) for n in by_path.values()),
+            "launches_by_path": {path: n.get(name, 0)
+                                 for path, n in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "parity": "bit-exact", "bytes": r["bytes"],
             "gbps": r["gbps"]})
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    paths = {"one_pod": {"pods": 1, "layers": 24}}
+    paths.update({path: {"pods": spec["pods"],
+                         "layers": spec["n_layers"] or 24}
+                  for path, spec in PATHS.items()})
+    print(json.dumps({"kernels": kernels, "paths": paths}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,5 @@
-"""Compression codecs for the sync wire — the single-pod contract of the
-port of ``repro/codecs/base.py``.
+"""Compression codecs for the sync wire — port of
+``repro/codecs/base.py``.
 
 A :class:`Codec` owns one rung of the compression ladder:
 
@@ -8,27 +8,49 @@ A :class:`Codec` owns one rung of the compression ladder:
     one flat buffer, or of the rung's rows gathered straight out of the
     packed (NB+1, block) grad / error buffers (producer-fused codecs run
     the gather + EF + encode kernels of :mod:`repro_torch.kernels.ops`);
+  * ``pod_exchange`` — the one-shot exchange over the pod group: the
+    payload packed into ONE uint8 wire, ONE ``all_gather``, and the peer
+    payloads folded in canonical pod order through the accumulation trio
+    (``accum_init`` / ``decode_accumulate`` / ``accum_finalize``, the
+    decode-accumulate kernels K5-K11 on the card).  ``ef_encode_wire`` and
+    ``wire_decode_fold`` are its two halves, which ``core/sync.py`` uses
+    to send every rung of a backward segment in one collective;
   * ``ef_sync`` / ``ef_sync_gather`` — one sync round.  On one pod the
     aggregate is the codec's own reconstruction weighted by its omega;
+    with 3 or more pods the fold is deterministic (int32 fixed point /
+    integer votes, or canonical order for ``canonical_fold`` codecs), so
+    every pod gets the same bits;
   * ``wire_bytes`` — analytic per-device bytes over the pod axis, the one
     place comm volume is priced (scheduler, knapsack, comm accounting).
 
-The multi-pod exchange (``pod_exchange``, ``wire_decode_fold``,
-``decode_accumulate``, ``ef_sync_ring``, ``ef_sync_hier``) belongs to the
-multi-pod slice of the port and raises ``NotImplementedError`` here.
+Every collective takes a :class:`~repro_torch.launch.mesh.PodGroup`
+(``pods``) where the reference names its mesh axis.  The chunked ring
+(``ef_sync_ring``) and the two-tier exchange (``ef_sync_hier``) belong to
+later slices of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple, Type
+from typing import Dict, List, Optional, Tuple, Type
 
 import torch
 
 from repro_torch.core.compression import BLOCK, pad_to_blocks
-from repro_torch.kernels.ref import ef_accumulate, ftz
+from repro_torch.kernels.ref import (FIXED_POINT_BITS, ef_accumulate,
+                                     fixed_point, fma_f32, from_fixed_point,
+                                     ftz)
 
-_MULTI_POD = ("the multi-pod exchange is not ported yet: it comes with the "
-              "multi-pod slice of repro_torch (one pod only for now)")
+_RING = ("the chunked ring exchange is not ported yet: it comes with the "
+         "ring slice of repro_torch (ACESyncConfig.ring_chunks=-1 selects "
+         "the one-shot exchange)")
+_HIER = ("the two-tier exchange is not ported yet: it comes with the "
+         "two-tier slice of repro_torch")
+
+
+def _need_pods(pods, n_pods: int):
+    if pods is None or pods.size != n_pods:
+        raise ValueError(f"the exchange over {n_pods} pods needs their pod "
+                         f"group (pods=...), got {pods!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +126,16 @@ class Codec:
     #: whether ``ef_encode_gather`` runs the fused gather + EF + encode
     #: kernel instead of materialising ``fb[perm]`` first.
     producer_fused: bool = False
+    #: True for payload-gather codecs: the rung's wire joins the backward
+    #: segment's one coalesced ``all_gather`` (``ef_encode_wire`` +
+    #: ``wire_decode_fold``); False for FULL's sum and SKIP's nothing.  In
+    #: the reference it also marks the rungs the chunked ring may carry.
+    supports_ring: bool = True
+    #: True when the accumulate is order-sensitive even in deterministic
+    #: mode (top-k's float scatter-add): the fold stays in float, in
+    #: canonical pod order 0..P-1, which every pod shares.  False: the
+    #: deterministic fold is exact integer arithmetic.
+    canonical_fold: bool = False
 
     # ---- accounting -----------------------------------------------------
     def payload_bytes(self, n: int, block: int = BLOCK) -> int:
@@ -159,23 +191,130 @@ class Codec:
                               gather_rows(eb, perm).reshape(-1),
                               gamma=gamma, block=block)
 
+    # ---- the one-shot pod exchange ---------------------------------------
+    def pod_exchange(self, payload: Dict[str, torch.Tensor],
+                     omega: torch.Tensor, *, n: int, pods,
+                     block: int = BLOCK, deterministic: bool = False,
+                     fixed_bits: int = FIXED_POINT_BITS) -> torch.Tensor:
+        """Aggregate payloads across the pod group -> (n,) f32: the payload
+        packed into one uint8 wire, ONE ``all_gather``, then the peer
+        decodes folded in canonical pod order (paper eq. 8)."""
+        wire, meta = pack_payload(payload)
+        gathered = pods.all_gather_bytes(wire)      # (P, payload_bytes)
+        return self.wire_decode_fold(gathered, meta, omega, n=n,
+                                     block=block,
+                                     deterministic=deterministic,
+                                     fixed_bits=fixed_bits)
+
+    def ef_encode_wire(self, fb: torch.Tensor, eb: torch.Tensor,
+                       perm: torch.Tensor, *, gamma: float,
+                       block: int = BLOCK
+                       ) -> Tuple[torch.Tensor, tuple, torch.Tensor]:
+        """Encode half of :meth:`ef_sync_gather`, stopped at the wire:
+        ``(wire, meta, new_e)`` with ``wire`` the packed uint8 payload.
+        ``core/sync.py`` concatenates the wires of every payload rung in a
+        segment into one ``all_gather``."""
+        payload, _own, new_e = self.ef_encode_gather(fb, eb, perm,
+                                                     gamma=gamma,
+                                                     block=block)
+        wire, meta = pack_payload(payload)
+        return wire, meta, new_e
+
+    def wire_decode_fold(self, gathered: torch.Tensor, meta: tuple,
+                         omega: torch.Tensor, *, n: int, block: int = BLOCK,
+                         deterministic: bool = False,
+                         fixed_bits: int = FIXED_POINT_BITS
+                         ) -> torch.Tensor:
+        """Decode half of the one-shot exchange: fold the gathered
+        ``(P, payload_bytes)`` wire rows through the accumulation trio in
+        canonical pod order -> dense (n,) f32, one peer at a time."""
+        # canonical-fold codecs (top-k) are order-deterministic here
+        # already: the gather order is the canonical order
+        det = deterministic and not self.canonical_fold
+        init_kw, fold_kw = self._det_kwargs(det, fixed_bits)
+        acc = self.accum_init(n_blocks(n, block), block,
+                              device=gathered.device, **init_kw)
+        for p in range(gathered.shape[0]):
+            acc = self.decode_accumulate(
+                acc, unpack_payload(gathered[p], meta), omega[p],
+                block=block, **fold_kw)
+        return self.accum_finalize(acc, n, block, **fold_kw)
+
+    # ---- the accumulation trio ------------------------------------------
+    def accum_init(self, nb: int, block: int = BLOCK, *, device,
+                   deterministic: bool = False):
+        """Fresh accumulator for ``nb`` blocks on ``device``: the dense f32
+        partial sum, or with ``deterministic`` the int32 fixed-point
+        one."""
+        dtype = torch.int32 if deterministic else torch.float32
+        return torch.zeros((nb, block), dtype=dtype, device=device)
+
+    def decode_accumulate(self, acc, payload: Dict[str, torch.Tensor],
+                          weight: torch.Tensor, *, block: int = BLOCK,
+                          deterministic: bool = False,
+                          fixed_bits: int = FIXED_POINT_BITS):
+        """``acc + weight * decode(payload)``: one peer folded into the
+        running aggregate (``deterministic``: the weighted term in int32
+        fixed point).  Codecs with a decode-accumulate kernel override
+        this; the default materialises the dense decode."""
+        dense = self.decode(payload, block)
+        if deterministic:
+            return acc + fixed_point(ftz(weight * dense), fixed_bits)
+        return fma_f32(weight, dense, acc)
+
+    def accum_finalize(self, acc, n: int, block: int = BLOCK, *,
+                       deterministic: bool = False,
+                       fixed_bits: int = FIXED_POINT_BITS) -> torch.Tensor:
+        """Running aggregate -> dense (n,) f32."""
+        if deterministic:
+            acc = from_fixed_point(acc, fixed_bits)
+        return acc.reshape(-1)[:n]
+
+    @staticmethod
+    def _det_kwargs(deterministic: bool,
+                    fixed_bits: int) -> Tuple[dict, dict]:
+        """(accum_init kwargs, decode_accumulate / accum_finalize kwargs):
+        the deterministic ones only when that mode is on."""
+        if not deterministic:
+            return {}, {}
+        return ({"deterministic": True},
+                {"deterministic": True, "fixed_bits": fixed_bits})
+
     # ---- one sync round -------------------------------------------------
+    def _exchange(self, payload, own, omega, omega_own, n, *, n_pods, pods,
+                  block, deterministic, fixed_bits):
+        if n_pods <= 1:
+            return own * omega_own
+        _need_pods(pods, n_pods)
+        if deterministic is None:
+            deterministic = n_pods >= 3
+        return self.pod_exchange(payload, omega, n=n, pods=pods,
+                                 block=block, deterministic=deterministic,
+                                 fixed_bits=fixed_bits)
+
     def ef_sync(self, flat: torch.Tensor, e_flat: torch.Tensor,
                 omega: torch.Tensor, omega_own: torch.Tensor, *,
-                gamma: float, n_pods: int, block: int = BLOCK,
-                **_kw) -> Tuple[torch.Tensor, torch.Tensor]:
-        """EF + compress + aggregate one flat buffer -> ``(agg, new_e)``,
-        with ``own + new_e == ef``."""
-        if n_pods > 1:
-            raise NotImplementedError(_MULTI_POD)
+                gamma: float, n_pods: int, block: int = BLOCK, pods=None,
+                deterministic: Optional[bool] = None,
+                fixed_bits: int = FIXED_POINT_BITS
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """EF + compress + exchange one flat buffer -> ``(agg, new_e)``,
+        with ``own + new_e == ef``.  ``deterministic`` (auto: on for
+        P >= 3) folds the gathered payloads exactly."""
         payload, own, new_e = self.ef_encode(flat, e_flat, gamma=gamma,
                                              block=block)
-        return own * omega_own, new_e
+        agg = self._exchange(payload, own, omega, omega_own, flat.shape[0],
+                             n_pods=n_pods, pods=pods, block=block,
+                             deterministic=deterministic,
+                             fixed_bits=fixed_bits)
+        return agg, new_e
 
     def ef_sync_gather(self, fb: torch.Tensor, eb: torch.Tensor,
                        perm: torch.Tensor, omega: torch.Tensor,
                        omega_own: torch.Tensor, *, gamma: float,
-                       n_pods: int, block: int = BLOCK, **kw
+                       n_pods: int, block: int = BLOCK, pods=None,
+                       deterministic: Optional[bool] = None,
+                       fixed_bits: int = FIXED_POINT_BITS
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """:meth:`ef_sync` of the rung bucket ``fb[perm]``; producer-fused
         codecs run the gather inside the encode kernel."""
@@ -183,30 +322,24 @@ class Codec:
             return self.ef_sync(gather_rows(fb, perm).reshape(-1),
                                 gather_rows(eb, perm).reshape(-1), omega,
                                 omega_own, gamma=gamma, n_pods=n_pods,
-                                block=block, **kw)
-        if n_pods > 1:
-            raise NotImplementedError(_MULTI_POD)
+                                block=block, pods=pods,
+                                deterministic=deterministic,
+                                fixed_bits=fixed_bits)
         payload, own, new_e = self.ef_encode_gather(fb, eb, perm,
                                                     gamma=gamma, block=block)
-        return own * omega_own, new_e
+        agg = self._exchange(payload, own, omega, omega_own,
+                             perm.shape[0] * block, n_pods=n_pods,
+                             pods=pods, block=block,
+                             deterministic=deterministic,
+                             fixed_bits=fixed_bits)
+        return agg, new_e
 
-    # ---- the multi-pod exchange (next slice) ----------------------------
-    def pod_exchange(self, *args, **kwargs):
-        raise NotImplementedError(_MULTI_POD)
-
-    def wire_decode_fold(self, *args, **kwargs):
-        raise NotImplementedError(_MULTI_POD)
-
-    def decode_accumulate(self, *args, **kwargs):
-        raise NotImplementedError(_MULTI_POD)
-
+    # ---- later slices ---------------------------------------------------
     def ef_sync_ring(self, *args, **kwargs):
-        raise NotImplementedError(_MULTI_POD)
+        raise NotImplementedError(_RING)
 
     def ef_sync_hier(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the two-tier exchange is not ported yet: it comes with the "
-            "two-tier slice of repro_torch")
+        raise NotImplementedError(_HIER)
 
     def __repr__(self) -> str:  # pragma: no cover - debugging nicety
         return f"<{type(self).__name__} {self.name!r}>"

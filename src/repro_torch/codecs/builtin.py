@@ -4,24 +4,28 @@ FULL (bf16), dense INT8, packed INT4, block TOPK (int8 values + uint16
 indices), 1-bit SIGN with a per-block mean-magnitude scale, and SKIP.
 INT8 / INT4 / SIGN / TOPK are producer-fused: their ``ef_encode_gather``
 runs the gather + error-feedback + encode kernel of
-:mod:`repro_torch.kernels.ops` on the rung's rows, which launches the
-Hopper kernel for CUDA tensors and the plain PyTorch version for CPU ones.
-The kernels encode rows of ``ops.LANES`` (1024) entries only, so these
-codecs refuse any other block size instead of taking a plain path.
+:mod:`repro_torch.kernels.ops` on the rung's rows, and their
+``decode_accumulate`` the decode-accumulate kernel that folds one peer's
+payload into the aggregate; each launches the Hopper kernel for CUDA
+tensors and the plain PyTorch version for CPU ones.  The kernels work on
+rows of ``ops.LANES`` (1024) entries only, so these codecs refuse any
+other block size instead of taking a plain path.  FULL's exchange is a
+cross-pod sum of bf16 contributions, SKIP's is nothing.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.codecs.base import (Codec, n_blocks, pack_bits,
+from repro_torch.codecs.base import (Codec, _need_pods, n_blocks, pack_bits,
                                      register_codec, unpack_bits)
 from repro_torch.core.compression import (BLOCK, int8_compress,
                                           int8_decompress, topk_compress,
                                           topk_decompress)
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import (_int4_body, ef_accumulate, ftz,
-                                     pack_nibbles, row_abs_sum,
-                                     unpack_nibbles, INV_LANES)
+from repro_torch.kernels.ref import (FIXED_POINT_BITS, INV_LANES,
+                                     _int4_body, ef_accumulate,
+                                     from_fixed_point, ftz, pack_nibbles,
+                                     row_abs_sum, unpack_nibbles)
 
 
 def _kernel_rows(block: int) -> None:
@@ -38,6 +42,8 @@ class FullCodec(Codec):
     all-reduce volume."""
     name = "full"
     value_bits = 16
+    #: a cross-pod sum, not a per-peer payload gather
+    supports_ring = False
 
     def wire_bytes(self, n: int, n_pods: int, block: int = BLOCK) -> int:
         if n_pods <= 1 or n <= 0:
@@ -59,6 +65,21 @@ class FullCodec(Codec):
         wire = ef.to(torch.bfloat16)
         own = wire.float()
         return {"wire": wire}, own, ftz(ef - own)
+
+    def ef_sync(self, flat, e_flat, omega, omega_own, *, gamma, n_pods,
+                block=BLOCK, pods=None, deterministic=None,
+                fixed_bits=None):
+        """The cross-pod sum gives every pod the same bits on any pod
+        count (``PodGroup.full_exchange`` sums in pod order), so
+        ``deterministic`` needs no special mode here."""
+        payload, own, new_e = self.ef_encode(flat, e_flat, gamma=gamma,
+                                             block=block)
+        if n_pods <= 1:
+            return own * omega_own, new_e
+        _need_pods(pods, n_pods)
+        # omega folded in before the sum, so the exchange moves bf16
+        contrib = ftz(own * omega_own).to(torch.bfloat16)
+        return pods.full_exchange(contrib), new_e
 
 
 @register_codec
@@ -87,13 +108,23 @@ class Int8Codec(Codec):
         q, s, r, own = ops.gather_ef_int8(fb, eb, perm, gamma=gamma)
         return {"q": q, "scale": s[:, 0]}, own, r
 
+    def decode_accumulate(self, acc, payload, weight, *, block=BLOCK,
+                          deterministic=False, fixed_bits=FIXED_POINT_BITS):
+        _kernel_rows(block)
+        return ops.decode_accum_int8(
+            acc, payload["q"], payload["scale"], weight,
+            fixed_bits=fixed_bits if deterministic else None)
+
 
 @register_codec
 class TopKCodec(Codec):
-    """Block-local top-k, int8-quantised values + uint16 indices."""
+    """Block-local top-k, int8-quantised values + uint16 indices.  The
+    fold is a float scatter-add, order-sensitive, so with 3 or more pods
+    it stays in float in canonical pod order (``canonical_fold``)."""
     name = "topk"
     value_bits = 8
     producer_fused = True
+    canonical_fold = True
 
     def __init__(self, ratio: float = 0.1):
         if not 0.0 < ratio < 1.0:
@@ -132,6 +163,15 @@ class TopKCodec(Codec):
         # quantisation error of the kept ones (sel - own)
         return payload, own, ftz(ftz(sel.reshape(-1) - own) + res)
 
+    def decode_accumulate(self, acc, payload, weight, *, block=BLOCK,
+                          deterministic=False, fixed_bits=FIXED_POINT_BITS):
+        if deterministic:
+            raise ValueError("top-k folds in canonical order, not in "
+                             "fixed point")
+        _kernel_rows(block)
+        return ops.topk_scatter_accum(acc, payload["q"], payload["idx"],
+                                      payload["scale"], weight)
+
 
 @register_codec
 class SkipCodec(Codec):
@@ -139,6 +179,7 @@ class SkipCodec(Codec):
     name = "skip"
     value_bits = 0
     keep_ratio = 0.0
+    supports_ring = False           # nothing on the wire
 
     def payload_bytes(self, n: int, block: int = BLOCK) -> int:
         return 0
@@ -156,7 +197,8 @@ class SkipCodec(Codec):
         raise NotImplementedError("SKIP has no payload to decode")
 
     def ef_sync(self, flat, e_flat, omega, omega_own, *, gamma, n_pods,
-                block=BLOCK, **_kw):
+                block=BLOCK, pods=None, deterministic=None,
+                fixed_bits=None):
         ef = ef_accumulate(flat, e_flat, gamma)
         return torch.zeros_like(flat), ef
 
@@ -187,11 +229,18 @@ class Int4Codec(Codec):
         p, s, r, own = ops.gather_ef_int4(fb, eb, perm, gamma=gamma)
         return {"q": p, "scale": s[:, 0]}, own, r
 
+    def decode_accumulate(self, acc, payload, weight, *, block=BLOCK,
+                          deterministic=False, fixed_bits=FIXED_POINT_BITS):
+        _kernel_rows(block)
+        return ops.decode_accum_int4(
+            acc, payload["q"], payload["scale"], weight,
+            fixed_bits=fixed_bits if deterministic else None)
+
 
 @register_codec
 class SignCodec(Codec):
-    """1-bit sign + per-block mean-|ef| scale, majority-vote aggregation
-    (the vote is the multi-pod slice's)."""
+    """1-bit sign + per-block mean-|ef| scale, majority-vote aggregation:
+    agg = sign(sum_k omega_k * sign_k) * sum_k omega_k * scale_k."""
     name = "sign"
     value_bits = 1
     producer_fused = True
@@ -216,3 +265,30 @@ class SignCodec(Codec):
         _kernel_rows(block)
         sg, s, r, own = ops.gather_ef_sign(fb, eb, perm, gamma=gamma)
         return {"q": pack_bits(sg > 0), "scale": s[:, 0]}, own, r
+
+    # ---- majority vote in the compressed domain --------------------------
+    def accum_init(self, nb, block=BLOCK, *, device, deterministic=False):
+        """Partial vote counts + partial magnitude; ``deterministic``
+        keeps integer votes (fixed-point omega x exact +-1) and a
+        fixed-point magnitude, both exact in any fold order."""
+        dt = torch.int32 if deterministic else torch.float32
+        return {"vote": torch.zeros((nb, block), dtype=dt, device=device),
+                "mag": torch.zeros((nb,), dtype=dt, device=device)}
+
+    def decode_accumulate(self, acc, payload, weight, *, block=BLOCK,
+                          deterministic=False, fixed_bits=FIXED_POINT_BITS):
+        _kernel_rows(block)
+        vote, mag = ops.sign_vote_accum(
+            acc["vote"], acc["mag"], payload["q"], payload["scale"], weight,
+            fixed_bits=fixed_bits if deterministic else None)
+        return {"vote": vote, "mag": mag}
+
+    def accum_finalize(self, acc, n, block=BLOCK, *, deterministic=False,
+                       fixed_bits=FIXED_POINT_BITS):
+        vote, mag = acc["vote"], acc["mag"]
+        if deterministic:
+            # votes only feed sign(); int32 -> f32 keeps their sign
+            vote = vote.float()
+            mag = from_fixed_point(mag, fixed_bits)
+        agg = ftz(torch.sign(vote) * mag[:, None])
+        return agg.reshape(-1)[:n]

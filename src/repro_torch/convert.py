@@ -13,7 +13,9 @@ reference's leading pod dimension stripped — e.g.::
 
 and returns the port's train state: the model's Parameters are loaded in
 place (they stay the ``params`` leaves), every other leaf becomes a tensor
-on the trainer's device.
+on the trainer's device.  :func:`pod_state_from_reference` takes the
+reference's multi-pod state as it is, every leaf with its leading pod
+dimension, and returns pod ``pod``'s state (one per pod process).
 """
 from __future__ import annotations
 
@@ -68,6 +70,18 @@ def state_from_reference(flat: Dict[str, np.ndarray], trainer) -> dict:
     if "anchor" in tree:
         state["anchor"] = tensors(tree["anchor"])
     return state
+
+
+def pod_state_from_reference(flat: Dict[str, np.ndarray], trainer,
+                             pod: int) -> dict:
+    """Pod ``pod``'s port state from the reference's multi-pod state
+    (leaves keyed as above, each with its leading pod dimension)."""
+    n = {np.shape(a)[0] for a in flat.values()}
+    if len(n) != 1 or not 0 <= pod < n.pop():
+        raise ValueError(f"expected leaves with one leading pod dimension "
+                         f"covering pod {pod}")
+    return state_from_reference({k: np.asarray(a)[pod]
+                                 for k, a in flat.items()}, trainer)
 
 
 def _to(obj, device):

@@ -4,7 +4,11 @@ compression (eq 6), aggregation (eq 8) and the online
 importance-estimator update (eqs 3-4).
 
     agg_grads, new_ace, metrics = acesync.sync_gradients(
-        grads, ace_state, plan, cfg=run.acesync)
+        grads, ace_state, plan, cfg=run.acesync, pods=group)
+
+With a pod group the per-group gradient stats are averaged across the
+pods before they feed the estimator, so the importance state (and the
+device replan it drives) is the same on every pod.
 """
 from __future__ import annotations
 
@@ -46,13 +50,16 @@ def init_state(generator: torch.Generator, params, metas,
 
 
 def sync_gradients(grads, state: ACEState, plan: Union[SyncPlan, ExecPlan],
-                   *, cfg: ACESyncConfig, apply_fn=None, apply_aux=(),
-                   apply_scalars=()
+                   *, cfg: ACESyncConfig, pods=None, apply_fn=None,
+                   apply_aux=(), apply_scalars=()
                    ) -> Tuple[dict, ACEState, Dict[str, torch.Tensor]]:
-    """The ACE-Sync round.  Returns (aggregated grads — or, with
-    ``apply_fn``, the tuple of updated ``apply_aux`` trees — the new
-    state, metrics)."""
+    """The ACE-Sync round over the pods of ``pods`` (None: one pod).
+    Returns (aggregated grads — or, with ``apply_fn``, the tuple of updated
+    ``apply_aux`` trees — the new state, metrics)."""
     mean_abs, var, nrm = S.grad_group_stats(grads)
+    if pods is not None and pods.size > 1:
+        # one collective for the three (G,) stat vectors, stacked
+        mean_abs, var, nrm = pods.pmean(torch.stack([mean_abs, var, nrm]))
     ist = imp.update_stats(state.importance, mean_abs, var, nrm)
     # online supervision: the observed (normalised) gradient-norm momentum
     # is the ground-truth importance signal for this window
@@ -61,6 +68,7 @@ def sync_gradients(grads, state: ACEState, plan: Union[SyncPlan, ExecPlan],
                               alpha=cfg.alpha, lr=cfg.importance_lr)
     agg, new_errors = S.sync_tree(grads, state.errors, plan,
                                   gamma=cfg.gamma, block=cfg.topk_block,
+                                  pods=pods, fixed_bits=cfg.accum_bits,
                                   apply_fn=apply_fn, apply_aux=apply_aux,
                                   apply_scalars=apply_scalars)
     new_state = state._replace(errors=new_errors, importance=ist,

@@ -12,8 +12,11 @@ plans, perms and priced bytes are the reference's, index for index.
 The JAX package keeps only the signature static so that replans never
 recompile; PyTorch runs eagerly, so here the signature matters only for
 pricing and for lining the plans up with the reference.  The ring chunk
-grid and the two-tier grid are the multi-pod and two-tier slices' work:
-on one pod they are all zeros, as they are in the reference.
+grid and the two-tier grid belong to the ring and two-tier slices: the
+port runs the one-shot exchange (``ACESyncConfig.ring_chunks = -1``) on
+any pod count, where both grids are zeros, as they are in the reference.
+The reference's one-shot and ring aggregates are bit-identical by design,
+so this limits the transport, not the results.
 """
 from __future__ import annotations
 
@@ -77,17 +80,32 @@ def bucket_signature(level_idx: Sequence[int], sizes: Sequence[int],
     return tuple(per)
 
 
+def ring_override(ring_chunks: int) -> Optional[int]:
+    """Translate ``ACESyncConfig.ring_chunks`` (0 = auto, -1 = never,
+    K = force K) into the ``ring`` argument of :func:`exec_grid` (None =
+    auto, <= 0 = one-shot, K = force K)."""
+    return None if ring_chunks == 0 else int(ring_chunks)
+
+
 def exec_grid(level_idx: Sequence[int], sizes: Sequence[int],
               levels: Sequence[Level], n_pods: int, block: int = BLOCK,
               growth: Optional[float] = None, ring: Optional[int] = None,
               bidir: bool = True, n_edge: int = 1,
               hier: Optional[int] = None
               ) -> Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[int, ...]]:
-    """(sig, chunks, hier) of the executed exchange.  On one pod no rung
-    rings and none goes two-tier: both grids are zeros."""
-    if n_pods > 1 or n_edge > 1:
-        raise NotImplementedError("multi-pod and two-tier grids come with "
-                                  "later slices of repro_torch")
+    """(sig, chunks, hier) of the executed exchange.  No rung rings and
+    none goes two-tier, so both grids are zeros: on one pod always, on
+    more pods when ``ring`` asks for the one-shot exchange (<= 0).  The
+    ring (``ring`` None or K > 0 on more than one pod) and the two-tier
+    fleet (``n_edge`` > 1) raise."""
+    if n_edge > 1:
+        raise NotImplementedError("the two-tier exchange comes with the "
+                                  "two-tier slice of repro_torch")
+    if n_pods > 1 and (ring is None or ring > 0):
+        raise NotImplementedError(
+            f"the chunked ring exchange (ring={ring}) comes with the ring "
+            f"slice of repro_torch; set ACESyncConfig.ring_chunks=-1 for "
+            f"the one-shot exchange on {n_pods} pods")
     sig = bucket_signature(level_idx, sizes, len(levels), block, growth)
     zeros = tuple(0 for _ in sig)
     return sig, zeros, zeros

@@ -64,10 +64,6 @@ class Scheduler:
 
     def __init__(self, cfg: ACESyncConfig, group_sizes: Sequence[int],
                  n_pods: int, device="cuda"):
-        if n_pods != 1:
-            raise NotImplementedError("repro_torch runs one pod per "
-                                      "process; the multi-pod slice adds "
-                                      "more")
         self.cfg = cfg
         self.sizes = list(group_sizes)
         self.n_pods = n_pods
@@ -91,9 +87,11 @@ class Scheduler:
         rung) signature."""
         plan.adaptive = adaptive
         growth = self.pad_growth if adaptive else None
+        ring = planexec.ring_override(self.cfg.ring_chunks)
         sig, chunks, hier = planexec.exec_grid(
             plan.level_idx, self.sizes, plan.levels, self.n_pods,
-            block=self.cfg.topk_block, growth=growth)
+            block=self.cfg.topk_block, growth=growth, ring=ring,
+            bidir=self.cfg.ring_bidir)
         plan.bucket_sig = sig
         plan.ring_chunks = chunks
         plan.hier = hier
@@ -102,7 +100,7 @@ class Scheduler:
         if segments != 1:
             _, _, seg_sig, _, _ = planexec.seg_grids(
                 plan.level_idx, self._layout, plan.levels, self.n_pods,
-                growth, None, self.cfg.ring_bidir, segments=segments)
+                growth, ring, self.cfg.ring_bidir, segments=segments)
             plan.seg_sig = seg_sig or None
         return plan
 

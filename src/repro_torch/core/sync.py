@@ -1,5 +1,5 @@
 """ACE-Sync gradient synchronisation (paper eqs. 7-8) — port of
-``repro/core/sync.py`` for one pod per process.
+``repro/core/sync.py``, one pod per process.
 
     g_ef   = g + gamma * e                         (eq 7, error feedback)
     payload= codec.ef_encode(g_ef)                 (codec from the plan)
@@ -12,6 +12,13 @@ buffer; per ladder rung a gather permutation of the plan
 the rung's codec runs its fused gather + EF + encode round on them (the
 Hopper kernels of :mod:`repro_torch.kernels.ops` on the card), and the
 aggregate and residual are scattered back through the same permutation.
+
+Multi-pod (``pods``, a :class:`~repro_torch.launch.mesh.PodGroup`): the
+encode pass stops every payload rung at its packed uint8 wire, the wires
+of a leaf range go out in ONE ``all_gather``, and each rung's slice of the
+gathered buffer is folded in canonical pod order (deterministically with
+3 or more pods).  FULL rungs sum their bf16 contributions across the pods
+in the encode pass; SKIP rungs send nothing.
 
 Rung-ordered apply (``apply_fn``): the optimizer consumes each rung's
 aggregate as soon as the rung is done, on the rung's ``(S, block)`` rows
@@ -35,6 +42,7 @@ from repro_torch import tree as T
 from repro_torch.core import compression as C
 from repro_torch.core.planexec import ExecPlan, build_exec_plan, n_blocks
 from repro_torch.core.scheduler import SyncPlan
+from repro_torch.kernels.ref import FIXED_POINT_BITS
 
 
 @dataclass(frozen=True)
@@ -106,10 +114,11 @@ def _unpack(buf: torch.Tensor, like, block: int):
 
 
 def _range_sync(gs, es, aux, perms, sig, NB, *, levels, block, omega,
-                omega_own, scalars, gamma, apply_fn):
+                omega_own, scalars, gamma, apply_fn, pods, fixed_bits):
     """One leaf range's pack + per-rung exchange + scatter + unpack.
     Returns ``(aggs | aux_outs, errs)`` as leaf tuples for the range."""
     device = gs[0].device
+    n_pods = 1 if pods is None else pods.size
     fb = _leaf_blocks(gs, block, device)
     eb = _leaf_blocks(es, block, device)
     if fb.shape[0] != NB + 1:
@@ -118,25 +127,55 @@ def _range_sync(gs, es, aux, perms, sig, NB, *, levels, block, omega,
     abufs = [_leaf_blocks(a, block, device) for a in aux]
     agg = None if apply_fn is not None else torch.zeros_like(fb)
     err = torch.zeros_like(fb)
+
+    def scatter_agg(S, idx, b_agg):
+        if apply_fn is None:
+            agg.index_copy_(0, idx, b_agg.reshape(S, block))
+            return
+        rows = apply_fn(b_agg.reshape(S, block),
+                        tuple(ab.index_select(0, idx) for ab in abufs),
+                        scalars)
+        for ab, nr in zip(abufs, rows):
+            ab.index_copy_(0, idx, nr)
+
+    # Encode pass: with more than one pod every payload rung stops at its
+    # packed uint8 wire, and the range's wires go out in ONE all_gather
+    # (slicing the gathered concatenation is bit-identical to gathering
+    # each piece alone).  FULL / SKIP and the single pod exchange inline.
+    # Residuals and inline aggregates scatter at once, so their buffers
+    # die early (the perms are disjoint: the scatter order is free).
+    staged, wires, woff = [], [], 0
     pi = 0
     for r, S in enumerate(sig):
         if not S:
             continue
         perm = perms[pi]
         pi += 1
-        b_agg, b_err = levels[r].codec.ef_sync_gather(
-            fb, eb, perm, omega, omega_own, gamma=gamma, n_pods=1,
-            block=block)
+        codec = levels[r].codec
         idx = perm.long()
-        err.index_copy_(0, idx, b_err.reshape(S, block))
-        if apply_fn is None:
-            agg.index_copy_(0, idx, b_agg.reshape(S, block))
+        if n_pods > 1 and codec.supports_ring:
+            wire, meta, b_err = codec.ef_encode_wire(fb, eb, perm,
+                                                     gamma=gamma,
+                                                     block=block)
+            staged.append((S, idx, codec, meta, woff, wire.numel()))
+            wires.append(wire)
+            woff += wire.numel()
         else:
-            rows = apply_fn(b_agg.reshape(S, block),
-                            tuple(ab.index_select(0, idx) for ab in abufs),
-                            scalars)
-            for ab, nr in zip(abufs, rows):
-                ab.index_copy_(0, idx, nr)
+            b_agg, b_err = codec.ef_sync_gather(
+                fb, eb, perm, omega, omega_own, gamma=gamma, n_pods=n_pods,
+                block=block, pods=pods, fixed_bits=fixed_bits)
+            scatter_agg(S, idx, b_agg)
+        err.index_copy_(0, idx, b_err.reshape(S, block))
+    if wires:
+        gathered = pods.all_gather_bytes(
+            wires[0] if len(wires) == 1 else torch.cat(wires))
+        del wires
+        # decode + scatter pass, in rung order
+        for S, idx, codec, meta, o, nbytes in staged:
+            scatter_agg(S, idx, codec.wire_decode_fold(
+                gathered[:, o:o + nbytes], meta, omega, n=S * block,
+                block=block, deterministic=n_pods >= 3,
+                fixed_bits=fixed_bits))
     errs = _unpack(err, es, block)
     if apply_fn is None:
         return _unpack(agg, gs, block), errs
@@ -144,33 +183,43 @@ def _range_sync(gs, es, aux, perms, sig, NB, *, levels, block, omega,
 
 
 def sync_tree(tree, errors, plan: Union[SyncPlan, ExecPlan], *,
-              gamma: float, block: int = C.BLOCK, n_pods: int = 1,
-              apply_fn=None, apply_aux=(), apply_scalars=()):
-    """Compress + aggregate a gradient (or delta) tree on one pod.
-    Returns ``(agg_tree, new_errors)``, or with ``apply_fn`` given
-    ``(tuple_of_new_aux_trees, new_errors)`` (see the module doc).
+              gamma: float, block: int = C.BLOCK, pods=None,
+              fixed_bits: int = FIXED_POINT_BITS, apply_fn=None,
+              apply_aux=(), apply_scalars=()):
+    """Compress + aggregate a gradient (or delta) tree across the pods of
+    ``pods`` (None: one pod).  Returns ``(agg_tree, new_errors)``, or with
+    ``apply_fn`` given ``(tuple_of_new_aux_trees, new_errors)`` (see the
+    module doc).  ``fixed_bits`` is the width of the deterministic
+    fixed-point fold used with 3 or more pods (``ACESyncConfig.accum_bits``).
 
     ``plan`` may be an :class:`ExecPlan` or a host :class:`SyncPlan`,
-    which is lowered here with exact (unpadded) bucket sizes."""
-    if n_pods != 1:
-        raise NotImplementedError("the multi-pod exchange comes with the "
-                                  "multi-pod slice of repro_torch")
+    which is lowered here with exact (unpadded) bucket sizes and the
+    one-shot exchange."""
+    n_pods = 1 if pods is None else pods.size
     leaves, treedef = T.flatten(tree)
     e_leaves = T.leaves(errors)
     device = leaves[0].device
     if isinstance(plan, SyncPlan):
         ep = build_exec_plan(plan, [l.numel() for l in leaves], block=block,
-                             device=device)
+                             n_pods=n_pods, ring=-1, device=device)
     else:
         ep = plan
+    if any(any(c) for c in (ep.chunks, *ep.seg_chunks)):
+        raise NotImplementedError("the plan rings some rungs: the chunked "
+                                  "ring comes with the ring slice of "
+                                  "repro_torch")
     omega = ep.omega
-    if omega.shape[0] == 1:
+    if n_pods == 1 and omega.shape[0] == 1:
         omega = torch.ones((1,), dtype=torch.float32, device=device)
-    omega_own = omega[0]
+    if omega.shape[0] != n_pods:
+        raise ValueError(f"plan omega has {omega.shape[0]} weights for "
+                         f"{n_pods} pods")
+    omega_own = omega[0 if pods is None else pods.rank]
     aux = tuple(tuple(T.leaves(a)) for a in apply_aux)
     kw = dict(levels=ep.levels, block=ep.block, omega=omega,
               omega_own=omega_own, scalars=tuple(apply_scalars),
-              gamma=gamma, apply_fn=apply_fn)
+              gamma=gamma, apply_fn=apply_fn, pods=pods,
+              fixed_bits=fixed_bits)
     gs, es = tuple(leaves), tuple(e_leaves)
     if not ep.segmented:
         outs, errs = _range_sync(gs, es, aux, ep.perms, ep.sig,

@@ -1,5 +1,5 @@
 """Trainer: model + optimizer + ACE-Sync assembled into step kinds — port
-of ``repro/core/trainer.py`` for one pod per process.
+of ``repro/core/trainer.py``, one pod per process.
 
 Step kinds
 ----------
@@ -13,11 +13,16 @@ Step kinds
 
 The reference keeps a leading pod dimension on every state leaf so pods
 are one SPMD program; here each process holds one pod's state, with no
-pod dimension.  The state is a dict of trees of tensors: ``params`` are
-the model's own Parameters, updated in place; the other entries are
-replaced each step.  PyTorch runs eagerly, so there is no compiled-step
-cache: a plan is lowered to an :class:`ExecPlan` (perms on the device)
-once per distinct assignment.
+pod dimension, and the pods meet in the collectives of their
+:class:`~repro_torch.launch.mesh.PodGroup` (``pods``): the sync rounds,
+the pod means of the metrics, grad stats and divergence, and
+``param_avg``.  More than one pod needs the one-shot exchange
+(``ACESyncConfig.ring_chunks = -1``): the ring is a later slice.  The
+state is a dict of trees of tensors: ``params`` are the model's own
+Parameters, updated in place; the other entries are replaced each step.
+PyTorch runs eagerly, so there is no compiled-step cache: a plan is
+lowered to an :class:`ExecPlan` (perms on the device) once per distinct
+assignment.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from repro_torch.core import planexec
 from repro_torch.core import sync as S
 from repro_torch.core.planexec import ExecPlan, build_exec_plan
 from repro_torch.core.scheduler import Scheduler, SyncPlan
+from repro_torch.kernels.ref import ftz
 from repro_torch.optim import adamw
 from repro_torch.strategies import SyncStrategy, resolve_strategy
 
@@ -49,13 +55,20 @@ class Trainer:
     _EXEC_CACHE_MAX = 8
 
     def __init__(self, model, run: RunConfig,
-                 strategy: Union[str, SyncStrategy] = "acesync"):
+                 strategy: Union[str, SyncStrategy] = "acesync", pods=None):
         self.model = model
         self.run = run
         self.device = model.device
         self.strategy = resolve_strategy(strategy)
         self.strategy_name = self.strategy.name
-        self.n_pods = 1
+        self.pods = pods
+        self.n_pods = 1 if pods is None else pods.size
+        if self.n_pods > 1 and run.acesync.ring_chunks != -1:
+            raise NotImplementedError(
+                f"ring_chunks={run.acesync.ring_chunks} asks for the chunked "
+                f"ring exchange, which comes with the ring slice of "
+                f"repro_torch; use ACESyncConfig(ring_chunks=-1) (the "
+                f"one-shot exchange) on {self.n_pods} pods")
         self.param_shapes = model.param_shapes()
         self.metas = S.group_metas(self.param_shapes)
         self.sizes = [m.size for m in self.metas]
@@ -87,6 +100,18 @@ class Trainer:
     # ------------------------------------------------------------------
     # the step bodies
     # ------------------------------------------------------------------
+    def _pmean(self, x: torch.Tensor) -> torch.Tensor:
+        if self.n_pods == 1:
+            return x
+        return self.pods.pmean(x.float().reshape(1)).reshape(())
+
+    def _pod_metrics(self, loss, gnorm) -> Dict[str, torch.Tensor]:
+        """Loss and grad norm averaged over the pods (one collective)."""
+        if self.n_pods == 1:
+            return {"loss": loss, "grad_norm": gnorm}
+        both = self.pods.pmean(torch.stack([loss.float(), gnorm.float()]))
+        return {"loss": both[0], "grad_norm": both[1]}
+
     def _grad_step(self, params, batch):
         leaves, treedef = T.flatten(params)
         with torch.enable_grad():
@@ -128,21 +153,21 @@ class Trainer:
                     weight_decay=run.weight_decay)
 
             out, new_ace, metrics = acesync.sync_gradients(
-                grads, st["ace"], plan, cfg=run.acesync,
+                grads, st["ace"], plan, cfg=run.acesync, pods=self.pods,
                 apply_fn=apply_rows,
                 apply_aux=(st["params"], st["m"], st["v"]),
                 apply_scalars=(self._lr(st["step"]), bc1, bc2))
             new_params, new_m, new_v = out
         else:
             agg, new_ace, metrics = acesync.sync_gradients(
-                grads, st["ace"], plan, cfg=run.acesync)
+                grads, st["ace"], plan, cfg=run.acesync, pods=self.pods)
             new_params, opt = self._optimize(st["params"], agg, st["m"],
                                              st["v"], st["step"])
             new_m, new_v = opt["m"], opt["v"]
         _assign(st["params"], new_params)
         new_st = dict(st, m=new_m, v=new_v, step=st["step"] + 1,
                       ace=new_ace)
-        return new_st, dict(metrics, loss=loss, grad_norm=gnorm)
+        return new_st, dict(metrics, **self._pod_metrics(loss, gnorm))
 
     def _body_local(self, st, batch, plan: ExecPlan):
         loss, grads, gnorm = self._grad_step(st["params"], batch)
@@ -150,14 +175,14 @@ class Trainer:
                                          st["v"], st["step"])
         _assign(st["params"], new_params)
         new_st = dict(st, m=opt["m"], v=opt["v"], step=st["step"] + 1)
-        return new_st, {"loss": loss, "grad_norm": gnorm}
+        return new_st, self._pod_metrics(loss, gnorm)
 
     def _body_delta_sync(self, st, batch, plan: ExecPlan):
         """Compress/aggregate (theta - anchor); theta <- anchor + agg, with
         the anchor update rung-ordered under ``overlap_apply``."""
         delta = T.tree_map(lambda p, a: (p - a).to(p.dtype), st["params"],
                            st["anchor"])
-        div = D.pod_divergence(st["params"], self.n_pods)
+        div = self._pmean(D.pod_divergence(st["params"], self.pods))
         cfg = self.run.acesync
         if cfg.overlap_apply:
             def apply_anchor(d_rows, aux_rows, _scalars):
@@ -165,12 +190,12 @@ class Trainer:
                 return (a_rows + d_rows,)
 
             out, new_ace, metrics = acesync.sync_gradients(
-                delta, st["ace"], plan, cfg=cfg, apply_fn=apply_anchor,
-                apply_aux=(st["anchor"],))
+                delta, st["ace"], plan, cfg=cfg, pods=self.pods,
+                apply_fn=apply_anchor, apply_aux=(st["anchor"],))
             (new_params,) = out
         else:
             agg, new_ace, metrics = acesync.sync_gradients(
-                delta, st["ace"], plan, cfg=cfg)
+                delta, st["ace"], plan, cfg=cfg, pods=self.pods)
             new_params = T.tree_map(lambda a, d: (a + d).to(a.dtype),
                                     st["anchor"], agg)
         new_ace = new_ace._replace(
@@ -182,9 +207,15 @@ class Trainer:
         return new_st, dict(metrics, divergence=div)
 
     def _body_param_avg(self, st, batch, plan: ExecPlan):
-        """FedAvg baseline: on one pod the weighted average is the pod's
-        own parameters."""
-        div = D.pod_divergence(st["params"], self.n_pods)
+        """FedAvg baseline: the omega-weighted parameter average across
+        the pods (on one pod, the pod's own parameters)."""
+        div = self._pmean(D.pod_divergence(st["params"], self.pods))
+        if self.n_pods > 1:
+            w = plan.omega[self.pods.rank]
+            avg = T.tree_map(
+                lambda p: self.pods.all_reduce_sum(ftz(p.float() * w))
+                .to(p.dtype), st["params"])
+            _assign(st["params"], avg)
         new_st = dict(st)
         if "anchor" in new_st:
             new_st["anchor"] = T.tree_map(lambda p: p.detach().clone(),
@@ -212,6 +243,8 @@ class Trainer:
             growth = self.scheduler.pad_growth if plan.adaptive else None
             ep = build_exec_plan(plan, layout=self.leaf_layout,
                                  growth=growth, n_pods=self.n_pods,
+                                 ring=planexec.ring_override(
+                                     cfg.ring_chunks),
                                  bidir=cfg.ring_bidir,
                                  segments=planexec.config_segments(cfg),
                                  device=self.device)
@@ -231,7 +264,8 @@ class Trainer:
     def default_plan(self, importance=None, bandwidth_mbps: float = 50.0,
                      omega=None) -> SyncPlan:
         """Strategy-owned plan from a synthetic one-device telemetry
-        snapshot (the host loop passes real telemetry instead)."""
+        snapshot (the host loop passes real telemetry instead); omega
+        defaults to uniform over the pods."""
         return self.strategy.make_plan(
             self.scheduler, importance=importance,
             telemetry=[{"bandwidth_mbps": bandwidth_mbps}], omega=omega)

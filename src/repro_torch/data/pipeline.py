@@ -3,7 +3,9 @@
 
 The same seeded Markov-chain token generator as the reference, so a given
 (seed, step, row) yields the same tokens byte for byte in both packages;
-batches are int32 tensors on the pipeline's device.
+batches are int32 tensors on the pipeline's device.  With P pods, pod p
+takes rows [p*B/P, (p+1)*B/P) of each global batch of B rows, as the
+reference's batch sharding over ("pod", "data") gives them.
 """
 from __future__ import annotations
 
@@ -26,10 +28,17 @@ class TokenPipeline:
     """Markov-chain token stream -> model input batches."""
 
     def __init__(self, model, shape: ShapeConfig, seed: int = 0,
-                 vocab_cap: int = 32768, device=None):
+                 vocab_cap: int = 32768, device=None, pod: int = 0,
+                 n_pods: int = 1):
+        if shape.global_batch % n_pods or not 0 <= pod < n_pods:
+            raise ValueError(f"global batch {shape.global_batch} does not "
+                             f"split over {n_pods} pods (pod {pod})")
         self.model = model
         self.shape = shape
         self.seed = seed
+        per = shape.global_batch // n_pods
+        #: the rows of each global batch this pod takes
+        self.rows = range(pod * per, (pod + 1) * per)
         self.device = model.device if device is None else torch.device(device)
         self.vocab = min(model.cfg.vocab_size, vocab_cap)
         self.state = PipelineState(seed=seed, step=0)
@@ -52,9 +61,10 @@ class TokenPipeline:
         return toks
 
     def host_batch(self, step: int) -> dict:
-        """The numpy batch of ``step``: tokens and next-token labels."""
-        B, S = self.shape.global_batch, self.shape.seq_len
-        arr = np.stack([self._tokens(step, b, S + 1) for b in range(B)])
+        """This pod's rows of the numpy batch of ``step``: tokens and
+        next-token labels."""
+        S = self.shape.seq_len
+        arr = np.stack([self._tokens(step, b, S + 1) for b in self.rows])
         return {"tokens": arr[:, :-1].astype(np.int32),
                 "labels": arr[:, 1:].astype(np.int32)}
 

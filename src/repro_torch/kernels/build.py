@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, at first use, and loaded with
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into
+one shared library with a plain C interface, at first use, and loaded with
 ``ctypes``: no PyTorch headers, so a build takes seconds, and no ``ninja``
-is needed.  The library lands in ``build/torch_ext/<hash>/`` at the root of
-the checkout (listed in ``.gitignore``), keyed by a hash of the sources and
-the compiler flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  ``nvcc`` comes from the CUDA toolkit PyTorch reports
+is needed.  Each source compiles in its own ``nvcc``, all started at once,
+and one more ``nvcc`` links the objects.  The library lands in
+``build/torch_ext/<hash>/`` at the root of the checkout (listed in
+``.gitignore``), keyed by a hash of the sources and the compiler flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is.  ``nvcc`` comes from the CUDA toolkit PyTorch reports
 (``torch.utils.cpp_extension.CUDA_HOME``), the host compiler from
 ``torch.utils.cpp_extension``.  A failed build raises.
 """
@@ -22,14 +23,14 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gather_encode.cu",)
+SOURCES = ("gather_encode.cu", "decode_accum.cu")
 #: repo-root build directory (``src/repro_torch/kernels`` -> root)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 LIB_NAME = "librepro_torch_kernels.so"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # the reference flushes denormals; divisions and square roots are
     # IEEE; no contraction the source does not write out
     "-ftz=true", "-prec-div=true", "-prec-sqrt=true", "-fmad=false",
@@ -79,21 +80,36 @@ def build() -> Path:
                           ptxas="")
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
+    tag = f"{os.getpid()}.tmp"
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
     cxx = _host_compiler()
-    if cxx:
-        cmd += ["-ccbin", cxx]
-    cmd += [str(CSRC / s) for s in SOURCES]
+    host = ["-ccbin", cxx] if cxx else []
+    objs = [out_dir / f".{Path(src).stem}.{tag}.o" for src in SOURCES]
     t0 = time.perf_counter()
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in ([_nvcc(), *NVCC_FLAGS, *host, "-c", "-o", str(o),
+                          str(CSRC / src)] for src, o in zip(SOURCES, objs))]
+    outs = [proc.communicate() for _, proc in procs]
+    done = [(cmd, proc.returncode, out, err)
+            for (cmd, proc), (out, err) in zip(procs, outs)]
+    reports = [err for _, _, _, err in done]
+    for cmd, rc, out, err in done:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n"
+                               f"{' '.join(cmd)}\n{out}\n{err}")
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+           *host, "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     secs = time.perf_counter() - t0
+    for o in objs:
+        o.unlink(missing_ok=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib)          # atomic: a concurrent loader never sees
     last_build.update(seconds=secs, path=str(lib), cached=False,  # a half
-                      ptxas=proc.stderr)                          # file
+                      ptxas="".join(reports))                     # file
     return lib
 
 
@@ -106,6 +122,21 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = i
     lib.gather_ef_topk.argtypes = common + [i, p, p, p]
     lib.gather_ef_topk.restype = i
+    # decode-accumulate: (acc..., payload..., s, w, rows[, k | bits],
+    # out..., stream)
+    decl = {
+        "decode_accum_int8": [p, p, p, p, i, p, p],
+        "decode_accum_int4": [p, p, p, p, i, p, p],
+        "sign_vote_accum": [p, p, p, p, p, i, p, p, p],
+        "topk_scatter_accum": [p, p, p, p, p, i, i, p, p],
+        "decode_accum_int8_fp": [p, p, p, p, i, i, p, p],
+        "decode_accum_int4_fp": [p, p, p, p, i, i, p, p],
+        "sign_vote_accum_fp": [p, p, p, p, p, i, i, p, p, p],
+    }
+    for name, args in decl.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = i
     return lib
 
 

@@ -1,4 +1,6 @@
-"""Wrappers of the gather + error-feedback encode kernels.
+"""Wrappers of the port's Hopper kernels: the gather + error-feedback
+encoders (K1-K4) and the decode-accumulate folds of the multi-pod
+exchange (K5-K11).
 
 Each wrapper picks the kernel or its plain version from the device of the
 tensors alone: tensors on the CPU take the plain PyTorch version in
@@ -11,7 +13,15 @@ Counterparts of ``repro/kernels/ops.py:gather_ef_*``: they read one
 rung's rows straight out of the packed (NB+1, LANES) grad / error buffers
 through the plan's gather perm.  Pad perm entries point at the zero row
 NB.  The int8 / int4 / sign wrappers also return ``own = ef - residual``,
-the rows every receiver reconstructs, written by the kernel itself.  Every kernel launch adds one to its entry in :data:`LAUNCHES` (and
+the rows every receiver reconstructs, written by the kernel itself.
+
+Counterparts of ``repro/kernels/ops.py:decode_accum_*``,
+``sign_vote_accum`` and ``topk_scatter_accum``: one peer's payload rows
+folded into the running aggregate, ``acc + w * decode(payload)``, in f32
+or (``fixed_bits`` set) in int32 fixed point.  They return a fresh
+accumulator, as the reference's do.
+
+Every kernel launch adds one to its entry in :data:`LAUNCHES` (and
 nothing else does), so a run can show that its main path went through the
 kernels.
 """
@@ -26,7 +36,9 @@ from repro_torch.kernels import ref
 LANES = ref.LANES
 
 KERNELS = ("gather_ef_int8", "gather_ef_int4", "gather_ef_sign",
-           "gather_ef_topk")
+           "gather_ef_topk", "decode_accum_int8", "decode_accum_int4",
+           "sign_vote_accum", "topk_scatter_accum", "decode_accum_int8_fp",
+           "decode_accum_int4_fp", "sign_vote_accum_fp")
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -137,3 +149,169 @@ def gather_ef_topk(fb, eb, perm, *, gamma: float, k: int):
     _launch("gather_ef_topk", fbp, ebp, pp, S_, nbp1, gam, int(k),
             sel.data_ptr(), r.data_ptr(), stream)
     return sel, r.reshape(-1)
+
+
+# ---- decode-accumulate (K5-K11) -------------------------------------------
+
+
+def _vec_aligned(t: torch.Tensor, nbytes: int) -> bool:
+    return t.data_ptr() % nbytes == 0
+
+
+def _decode_device(acc, payload, s, w, acc_dtype, pay_dtype, pay_cols,
+                   vec) -> str:
+    """Validate one fold's operands; returns the device type.  ``vec`` is
+    the payload bytes a kernel thread loads at once (its alignment)."""
+    nb = acc.shape[0] if acc.dim() == 2 else -1
+    if acc.dtype != acc_dtype or acc.dim() != 2 or acc.shape[1] != LANES:
+        raise ValueError(f"acc must be (nb, {LANES}) {acc_dtype}, got "
+                         f"{acc.dtype} {tuple(acc.shape)}")
+    if payload.dtype != pay_dtype or tuple(payload.shape) != (nb, pay_cols):
+        raise ValueError(f"payload must be ({nb}, {pay_cols}) {pay_dtype}, "
+                         f"got {payload.dtype} {tuple(payload.shape)}")
+    if s.dtype != torch.float32 or tuple(s.shape) != (nb,):
+        raise ValueError(f"scales must be ({nb},) float32, got {s.dtype} "
+                         f"{tuple(s.shape)}")
+    if w.dtype != torch.float32 or w.numel() != 1:
+        raise ValueError(f"w must be one float32, got {w.dtype} "
+                         f"{tuple(w.shape)}")
+    dev = acc.device
+    if any(t.device != dev for t in (payload, s, w)):
+        raise ValueError("acc, payload, scales and w must live on one "
+                         "device")
+    if dev.type == "cuda":
+        if not all(t.is_contiguous() for t in (acc, payload, s)):
+            raise ValueError("the CUDA kernels need contiguous operands")
+        if not (_vec_aligned(acc, 16) and _vec_aligned(payload, vec)
+                and _vec_aligned(s, 4) and _vec_aligned(w, 4)):
+            raise ValueError("the CUDA kernels need 16-byte aligned "
+                             f"accumulators and {vec}-byte aligned "
+                             "payload rows")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type
+
+
+def _fixed(fixed_bits):
+    if fixed_bits is None:
+        return None
+    bits = int(fixed_bits)
+    if not 0 <= bits <= 100:
+        raise ValueError(f"fixed_bits must be in [0, 100], got {bits}")
+    return bits
+
+
+def _launch_decode(name: str, rows: int, *args) -> None:
+    if rows == 0:
+        return
+    from repro_torch.kernels import build
+    rc = getattr(build.load(), name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc}")
+    LAUNCHES[name] += 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _dequant(kind, acc, payload, s, w, fixed_bits):
+    bits = _fixed(fixed_bits)
+    int8 = kind == "int8"
+    acc_dtype = torch.float32 if bits is None else torch.int32
+    dev = _decode_device(acc, payload, s, w, acc_dtype,
+                         torch.int8 if int8 else torch.uint8,
+                         LANES if int8 else LANES // 2, 4 if int8 else 2)
+    w = w.reshape(())
+    if dev == "cpu":
+        s2 = s.reshape(-1, 1)
+        if bits is None:
+            fn = (ref.dequant_accum_int8_ref if int8
+                  else ref.dequant_accum_int4_ref)
+            return fn(acc, payload, s2, w)
+        fn = (ref.dequant_accum_int8_fp_ref if int8
+              else ref.dequant_accum_int4_fp_ref)
+        return fn(acc, payload, s2, w, bits)
+    out = torch.empty_like(acc)
+    name = f"decode_accum_{kind}" + ("" if bits is None else "_fp")
+    head = (acc.data_ptr(), payload.data_ptr(), s.data_ptr(), w.data_ptr(),
+            int(acc.shape[0]))
+    tail = (() if bits is None else (bits,)) + (out.data_ptr(),
+                                                _stream(acc))
+    _launch_decode(name, int(acc.shape[0]), *head, *tail)
+    return out
+
+
+def decode_accum_int8(acc, q, s, w, *, fixed_bits=None):
+    """acc (nb, LANES) + w * (q * s): q (nb, LANES) int8, s (nb,) f32, w a
+    one-element f32 tensor.  ``fixed_bits`` set: the int32 fixed-point
+    accumulator (K9), else f32 (K5)."""
+    return _dequant("int8", acc, q, s, w, fixed_bits)
+
+
+def decode_accum_int4(acc, p, s, w, *, fixed_bits=None):
+    """:func:`decode_accum_int8` on packed nibbles p (nb, LANES // 2) uint8
+    (K10 / K6)."""
+    return _dequant("int4", acc, p, s, w, fixed_bits)
+
+
+def sign_vote_accum(vote, mag, p, s, w, *, fixed_bits=None):
+    """Majority-vote partials -> (vote + w * signs, mag + w * s): vote
+    (nb, LANES), mag (nb,), p (nb, LANES // 8) uint8 bit-packed signs.
+    ``fixed_bits`` set: integer votes and fixed-point magnitude (K11),
+    else f32 (K7)."""
+    bits = _fixed(fixed_bits)
+    acc_dtype = torch.float32 if bits is None else torch.int32
+    dev = _decode_device(vote, p, s, w, acc_dtype, torch.uint8, LANES // 8,
+                         1)
+    nb = vote.shape[0]
+    if mag.dtype != acc_dtype or tuple(mag.shape) != (nb,) \
+            or mag.device != vote.device:
+        raise ValueError(f"mag must be ({nb},) {acc_dtype} beside vote, "
+                         f"got {mag.dtype} {tuple(mag.shape)}")
+    w = w.reshape(())
+    if dev == "cpu":
+        m2, s2 = mag.reshape(-1, 1), s.reshape(-1, 1)
+        if bits is None:
+            v, m = ref.sign_vote_accum_ref(vote, m2, p, s2, w)
+        else:
+            v, m = ref.sign_vote_accum_fp_ref(vote, m2, p, s2, w, bits)
+        return v, m.reshape(-1)
+    if not mag.is_contiguous():
+        raise ValueError("the CUDA kernels need contiguous operands")
+    vout, mout = torch.empty_like(vote), torch.empty_like(mag)
+    head = (vote.data_ptr(), mag.data_ptr(), p.data_ptr(), s.data_ptr(),
+            w.data_ptr(), int(nb))
+    mid = () if bits is None else (bits,)
+    name = "sign_vote_accum" + ("" if bits is None else "_fp")
+    _launch_decode(name, int(nb), *head, *mid, vout.data_ptr(),
+                   mout.data_ptr(), _stream(vote))
+    return vout, mout
+
+
+def topk_scatter_accum(acc, q, idx, s, w):
+    """acc (nb, LANES) f32 with w * (q * s) added at the lanes idx
+    (nb, k) uint16 (distinct within a row; the wire's index type, widened
+    inside the kernel), q (nb, k) int8 (K8)."""
+    if q.dim() != 2 or not 0 < q.shape[1] <= LANES:
+        raise ValueError(f"q must be (nb, k) with 0 < k <= {LANES}, got "
+                         f"{tuple(q.shape)}")
+    k = int(q.shape[1])
+    dev = _decode_device(acc, q, s, w, torch.float32, torch.int8, k, 1)
+    if idx.dtype != torch.uint16 or idx.shape != q.shape \
+            or idx.device != acc.device:
+        raise ValueError(f"idx must be uint16 {tuple(q.shape)} beside q, "
+                         f"got {idx.dtype} {tuple(idx.shape)}")
+    w = w.reshape(())
+    if dev == "cpu":
+        return ref.topk_scatter_accum_ref(acc, q, idx, s.reshape(-1, 1), w)
+    if not idx.is_contiguous() or not _vec_aligned(idx, 2):
+        raise ValueError("the CUDA kernels need contiguous, 2-byte aligned "
+                         "indices")
+    out = torch.empty_like(acc)
+    nb = int(acc.shape[0])
+    _launch_decode("topk_scatter_accum", nb, acc.data_ptr(), q.data_ptr(),
+                   idx.data_ptr(), s.data_ptr(), w.data_ptr(), nb, k,
+                   out.data_ptr(), _stream(acc))
+    return out

@@ -1,7 +1,9 @@
-"""Plain PyTorch versions of the gather + error-feedback encode kernels.
+"""Plain PyTorch versions of the port's kernels: the gather + error-feedback
+encoders (``csrc/gather_encode.cu``, K1-K4) and the decode-accumulate folds
+(``csrc/decode_accum.cu``, K5-K11; at the end of this module).
 
-Each function here computes, on any device, exactly what its CUDA kernel in
-``csrc/gather_encode.cu`` computes: the CPU tests run these, and
+Each function here computes, on any device, exactly what its CUDA kernel
+computes: the CPU tests run these, and
 ``chip_smoke.py`` holds every kernel against its plain version on the card
 bit for bit.  They follow the JAX package's ``repro/kernels/ref.py``
 (``quantize_int8_gather_ref`` and friends) as the reference runs them
@@ -21,6 +23,8 @@ lanes, then a pairwise tree over the 256 partial sums) that the kernel
 reproduces; XLA's own reduction order differs by a few ulp.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -174,3 +178,123 @@ def ef_topk_gather_ref(fb, eb, perm, *, gamma: float, k: int):
     # mask into a select, so dropped entries are +0 whatever ef's sign
     sel = torch.where(mask > 0, ef, 0.0)
     return sel, ef - sel
+
+
+# ---- decode-accumulate: the folds of the multi-pod exchange ----------------
+#
+# Plain versions of the kernels in ``csrc/decode_accum.cu`` (the JAX
+# package's ``repro/kernels/decode.py``).  As XLA:CPU runs the reference
+# under ``jit``: ``acc + w * (q * scale)`` and ``mag + w * scale`` are one
+# fused multiply-add on the rounded product ``q * scale`` (see
+# :func:`fma_f32`), while top-k's scatter-add adds the rounded ``w * vals``
+# (no FMA) and leaves the lanes it does not touch bit for bit as they were.
+
+#: fractional bits of the deterministic fixed-point accumulator
+FIXED_POINT_BITS = 16
+#: largest f32 that casts to int32 without overflow (2^31 - 128)
+INT32_SAT = 2147483520.0
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` on f32 tensors with one rounding, denormals flushed.
+
+    The product is exact in float64; the float64 sum is rounded to odd
+    (its rounding error, found by TwoSum, decides the last bit), and a
+    value rounded to odd with 29 bits to spare rounds to f32 exactly as
+    the infinitely precise sum would.  Neither ``torch.addcmul`` nor
+    ``a * b + c`` is one rounding on every device."""
+    a, b, c = torch.broadcast_tensors(ftz(a), ftz(b), ftz(c))
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    fix = (err != 0) & even & torch.isfinite(s)
+    toward = torch.where(err > 0, torch.full_like(s, math.inf),
+                         torch.full_like(s, -math.inf))
+    s = torch.where(fix, torch.nextafter(s, toward), s)
+    return ftz(s.float())
+
+
+def fixed_point(x: torch.Tensor, bits: int = FIXED_POINT_BITS
+                ) -> torch.Tensor:
+    """f32 -> int32 fixed point: round half to even at ``bits`` fractional
+    bits, saturating at +-INT32_SAT before the cast."""
+    s = torch.round(ftz(x) * float(2.0 ** bits))
+    return torch.clamp(s, -INT32_SAT, INT32_SAT).to(torch.int32)
+
+
+def from_fixed_point(acc: torch.Tensor, bits: int = FIXED_POINT_BITS
+                     ) -> torch.Tensor:
+    """int32 fixed point -> f32 (round to nearest, then an exact scale by
+    a power of two)."""
+    return ftz(acc.float() * float(2.0 ** -bits))
+
+
+def unpack_signs(packed: torch.Tensor) -> torch.Tensor:
+    """(rows, C // 8) uint8 bit-packed -> (rows, C) f32 {-1, +1}; bit i of
+    byte b is column 8b+i."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = ((packed[:, :, None] >> shifts) & 1).float()
+    return bits.reshape(packed.shape[0], packed.shape[1] * 8) * 2.0 - 1.0
+
+
+def _weighted(q, s, w):
+    """(rows, C) f32 values q * s with its rounding, and the weight."""
+    return ftz(q.float() * ftz(s)), ftz(w.reshape(()))
+
+
+def dequant_accum_int8_ref(acc, q, s, w):
+    """acc (rows, LANES) f32 + w * (q * s): q int8, s (rows, 1), w a
+    one-element f32 tensor."""
+    qs, wv = _weighted(q, s, w)
+    return fma_f32(wv, qs, acc)
+
+
+def dequant_accum_int4_ref(acc, p, s, w):
+    """:func:`dequant_accum_int8_ref` on packed nibbles p (rows, LANES//2)."""
+    return dequant_accum_int8_ref(acc, unpack_nibbles(p), s, w)
+
+
+def sign_vote_accum_ref(vote, mag, p, s, w):
+    """Majority-vote partials: (vote + w * signs, mag + w * s); p the
+    bit-packed signs (rows, LANES // 8), mag and s (rows, 1)."""
+    wv = ftz(w.reshape(()))
+    return (fma_f32(wv, unpack_signs(p), vote),
+            fma_f32(wv, ftz(s), mag))
+
+
+def dequant_accum_int8_fp_ref(acc, q, s, w, bits: int):
+    """acc (rows, LANES) int32 + fixed_point(w * (q * s)), wrapping."""
+    qs, wv = _weighted(q, s, w)
+    return acc + fixed_point(ftz(wv * qs), bits)
+
+
+def dequant_accum_int4_fp_ref(acc, p, s, w, bits: int):
+    """:func:`dequant_accum_int8_fp_ref` on packed nibbles."""
+    return dequant_accum_int8_fp_ref(acc, unpack_nibbles(p), s, w, bits)
+
+
+def sign_vote_accum_fp_ref(vote, mag, p, s, w, bits: int):
+    """Integer vote counts ``vote + fixed_point(w) * (+-1)`` and the
+    fixed-point magnitude ``mag + fixed_point(w * s)`` (int32, wrapping);
+    omega is quantised once."""
+    wv = ftz(w.reshape(()))
+    wq = fixed_point(wv, bits)
+    return (vote + wq * unpack_signs(p).to(torch.int32),
+            mag + fixed_point(ftz(wv * ftz(s)), bits))
+
+
+def topk_scatter_accum_ref(acc, q, idx, s, w):
+    """acc (rows, LANES) f32 with ``w * (q * s)`` added at the lanes
+    ``idx`` (rows, k) uint16 of each row (distinct within a row, as top-k
+    gives them); the other lanes keep their bits."""
+    vals, wv = _weighted(q, s, w)
+    term = ftz(wv * vals)
+    rows = torch.arange(acc.shape[0], device=acc.device)[:, None]
+    lanes = idx.to(torch.int64)
+    out = acc.clone()
+    out[rows, lanes] = ftz(ftz(acc[rows, lanes]) + term)
+    return out

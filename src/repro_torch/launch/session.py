@@ -9,6 +9,9 @@ loop — port of ``repro/launch/session.py``::
     print(sess.losses[-1], sess.comm_bytes)
 
 Runs on the card (``device="cuda"``) unless the caller asks for the CPU.
+One session is one pod: with a pod group (``pods=``, see
+:func:`repro_torch.launch.mesh.spawn_pods`) it runs on the group's device
+and trains on its pod's rows of every global batch.
 """
 from __future__ import annotations
 
@@ -27,12 +30,17 @@ class TrainSession:
 
     def __init__(self, model, run: RunConfig,
                  strategy: Union[str, SyncStrategy] = "acesync",
-                 n_edge_devices: int = 8, seed: int = 0):
+                 n_edge_devices: int = 8, seed: int = 0, pods=None):
         self.model = model
         self.run_config = run
+        self.pods = pods
         self.loop = TrainLoop(model, run, strategy=strategy,
-                              n_edge_devices=n_edge_devices, seed=seed)
-        self.pipeline = TokenPipeline(model, run.shape, seed=seed)
+                              n_edge_devices=n_edge_devices, seed=seed,
+                              pods=pods)
+        self.pipeline = TokenPipeline(
+            model, run.shape, seed=seed,
+            pod=0 if pods is None else pods.rank,
+            n_pods=1 if pods is None else pods.size)
         self.state = None
 
     @classmethod
@@ -40,16 +48,20 @@ class TrainSession:
                     strategy: Union[str, SyncStrategy] = "acesync", *,
                     smoke: bool = True, seq_len: int = 256, batch: int = 8,
                     steps: int = 100, n_edge_devices: int = 8,
-                    seed: int = 0, device="cuda",
+                    seed: int = 0, device="cuda", pods=None,
                     **run_kw) -> "TrainSession":
-        """Build a session from an architecture name + strategy spec."""
+        """Build a session from an architecture name + strategy spec.
+        ``batch`` is the global batch (split over the pods of ``pods``,
+        whose device replaces ``device``)."""
         cfg = (SMOKE_ARCHS if smoke else ARCHS)[arch]
         shape = ShapeConfig("session", seq_len, batch, "train")
         run_kw.setdefault("warmup_steps", max(2, steps // 10))
         run = RunConfig(model=cfg, shape=shape, total_steps=steps, **run_kw)
+        if pods is not None:
+            device = pods.device
         model = build_model(cfg, run, device=device)
         return cls(model, run, strategy=strategy,
-                   n_edge_devices=n_edge_devices, seed=seed)
+                   n_edge_devices=n_edge_devices, seed=seed, pods=pods)
 
     @property
     def trainer(self):

@@ -1,6 +1,7 @@
 """End-to-end training driver: the host-side ACE-Sync control loop — port
-of ``repro/launch/train.py`` for one pod.
+of ``repro/launch/train.py``, one process per pod.
 
+  telemetry -> clustering -> omega weights (eq 8)
   telemetry -> eq (5) budget -> importance scores -> knapsack -> SyncPlan
   divergence (eq 9) -> sync-interval H adaptation
   H local steps + 1 ACE-Sync round per window
@@ -15,13 +16,22 @@ The loop does not block on the card:
     stepping on the current plan and swaps once the copy has landed;
   * per-step metrics and the divergence EMA are read one step late.
 
-Omega is ``(1.0,)``: the reference's cluster controller gives one fleet
-slot its whole weight.  Checkpointing, fault injection, elastic membership
-and clustering come with later slices of the port.
+With more than one pod the pods must switch plans on the same step (their
+coalesced wires must have one layout), so replans and the eq-(9) interval
+are applied synchronously at the step that launches them — the
+reference's ``blocking_replans`` mode.  The inputs agree across pods: the
+importance state is fed pod-mean grad stats, the divergence EMA is a pod
+mean, and every pod reads the same seeded telemetry.
+
+Omega comes from the live device clustering (:class:`~repro_torch.
+hierarchy.ClusterState`): reliability weights summed into one slot per
+pod.  Checkpointing, fault injection and elastic membership come with
+later slices of the port.
 
 CLI::
 
     python -m repro_torch.launch.train --steps 8 [--smoke] [--device cuda]
+    python -m repro_torch.launch.train --pods 2 --steps 8 ...  # P processes
 """
 from __future__ import annotations
 
@@ -36,11 +46,9 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.core import acesync
 from repro_torch.core.trainer import Trainer
 from repro_torch.data.telemetry import make_profiles, snapshot
+from repro_torch.hierarchy import ClusterState
 from repro_torch.strategies import (STEP_ADVANCING, SYNC_KINDS, SyncStrategy,
                                     list_strategies)
-
-#: one pod holds the whole fleet weight
-ONE_POD_OMEGA = (1.0,)
 
 
 class _HostFetch:
@@ -73,12 +81,17 @@ class TrainLoop:
 
     def __init__(self, model, run: RunConfig,
                  strategy: Union[str, SyncStrategy] = "acesync",
-                 n_edge_devices: int = 8, seed: int = 0):
+                 n_edge_devices: int = 8, seed: int = 0, pods=None):
         self.model = model
         self.run = run
-        self.trainer = Trainer(model, run, strategy=strategy)
+        self.trainer = Trainer(model, run, strategy=strategy, pods=pods)
         self.strategy = self.trainer.strategy
         self.profiles = make_profiles(n_edge_devices, seed)
+        self.clusters = ClusterState(n_edge_devices, run.acesync.n_clusters,
+                                     hysteresis=run.acesync.cluster_hysteresis)
+        #: apply replans and H at the step that launches them (all pods
+        #: must switch plans on the same step)
+        self.blocking_replans = self.trainer.n_pods > 1
         self.history = []
         self.comm_bytes = 0.0
         self._plan = None
@@ -95,8 +108,12 @@ class TrainLoop:
 
     # ---- policy refresh ---------------------------------------------------
     def _policy_inputs(self, step: int):
-        """Telemetry snapshot and the fleet omega of one pod."""
-        return snapshot(self.profiles, step), ONE_POD_OMEGA
+        """Telemetry snapshot -> (telemetry, fleet omega): the clustering
+        is refreshed (warm-started k-means with hysteresis) and the device
+        reliability weights are summed into one slot per pod."""
+        telem = snapshot(self.profiles, step)
+        self.clusters.update(telem)
+        return telem, self.clusters.fleet_omega(telem, self.trainer.n_pods)
 
     def refresh_plan(self, state, step: int):
         cfg = self.run.acesync
@@ -105,7 +122,8 @@ class TrainLoop:
         dev_fn = (self.strategy.device_plan_fn(sched, cfg)
                   if state is not None else None)
         if dev_fn is not None and self._plan is not None:
-            budget = sched.budget_for(self.strategy.budget_bandwidth(telem))
+            budget = sched.budget_for(
+                self.strategy.budget_bandwidth(telem, self.clusters))
             ace = state["ace"]
             assign = dev_fn(ace.importance, ace.struct_feat, budget)
             self._pending_replan = (_HostFetch(assign), omega)
@@ -137,7 +155,11 @@ class TrainLoop:
 
     def adapt_interval(self, state) -> int:
         """Eq-(9) sync-interval control on the divergence EMA read one
-        replan late (the controller never waits on the step in flight)."""
+        replan late (the controller never waits on the step in flight);
+        with ``blocking_replans``, read now."""
+        if self.blocking_replans:
+            return self.strategy.adapt(self.trainer.scheduler,
+                                       float(state["ace"].div_ema))
         prev = self._div_fetch
         self._div_fetch = _HostFetch(state["ace"].div_ema)
         if prev is None:
@@ -171,6 +193,8 @@ class TrainLoop:
             self.poll_replan()
             if step and step % cfg.replan_every == 0:
                 self.refresh_plan(state, step)
+                if self.blocking_replans:
+                    self.poll_replan(block=True)
                 H = self.adapt_interval(state)
                 self._H = H
             batch = next(pipeline)
@@ -199,6 +223,33 @@ class TrainLoop:
         return state
 
 
+def _session_kwargs(args) -> dict:
+    from repro_torch.configs.base import ACESyncConfig
+    kw = dict(strategy=args.strategy, smoke=args.smoke,
+              seq_len=args.seq_len, batch=args.batch, steps=args.steps,
+              warmup_steps=10)
+    if args.pods > 1:
+        # the one-shot exchange: the chunked ring is a later slice
+        kw["acesync"] = ACESyncConfig(ring_chunks=-1)
+    return kw
+
+
+def _summary(sess) -> dict:
+    losses = sess.losses
+    return {"first_loss": losses[0], "last_loss": losses[-1],
+            "steps": len(losses), "comm_bytes": sess.comm_bytes,
+            "device": str(sess.model.device)}
+
+
+def _pod_run(group, arch, kw, steps):
+    """One pod's CLI run (spawned by ``--pods``)."""
+    from repro_torch.launch.session import TrainSession
+    sess = TrainSession.from_config(arch, pods=group, **kw)
+    sess.run(steps, log_every=10 if group.rank == 0 else 0)
+    return dict(_summary(sess), pod=group.rank,
+                wire_bytes=group.bytes_logged("gather"))
+
+
 def main(argv=None):
     from repro_torch.launch.session import TrainSession
 
@@ -210,19 +261,23 @@ def main(argv=None):
                     choices=list_strategies())
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=256)
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="global batch (split over the pods)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="pods, one process each (the one-shot exchange)")
     args = ap.parse_args(argv)
 
-    sess = TrainSession.from_config(
-        args.arch, strategy=args.strategy, smoke=args.smoke,
-        seq_len=args.seq_len, batch=args.batch, steps=args.steps,
-        warmup_steps=10, device=args.device)
+    kw = _session_kwargs(args)
+    if args.pods > 1:
+        from repro_torch.launch.mesh import spawn_pods
+        outs = spawn_pods(_pod_run, args.pods, args.device,
+                          args=(args.arch, kw, args.steps))
+        print(json.dumps(dict(outs[0], pods=outs)))
+        return
+    sess = TrainSession.from_config(args.arch, device=args.device, **kw)
     sess.run(args.steps)
-    losses = sess.losses
-    print(json.dumps({"first_loss": losses[0], "last_loss": losses[-1],
-                      "steps": len(losses), "comm_bytes": sess.comm_bytes,
-                      "device": str(sess.model.device)}))
+    print(json.dumps(_summary(sess)))
 
 
 if __name__ == "__main__":

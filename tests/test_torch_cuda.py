@@ -72,3 +72,84 @@ def test_launch_counts(dev):
     ops.gather_ef_int8(fb, eb, perm, gamma=1.0)
     ops.gather_ef_int8(fb, eb, perm[:0], gamma=1.0)   # S = 0: no launch
     assert ops.launch_counts()["gather_ef_int8"] == 1
+
+
+def _decode_case(dev, rows=37, k=104, seed=0):
+    r = np.random.RandomState(seed)
+    acc = (r.randn(rows, LANES) * np.exp(r.randn(rows, 1))).astype(
+        np.float32)
+    acc[1] = 0.0
+    acc[2, ::3] *= np.float32(1e-41)
+    acc[3, ::5] = np.float32(-0.0)
+    s = (np.abs(r.randn(rows)) * 0.01).astype(np.float32)
+    s[4], s[5] = 0.0, np.float32(3e-39)
+    idx = np.stack([r.permutation(LANES)[:k] for _ in range(rows)])
+    x = {"acc": acc, "s": s,
+         "iacc": r.randint(-2 ** 31, 2 ** 31, (rows, LANES)).astype(np.int32),
+         "q": r.randint(-127, 128, (rows, LANES)).astype(np.int8),
+         "nib": r.randint(0, 256, (rows, LANES // 2)).astype(np.uint8),
+         "sgn": r.randint(0, 256, (rows, LANES // 8)).astype(np.uint8),
+         "mag": r.randn(rows).astype(np.float32),
+         "imag": r.randint(-2 ** 31, 2 ** 31, rows).astype(np.int32),
+         "qk": r.randint(-127, 128, (rows, k)).astype(np.int8),
+         "idx": idx.astype(np.uint16)}
+    return {n: torch.from_numpy(v).to(dev) for n, v in x.items()}
+
+
+def _same(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b.reshape(a.shape))
+
+
+@pytest.mark.parametrize("bits", [None, 16, 30])
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_decode_accum_bit_exact_to_plain_version(dev, kind, bits):
+    """K5 / K6 (bits None) and K9 / K10 (fixed point) on the card."""
+    x = _decode_case(dev)
+    src = x["q"] if kind == "int8" else x["nib"]
+    fn = getattr(ops, f"decode_accum_{kind}")
+    for w in (0.37, 0.0, 1.0):
+        wt = torch.tensor(w, device=dev)
+        acc = x["acc"] if bits is None else x["iacc"]
+        got = fn(acc, src, x["s"], wt, fixed_bits=bits)
+        s2 = x["s"][:, None]
+        if bits is None:
+            plain = getattr(ref, f"dequant_accum_{kind}_ref")
+            want = plain(acc, src, s2, wt)
+        else:
+            plain = getattr(ref, f"dequant_accum_{kind}_fp_ref")
+            want = plain(acc, src, s2, wt, bits)
+        torch.cuda.synchronize()
+        assert _same(got, want)
+
+
+@pytest.mark.parametrize("bits", [None, 16])
+def test_sign_vote_accum_bit_exact_to_plain_version(dev, bits):
+    """K7 (bits None) and K11 on the card."""
+    x = _decode_case(dev)
+    wt = torch.tensor(0.37, device=dev)
+    if bits is None:
+        got = ops.sign_vote_accum(x["acc"], x["mag"], x["sgn"], x["s"], wt)
+        want = ref.sign_vote_accum_ref(x["acc"], x["mag"][:, None], x["sgn"],
+                                       x["s"][:, None], wt)
+    else:
+        got = ops.sign_vote_accum(x["iacc"], x["imag"], x["sgn"], x["s"],
+                                  wt, fixed_bits=bits)
+        want = ref.sign_vote_accum_fp_ref(x["iacc"], x["imag"][:, None],
+                                          x["sgn"], x["s"][:, None], wt,
+                                          bits)
+    torch.cuda.synchronize()
+    assert all(_same(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("k", TOPK_KS)
+def test_topk_scatter_accum_bit_exact_to_plain_version(dev, k):
+    """K8 on the card, -0 and denormals in untouched lanes kept."""
+    x = _decode_case(dev, k=k)
+    wt = torch.tensor(0.37, device=dev)
+    got = ops.topk_scatter_accum(x["acc"], x["qk"], x["idx"], x["s"], wt)
+    want = ref.topk_scatter_accum_ref(x["acc"], x["qk"], x["idx"],
+                                      x["s"][:, None], wt)
+    torch.cuda.synchronize()
+    assert _same(got, want)
