@@ -30,26 +30,42 @@ Phases (any failure exits nonzero before the result lines):
    fixed_bits 16 and a width where the clip saturates, top-k at every k
    of the ladder) and one call over all 443,697 rows of paper-350m, which
    is timed;
+6b. hold each flat encoder and the int8 dequantiser (K12-K16) against its
+   plain version on the card, bit for bit: row counts 1-23 with a
+   denormal row, an all-zero row and -0 entries, gamma 1.0 / 0.9 / 0.6,
+   top-k at every k of the ladder, and one call over all 443,697 rows,
+   which is timed;
 7. the multi-pod main path: P pods as processes sharing the card (the
    pod group is gloo, staged through pinned host memory), paper-350m at
-   full width under ``acesync`` with the one-shot exchange
-   (``ring_chunks=-1``) and ``replan_every=4``: P = 2 with global batch 8
-   for 8 steps at full depth, P = 3 with global batch 6 for 4 steps at
-   16 layers (three full-depth pods do not fit the card; a P = 3 run that
-   does not fit fails), each then one all-rungs ``grad_sync``.
-   The parameters after every ``delta_sync`` and the all-rungs aggregate
-   must be bit-identical on every pod, the bytes gathered equal to
-   ``plan_wire_bytes`` of the gather rungs, the losses finite, and K1-K8
-   (P = 2) and K8-K11 (P = 3) must have launched (launches of all pods).
-   Per step kind: step times, the transport's host time, peak memory per
-   pod.  Pods that share one card time-share it: these are not a
-   deployment's step times.
+   full width under ``acesync`` with the default ``ACESyncConfig`` (the
+   chunked ring on every rung the roofline grid of
+   ``repro_torch.core.planexec`` rings, the one-shot exchange elsewhere)
+   and ``replan_every=4``: P = 2 with global batch 8 for 8 steps at full
+   depth, P = 3 with global batch 6 for 4 steps at 16 layers (three
+   full-depth pods do not fit the card; a P = 3 run that does not fit
+   fails), each then one all-rungs ``grad_sync`` whose payload rungs ring
+   in 2 chunks and, in the same pod processes, one all-rungs
+   ``sync_tree`` round on the same gradients
+   under three exec plans: one-shot, the ring forced to 2 chunks, and the
+   roofline's own grid.  At P = 2 the pods first measure their link (the
+   ping-pong of ``repro_torch.launch.linkbench``).  The parameters after
+   every ``delta_sync`` and the all-rungs aggregate must be bit-identical
+   on every pod; the three plans' aggregates bit-identical to each other
+   and on every pod, their residuals to each other; the bytes moved
+   (gather + ring) equal to ``plan_wire_bytes`` of the gather rungs in
+   every sync step and round; the ring hops posted equal to what the
+   chunk grids ask for; the losses finite; and K1-K4, K12-K15, K5-K8
+   (P = 2) and K8-K11 (P = 3) must have launched (launches of all pods,
+   over the whole path).  Per step kind: step times, the transport's host
+   time, peak memory per pod.  Pods that share one card time-share it:
+   these are not a deployment's step times.
 
-Output: progress lines, then the ``nvidia-smi`` line, the kernels' JSON
-line (each kernel's launches in total and per main path: ``one_pod``
-(phase 5), ``p2`` and ``p3`` (phase 7, all pods), each counted from 0
-just before its run; ``paths`` gives each path's pods and depth), and as
-the last line ``{"ok": true, "device": {...}}``.
+Output: progress lines with each phase's seconds, the pod link's latency
+and rate, then the ``nvidia-smi`` line, the kernels' JSON line (each
+kernel's launches in total and per main path: ``one_pod`` (phase 5),
+``p2`` and ``p3`` (phase 7, all pods), each counted from 0 just before
+its run; ``paths`` gives each path's pods and depth; ``link`` the
+measured link), and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -96,6 +112,16 @@ DECODE = {
     "decode_accum_int8_fp": ("src/repro/kernels/decode.py:185", 9220),
     "decode_accum_int4_fp": ("src/repro/kernels/decode.py:209", 8708),
     "sign_vote_accum_fp": ("src/repro/kernels/decode.py:236", 8332),
+}
+#: flat encoder / dequantiser (K12-K16) -> (TPU kernel it replaces, bytes
+#: per row: each input read once, each output written once, f32
+#: operations per element of the row body)
+FLAT = {
+    "quantize_int8": ("src/repro/kernels/quantize.py:44", 9220, 9),
+    "ef_int4": ("src/repro/kernels/quantize.py:126", 12804, 11),
+    "ef_sign": ("src/repro/kernels/sign.py:47", 13316, 8),
+    "ef_topk": ("src/repro/kernels/topk_compress.py:139", 16384, 38),
+    "dequant_int8": ("src/repro/kernels/quantize.py:174", 5124, 1),
 }
 #: (fixed_bits, payload scale) of the fixed-point checks: the default
 #: width, and one where the clip to +-2^31 saturates
@@ -381,6 +407,93 @@ def decode_phase(np, torch, ops, ref, dev) -> dict:
     return results
 
 
+def flat_inputs(torch, dev, rows, seed):
+    """(g, e) (rows, LANES) f32 made on the card from ``seed``, with a
+    denormal row, an all-zero row and -0 entries (rows 0, 1 and 2, where
+    they exist)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn((rows, LANES), generator=gen, device=dev)
+    e = torch.randn((rows, LANES), generator=gen, device=dev)
+    g[0] *= 1e-41
+    e[0] *= 1e-41
+    if rows > 1:
+        g[1] = 0.0
+        e[1] = 0.0
+    if rows > 2:
+        g[2, ::3] = -0.0
+        e[2, ::5] = -0.0
+    return g, e
+
+
+def flat_fns(ops, ref, name, g, e, gamma, k=TOPK_K):
+    """(kernel wrapper, plain version) of flat kernel ``name`` as
+    zero-argument calls on (rows, LANES) inputs; the wrapper takes the
+    flat buffers, as the codecs call it, and both return row tensors."""
+    R = g.shape[0]
+    gf, ef = g.reshape(-1), e.reshape(-1)
+    if name == "quantize_int8":
+        x = ref.ef_accumulate(g, e, gamma)
+        return (lambda: ops.quantize_int8(x.reshape(-1))[:3],
+                lambda: ref.quantize_int8_ref(x))
+    if name == "dequant_int8":
+        q, s, _ = ref.quantize_int8_ref(ref.ef_accumulate(g, e, gamma))
+        s = s.clone()
+        s[1 % R] = 3e-39                              # a denormal scale
+        return (lambda: (ops.dequant_int8(q, s, R * LANES),),
+                lambda: (ref.dequantize_int8_ref(q, s),))
+    if name == "ef_topk":
+        return (lambda: ops.ef_topk(gf, ef, gamma=gamma, k=k),
+                lambda: ref.ef_topk_select_ref(g, e, gamma=gamma, k=k))
+    kern = getattr(ops, name)
+    plain = {"ef_int4": ref.ef_int4_ref, "ef_sign": ref.ef_sign_ref}[name]
+    return (lambda: kern(gf, ef, gamma=gamma)[:3],
+            lambda: plain(g, e, gamma=gamma))
+
+
+def flat_phase(torch, ops, ref, dev) -> dict:
+    """Phase 6b: K12-K16 bit for bit against their plain versions on row
+    counts 1-23 (a denormal row, an all-zero row, -0 entries) x gamma
+    1.0 / 0.9 / 0.6, top-k at every k of the ladder, and on one call over
+    all NB_350M rows of paper-350m, which is also timed."""
+    results = {name: {"max_abs_err": 0.0} for name in FLAT}
+    n_cases = 0
+    for rows in range(1, 24):
+        g, e = flat_inputs(torch, dev, rows, 200 + rows)
+        for gamma in (1.0, 0.9, 0.6):
+            for name in FLAT:
+                for k in (TOPK_KS if name == "ef_topk" else (TOPK_K,)):
+                    kern, plain = flat_fns(ops, ref, name, g, e, gamma, k)
+                    r = results[name]
+                    r["max_abs_err"] = max(r["max_abs_err"],
+                                           compare(torch, kern(), plain()))
+                    n_cases += 1
+    log(f"phase 6b: K12-K16 bit-exact on {n_cases} small cases (rows 1-23, "
+        f"gamma 1.0 / 0.9 / 0.6, top-k k = {TOPK_KS})")
+    g, e = flat_inputs(torch, dev, NB_350M, 9)
+    for name, (_, row_bytes, flops_el) in FLAT.items():
+        kern, plain = flat_fns(ops, ref, name, g, e, 0.9)
+        err = compare(torch, kern(), plain())
+        torch.cuda.empty_cache()
+        ms = time_ms(torch, kern, 10)
+        plain_ms = time_ms(torch, plain, 2)
+        torch.cuda.empty_cache()
+        nbytes = NB_350M * row_bytes
+        nops = NB_350M * LANES * flops_el
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = nops / FP32_FLOPS * 1e3
+        r = results[name]
+        r.update(max_abs_err=max(r["max_abs_err"], err), ms=ms,
+                 plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                 bytes=nbytes, gbps=nbytes / (ms * 1e-3) / 1e9)
+        log(f"phase 6b: {name} over {NB_350M} rows bit-exact; kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, {r['gbps']:.0f} GB/s, "
+            f"bound {r['bound_ms']:.3f} ms")
+    del g, e
+    torch.cuda.empty_cache()
+    return results
+
+
 def small_agreement(torch):
     """Phase 4: one smoke-model grad_sync step on the card and on the CPU
     from the same state and batch; the losses and updated weights must
@@ -526,17 +639,83 @@ def rung_bytes(ep, n_pods, codecs) -> int:
 GATHER_CODECS = ("int8", "int4", "topk", "sign")
 
 
+def ring_entries(ep, n_pods) -> int:
+    """Ring hops an executed plan posts, one log entry each: K chunks x
+    the critical path's hops (``planexec.ring_hops``) per ringing rung."""
+    from repro_torch.core.planexec import ring_hops
+    grids = (zip(ep.seg_sig, ep.seg_chunks) if ep.segmented
+             else ((ep.sig, ep.chunks),))
+    return sum(k * ring_hops(n_pods, ep.bidir) for sig, chunks in grids
+               for S, k in zip(sig, chunks) if S and k)
+
+
+#: phase 7's all-rungs assignment of paper-350m's 11 groups (sorted-key
+#: order: wk, wo, wq, wv, w_down, w_gate, w_up, ln1, ln2, embed,
+#: final_norm): every rung of the ladder gets a group, and the four payload
+#: codecs get the largest (INT8 the embedding, INT4 / TOPK10 / SIGN1 the
+#: MLP stacks), the rungs the roofline rings
+ALL_RUNGS = (0, 3, 6, 7, 2, 4, 5, 0, 3, 1, 6)
+#: phase 7's sync_tree round: exec plans by their ``ring`` argument
+RING_PLANS = {"one_shot": -1, "k2": 2, "auto": None}
+
+
+def sync_round(group, trainer, state, batch, omega, out):
+    """Phase 7's all-rungs sync_tree round, one pod: the same gradients
+    and residuals through the one-shot, the forced 2-chunk and the auto
+    exec plan; hashes of each plan's aggregate and residuals, and its
+    logged bytes beside ``plan_wire_bytes`` of its gather rungs."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.core import planexec
+    from repro_torch.core import sync as S
+
+    P = group.size
+    plan = trainer.scheduler.plan_from_levels(list(ALL_RUNGS), omega)
+    _, grads, _ = trainer._grad_step(state["params"], batch)
+    errors = state["ace"].errors
+    for name, ring in RING_PLANS.items():
+        ep = planexec.build_exec_plan(
+            plan, layout=trainer.leaf_layout, n_pods=P, ring=ring,
+            segments=planexec.config_segments(trainer.run.acesync),
+            device=group.device)
+        log0 = len(group.log)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agg, new_e = S.sync_tree(grads, errors, ep, gamma=0.9, pods=group)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        new = group.log[log0:]
+        out["round"][name] = {
+            "agg": [int(bits_hash(torch, x)) for x in T.leaves(agg)],
+            "err": [int(bits_hash(torch, x)) for x in T.leaves(new_e)],
+            "bytes": sum(x["bytes"] for x in new
+                         if x["op"] in ("gather", "ring")),
+            "want": rung_bytes(ep, P, GATHER_CODECS),
+            "chunks": [list(c) for c in (ep.seg_chunks if ep.segmented
+                                         else (ep.chunks,))],
+            "hops": sum(1 for x in new if x["op"] == "ring"),
+            "want_hops": ring_entries(ep, P),
+            "ms": secs * 1e3}
+        del agg, new_e
+        torch.cuda.empty_cache()
+
+
 def pod_main_path(group, spec):
-    """Phase 7, one pod process: paper-350m at full width through
-    TrainSession (``spec["steps"]`` steps, one device replan), then one
-    grad_sync step with all 8 rungs.  Returns this pod's hashes, counts,
-    bytes and times; the parent compares the pods."""
+    """Phase 7, one pod process: the pod link's ping-pong (P = 2), then
+    paper-350m at full width through TrainSession under the default
+    ``ACESyncConfig`` (``spec["steps"]`` steps, one device replan), one
+    grad_sync step with all 8 rungs whose payload rungs ring in 2 chunks,
+    and the all-rungs sync_tree round under three exec plans.  Returns
+    this pod's hashes, counts, bytes and times; the parent compares the
+    pods."""
     import torch
     from repro_torch import tree as T
     from repro_torch.configs import ARCHS
     from repro_torch.configs.base import (ACESyncConfig, RunConfig,
                                           ShapeConfig)
+    from repro_torch.core import planexec
     from repro_torch.kernels import ops
+    from repro_torch.launch import linkbench
     from repro_torch.launch.session import TrainSession
     from repro_torch.models.registry import build_model
     from repro_torch.optim import adamw
@@ -544,6 +723,7 @@ def pod_main_path(group, spec):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     P = group.size
+    link = linkbench.ping_pong(group) if P == 2 else None
     cfg = ARCHS["paper-350m"]
     if spec["n_layers"] is not None:
         cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
@@ -551,7 +731,7 @@ def pod_main_path(group, spec):
                     shape=ShapeConfig("session", 1024, spec["batch"],
                                       "train"),
                     total_steps=100, warmup_steps=2,
-                    acesync=ACESyncConfig(replan_every=4, ring_chunks=-1))
+                    acesync=ACESyncConfig(replan_every=4))
     sess = TrainSession(build_model(cfg, run, device=group.device), run,
                         strategy="acesync", pods=group)
     cfg = sess.model.cfg
@@ -559,7 +739,8 @@ def pod_main_path(group, spec):
     step = trainer.step
     out = {"times": [], "param_hashes": [], "agg_hashes": [],
            "bytes": [], "width": (cfg.d_model, cfg.vocab_size),
-           "layers": cfg.n_layers}
+           "layers": cfg.n_layers, "round": {}, "ringed": 0,
+           "want_ringed": 0}
 
     def timed(state, batch, plan, kind="grad_sync"):
         log0 = len(group.log)
@@ -573,8 +754,10 @@ def pod_main_path(group, spec):
                              sum(x["sync_seconds"] for x in new)))
         if kind in ("delta_sync", "grad_sync"):
             ep = trainer.exec_plan(plan)
+            out["ringed"] += sum(1 for x in new if x["op"] == "ring")
+            out["want_ringed"] += ring_entries(ep, P)
             out["bytes"].append((kind, sum(x["bytes"] for x in new
-                                           if x["op"] == "gather"),
+                                           if x["op"] in ("gather", "ring")),
                                  rung_bytes(ep, P, GATHER_CODECS),
                                  sum(x["bytes"] for x in new
                                      if x["op"] == "full"),
@@ -592,8 +775,13 @@ def pod_main_path(group, spec):
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     sess.run(spec["steps"], log_every=1 if group.rank == 0 else 0)
-    plan = trainer.scheduler.plan_from_levels(
-        [i % 8 for i in range(len(trainer.sizes))], sess.loop.plan.omega)
+    # the all-rungs step rings every payload rung (2 chunks each)
+    acfg = trainer.run.acesync
+    plan = planexec.build_exec_plan(
+        trainer.scheduler.plan_from_levels(list(ALL_RUNGS),
+                                           sess.loop.plan.omega),
+        layout=trainer.leaf_layout, n_pods=P, ring=2, bidir=acfg.ring_bidir,
+        segments=planexec.config_segments(acfg), device=group.device)
     # the aggregate rows each rung hands to AdamW, hashed in rung order
     update_rows = adamw.update_rows
 
@@ -607,6 +795,10 @@ def pod_main_path(group, spec):
                                       "grad_sync")
     finally:
         adamw.update_rows = update_rows
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    sync_round(group, trainer, state, next(sess.pipeline),
+               sess.loop.plan.omega, out)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -624,7 +816,9 @@ def pod_main_path(group, spec):
         "replans": sess.loop.device_replans, "launches": launches,
         "peak": torch.cuda.max_memory_allocated(),
         "reserved": torch.cuda.max_memory_reserved(), "wall": wall,
-        "per_kind": per_kind, "bytes": out["bytes"],
+        "train_s": train_s, "per_kind": per_kind, "bytes": out["bytes"],
+        "ringed": out["ringed"], "want_ringed": out["want_ringed"],
+        "round": out["round"], "link": link,
         "param_hashes": [[int(h) for h in hs]
                          for hs in out["param_hashes"]],
         "agg_hashes": [int(h) for h in out["agg_hashes"]],
@@ -659,9 +853,24 @@ def multipod_run(spec) -> dict:
             fail(f"{tag}: {pod['replans']} device replans applied")
         for kind, got, want, _, _ in pod["bytes"]:
             if got != want:
-                fail(f"{tag}: pod {pod['pod']} gathered {got} bytes in a "
-                     f"{kind} step, plan_wire_bytes of the gather rungs "
-                     f"is {want}")
+                fail(f"{tag}: pod {pod['pod']} moved {got} bytes (gather + "
+                     f"ring) in a {kind} step, plan_wire_bytes of the "
+                     f"gather rungs is {want}")
+        for name, rnd in pod["round"].items():
+            if rnd["bytes"] != rnd["want"]:
+                fail(f"{tag}: sync_tree round '{name}' moved {rnd['bytes']} "
+                     f"bytes on pod {pod['pod']}, plan_wire_bytes "
+                     f"{rnd['want']}")
+            if rnd["hops"] != rnd["want_hops"]:
+                fail(f"{tag}: sync_tree round '{name}' posted {rnd['hops']} "
+                     f"ring hops on pod {pod['pod']}, its chunk grid "
+                     f"{rnd['chunks']} asks for {rnd['want_hops']}")
+            if rnd["err"] != pod["round"]["one_shot"]["err"]:
+                fail(f"{tag}: residuals of the '{name}' plan differ from "
+                     f"the one-shot's on pod {pod['pod']}")
+            if rnd["agg"] != first["round"]["one_shot"]["agg"]:
+                fail(f"{tag}: aggregate of the '{name}' plan on pod "
+                     f"{pod['pod']} differs from pod 0's one-shot")
     for key, what in (("param_hashes", "parameters after delta_sync"),
                       ("agg_hashes", "all-rungs aggregate"),
                       ("losses", "pod-mean losses"), ("plan", "plans")):
@@ -669,6 +878,12 @@ def multipod_run(spec) -> dict:
             fail(f"{tag}: {what} differ across pods")
     if not first["param_hashes"] or not first["agg_hashes"]:
         fail(f"{tag}: nothing was hashed")
+        if pod["ringed"] != pod["want_ringed"]:
+            fail(f"{tag}: the training run's sync steps posted "
+                 f"{pod['ringed']} ring hops on pod {pod['pod']}, their "
+                 f"chunk grids ask for {pod['want_ringed']}")
+    if not first["round"]["k2"]["hops"] or not first["ringed"]:
+        fail(f"{tag}: the forced 2-chunk plans posted no ring hop")
     launches = {k: sum(pod["launches"][k] for pod in pods)
                 for k in first["launches"]}
     for kind in sorted(first["per_kind"]):
@@ -684,25 +899,41 @@ def multipod_run(spec) -> dict:
                 f"{comm:.2f} ms host time ({sync:.2f} ms waiting for the "
                 f"card before the staged copies)")
     for kind, got, want, full, full_priced in first["bytes"]:
-        log(f"{tag}: {kind} gathered {got} B = plan_wire_bytes of the "
-            f"gather rungs {want} B; FULL's pod-order sum gathered {full} B "
-            f"per pod, FullCodec.wire_bytes prices {full_priced} B (a bf16 "
-            f"ring all-reduce)")
+        log(f"{tag}: {kind} moved {got} B (gather + ring) = plan_wire_bytes "
+            f"of the gather rungs {want} B; FULL's pod-order sum gathered "
+            f"{full} B per pod, FullCodec.wire_bytes prices {full_priced} B "
+            f"(a bf16 ring all-reduce)")
+    for name, rnd in first["round"].items():
+        log(f"{tag}: sync_tree round '{name}': chunk grid {rnd['chunks']}, "
+            f"{rnd['hops']} ring hops, {rnd['bytes']} B = plan_wire_bytes, "
+            f"{[round(p['round'][name]['ms'], 1) for p in pods]} ms per pod; "
+            f"aggregate and residuals bit-identical to the one-shot plan's")
+    if first["link"]:
+        lk = first["link"]
+        log(f"{tag}: pod link ({lk['backend']}, staged {lk['staged']}) "
+            f"ping-pong one-way s {[f'{t:.6g}' for t in lk['one_way_s']]} "
+            f"for {lk['sizes']} B; fit latency {lk['latency_s']:.6g} s, "
+            f"rate {lk['rate_bytes_per_s']:.6g} B/s")
     log(f"{tag}: {first['layers']} layers, backend {first['backend']}, "
         f"losses {[round(x, 4) for x in first['losses']]}; "
         f"{len(first['param_hashes'])} delta_sync rounds and the "
-        f"all-rungs aggregate bit-identical on {n_pods} pods; peak memory "
+        f"all-rungs aggregate bit-identical on {n_pods} pods; "
+        f"{first['ringed']} ring hops in the training run's sync steps "
+        f"(as their chunk grids ask); "
+        f"training {[round(p['train_s'], 1) for p in pods]} s; peak memory "
         f"per pod {[round(p['peak'] / 2**30, 2) for p in pods]} GiB "
         f"(reserved {[round(p['reserved'] / 2**30, 2) for p in pods]}); "
         f"launches (all pods) {launches}; wall {wall:.1f} s")
-    return launches
+    return launches, first["link"]
 
 
 def multipod_phase(torch) -> dict:
-    """Phase 7: the multi-pod main paths, pods as processes sharing the
-    card: P = 2 (global batch 8, 8 steps) reaches K1-K8, P = 3 (global
-    batch 6, 4 steps, 16 layers) K8-K11.  Returns each path's launch
-    counts (all pods)."""
+    """Phase 7: the multi-pod main paths under the default ACESyncConfig
+    (the chunked ring on the rungs the roofline rings), pods as processes
+    sharing the card: P = 2 (global batch 8, 8 steps) and P = 3 (global
+    batch 6, 4 steps, 16 layers), each with its all-rungs step and
+    sync_tree round.  Returns each path's launch counts (all pods) and the
+    pod link's measurement."""
     import gc
     gc.collect()
     torch.cuda.empty_cache()
@@ -710,16 +941,20 @@ def multipod_phase(torch) -> dict:
     # holding fragments
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
-    runs = {path: multipod_run(spec) for path, spec in PATHS.items()}
+    runs, link = {}, None
+    for path, spec in PATHS.items():
+        runs[path], got = multipod_run(spec)
+        link = link or got
     r2, r3 = runs["p2"], runs["p3"]
     missing2 = [k for k in DECODE if r2[k] < 1 and not k.endswith("_fp")]
     missing3 = [k for k in DECODE if r3[k] < 1
                 and (k.endswith("_fp") or k == "topk_scatter_accum")]
-    missing = [k for k in KERNELS if r2[k] < 1 or r3[k] < 1]
+    ring = [k for k in FLAT if k != "dequant_int8"]
+    missing = [k for k in (*KERNELS, *ring) if r2[k] < 1 or r3[k] < 1]
     if missing2 or missing3 or missing:
         fail(f"phase 7: kernels never launched: P=2 {missing2 + missing}, "
              f"P=3 {missing3 + missing}")
-    return runs
+    return runs, link
 
 
 def main() -> int:
@@ -746,15 +981,31 @@ def main() -> int:
         f"(nvcc {build.last_build.get('seconds', 0.0):.2f} s) -> "
         f"{build.last_build.get('path')}")
 
-    results = kernel_phase(np, torch, ops, ref, dev)
-    small_agreement(torch)
-    by_path = {"one_pod": main_path(torch, ops)}
-    results.update(decode_phase(np, torch, ops, ref, dev))
-    by_path.update(multipod_phase(torch))
+    phase_s = {}
+
+    def timed_phase(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t, 2)
+        log(f"{name}: {phase_s[name]} s")
+        return res
+
+    results = timed_phase("phase 3", kernel_phase, np, torch, ops, ref, dev)
+    timed_phase("phase 4", small_agreement, torch)
+    by_path = {"one_pod": timed_phase("phase 5", main_path, torch, ops)}
+    results.update(timed_phase("phase 6", decode_phase, np, torch, ops, ref,
+                               dev))
+    results.update(timed_phase("phase 6b", flat_phase, torch, ops, ref, dev))
+    runs, link = timed_phase("phase 7", multipod_phase, torch)
+    by_path.update(runs)
+    log(f"pod link (phase 7, P = 2 ping-pong): latency "
+        f"{link['latency_s']:.6g} s per hop, rate "
+        f"{link['rate_bytes_per_s']:.6g} B/s; phase seconds {phase_s}")
 
     kernels = []
     table = [(n, SOURCE, rep) for n, (rep, _, _) in KERNELS.items()]
     table += [(n, DECODE_SOURCE, rep) for n, (rep, _) in DECODE.items()]
+    table += [(n, SOURCE, rep) for n, (rep, _, _) in FLAT.items()]
     for name, source, replaces in table:
         r = results[name]
         kernels.append({
@@ -774,7 +1025,10 @@ def main() -> int:
     paths.update({path: {"pods": spec["pods"],
                          "layers": spec["n_layers"] or 24}
                   for path, spec in PATHS.items()})
-    print(json.dumps({"kernels": kernels, "paths": paths}), flush=True)
+    print(json.dumps({"kernels": kernels, "paths": paths,
+                      "link": {k: link[k] for k in ("latency_s",
+                                                    "rate_bytes_per_s")}}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -23,10 +23,19 @@ A :class:`Codec` owns one rung of the compression ladder:
   * ``wire_bytes`` — analytic per-device bytes over the pod axis, the one
     place comm volume is priced (scheduler, knapsack, comm accounting).
 
+  * ``ef_sync_ring`` — the chunked ring: the payload split into K row
+    chunks that travel the pod ring hop by hop (two half-rings by
+    default), each chunk folded while the next one is on the link.  Its
+    aggregate is bit-identical to the one-shot exchange's and on every
+    pod: integer folds (P >= 3) are exact in any order, and every float
+    fold runs in canonical pod order 0..P-1 — at P = 2 too, where the
+    reference folds its own payload first and its two pods can differ in
+    the last bit.
+
 Every collective takes a :class:`~repro_torch.launch.mesh.PodGroup`
-(``pods``) where the reference names its mesh axis.  The chunked ring
-(``ef_sync_ring``) and the two-tier exchange (``ef_sync_hier``) belong to
-later slices of the port and raise ``NotImplementedError``.
+(``pods``) where the reference names its mesh axis.  The two-tier
+exchange (``ef_sync_hier``) belongs to a later slice of the port and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -40,9 +49,6 @@ from repro_torch.kernels.ref import (FIXED_POINT_BITS, ef_accumulate,
                                      fixed_point, fma_f32, from_fixed_point,
                                      ftz)
 
-_RING = ("the chunked ring exchange is not ported yet: it comes with the "
-         "ring slice of repro_torch (ACESyncConfig.ring_chunks=-1 selects "
-         "the one-shot exchange)")
 _HIER = ("the two-tier exchange is not ported yet: it comes with the "
          "two-tier slice of repro_torch")
 
@@ -334,10 +340,160 @@ class Codec:
                              fixed_bits=fixed_bits)
         return agg, new_e
 
-    # ---- later slices ---------------------------------------------------
-    def ef_sync_ring(self, *args, **kwargs):
-        raise NotImplementedError(_RING)
+    # ---- the chunked ring ------------------------------------------------
+    def _chunk_payload(self, payload: Dict[str, torch.Tensor], i: int,
+                       cb: int) -> Dict[str, torch.Tensor]:
+        """Rows ``[i*cb, (i+1)*cb)`` of every payload component (every
+        component's leading dimension is the block row)."""
+        return {k: a[i * cb:(i + 1) * cb] for k, a in payload.items()}
 
+    def ef_sync_ring(self, flat: torch.Tensor, e_flat: torch.Tensor,
+                     omega: torch.Tensor, omega_own: torch.Tensor, *,
+                     gamma: float, n_pods: int, n_chunks: int,
+                     block: int = BLOCK, pods=None, bidir: bool = True,
+                     deterministic: Optional[bool] = None,
+                     fixed_bits: int = FIXED_POINT_BITS
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """EF + compress + chunked ring exchange of one flat buffer ->
+        ``(agg, new_e)``.
+
+        The payload is cut into ``n_chunks`` equal row chunks (the plan
+        pads the bucket to a chunk multiple), which travel the pod ring
+        with K*(P-1) hops — the all_gather receive volume.  ``bidir``: two
+        half-rings, ceil((P-1)/2) hops forward and floor((P-1)/2)
+        backward, both directions in flight together.  Hop 0 is the own
+        chunk; at each later hop chunk i's transfers are posted before
+        chunk i-1's receives are folded, so the fold runs while the link
+        carries the next chunk.  The caller's buffers are dropped as soon
+        as they are encoded.
+
+        ``deterministic`` (auto: on for P >= 3) folds in exact integer
+        arithmetic, in arrival order; every float fold (top-k's
+        ``canonical_fold``, and any codec at P = 2) buffers each chunk's P
+        payloads and folds them in canonical pod order 0..P-1
+        (:meth:`_ring_canonical_fold`).  Either way the aggregate is the
+        one-shot exchange's, bit for bit, on every pod."""
+        if n_pods <= 1 or not self.supports_ring:
+            return self.ef_sync(flat, e_flat, omega, omega_own, gamma=gamma,
+                                n_pods=n_pods, block=block, pods=pods,
+                                deterministic=deterministic,
+                                fixed_bits=fixed_bits)
+        _need_pods(pods, n_pods)
+        if deterministic is None:
+            deterministic = n_pods >= 3
+        if n_pods >= 3 and not deterministic:
+            raise ValueError(
+                f"the float ring fold in arrival order drifts across pods "
+                f"for n_pods={n_pods} >= 3; pass deterministic=None or True")
+        n = flat.shape[0]
+        payload, own, new_e = self.ef_encode(flat, e_flat, gamma=gamma,
+                                             block=block)
+        del flat, e_flat, own
+        nb = n_blocks(n, block)
+        K = max(1, min(int(n_chunks), nb))
+        if nb % K:
+            raise ValueError(f"{nb} blocks do not split into {K} chunks")
+        cb = nb // K
+        chunks = [self._chunk_payload(payload, i, cb) for i in range(K)]
+        wires = [pack_payload(c) for c in chunks]
+        meta = wires[0][1]
+        wires = [w for w, _ in wires]
+        del payload
+        P = n_pods
+        hops_f = P // 2 if bidir else P - 1
+        hops_b = P - 1 - hops_f
+        if self.canonical_fold or not deterministic:
+            parts = self._ring_canonical_fold(wires, meta, omega, pods,
+                                              hops_f, hops_b, cb, block)
+        else:
+            parts = self._ring_stream_fold(chunks, wires, meta, omega,
+                                           omega_own, pods, hops_f, hops_b,
+                                           cb, block, fixed_bits)
+        agg = parts[0] if K == 1 else torch.cat(parts)
+        return agg[:n], new_e
+
+    @staticmethod
+    def _ring_walk(wires, pods, hops_f: int, hops_b: int, on_recv) -> None:
+        """Drive the hops: at hop h (1..max(hops_f, hops_b)) post chunk i's
+        transfers, then call ``on_recv(h, i - 1, recv_f, recv_b)`` with
+        chunk i-1's arrivals — forward from pod (my - h) % P, backward from
+        (my + h) % P — which the next hop forwards as they are."""
+        K = len(wires)
+        cur_f = pods.ring_stage(wires)
+        cur_b = list(cur_f)
+        for h in range(1, max(hops_f, hops_b) + 1):
+            nxt_f, nxt_b = [None] * K, [None] * K
+
+            def land(i, hop):
+                nxt_f[i], nxt_b[i] = hop.wait()
+                on_recv(h, i, nxt_f[i], nxt_b[i])
+
+            pending = None
+            for i in range(K):
+                hop = pods.ring_hop(cur_f[i] if h <= hops_f else None,
+                                    cur_b[i] if h <= hops_b else None,
+                                    tag=h * K + i)
+                if pending is not None:
+                    land(*pending)
+                pending = (i, hop)
+            land(*pending)
+            cur_f, cur_b = nxt_f, nxt_b
+
+    def _ring_stream_fold(self, chunks, wires, meta, omega, omega_own, pods,
+                          hops_f, hops_b, cb, block, fixed_bits):
+        """Exact integer fold of every arrival as it lands (P >= 3): the
+        fixed-point partial sums and integer votes are the same bits in
+        any order."""
+        init_kw, fold_kw = self._det_kwargs(True, fixed_bits)
+        dev = omega.device
+        accs = [self.decode_accumulate(
+                    self.accum_init(cb, block, device=dev, **init_kw),
+                    c, omega_own, block=block, **fold_kw) for c in chunks]
+        P, my = pods.size, pods.rank
+
+        def on_recv(h, i, rf, rb):
+            for buf, src in ((rf, (my - h) % P), (rb, (my + h) % P)):
+                if buf is not None:
+                    accs[i] = self.decode_accumulate(
+                        accs[i], unpack_payload(pods.ring_to_device(buf),
+                                                meta),
+                        omega[src], block=block, **fold_kw)
+
+        self._ring_walk(wires, pods, hops_f, hops_b, on_recv)
+        return [self.accum_finalize(a, cb * block, block, **fold_kw)
+                for a in accs]
+
+    def _ring_canonical_fold(self, wires, meta, omega, pods, hops_f, hops_b,
+                             cb, block):
+        """Canonical-order float fold: each chunk's arrivals are held
+        (in the transport's buffers) until its last hop has landed, then
+        its P payloads are folded in pod order 0..P-1 — the association of
+        the one-shot exchange's fold, so every pod gets its bits."""
+        P, my = pods.size, pods.rank
+        held = [{my: w} for w in wires]
+        last = max(hops_f, hops_b)
+        parts = [None] * len(wires)
+
+        def on_recv(h, i, rf, rb):
+            if rf is not None:
+                held[i][(my - h) % P] = rf
+            if rb is not None:
+                held[i][(my + h) % P] = rb
+            if h < last:
+                return
+            acc = self.accum_init(cb, block, device=omega.device)
+            for p in range(P):
+                wire = held[i][p] if p == my else pods.ring_to_device(
+                    held[i][p])
+                acc = self.decode_accumulate(acc, unpack_payload(wire, meta),
+                                             omega[p], block=block)
+            held[i] = None
+            parts[i] = self.accum_finalize(acc, cb * block, block)
+
+        self._ring_walk(wires, pods, hops_f, hops_b, on_recv)
+        return parts
+
+    # ---- later slices ---------------------------------------------------
     def ef_sync_hier(self, *args, **kwargs):
         raise NotImplementedError(_HIER)
 

@@ -4,13 +4,14 @@ FULL (bf16), dense INT8, packed INT4, block TOPK (int8 values + uint16
 indices), 1-bit SIGN with a per-block mean-magnitude scale, and SKIP.
 INT8 / INT4 / SIGN / TOPK are producer-fused: their ``ef_encode_gather``
 runs the gather + error-feedback + encode kernel of
-:mod:`repro_torch.kernels.ops` on the rung's rows, and their
-``decode_accumulate`` the decode-accumulate kernel that folds one peer's
-payload into the aggregate; each launches the Hopper kernel for CUDA
-tensors and the plain PyTorch version for CPU ones.  The kernels work on
-rows of ``ops.LANES`` (1024) entries only, so these codecs refuse any
-other block size instead of taking a plain path.  FULL's exchange is a
-cross-pod sum of bf16 contributions, SKIP's is nothing.
+:mod:`repro_torch.kernels.ops` on the rung's rows, their flat
+``ef_encode`` (the ring's encode) the flat encoder on a contiguous buffer,
+and their ``decode_accumulate`` the decode-accumulate kernel that folds
+one peer's payload into the aggregate; each launches the Hopper kernel
+for CUDA tensors and the plain PyTorch version for CPU ones.  The kernels
+work on rows of ``ops.LANES`` (1024) entries only, so these codecs refuse
+any other block size instead of taking a plain path.  FULL's exchange is
+a cross-pod sum of bf16 contributions, SKIP's is nothing.
 """
 from __future__ import annotations
 
@@ -19,8 +20,8 @@ import torch
 from repro_torch.codecs.base import (Codec, _need_pods, n_blocks, pack_bits,
                                      register_codec, unpack_bits)
 from repro_torch.core.compression import (BLOCK, int8_compress,
-                                          int8_decompress, topk_compress,
-                                          topk_decompress)
+                                          int8_decompress, pad_to_blocks,
+                                          topk_compress, topk_decompress)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (FIXED_POINT_BITS, INV_LANES,
                                      _int4_body, ef_accumulate,
@@ -103,6 +104,15 @@ class Int8Codec(Codec):
     def decode(self, payload, block: int = BLOCK):
         return int8_decompress(payload["q"], payload["scale"])
 
+    def ef_encode(self, flat, e_flat, *, gamma, block=BLOCK):
+        _kernel_rows(block)
+        # the reference applies the error feedback outside its kernel (one
+        # fused multiply-add under jit), then quantises (K12); own is one
+        # more elementwise pass
+        ef = ef_accumulate(flat, e_flat, gamma)
+        q, s, r, _ = ops.quantize_int8(ef)
+        return {"q": q, "scale": s[:, 0]}, ftz(ef - r), r
+
     def ef_encode_gather(self, fb, eb, perm, *, gamma, block=BLOCK):
         _kernel_rows(block)
         q, s, r, own = ops.gather_ef_int8(fb, eb, perm, gamma=gamma)
@@ -151,6 +161,15 @@ class TopKCodec(Codec):
     def decode(self, payload, block: int = BLOCK):
         return topk_decompress(payload["q"], payload["idx"],
                                payload["scale"], block)
+
+    def ef_encode(self, flat, e_flat, *, gamma, block=BLOCK):
+        _kernel_rows(block)
+        n = flat.shape[0]
+        sel, res = ops.ef_topk(flat, e_flat, gamma=gamma,
+                               k=self.block_k(block))
+        payload = self.encode(pad_to_blocks(sel, block))
+        own = self.decode(payload, block).reshape(-1)[:n]
+        return payload, own, ftz(ftz(sel - own) + res)
 
     def ef_encode_gather(self, fb, eb, perm, *, gamma, block=BLOCK):
         _kernel_rows(block)
@@ -224,6 +243,12 @@ class Int4Codec(Codec):
     def decode(self, payload, block: int = BLOCK):
         return unpack_nibbles(payload["q"]) * payload["scale"][:, None]
 
+    def ef_encode(self, flat, e_flat, *, gamma, block=BLOCK):
+        _kernel_rows(block)
+        p, s, r, _ = ops.ef_int4(flat, e_flat, gamma=gamma)
+        own = ftz(ef_accumulate(flat, e_flat, gamma) - r)
+        return {"q": p, "scale": s[:, 0]}, own, r
+
     def ef_encode_gather(self, fb, eb, perm, *, gamma, block=BLOCK):
         _kernel_rows(block)
         p, s, r, own = ops.gather_ef_int4(fb, eb, perm, gamma=gamma)
@@ -260,6 +285,12 @@ class SignCodec(Codec):
     def decode(self, payload, block: int = BLOCK):
         signs = unpack_bits(payload["q"], block).float() * 2 - 1
         return signs * payload["scale"][:, None]
+
+    def ef_encode(self, flat, e_flat, *, gamma, block=BLOCK):
+        _kernel_rows(block)
+        sg, s, r, _ = ops.ef_sign(flat, e_flat, gamma=gamma)
+        own = ftz(ef_accumulate(flat, e_flat, gamma) - r)
+        return {"q": pack_bits(sg > 0), "scale": s[:, 0]}, own, r
 
     def ef_encode_gather(self, fb, eb, perm, *, gamma, block=BLOCK):
         _kernel_rows(block)

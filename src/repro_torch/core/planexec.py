@@ -1,5 +1,5 @@
 """Plan-as-data: the executable form of a SyncPlan — port of
-``repro/core/planexec.py`` for one pod.
+``repro/core/planexec.py``.
 
 Every parameter group is laid out block-aligned in one static flat
 (NB, block) buffer (:func:`leaf_layout`).  Per ladder rung, a gather
@@ -11,12 +11,18 @@ plans, perms and priced bytes are the reference's, index for index.
 
 The JAX package keeps only the signature static so that replans never
 recompile; PyTorch runs eagerly, so here the signature matters only for
-pricing and for lining the plans up with the reference.  The ring chunk
-grid and the two-tier grid belong to the ring and two-tier slices: the
-port runs the one-shot exchange (``ACESyncConfig.ring_chunks = -1``) on
-any pod count, where both grids are zeros, as they are in the reference.
-The reference's one-shot and ring aggregates are bit-identical by design,
-so this limits the transport, not the results.
+pricing and for lining the plans up with the reference.
+
+Chunk grid (the ring exchange): rungs big enough to be bound by the pod
+link run the chunked ring (``Codec.ef_sync_ring``), K chunks per rung
+from :func:`ring_chunk_count`, the reference's roofline heuristic over
+this machine's own constants (the H100's memory rate, and the rate and
+per-hop latency of the pod link as the port's transport measured them);
+a ringing rung's padded size is rounded up to a K multiple.  The grid is
+a function of the signature and these module constants alone, never of
+anything measured at run time, so every pod computes the same grid.
+``chunks[r] == 0`` is the one-shot ``all_gather``.  The two-tier grid
+belongs to the two-tier slice and is zeros.
 """
 from __future__ import annotations
 
@@ -80,6 +86,75 @@ def bucket_signature(level_idx: Sequence[int], sizes: Sequence[int],
     return tuple(per)
 
 
+# ---- ring constants: one NVIDIA H100 80GB HBM3 at a 700 W power limit,
+# pods as processes sharing the card ------------------------------------
+#
+# The link constants were measured by ``python -m
+# repro_torch.launch.linkbench --iters 20`` (PERF.md): a ping-pong
+# between two pod processes over the port's transport for that layout
+# (gloo over loopback TCP, each message staged device -> pinned host ->
+# device), 4 KB to 64 MB; the median of three runs.  Every pod reads these
+# same constants, so the grid never depends on a run's own timing.
+
+#: device memory rate, bytes/s (H100 SXM datasheet, 3.35 TB/s)
+HBM_BW = 3.35e12
+#: pod-link rate, bytes/s: the slope of the ping-pong's one-way time
+#: (runs: 2.409e9, 2.462e9, 1.946e9)
+LINK_BW = 2.409e9
+#: per-hop latency of the pod link, seconds: the fit's one-way time at
+#: zero bytes (runs: 4.313e-4, 3.828e-4, 4.282e-4)
+RING_HOP_LATENCY_S = 4.282e-4
+#: never split a rung into more chunks than this (a design constant)
+RING_MAX_CHUNKS = 16
+#: target link time of one chunk-hop: ~50x the hop latency, which it
+#: amortises, as the reference's rule sets it
+RING_TARGET_CHUNK_S = 50 * RING_HOP_LATENCY_S
+
+
+def ring_hops(n_pods: int, bidir: bool = True) -> int:
+    """Sequential hops on the ring's critical path: the bidirectional
+    ring runs two half-rings, forward ceil((P-1)/2) hops and backward
+    floor((P-1)/2)."""
+    if n_pods <= 1:
+        return 0
+    return (n_pods // 2) if bidir else (n_pods - 1)
+
+
+def ring_chunk_count(level: Level, nb: int, n_pods: int,
+                     block: int = BLOCK, ring: Optional[int] = None,
+                     bidir: bool = True) -> int:
+    """Chunk count K for one rung (0 = the one-shot ``all_gather``).
+
+    The reference's roofline heuristic: the ring hides the per-chunk
+    decode (bound by :data:`HBM_BW`) behind the link transfer of the next
+    chunk (:data:`LINK_BW`) at the cost of K*(P-1) hops.  A rung rings
+    when the decode it could hide outweighs the latency of a 2-chunk ring
+    and its per-hop link time is at least 8 hop latencies; K targets
+    :data:`RING_TARGET_CHUNK_S` of link time per chunk-hop, clamped to
+    [2, RING_MAX_CHUNKS] and rounded up to a power of two.
+
+    ``ring``: None = the heuristic; <= 0 = one-shot; K > 0 = K chunks on
+    every ring-capable rung."""
+    codec = level.codec
+    if (n_pods <= 1 or nb <= 0
+            or not getattr(codec, "supports_ring", False)):
+        return 0
+    if ring is not None:
+        return 0 if ring <= 0 else min(int(ring), nb)
+    payload = codec.payload_bytes(nb * block, block)
+    hops = ring_hops(n_pods, bidir)
+    hop_t = payload / LINK_BW
+    decode_t = (payload + 8.0 * nb * block) * (n_pods - 1) / HBM_BW
+    if decode_t < 2 * hops * RING_HOP_LATENCY_S:
+        return 0
+    if hop_t < 8 * RING_HOP_LATENCY_S:
+        return 0
+    k = int(round(hop_t / RING_TARGET_CHUNK_S))
+    k = max(2, min(RING_MAX_CHUNKS, nb, k))
+    k = 1 << (k - 1).bit_length()
+    return min(k, RING_MAX_CHUNKS, nb)
+
+
 def ring_override(ring_chunks: int) -> Optional[int]:
     """Translate ``ACESyncConfig.ring_chunks`` (0 = auto, -1 = never,
     K = force K) into the ``ring`` argument of :func:`exec_grid` (None =
@@ -93,22 +168,22 @@ def exec_grid(level_idx: Sequence[int], sizes: Sequence[int],
               bidir: bool = True, n_edge: int = 1,
               hier: Optional[int] = None
               ) -> Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[int, ...]]:
-    """(sig, chunks, hier) of the executed exchange.  No rung rings and
-    none goes two-tier, so both grids are zeros: on one pod always, on
-    more pods when ``ring`` asks for the one-shot exchange (<= 0).  The
-    ring (``ring`` None or K > 0 on more than one pod) and the two-tier
-    fleet (``n_edge`` > 1) raise."""
+    """(sig, chunks, hier) of the executed exchange: the class-padded
+    signature with each ringing rung rounded up to a chunk multiple, the
+    chunk grid (:func:`ring_chunk_count`) and the tier grid (zeros: the
+    two-tier fleet, ``n_edge`` > 1, raises)."""
     if n_edge > 1:
         raise NotImplementedError("the two-tier exchange comes with the "
                                   "two-tier slice of repro_torch")
-    if n_pods > 1 and (ring is None or ring > 0):
-        raise NotImplementedError(
-            f"the chunked ring exchange (ring={ring}) comes with the ring "
-            f"slice of repro_torch; set ACESyncConfig.ring_chunks=-1 for "
-            f"the one-shot exchange on {n_pods} pods")
-    sig = bucket_signature(level_idx, sizes, len(levels), block, growth)
-    zeros = tuple(0 for _ in sig)
-    return sig, zeros, zeros
+    sig = list(bucket_signature(level_idx, sizes, len(levels), block,
+                                growth))
+    chunks = []
+    for r, nb in enumerate(sig):
+        k = ring_chunk_count(levels[r], nb, n_pods, block, ring, bidir)
+        if k > 1 and nb % k:
+            sig[r] = ((nb + k - 1) // k) * k
+        chunks.append(k)
+    return tuple(sig), tuple(chunks), tuple(0 for _ in sig)
 
 
 def sig_wire_bytes(sig: Sequence[int], levels: Sequence[Level],

@@ -14,11 +14,15 @@ Hopper kernels of :mod:`repro_torch.kernels.ops` on the card), and the
 aggregate and residual are scattered back through the same permutation.
 
 Multi-pod (``pods``, a :class:`~repro_torch.launch.mesh.PodGroup`): the
-encode pass stops every payload rung at its packed uint8 wire, the wires
-of a leaf range go out in ONE ``all_gather``, and each rung's slice of the
-gathered buffer is folded in canonical pod order (deterministically with
-3 or more pods).  FULL rungs sum their bf16 contributions across the pods
-in the encode pass; SKIP rungs send nothing.
+encode pass stops every one-shot payload rung at its packed uint8 wire,
+the wires of a leaf range go out in ONE ``all_gather``, and each rung's
+slice of the gathered buffer is folded in canonical pod order
+(deterministically with 3 or more pods).  Rungs the plan's chunk grid
+rings (``ExecPlan.chunks``) stay out of that gather: their bucket is
+gathered, encoded by the flat encoder and sent around the chunked ring
+in the encode pass (``Codec.ef_sync_ring``), its buffers dropped as soon
+as they are encoded.  FULL rungs sum their bf16 contributions across the
+pods in the encode pass; SKIP rungs send nothing.
 
 Rung-ordered apply (``apply_fn``): the optimizer consumes each rung's
 aggregate as soon as the rung is done, on the rung's ``(S, block)`` rows
@@ -34,11 +38,12 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Union
+from typing import List, Optional, Union
 
 import torch
 
 from repro_torch import tree as T
+from repro_torch.codecs.base import gather_rows
 from repro_torch.core import compression as C
 from repro_torch.core.planexec import ExecPlan, build_exec_plan, n_blocks
 from repro_torch.core.scheduler import SyncPlan
@@ -113,8 +118,9 @@ def _unpack(buf: torch.Tensor, like, block: int):
     return tuple(outs)
 
 
-def _range_sync(gs, es, aux, perms, sig, NB, *, levels, block, omega,
-                omega_own, scalars, gamma, apply_fn, pods, fixed_bits):
+def _range_sync(gs, es, aux, perms, sig, chunks, NB, *, levels, block,
+                omega, omega_own, scalars, gamma, apply_fn, pods, bidir,
+                fixed_bits):
     """One leaf range's pack + per-rung exchange + scatter + unpack.
     Returns ``(aggs | aux_outs, errs)`` as leaf tuples for the range."""
     device = gs[0].device
@@ -138,12 +144,13 @@ def _range_sync(gs, es, aux, perms, sig, NB, *, levels, block, omega,
         for ab, nr in zip(abufs, rows):
             ab.index_copy_(0, idx, nr)
 
-    # Encode pass: with more than one pod every payload rung stops at its
-    # packed uint8 wire, and the range's wires go out in ONE all_gather
-    # (slicing the gathered concatenation is bit-identical to gathering
-    # each piece alone).  FULL / SKIP and the single pod exchange inline.
-    # Residuals and inline aggregates scatter at once, so their buffers
-    # die early (the perms are disjoint: the scatter order is free).
+    # Encode pass: with more than one pod every one-shot payload rung
+    # stops at its packed uint8 wire, and the range's wires go out in ONE
+    # all_gather (slicing the gathered concatenation is bit-identical to
+    # gathering each piece alone).  Ring rungs, FULL / SKIP and the single
+    # pod exchange inline.  Residuals and inline aggregates scatter at
+    # once, so their buffers die early (the perms are disjoint: the
+    # scatter order is free).
     staged, wires, woff = [], [], 0
     pi = 0
     for r, S in enumerate(sig):
@@ -153,7 +160,16 @@ def _range_sync(gs, es, aux, perms, sig, NB, *, levels, block, omega,
         pi += 1
         codec = levels[r].codec
         idx = perm.long()
-        if n_pods > 1 and codec.supports_ring:
+        k = chunks[r] if chunks else 0
+        if n_pods > 1 and codec.supports_ring and k:
+            b_agg, b_err = codec.ef_sync_ring(
+                gather_rows(fb, perm).reshape(-1),
+                gather_rows(eb, perm).reshape(-1), omega, omega_own,
+                gamma=gamma, n_pods=n_pods, n_chunks=k, block=block,
+                pods=pods, bidir=bidir, fixed_bits=fixed_bits)
+            scatter_agg(S, idx, b_agg)
+            del b_agg
+        elif n_pods > 1 and codec.supports_ring:
             wire, meta, b_err = codec.ef_encode_wire(fb, eb, perm,
                                                      gamma=gamma,
                                                      block=block)
@@ -184,6 +200,7 @@ def _range_sync(gs, es, aux, perms, sig, NB, *, levels, block, omega,
 
 def sync_tree(tree, errors, plan: Union[SyncPlan, ExecPlan], *,
               gamma: float, block: int = C.BLOCK, pods=None,
+              ring: Optional[int] = None, bidir: bool = True,
               fixed_bits: int = FIXED_POINT_BITS, apply_fn=None,
               apply_aux=(), apply_scalars=()):
     """Compress + aggregate a gradient (or delta) tree across the pods of
@@ -193,21 +210,20 @@ def sync_tree(tree, errors, plan: Union[SyncPlan, ExecPlan], *,
     fixed-point fold used with 3 or more pods (``ACESyncConfig.accum_bits``).
 
     ``plan`` may be an :class:`ExecPlan` or a host :class:`SyncPlan`,
-    which is lowered here with exact (unpadded) bucket sizes and the
-    one-shot exchange."""
+    which is lowered here with exact (unpadded) bucket sizes; ``ring`` /
+    ``bidir`` set its chunk grid (None = the roofline heuristic, <= 0 =
+    the one-shot exchange, K = K chunks on every ring-capable rung) and
+    ring direction.  ExecPlans carry their own."""
     n_pods = 1 if pods is None else pods.size
     leaves, treedef = T.flatten(tree)
     e_leaves = T.leaves(errors)
     device = leaves[0].device
     if isinstance(plan, SyncPlan):
         ep = build_exec_plan(plan, [l.numel() for l in leaves], block=block,
-                             n_pods=n_pods, ring=-1, device=device)
+                             n_pods=n_pods, ring=ring, bidir=bidir,
+                             device=device)
     else:
         ep = plan
-    if any(any(c) for c in (ep.chunks, *ep.seg_chunks)):
-        raise NotImplementedError("the plan rings some rungs: the chunked "
-                                  "ring comes with the ring slice of "
-                                  "repro_torch")
     omega = ep.omega
     if n_pods == 1 and omega.shape[0] == 1:
         omega = torch.ones((1,), dtype=torch.float32, device=device)
@@ -218,11 +234,11 @@ def sync_tree(tree, errors, plan: Union[SyncPlan, ExecPlan], *,
     aux = tuple(tuple(T.leaves(a)) for a in apply_aux)
     kw = dict(levels=ep.levels, block=ep.block, omega=omega,
               omega_own=omega_own, scalars=tuple(apply_scalars),
-              gamma=gamma, apply_fn=apply_fn, pods=pods,
+              gamma=gamma, apply_fn=apply_fn, pods=pods, bidir=ep.bidir,
               fixed_bits=fixed_bits)
     gs, es = tuple(leaves), tuple(e_leaves)
     if not ep.segmented:
-        outs, errs = _range_sync(gs, es, aux, ep.perms, ep.sig,
+        outs, errs = _range_sync(gs, es, aux, ep.perms, ep.sig, ep.chunks,
                                  ep.total_blocks, **kw)
     else:
         n_seg = len(ep.seg_sig)
@@ -233,7 +249,8 @@ def sync_tree(tree, errors, plan: Union[SyncPlan, ExecPlan], *,
             lo, hi = ep.seg_leaves[s], ep.seg_leaves[s + 1]
             seg_out[s], seg_err[s] = _range_sync(
                 gs[lo:hi], es[lo:hi], tuple(a[lo:hi] for a in aux),
-                ep.perms[s], ep.seg_sig[s], ep.seg_nb[s], **kw)
+                ep.perms[s], ep.seg_sig[s], ep.seg_chunks[s], ep.seg_nb[s],
+                **kw)
         errs = tuple(e for seg in seg_err for e in seg)
         if apply_fn is None:
             outs = tuple(g for seg in seg_out for g in seg)

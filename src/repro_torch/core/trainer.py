@@ -16,8 +16,9 @@ are one SPMD program; here each process holds one pod's state, with no
 pod dimension, and the pods meet in the collectives of their
 :class:`~repro_torch.launch.mesh.PodGroup` (``pods``): the sync rounds,
 the pod means of the metrics, grad stats and divergence, and
-``param_avg``.  More than one pod needs the one-shot exchange
-(``ACESyncConfig.ring_chunks = -1``): the ring is a later slice.  The
+``param_avg``.  The exchange is the config's: the chunked ring on the
+rungs the plan's chunk grid rings (``ACESyncConfig.ring_chunks``, 0 =
+auto), the one-shot ``all_gather`` elsewhere.  The
 state is a dict of trees of tensors: ``params`` are the model's own
 Parameters, updated in place; the other entries are replaced each step.
 PyTorch runs eagerly, so there is no compiled-step cache: a plan is
@@ -63,12 +64,6 @@ class Trainer:
         self.strategy_name = self.strategy.name
         self.pods = pods
         self.n_pods = 1 if pods is None else pods.size
-        if self.n_pods > 1 and run.acesync.ring_chunks != -1:
-            raise NotImplementedError(
-                f"ring_chunks={run.acesync.ring_chunks} asks for the chunked "
-                f"ring exchange, which comes with the ring slice of "
-                f"repro_torch; use ACESyncConfig(ring_chunks=-1) (the "
-                f"one-shot exchange) on {self.n_pods} pods")
         self.param_shapes = model.param_shapes()
         self.metas = S.group_metas(self.param_shapes)
         self.sizes = [m.size for m in self.metas]

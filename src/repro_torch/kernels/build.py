@@ -122,6 +122,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = i
     lib.gather_ef_topk.argtypes = common + [i, p, p, p]
     lib.gather_ef_topk.restype = i
+    # flat encoders and the dequantiser: (inputs..., rows[, gamma][, k],
+    # outputs..., stream)
+    flat = {
+        "quantize_int8": [p, i, p, p, p, p],
+        "ef_int4": [p, p, i, f, p, p, p, p],
+        "ef_sign": [p, p, i, f, p, p, p, p],
+        "ef_topk": [p, p, i, f, i, p, p, p],
+        "dequant_int8": [p, p, i, p, p],
+    }
     # decode-accumulate: (acc..., payload..., s, w, rows[, k | bits],
     # out..., stream)
     decl = {
@@ -133,7 +142,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "decode_accum_int4_fp": [p, p, p, p, i, i, p, p],
         "sign_vote_accum_fp": [p, p, p, p, p, i, i, p, p, p],
     }
-    for name, args in decl.items():
+    for name, args in (*flat.items(), *decl.items()):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i

@@ -1,21 +1,31 @@
-// Gather + error-feedback + encode kernels for Hopper (sm_90a).
+// Error-feedback + encode kernels for Hopper (sm_90a): the gather
+// encoders of the one-shot exchange and the flat encoders of the ring.
 //
-// Replaces the JAX package's Pallas TPU kernels of the sync hot path:
-//   K0 repro/kernels/topk_compress.py:44   gather_ef_call   (the plumbing)
-//   K1 repro/kernels/quantize.py:68        quantize_int8_gather
-//   K2 repro/kernels/quantize.py:151       ef_int4_gather
-//   K3 repro/kernels/sign.py:72            ef_sign_gather
-//   K4 repro/kernels/topk_compress.py:159  ef_topk_gather
+// Replaces the JAX package's Pallas TPU kernels:
+//   K0  repro/kernels/topk_compress.py:44   gather_ef_call   (the plumbing)
+//   K1  repro/kernels/quantize.py:68        quantize_int8_gather
+//   K2  repro/kernels/quantize.py:151       ef_int4_gather
+//   K3  repro/kernels/sign.py:72            ef_sign_gather
+//   K4  repro/kernels/topk_compress.py:159  ef_topk_gather
+//   K12 repro/kernels/quantize.py:44        quantize_int8_fused
+//   K13 repro/kernels/quantize.py:126       ef_int4_fused
+//   K14 repro/kernels/sign.py:47            ef_sign_fused
+//   K15 repro/kernels/topk_compress.py:139  ef_topk_select
+//   K16 repro/kernels/quantize.py:174       dequantize_int8
 //
-// Each launch reads the rows perm[0..S) of the packed (NB+1, 1024) f32
-// grad and error-feedback buffers, forms ef = g + gamma * e and encodes
-// every row with one row body, writing the per-row outputs (S, width).
-// The gathered bucket never exists in device memory.  The int8, int4 and
-// sign bodies also write own = ef - r, the row every receiver
-// reconstructs, so the caller need not gather and re-derive ef.
+// One row body per rung (Int8Body, Int4Body, SignBody, TopKBody) runs on
+// rows that a row source hands it: GatherRows reads the rows perm[0..S)
+// of the packed (NB+1, 1024) f32 grad and error-feedback buffers and forms
+// ef = g + gamma * e, so the gathered bucket never exists in device memory
+// (K1-K4); FlatRows reads contiguous rows of g and e (K13-K15); PlainRows
+// reads contiguous rows of x that already carry the error feedback (K12).
+// The gather launches of the int8, int4 and sign bodies also write
+// own = ef - r, the row every receiver reconstructs; the flat launches
+// write the reference's outputs only (own is null there).  K16 scales the
+// int8 rows of K12's layout back to f32.
 //
-// Bound: device-memory bytes.  Per row the kernels read 8 KiB and write
-// 8-9 KiB, against at most ~40 f32 operations per element (the top-k
+// Bound: device-memory bytes.  Per row the encoders read 4-8 KiB and
+// write 4-9 KiB, against at most ~40 f32 operations per element (the top-k
 // body's 16 bisection compares and counts): about 3 operations per byte,
 // far below the H100's 20 f32 operations per byte of memory traffic.
 // Design: one 256-thread block per row, each thread holding 4 contiguous
@@ -150,7 +160,7 @@ struct Int8Body {
                    static_cast<signed char>(qf[2]),
                    static_cast<signed char>(qf[3]));
     store_f4(r + i * LANES, rv);
-    store_f4(own + i * LANES, ov);
+    if (own) store_f4(own + i * LANES, ov);
     if (threadIdx.x == 0) s[i] = scale;
   }
 };
@@ -172,7 +182,7 @@ struct Int4Body {
         make_uchar2(static_cast<unsigned char>(u[0] | (u[1] << 4)),
                     static_cast<unsigned char>(u[2] | (u[3] << 4)));
     store_f4(r + i * LANES, rv);
-    store_f4(own + i * LANES, ov);
+    if (own) store_f4(own + i * LANES, ov);
     if (threadIdx.x == 0) s[i] = scale;
   }
 };
@@ -202,7 +212,7 @@ struct SignBody {
                    static_cast<signed char>(sv[2]),
                    static_cast<signed char>(sv[3]));
     store_f4(r + i * LANES, rv);
-    store_f4(own + i * LANES, ov);
+    if (own) store_f4(own + i * LANES, ov);
     if (threadIdx.x == 0) s[i] = scale;
   }
 };
@@ -249,36 +259,94 @@ struct TopKBody {
   }
 };
 
-// ---- K0: the gather plumbing every body runs on -----------------------
-template <class Body>
-__global__ void __launch_bounds__(THREADS)
-gather_ef_kernel(const float* __restrict__ fb, const float* __restrict__ eb,
-                 const int32_t* __restrict__ perm, int nbp1, float gamma,
-                 Body body) {
-  __shared__ Smem sm;
-  const int64_t i = blockIdx.x;
-  const int32_t row = perm[i];
-  if (row < 0 || row >= nbp1) __trap();  // a perm past the buffer
-  const float4 g =
-      reinterpret_cast<const float4*>(fb + int64_t(row) * LANES)[threadIdx.x];
-  const float4 e =
-      reinterpret_cast<const float4*>(eb + int64_t(row) * LANES)[threadIdx.x];
-  const float gv[VEC] = {g.x, g.y, g.z, g.w};
-  const float ev[VEC] = {e.x, e.y, e.z, e.w};
-  float ef[VEC];
+// ---- row sources ------------------------------------------------------
+__device__ __forceinline__ void load_f4(const float* row, float (&v)[VEC]) {
+  const float4 a = reinterpret_cast<const float4*>(row)[threadIdx.x];
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+}
+
+__device__ __forceinline__ void ef_fma(const float (&g)[VEC],
+                                       const float (&e)[VEC], float gamma,
+                                       float (&ef)[VEC]) {
 #pragma unroll
   for (int j = 0; j < VEC; ++j)
-    ef[j] = ftz(__fmaf_rn(gamma, ftz(ev[j]), ftz(gv[j])));
+    ef[j] = ftz(__fmaf_rn(gamma, ftz(e[j]), ftz(g[j])));
+}
+
+// K0: row perm[i] of the packed grad / error buffers, ef = g + gamma * e.
+struct GatherRows {
+  const float* fb;
+  const float* eb;
+  const int32_t* perm;
+  int nbp1;
+  float gamma;
+  __device__ void operator()(int64_t i, float (&ef)[VEC]) const {
+    const int32_t row = perm[i];
+    if (row < 0 || row >= nbp1) __trap();  // a perm past the buffer
+    float g[VEC], e[VEC];
+    load_f4(fb + int64_t(row) * LANES, g);
+    load_f4(eb + int64_t(row) * LANES, e);
+    ef_fma(g, e, gamma, ef);
+  }
+};
+
+// K13-K15: contiguous row i of g and e, ef = g + gamma * e.
+struct FlatRows {
+  const float* g;
+  const float* e;
+  float gamma;
+  __device__ void operator()(int64_t i, float (&ef)[VEC]) const {
+    float gv[VEC], ev[VEC];
+    load_f4(g + i * LANES, gv);
+    load_f4(e + i * LANES, ev);
+    ef_fma(gv, ev, gamma, ef);
+  }
+};
+
+// K12: contiguous row i of x, which already carries the error feedback.
+struct PlainRows {
+  const float* x;
+  __device__ void operator()(int64_t i, float (&ef)[VEC]) const {
+    float v[VEC];
+    load_f4(x + i * LANES, v);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) ef[j] = ftz(v[j]);
+  }
+};
+
+// One block per row: the source hands the row's ef, the body encodes it.
+template <class Src, class Body>
+__global__ void __launch_bounds__(THREADS) encode_kernel(Src src, Body body) {
+  __shared__ Smem sm;
+  const int64_t i = blockIdx.x;
+  float ef[VEC];
+  src(i, ef);
   body(ef, i, sm);
 }
 
-template <class Body>
-int launch(const float* fb, const float* eb, const int32_t* perm, int S,
-           int nbp1, float gamma, Body body, cudaStream_t stream) {
-  if (S <= 0) return 0;
-  gather_ef_kernel<Body><<<S, THREADS, 0, stream>>>(fb, eb, perm, nbp1,
-                                                    gamma, body);
+template <class Src, class Body>
+int launch(int rows, Src src, Body body, cudaStream_t stream) {
+  if (rows <= 0) return 0;
+  encode_kernel<Src, Body><<<rows, THREADS, 0, stream>>>(src, body);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- K16: int8 rows times their scale ----------------------------------
+__global__ void __launch_bounds__(THREADS)
+dequant_int8_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
+                    float* __restrict__ out) {
+  const int64_t i = blockIdx.x;
+  const char4 c = reinterpret_cast<const char4*>(q + i * LANES)[threadIdx.x];
+  const float scale = s[i];
+  const float v[VEC] = {
+      __fmul_rn(static_cast<float>(c.x), scale),
+      __fmul_rn(static_cast<float>(c.y), scale),
+      __fmul_rn(static_cast<float>(c.z), scale),
+      __fmul_rn(static_cast<float>(c.w), scale)};
+  store_f4(out + i * LANES, v);
 }
 
 }  // namespace
@@ -290,28 +358,58 @@ extern "C" {
 int gather_ef_int8(const float* fb, const float* eb, const int32_t* perm,
                    int S, int nbp1, float gamma, int8_t* q, float* s,
                    float* r, float* own, cudaStream_t stream) {
-  return launch(fb, eb, perm, S, nbp1, gamma, Int8Body{q, s, r, own},
-                stream);
+  return launch(S, GatherRows{fb, eb, perm, nbp1, gamma},
+                Int8Body{q, s, r, own}, stream);
 }
 
 int gather_ef_int4(const float* fb, const float* eb, const int32_t* perm,
                    int S, int nbp1, float gamma, uint8_t* p, float* s,
                    float* r, float* own, cudaStream_t stream) {
-  return launch(fb, eb, perm, S, nbp1, gamma, Int4Body{p, s, r, own},
-                stream);
+  return launch(S, GatherRows{fb, eb, perm, nbp1, gamma},
+                Int4Body{p, s, r, own}, stream);
 }
 
 int gather_ef_sign(const float* fb, const float* eb, const int32_t* perm,
                    int S, int nbp1, float gamma, int8_t* sg, float* s,
                    float* r, float* own, cudaStream_t stream) {
-  return launch(fb, eb, perm, S, nbp1, gamma, SignBody{sg, s, r, own},
-                stream);
+  return launch(S, GatherRows{fb, eb, perm, nbp1, gamma},
+                SignBody{sg, s, r, own}, stream);
 }
 
 int gather_ef_topk(const float* fb, const float* eb, const int32_t* perm,
                    int S, int nbp1, float gamma, int k, float* sel, float* r,
                    cudaStream_t stream) {
-  return launch(fb, eb, perm, S, nbp1, gamma, TopKBody{sel, r, k}, stream);
+  return launch(S, GatherRows{fb, eb, perm, nbp1, gamma},
+                TopKBody{sel, r, k}, stream);
+}
+
+int quantize_int8(const float* x, int rows, int8_t* q, float* s, float* r,
+                  cudaStream_t stream) {
+  return launch(rows, PlainRows{x}, Int8Body{q, s, r, nullptr}, stream);
+}
+
+int ef_int4(const float* g, const float* e, int rows, float gamma,
+            uint8_t* p, float* s, float* r, cudaStream_t stream) {
+  return launch(rows, FlatRows{g, e, gamma}, Int4Body{p, s, r, nullptr},
+                stream);
+}
+
+int ef_sign(const float* g, const float* e, int rows, float gamma,
+            int8_t* sg, float* s, float* r, cudaStream_t stream) {
+  return launch(rows, FlatRows{g, e, gamma}, SignBody{sg, s, r, nullptr},
+                stream);
+}
+
+int ef_topk(const float* g, const float* e, int rows, float gamma, int k,
+            float* sel, float* r, cudaStream_t stream) {
+  return launch(rows, FlatRows{g, e, gamma}, TopKBody{sel, r, k}, stream);
+}
+
+int dequant_int8(const int8_t* q, const float* s, int rows, float* out,
+                 cudaStream_t stream) {
+  if (rows <= 0) return 0;
+  dequant_int8_kernel<<<rows, THREADS, 0, stream>>>(q, s, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 """Wrappers of the port's Hopper kernels: the gather + error-feedback
-encoders (K1-K4) and the decode-accumulate folds of the multi-pod
+encoders (K1-K4), the flat encoders of the ring exchange and the int8
+dequantiser (K12-K16), and the decode-accumulate folds of the multi-pod
 exchange (K5-K11).
 
 Each wrapper picks the kernel or its plain version from the device of the
@@ -14,6 +15,13 @@ rung's rows straight out of the packed (NB+1, LANES) grad / error buffers
 through the plan's gather perm.  Pad perm entries point at the zero row
 NB.  The int8 / int4 / sign wrappers also return ``own = ef - residual``,
 the rows every receiver reconstructs, written by the kernel itself.
+
+Counterparts of ``repro/kernels/ops.py:quantize_int8``, ``ef_int4``,
+``ef_sign``, ``ef_topk`` and ``dequant_int8``: they take flat (n,) f32
+buffers, lay them out as ceil(n / LANES) rows (zero-padding the tail row;
+the reference pads to 8-row tiles, which the card does not need) and
+return what the reference's return, the residual and selection sliced to
+``n``.  They write no ``own``.
 
 Counterparts of ``repro/kernels/ops.py:decode_accum_*``,
 ``sign_vote_accum`` and ``topk_scatter_accum``: one peer's payload rows
@@ -38,7 +46,8 @@ LANES = ref.LANES
 KERNELS = ("gather_ef_int8", "gather_ef_int4", "gather_ef_sign",
            "gather_ef_topk", "decode_accum_int8", "decode_accum_int4",
            "sign_vote_accum", "topk_scatter_accum", "decode_accum_int8_fp",
-           "decode_accum_int4_fp", "sign_vote_accum_fp")
+           "decode_accum_int4_fp", "sign_vote_accum_fp", "quantize_int8",
+           "ef_int4", "ef_sign", "ef_topk", "dequant_int8")
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -74,9 +83,9 @@ def _check(fb: torch.Tensor, eb: torch.Tensor, perm: torch.Tensor) -> str:
     return dev.type
 
 
-def _launch(name: str, *args) -> None:
-    """Launch ``name``; ``args[3]`` is the row count S (0: no launch)."""
-    if args[3] == 0:
+def _launch(name: str, rows: int, *args) -> None:
+    """Launch ``name`` over ``rows`` rows (0: no launch)."""
+    if rows == 0:
         return
     from repro_torch.kernels import build
     rc = getattr(build.load(), name)(*args)
@@ -105,7 +114,7 @@ def _quantised(name, plain, fb, eb, perm, gamma, q_cols, q_dtype):
     r = torch.empty((S, LANES), dtype=torch.float32, device=fb.device)
     own = torch.empty((S, LANES), dtype=torch.float32, device=fb.device)
     args, stream = _common(fb, eb, perm, gamma)
-    _launch(name, *args, q.data_ptr(), s.data_ptr(), r.data_ptr(),
+    _launch(name, S, *args, q.data_ptr(), s.data_ptr(), r.data_ptr(),
             own.data_ptr(), stream)
     return q, s, r.reshape(-1), own.reshape(-1)
 
@@ -146,7 +155,7 @@ def gather_ef_topk(fb, eb, perm, *, gamma: float, k: int):
     sel = torch.empty((S, LANES), dtype=torch.float32, device=fb.device)
     r = torch.empty((S, LANES), dtype=torch.float32, device=fb.device)
     (fbp, ebp, pp, S_, nbp1, gam), stream = _common(fb, eb, perm, gamma)
-    _launch("gather_ef_topk", fbp, ebp, pp, S_, nbp1, gam, int(k),
+    _launch("gather_ef_topk", S, fbp, ebp, pp, S_, nbp1, gam, int(k),
             sel.data_ptr(), r.data_ptr(), stream)
     return sel, r.reshape(-1)
 
@@ -201,17 +210,6 @@ def _fixed(fixed_bits):
     return bits
 
 
-def _launch_decode(name: str, rows: int, *args) -> None:
-    if rows == 0:
-        return
-    from repro_torch.kernels import build
-    rc = getattr(build.load(), name)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{rc}")
-    LAUNCHES[name] += 1
-
-
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -239,7 +237,7 @@ def _dequant(kind, acc, payload, s, w, fixed_bits):
             int(acc.shape[0]))
     tail = (() if bits is None else (bits,)) + (out.data_ptr(),
                                                 _stream(acc))
-    _launch_decode(name, int(acc.shape[0]), *head, *tail)
+    _launch(name, int(acc.shape[0]), *head, *tail)
     return out
 
 
@@ -285,7 +283,7 @@ def sign_vote_accum(vote, mag, p, s, w, *, fixed_bits=None):
             w.data_ptr(), int(nb))
     mid = () if bits is None else (bits,)
     name = "sign_vote_accum" + ("" if bits is None else "_fp")
-    _launch_decode(name, int(nb), *head, *mid, vout.data_ptr(),
+    _launch(name, int(nb), *head, *mid, vout.data_ptr(),
                    mout.data_ptr(), _stream(vote))
     return vout, mout
 
@@ -311,7 +309,138 @@ def topk_scatter_accum(acc, q, idx, s, w):
                          "indices")
     out = torch.empty_like(acc)
     nb = int(acc.shape[0])
-    _launch_decode("topk_scatter_accum", nb, acc.data_ptr(), q.data_ptr(),
+    _launch("topk_scatter_accum", nb, acc.data_ptr(), q.data_ptr(),
                    idx.data_ptr(), s.data_ptr(), w.data_ptr(), nb, k,
                    out.data_ptr(), _stream(acc))
     return out
+
+
+# ---- flat encoders and the dequantiser (K12-K16) ----------------------------
+
+
+def _flat_device(*xs: torch.Tensor) -> str:
+    """Validate flat (n,) f32 buffers of one length on one device; returns
+    the device type."""
+    x0 = xs[0]
+    for x in xs:
+        if x.dtype != torch.float32 or x.dim() != 1:
+            raise TypeError(f"expected 1-D float32 buffers, got {x.dtype} "
+                            f"{tuple(x.shape)}")
+        if x.shape != x0.shape or x.device != x0.device:
+            raise ValueError("the flat buffers must share one length and "
+                             "one device")
+    if x0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x0.device}")
+    return x0.device.type
+
+
+def _flat_rows(x: torch.Tensor) -> torch.Tensor:
+    """(n,) -> (ceil(n / LANES), LANES): a view when n is a row multiple
+    and the buffer is contiguous and 16-byte aligned, else a zero-padded
+    copy."""
+    n = x.numel()
+    rows = -(-n // LANES)
+    if n % LANES == 0 and x.is_contiguous() and _vec_aligned(x, 16):
+        return x.view(rows, LANES)
+    out = torch.zeros((rows, LANES), dtype=x.dtype, device=x.device)
+    out.view(-1)[:n].copy_(x)
+    return out
+
+
+def _empty(rows, cols, dtype, like):
+    return torch.empty((rows, cols), dtype=dtype, device=like.device)
+
+
+def quantize_int8(x):
+    """K12: int8 absmax quantise + residual of a flat buffer that already
+    carries the error feedback.  Returns (q (R, LANES) int8, scales (R, 1)
+    f32, residual (n,), n)."""
+    n = x.numel()
+    dev = _flat_device(x)
+    x2 = _flat_rows(x)
+    if dev == "cpu":
+        q, s, r = ref.quantize_int8_ref(x2)
+        return q, s, r.reshape(-1)[:n], n
+    R = x2.shape[0]
+    q, s = _empty(R, LANES, torch.int8, x), _empty(R, 1, torch.float32, x)
+    r = _empty(R, LANES, torch.float32, x)
+    _launch("quantize_int8", R, x2.data_ptr(), R, q.data_ptr(), s.data_ptr(),
+            r.data_ptr(), _stream(x))
+    return q, s, r.reshape(-1)[:n], n
+
+
+def _ef_flat(name, plain, g, e, gamma, q_cols, q_dtype):
+    """Shared body of :func:`ef_int4` and :func:`ef_sign`."""
+    n = g.numel()
+    dev = _flat_device(g, e)
+    g2, e2 = _flat_rows(g), _flat_rows(e)
+    if dev == "cpu":
+        q, s, r = plain(g2, e2, gamma=gamma)
+        return q, s, r.reshape(-1)[:n], n
+    R = g2.shape[0]
+    q, s = _empty(R, q_cols, q_dtype, g), _empty(R, 1, torch.float32, g)
+    r = _empty(R, LANES, torch.float32, g)
+    _launch(name, R, g2.data_ptr(), e2.data_ptr(), R, float(gamma),
+            q.data_ptr(), s.data_ptr(), r.data_ptr(), _stream(g))
+    return q, s, r.reshape(-1)[:n], n
+
+
+def ef_int4(g, e, *, gamma: float):
+    """K13: EF + packed-int4 quantise of flat buffers.  Returns (packed
+    (R, LANES // 2) uint8, scales (R, 1) f32, residual (n,), n)."""
+    return _ef_flat("ef_int4", ref.ef_int4_ref, g, e, gamma, LANES // 2,
+                    torch.uint8)
+
+
+def ef_sign(g, e, *, gamma: float):
+    """K14: EF + 1-bit sign of flat buffers.  Returns (sign (R, LANES)
+    int8, scales (R, 1) f32, residual (n,), n)."""
+    return _ef_flat("ef_sign", ref.ef_sign_ref, g, e, gamma, LANES,
+                    torch.int8)
+
+
+def ef_topk(g, e, *, gamma: float, k: int):
+    """K15: EF + block top-k selection of flat buffers.  Returns
+    (selected (n,), residual (n,))."""
+    if not 0 < k <= LANES:
+        raise ValueError(f"k must be in (0, {LANES}], got {k}")
+    n = g.numel()
+    dev = _flat_device(g, e)
+    g2, e2 = _flat_rows(g), _flat_rows(e)
+    if dev == "cpu":
+        sel, r = ref.ef_topk_select_ref(g2, e2, gamma=gamma, k=k)
+    else:
+        R = g2.shape[0]
+        sel = _empty(R, LANES, torch.float32, g)
+        r = _empty(R, LANES, torch.float32, g)
+        _launch("ef_topk", R, g2.data_ptr(), e2.data_ptr(), R, float(gamma),
+                int(k), sel.data_ptr(), r.data_ptr(), _stream(g))
+    return sel.reshape(-1)[:n], r.reshape(-1)[:n]
+
+
+def dequant_int8(q, scales, n: int):
+    """K16: q (R, LANES) int8 times its row scale (R, 1) f32, flattened
+    and sliced to ``n``."""
+    R = q.shape[0] if q.dim() == 2 else -1
+    if q.dtype != torch.int8 or q.dim() != 2 or q.shape[1] != LANES:
+        raise ValueError(f"q must be (R, {LANES}) int8, got {q.dtype} "
+                         f"{tuple(q.shape)}")
+    if scales.dtype != torch.float32 or scales.numel() != R \
+            or scales.device != q.device:
+        raise ValueError(f"scales must be {R} float32 beside q, got "
+                         f"{scales.dtype} {tuple(scales.shape)}")
+    if not 0 <= n <= R * LANES:
+        raise ValueError(f"n must be in [0, {R * LANES}], got {n}")
+    if q.device.type == "cpu":
+        return ref.dequantize_int8_ref(q, scales.reshape(R, 1)
+                                       ).reshape(-1)[:n]
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if not (q.is_contiguous() and scales.is_contiguous()
+            and _vec_aligned(q, 4) and _vec_aligned(scales, 4)):
+        raise ValueError("the CUDA kernels need contiguous, aligned q and "
+                         "scales")
+    out = _empty(R, LANES, torch.float32, q)
+    _launch("dequant_int8", R, q.data_ptr(), scales.data_ptr(), R,
+            out.data_ptr(), _stream(q))
+    return out.reshape(-1)[:n]

@@ -1,6 +1,8 @@
 """Plain PyTorch versions of the port's kernels: the gather + error-feedback
-encoders (``csrc/gather_encode.cu``, K1-K4) and the decode-accumulate folds
-(``csrc/decode_accum.cu``, K5-K11; at the end of this module).
+encoders (``csrc/gather_encode.cu``, K1-K4), the flat encoders and the int8
+dequantiser on contiguous rows (the same file, K12-K16) and the
+decode-accumulate folds (``csrc/decode_accum.cu``, K5-K11; at the end of
+this module).
 
 Each function here computes, on any device, exactly what its CUDA kernel
 computes: the CPU tests run these, and
@@ -108,7 +110,7 @@ def row_abs_sum(x):
     each of the 256 threads adds its 4 contiguous lanes left to right,
     then the partial sums are folded pairwise, ``p[:s] + p[s:2s]`` for
     s = 128, 64, ..., 1 (the kernel's shared-memory and shuffle tree)."""
-    a = x.abs().reshape(x.shape[0], -1, VEC)
+    a = x.abs().reshape(x.shape[0], x.shape[1] // VEC, VEC)
     p = a[..., 0]
     for j in range(1, VEC):
         p = p + a[..., j]
@@ -142,42 +144,90 @@ def _select_body(ef, k: int):
     return (mag >= thr).float(), thr
 
 
+# ---- flat encoders on contiguous rows (K12-K16) ---------------------------
+#
+# The reference's ``quantize_int8_fused``, ``ef_int4_fused``,
+# ``ef_sign_fused``, ``ef_topk_select`` and ``dequantize_int8`` on (R, LANES)
+# rows: the same row bodies as the gather kernels, with their outputs and
+# no ``own``.  K12 takes ``x`` with the error feedback already applied.
+
+
+def quantize_int8_ref(x):
+    """K12: -> (q (R, LANES) int8, scales (R, 1) f32, residual (R, LANES))."""
+    x = ftz(x.float())
+    q, scale = _quant_body(x)
+    return q.to(torch.int8), scale, residual(x, q, scale)
+
+
+def _int4_encode(ef):
+    q, scale = _int4_body(ef)
+    return pack_nibbles(q), scale, residual(ef, q, scale)
+
+
+def _sign_encode(ef):
+    sign, scale = _sign_body(ef)
+    return sign.to(torch.int8), scale, residual(ef, sign, scale)
+
+
+def ef_int4_ref(g, e, *, gamma: float):
+    """K13: -> (packed (R, LANES // 2) uint8, scales (R, 1), residual)."""
+    return _int4_encode(ef_accumulate(g, e, gamma))
+
+
+def ef_sign_ref(g, e, *, gamma: float):
+    """K14: -> (sign (R, LANES) int8, scales (R, 1), residual)."""
+    return _sign_encode(ef_accumulate(g, e, gamma))
+
+
+def _topk_select(ef, k: int):
+    mask, _ = _select_body(ef, k)
+    # ``ef * mask`` in the reference: XLA turns the product with a 0/1
+    # mask into a select, so dropped entries are +0 whatever ef's sign
+    sel = torch.where(mask > 0, ef, 0.0)
+    return sel, ef - sel
+
+
+def ef_topk_select_ref(g, e, *, gamma: float, k: int):
+    """K15: -> (selected (R, LANES) f32, residual (R, LANES) f32)."""
+    return _topk_select(ef_accumulate(g, e, gamma), k)
+
+
+def dequantize_int8_ref(q, scales):
+    """K16: q (R, LANES) int8 times its row scale (R, 1) -> f32."""
+    return ftz(q.float() * ftz(scales.float()))
+
+
 # ---- gather + EF + encode: one function per kernel ------------------------
+#
+# K1-K4 are K12-K15 on the rows ``perm`` of the packed buffers, plus
+# ``own = ef - residual`` for the int8 / int4 / sign rungs.
 
 
 def quantize_int8_gather_ref(fb, eb, perm, *, gamma: float):
     """-> (q (S, LANES) int8, scales (S, 1) f32, residual (S, LANES),
     own = ef - residual (S, LANES))."""
     ef = _gather_ef(fb, eb, perm, gamma)
-    q, scale = _quant_body(ef)
-    r = residual(ef, q, scale)
-    return q.to(torch.int8), scale, r, ftz(ef - r)
+    q, scale, r = quantize_int8_ref(ef)
+    return q, scale, r, ftz(ef - r)
 
 
 def ef_int4_gather_ref(fb, eb, perm, *, gamma: float):
     """-> (packed (S, LANES // 2) uint8, scales (S, 1), residual, own)."""
     ef = _gather_ef(fb, eb, perm, gamma)
-    q, scale = _int4_body(ef)
-    r = residual(ef, q, scale)
-    return pack_nibbles(q), scale, r, ftz(ef - r)
+    p, scale, r = _int4_encode(ef)
+    return p, scale, r, ftz(ef - r)
 
 
 def ef_sign_gather_ref(fb, eb, perm, *, gamma: float):
     """-> (sign (S, LANES) int8, scales (S, 1), residual, own)."""
     ef = _gather_ef(fb, eb, perm, gamma)
-    sign, scale = _sign_body(ef)
-    r = residual(ef, sign, scale)
-    return sign.to(torch.int8), scale, r, ftz(ef - r)
+    sign, scale, r = _sign_encode(ef)
+    return sign, scale, r, ftz(ef - r)
 
 
 def ef_topk_gather_ref(fb, eb, perm, *, gamma: float, k: int):
     """-> (selected (S, LANES) f32, residual (S, LANES) f32)."""
-    ef = _gather_ef(fb, eb, perm, gamma)
-    mask, _ = _select_body(ef, k)
-    # ``ef * mask`` in the reference: XLA turns the product with a 0/1
-    # mask into a select, so dropped entries are +0 whatever ef's sign
-    sel = torch.where(mask > 0, ef, 0.0)
-    return sel, ef - sel
+    return _topk_select(_gather_ef(fb, eb, perm, gamma), k)
 
 
 # ---- decode-accumulate: the folds of the multi-pod exchange ----------------

@@ -14,6 +14,11 @@ a :class:`PodGroup`:
   * ``full_exchange`` — FULL's cross-pod sum of bf16 contributions,
     summed in f32 in pod order and rounded to bf16 once, as the reference
     does on XLA:CPU (bf16(sum of f32(contrib))), identical on every pod;
+  * ``ring_stage`` / ``ring_hop`` / ``ring_to_device`` — the point-to-point
+    hops of the chunked ring (the reference's ``ppermute``): one hop of a
+    chunk goes to pod (rank + 1) % P and comes from (rank - 1) % P
+    (forward), or the other way round (backward), both directions in
+    flight together;
   * a log of the bytes each collective received per pod (``log``), so a
     run can hold the exchange to the analytic ``plan_wire_bytes``.
 
@@ -22,6 +27,8 @@ when every pod has a card of its own; gloo when pods share a card or run
 on the CPU.  NCCL refuses two ranks on one device, so pods that share a
 card stage each CUDA collective through pinned host memory: one copy to
 the host, a stream synchronisation, the gloo collective, one copy back.
+The ring stages its own chunks once per exchange and forwards what it
+received from host memory as it is.
 
 :func:`spawn_pods` starts the P pod processes and gathers their results.
 """
@@ -150,6 +157,65 @@ class PodGroup:
             acc = ftz(acc + parts[p].float())
         return acc.to(torch.bfloat16).float()
 
+    # ---- the ring's point-to-point hops ---------------------------------
+    def ring_stage(self, wires: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The own chunk wires (1-D uint8) as the transport sends them:
+        pinned host copies after one stream synchronisation when staged,
+        else the wires themselves."""
+        if not self.staged:
+            return [w.contiguous() for w in wires]
+        host = []
+        for w in wires:
+            h = torch.empty((w.numel(),), dtype=torch.uint8, pin_memory=True)
+            h.copy_(w, non_blocking=True)
+            host.append(h)
+        t0 = time.perf_counter()
+        # gloo reads the host copies: they must have landed
+        torch.cuda.current_stream(self.device).synchronize()
+        self._sync_s += time.perf_counter() - t0
+        return host
+
+    def ring_hop(self, fwd: Optional[torch.Tensor],
+                 bwd: Optional[torch.Tensor], tag: int) -> "RingHop":
+        """Post one hop of a ring chunk: ``fwd`` goes to pod (rank + 1) % P
+        while a buffer of its size comes from (rank - 1) % P, ``bwd`` the
+        other way round; None posts nothing in that direction.  ``tag``
+        names the (hop, chunk) on every pod alike, so that messages cannot
+        cross.  Buffers are the transport's (:meth:`ring_stage`, or what
+        an earlier hop received).  Returns the hop's handle; its log entry
+        (op "ring") counts the bytes received."""
+        P, r = self.size, self.rank
+        t0 = time.perf_counter()
+        works, recvs, ops = [], [], []
+        for d, buf in ((1, fwd), (-1, bwd)):
+            if buf is None:
+                recvs.append(None)
+                continue
+            dst, src, t = (r + d) % P, (r - d) % P, 2 * tag + (d < 0)
+            out = torch.empty((buf.numel(),), dtype=torch.uint8,
+                              device=buf.device, pin_memory=self.staged)
+            recvs.append(out)
+            if self.backend == "nccl":
+                ops += [dist.P2POp(dist.isend, buf, dst, tag=t),
+                        dist.P2POp(dist.irecv, out, src, tag=t)]
+            else:
+                works.append(dist.irecv(out, src, tag=t))
+                works.append(dist.isend(buf, dst, tag=t))
+        if ops:
+            works = dist.batch_isend_irecv(ops)
+        entry = {"op": "ring",
+                 "bytes": sum(x.numel() for x in recvs if x is not None),
+                 "seconds": time.perf_counter() - t0,
+                 "sync_seconds": self._sync_s}
+        self._sync_s = 0.0
+        self.log.append(entry)
+        return RingHop(entry, works, recvs[0], recvs[1])
+
+    def ring_to_device(self, buf: torch.Tensor) -> torch.Tensor:
+        """A received buffer on this pod's device (a non-blocking copy out
+        of pinned memory when staged)."""
+        return buf.to(self.device, non_blocking=True) if self.staged else buf
+
     def barrier(self) -> None:
         if self.backend == "nccl":
             dist.barrier(device_ids=[self.device.index])
@@ -160,6 +226,25 @@ class PodGroup:
     def bytes_logged(self, op: Optional[str] = None) -> int:
         return sum(e["bytes"] for e in self.log
                    if op is None or e["op"] == op)
+
+
+class RingHop:
+    """A posted ring hop: :meth:`wait` returns ``(recv_fwd, recv_bwd)``
+    (None where nothing was posted) once both directions have landed, and
+    adds the wait to the hop's log entry."""
+
+    def __init__(self, entry: dict, works, recv_f, recv_b):
+        self.entry = entry
+        self.works = works
+        self.recv = (recv_f, recv_b)
+
+    def wait(self):
+        t0 = time.perf_counter()
+        for w in self.works:
+            w.wait()
+        self.works = []
+        self.entry["seconds"] += time.perf_counter() - t0
+        return self.recv
 
 
 # ---------------------------------------------------------------------------

@@ -224,14 +224,9 @@ class TrainLoop:
 
 
 def _session_kwargs(args) -> dict:
-    from repro_torch.configs.base import ACESyncConfig
-    kw = dict(strategy=args.strategy, smoke=args.smoke,
-              seq_len=args.seq_len, batch=args.batch, steps=args.steps,
-              warmup_steps=10)
-    if args.pods > 1:
-        # the one-shot exchange: the chunked ring is a later slice
-        kw["acesync"] = ACESyncConfig(ring_chunks=-1)
-    return kw
+    return dict(strategy=args.strategy, smoke=args.smoke,
+                seq_len=args.seq_len, batch=args.batch, steps=args.steps,
+                warmup_steps=10)
 
 
 def _summary(sess) -> dict:
@@ -247,7 +242,8 @@ def _pod_run(group, arch, kw, steps):
     sess = TrainSession.from_config(arch, pods=group, **kw)
     sess.run(steps, log_every=10 if group.rank == 0 else 0)
     return dict(_summary(sess), pod=group.rank,
-                wire_bytes=group.bytes_logged("gather"))
+                wire_bytes=group.bytes_logged("gather")
+                + group.bytes_logged("ring"))
 
 
 def main(argv=None):
@@ -265,7 +261,7 @@ def main(argv=None):
                     help="global batch (split over the pods)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--pods", type=int, default=1,
-                    help="pods, one process each (the one-shot exchange)")
+                    help="pods, one process each")
     args = ap.parse_args(argv)
 
     kw = _session_kwargs(args)

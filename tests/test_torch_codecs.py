@@ -172,11 +172,10 @@ def test_ef_sync_gather_matches_reference_kernel_path(name, kw):
 
 
 def test_multi_pod_paths_raise():
-    """The ring and two-tier exchanges are later slices and raise, naming
-    them; the one-shot multi-pod round without its pod group raises too."""
+    """The two-tier exchange is a later slice and raises, naming it; the
+    one-shot and the ring multi-pod rounds without their pod group raise
+    too, and so does a float ring fold in arrival order on 3 pods."""
     c = tbuild("int8")
-    with pytest.raises(NotImplementedError, match="ring slice"):
-        c.ef_sync_ring()
     with pytest.raises(NotImplementedError, match="two-tier slice"):
         c.ef_sync_hier()
     one = torch.ones(2)
@@ -184,6 +183,17 @@ def test_multi_pod_paths_raise():
         c.ef_sync_gather(torch.zeros(2, 1024), torch.zeros(2, 1024),
                          torch.zeros(1, dtype=torch.int32), one, one[0],
                          gamma=1.0, n_pods=2)
+    with pytest.raises(ValueError, match="pod group"):
+        c.ef_sync_ring(torch.zeros(2048), torch.zeros(2048), one, one[0],
+                       gamma=1.0, n_pods=2, n_chunks=2)
+
+    class Three:
+        size = 3
+
+    with pytest.raises(ValueError, match="drifts across pods"):
+        c.ef_sync_ring(torch.zeros(2048), torch.zeros(2048),
+                       torch.ones(3), one[0], gamma=1.0, n_pods=3,
+                       n_chunks=2, pods=Three(), deterministic=False)
 
 
 @pytest.mark.parametrize("name,kw", [c for c in CODECS if c[0] != "full"],

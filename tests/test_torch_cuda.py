@@ -153,3 +153,125 @@ def test_topk_scatter_accum_bit_exact_to_plain_version(dev, k):
                                       x["s"][:, None], wt)
     torch.cuda.synchronize()
     assert _same(got, want)
+
+
+def _flat_case(dev, rows=37, seed=0):
+    r = np.random.RandomState(seed)
+    g = (r.randn(rows, LANES) * np.exp(r.randn(rows, 1) * 4)) \
+        .astype(np.float32)
+    e = r.randn(rows, LANES).astype(np.float32)
+    g[0] *= np.float32(1e-41)
+    e[0] *= np.float32(1e-41)
+    g[1] = e[1] = 0.0
+    g[2, ::3] = e[2, ::5] = np.float32(-0.0)
+    return [torch.from_numpy(x).to(dev) for x in (g, e)]
+
+
+def _flat_pairs(kind):
+    """(kernel wrapper, plain version) pairs of K12-K16 as f(g, e, gamma)
+    on (rows, LANES) inputs; the wrappers take the flat buffers."""
+    if kind == "int8":
+        return [(lambda g, e, gm: ops.quantize_int8(
+                    ref.ef_accumulate(g, e, gm).reshape(-1))[:3],
+                 lambda g, e, gm: ref.quantize_int8_ref(
+                    ref.ef_accumulate(g, e, gm)))]
+    if kind == "dequant":
+        def both(g, e, gm):
+            q, s, _ = ref.quantize_int8_ref(ref.ef_accumulate(g, e, gm))
+            s[3] = 3e-39
+            return q, s
+        return [(lambda g, e, gm: (ops.dequant_int8(
+                    *both(g, e, gm), g.numel()),),
+                 lambda g, e, gm: (ref.dequantize_int8_ref(
+                    *both(g, e, gm)),))]
+    if kind == "topk":
+        return [(lambda g, e, gm, k=k: ops.ef_topk(
+                    g.reshape(-1), e.reshape(-1), gamma=gm, k=k),
+                 lambda g, e, gm, k=k: ref.ef_topk_select_ref(
+                    g, e, gamma=gm, k=k)) for k in TOPK_KS]
+    kern, plain = getattr(ops, f"ef_{kind}"), getattr(ref, f"ef_{kind}_ref")
+    return [(lambda g, e, gm: kern(g.reshape(-1), e.reshape(-1),
+                                   gamma=gm)[:3],
+             lambda g, e, gm: plain(g, e, gamma=gm))]
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4", "sign", "topk", "dequant"])
+def test_flat_kernel_bit_exact_to_plain_version(dev, kind):
+    """K12-K16 on the card."""
+    for kern, plain in _flat_pairs(kind):
+        for seed in range(3):
+            g, e = _flat_case(dev, seed=seed)
+            for gamma in (1.0, 0.9, 0.6):
+                got, want = kern(g, e, gamma), plain(g, e, gamma)
+                torch.cuda.synchronize()
+                assert all(_same(a, b) for a, b in zip(got, want))
+
+
+def test_flat_launch_counts(dev):
+    g, e = _flat_case(dev)
+    ops.reset_launch_counts()
+    ops.ef_sign(g.reshape(-1), e.reshape(-1), gamma=1.0)
+    ops.ef_sign(g.reshape(-1)[:0], e.reshape(-1)[:0], gamma=1.0)  # no rows
+    assert ops.launch_counts()["ef_sign"] == 1
+
+
+#: one rung per codec of the ladder's kinds, leaf sizes no block multiple
+RING_LEVELS = (("INT8", 1.0, 8), ("TOPK10", 0.10, 8), ("SIGN1", 1.0, 1),
+               ("INT4", 1.0, 4), ("FULL", 1.0, 16), ("SKIP", 0.0, 0))
+RING_SIZES = (6144 * 3 + 17, 8192, 8192, 6144, 2048, 700)
+
+
+def _ring_pod(group):
+    """One pod: a sync_tree round under the one-shot exchange and under
+    the ring forced to 2 chunks; per plan the aggregate, the residuals,
+    the bytes logged (gather + ring) and ``plan_wire_bytes`` of the
+    gather rungs."""
+    from repro_torch.core import planexec
+    from repro_torch.core import sync as S
+    from repro_torch.core.compression import Level
+    from repro_torch.core.scheduler import SyncPlan
+
+    P = group.size
+    levels = tuple(Level(*x) for x in RING_LEVELS)
+    omega = tuple(float(x) for x in np.arange(1, P + 1) / (P * (P + 1) / 2))
+    plan = SyncPlan(tuple(range(len(levels))), levels, omega, 1)
+    r = np.random.RandomState(11)
+    tree = {f"p{i}": torch.from_numpy(
+                r.randn(P, n).astype(np.float32)[group.rank]).to(group.device)
+            for i, n in enumerate(RING_SIZES)}
+    errs = {k: torch.full_like(v, 0.03) for k, v in tree.items()}
+    out = {"backend": group.backend}
+    for ring in (-1, 2):
+        ep = planexec.build_exec_plan(plan, RING_SIZES, n_pods=P, ring=ring,
+                                      device=group.device)
+        group.log.clear()
+        agg, ne = S.sync_tree(tree, errs, ep, gamma=0.9, pods=group)
+        want = sum(lv.wire_bytes(s * 1024, P) for lv, s in
+                   zip(ep.levels, ep.sig) if s and lv.codec.supports_ring)
+        out[ring] = ({k: v.cpu().numpy() for k, v in agg.items()},
+                     {k: v.cpu().numpy() for k, v in ne.items()},
+                     group.bytes_logged("gather")
+                     + group.bytes_logged("ring"), want)
+    return out
+
+
+def test_nccl_pods_ring_matches_one_shot(dev):
+    """A card per pod (the NCCL pod group, up to 4 pods): the ring forced
+    to 2 chunks gives the one-shot exchange's aggregate and residuals bit
+    for bit, the same aggregate on every pod, and the bytes logged equal
+    ``plan_wire_bytes`` of the gather rungs."""
+    from repro_torch.launch.mesh import spawn_pods
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs a card per pod (two or more CUDA devices)")
+    pods = spawn_pods(_ring_pod, min(n, 4), "cuda", timeout=600)
+    for p, res in enumerate(pods):
+        assert res["backend"] == "nccl"
+        for ring in (-1, 2):
+            agg, err, got, want = res[ring]
+            assert got == want > 0, (p, ring)
+            for k in agg:
+                assert np.array_equal(agg[k].view(np.int32),
+                                      pods[0][-1][0][k].view(np.int32))
+                assert np.array_equal(err[k].view(np.int32),
+                                      res[-1][1][k].view(np.int32))

@@ -56,6 +56,9 @@ Checked, with their tolerances:
   largest difference seen).
   The divergence estimate uses other random projections than the
   reference, so only its sign (>= 0, > 0 after local steps) is held.
+* the same step bodies fed the reference's state, with the chunked ring
+  forced in both packages (``ring_chunks=2``), at P = 2 and 3, with the
+  tolerances above.
 """
 import dataclasses
 import json
@@ -91,6 +94,9 @@ EF_RTOL = 5e-2
 DIV_EMA = "ace/div_ema"
 INT8_RUNG, INT4_RUNG, SIGN_RUNG = 1, 2, 5
 PODS = (2, 3)
+#: ACESyncConfig.ring_chunks of the runs: the one-shot exchange, and the
+#: chunked ring forced to 2 chunks per ring-capable rung
+ONE_SHOT, RING2 = -1, 2
 
 REF_SCRIPT = r"""
 import dataclasses, json, os, sys
@@ -109,13 +115,13 @@ from repro.data.pipeline import TokenPipeline
 from repro.launch.mesh import make_mesh
 from repro.models.registry import build_model
 
-SEQ, LR, KINDS, DTYPE = json.loads(sys.argv[3])
+SEQ, LR, KINDS, DTYPE, RING = json.loads(sys.argv[3])
 mesh = make_mesh((P, 1, 1), ("pod", "data", "model"))
 run = RunConfig(model=dataclasses.replace(SMOKE_ARCHS["paper-350m"],
                                          dtype=DTYPE),
                 shape=ShapeConfig("t", SEQ, 2 * P, "train"), lr=LR,
                 warmup_steps=1, total_steps=50,
-                acesync=ACESyncConfig(ring_chunks=-1))
+                acesync=ACESyncConfig(ring_chunks=RING))
 model = build_model(run.model, run)
 tr = Trainer(model, run, mesh=mesh, strategy="acesync")
 omega = tuple(float(x) for x in np.arange(1, P + 1) / (P * (P + 1) / 2))
@@ -128,6 +134,7 @@ def key(path):
                     for k in path)
 
 # ---- sync_tree: two rounds, per-pod distinct grads, EF carried ----------
+# (the one-shot run only)
 shapes = [l.shape for l in jax.tree.leaves(tr.param_specs)]
 treedef = jax.tree.structure(tr.param_specs)
 r = np.random.RandomState(1)
@@ -150,7 +157,7 @@ pod = jax.tree.map(lambda _: Spec("pod"), g)
 fn = jax.jit(compat.shard_map(inner, mesh, in_specs=(pod, pod),
                               out_specs=(pod, pod),
                               manual_axes=set(mesh.axis_names)))
-for rnd in range(2):
+for rnd in range(2 if RING == -1 else 0):
     gr = jax.tree.map(lambda x: x * (1.0 + 0.25 * rnd), g)
     agg, e = fn(gr, e)
     for name, tree in (("agg", agg), ("err", e)):
@@ -195,37 +202,15 @@ def _flat(obj, prefix=""):
     return out
 
 
-def _port_pod(group, ref_path, n_pods):
-    """One pod of the port: the same sync rounds and step kinds."""
+def _port_sync_rounds(group, tr, plan, levels, n_pods, out):
+    """The port's two sync_tree rounds and its byte log (into ``out``)."""
     import torch
-    from repro_torch import convert
     from repro_torch import tree as T
     from repro_torch.codecs import plan_wire_bytes
-    from repro_torch.configs import SMOKE_ARCHS
-    from repro_torch.configs.base import (ACESyncConfig, RunConfig,
-                                          ShapeConfig)
     from repro_torch.core import planexec
     from repro_torch.core import sync as S
-    from repro_torch.core.trainer import Trainer
-    from repro_torch.data.pipeline import TokenPipeline
-    from repro_torch.models.registry import build_model
 
-    ref = dict(np.load(ref_path))
     rank = group.rank
-    run = RunConfig(model=dataclasses.replace(SMOKE_ARCHS["paper-350m"],
-                                              dtype=DTYPE),
-                    shape=ShapeConfig("t", SEQ, 2 * n_pods, "train"),
-                    lr=LR, warmup_steps=1, total_steps=50,
-                    acesync=ACESyncConfig(ring_chunks=-1))
-    tr = Trainer(build_model(run.model, run, device="cpu"), run,
-                 strategy="acesync", pods=group)
-    omega = tuple(float(x) for x in
-                  np.arange(1, n_pods + 1) / (n_pods * (n_pods + 1) / 2))
-    levels = [i % 8 for i in range(len(tr.metas))]
-    plan = tr.scheduler.plan_from_levels(levels, omega)
-    out = {}
-
-    # ---- sync_tree --------------------------------------------------
     shapes = tr.model.param_shapes()
     names = [T.path_str(p) for p, _ in T.leaves_with_path(shapes)]
     g, e = _inputs(n_pods, T.leaves(shapes))
@@ -253,6 +238,39 @@ def _port_pod(group, ref_path, n_pods):
                            for li in levels)             # 7 = SKIP
     out["bytes/analytic"] = 2 * plan_wire_bytes(only, tr.sizes, n_pods)
 
+
+def _port_pod(group, ref_path, n_pods, ring_chunks):
+    """One pod of the port: the same sync rounds and step kinds (the ring
+    run: the step bodies fed the reference's state only)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch import tree as T
+    from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.configs.base import (ACESyncConfig, RunConfig,
+                                          ShapeConfig)
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.registry import build_model
+
+    ref = dict(np.load(ref_path))
+    rank = group.rank
+    run = RunConfig(model=dataclasses.replace(SMOKE_ARCHS["paper-350m"],
+                                              dtype=DTYPE),
+                    shape=ShapeConfig("t", SEQ, 2 * n_pods, "train"),
+                    lr=LR, warmup_steps=1, total_steps=50,
+                    acesync=ACESyncConfig(ring_chunks=ring_chunks))
+    tr = Trainer(build_model(run.model, run, device="cpu"), run,
+                 strategy="acesync", pods=group)
+    omega = tuple(float(x) for x in
+                  np.arange(1, n_pods + 1) / (n_pods * (n_pods + 1) / 2))
+    levels = [i % 8 for i in range(len(tr.metas))]
+    plan = tr.scheduler.plan_from_levels(levels, omega)
+    out = {}
+
+    # ---- sync_tree (the one-shot run) --------------------------------
+    if ring_chunks == ONE_SHOT:
+        _port_sync_rounds(group, tr, plan, levels, n_pods, out)
+
     # ---- the four step kinds ------------------------------------------
     def leaves(tree):
         return [x.detach().numpy().copy() for x in T.leaves(tree)]
@@ -269,7 +287,7 @@ def _port_pod(group, ref_path, n_pods):
                for i in range(len(KINDS))]
     # the port's own trajectory from the reference's initial state
     state = ref_state(0)
-    for i, kind in enumerate(KINDS):
+    for i, kind in enumerate(KINDS if ring_chunks == ONE_SHOT else ()):
         state, m = tr.step(state, batches[i], plan, kind)
         for k, v in m.items():
             out[f"step{i}/{k}"] = float(v)
@@ -279,45 +297,60 @@ def _port_pod(group, ref_path, n_pods):
     for i, kind in enumerate(KINDS):
         state, _ = tr.step(ref_state(i), batches[i], plan, kind)
         out[f"fed{i}"] = _flat(state)
-    out["final_names"] = names
+    ep = tr.exec_plan(plan)
+    out["chunks"] = [list(c) for c in ep.seg_chunks or (ep.chunks,)]
+    out["final_names"] = [T.path_str(p) for p, _ in
+                          T.leaves_with_path(tr.model.param_shapes())]
     return out
 
 
-def _run_reference(n_pods, out_path):
+def _run_reference(n_pods, out_path, ring_chunks):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                JAX_PLATFORMS="cpu", REPRO_FORCE_INTERPRET="1")
     return subprocess.Popen([sys.executable, "-c", REF_SCRIPT,
                              str(n_pods), str(out_path),
-                             json.dumps([SEQ, LR, KINDS, DTYPE])], env=env,
+                             json.dumps([SEQ, LR, KINDS, DTYPE,
+                                         ring_chunks])], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """{P: (reference npz dict, [port result per pod])} for P = 2, 3: the
+def all_runs(tmp_path_factory):
+    """{(P, ring_chunks): (reference npz dict, [port result per pod])} for
+    P = 2, 3 under the one-shot exchange and the forced 2-chunk ring: the
     reference subprocesses run while the port's pods do."""
     from repro_torch.launch.mesh import spawn_pods
     tmp = tmp_path_factory.mktemp("multipod")
-    refs = {P: (_run_reference(P, tmp / f"ref{P}.npz"), tmp / f"ref{P}.npz")
-            for P in PODS}
+    keys = [(P, ring) for ring in (ONE_SHOT, RING2) for P in PODS]
+    refs = {}
+    for P, ring in keys:
+        path = tmp / f"ref{P}_{ring}.npz"
+        refs[(P, ring)] = (_run_reference(P, path, ring), path)
     out = {}
     try:
-        for P in PODS:
-            proc, path = refs[P]
+        for key in keys:
+            P, ring = key
+            proc, path = refs[key]
             so, se = proc.communicate(timeout=600)
             assert proc.returncode == 0 and "REF_OK" in so, se[-3000:]
-            store = tmp / f"store{P}"
-            port = spawn_pods(_port_pod, P, "cpu", args=(str(path), P),
+            store = tmp / f"store{P}_{ring}"
+            port = spawn_pods(_port_pod, P, "cpu", args=(str(path), P, ring),
                               init_method=f"file://{store}", threads=1,
                               timeout=600)
-            out[P] = (dict(np.load(path)), port)
+            out[key] = (dict(np.load(path)), port)
     finally:
         for proc, _ in refs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
     return out
+
+
+@pytest.fixture(scope="module")
+def runs(all_runs):
+    """{P: (reference, port)} under the one-shot exchange."""
+    return {P: all_runs[(P, ONE_SHOT)] for P in PODS}
 
 
 def _bits(a):
@@ -449,11 +482,7 @@ def _step_rtol(kind, key):
     return STEP_RTOL[kind]
 
 
-@pytest.mark.parametrize("n_pods", PODS)
-def test_step_bodies_match_reference_from_its_state(runs, n_pods):
-    """Each step body, fed the reference's state from just before that
-    step, moves every state leaf as the reference's body does."""
-    ref, port = runs[n_pods]
+def _check_fed_step_bodies(ref, port, n_pods):
     worst = {}
     for i, kind in enumerate(KINDS):
         for p in range(n_pods):
@@ -489,18 +518,45 @@ def test_step_bodies_match_reference_from_its_state(runs, n_pods):
         assert moved, kind
 
 
-def test_multi_pod_needs_the_one_shot_exchange():
-    """ring_chunks other than -1 on more than one pod raises (the ring is
-    a later slice) instead of quietly running the one-shot exchange."""
+@pytest.mark.parametrize("n_pods", PODS)
+def test_step_bodies_match_reference_from_its_state(runs, n_pods):
+    """Each step body, fed the reference's state from just before that
+    step, moves every state leaf as the reference's body does."""
+    _check_fed_step_bodies(*runs[n_pods], n_pods)
+
+
+@pytest.mark.parametrize("n_pods", PODS)
+def test_ring_step_bodies_match_reference_from_its_state(all_runs, n_pods):
+    """The same with the chunked ring forced (``ring_chunks=2``) in both
+    packages: every ring-capable rung of the sync steps goes round the
+    ring.  At P = 2 the reference's ring folds each pod's own payload
+    first (ROADMAP R3), the port's in pod order; the relative tolerances
+    above hold all the same."""
+    ref, port = all_runs[(n_pods, RING2)]
+    assert all(any(c) for c in port[0]["chunks"]), port[0]["chunks"]
+    _check_fed_step_bodies(ref, port, n_pods)
+
+
+def test_default_config_rings_on_more_than_one_pod():
+    """The default ACESyncConfig (ring_chunks 0 = the roofline's grid)
+    rings a rung big enough for it on more than one pod, and on no pod
+    count does -1 (the one-shot exchange) or a single pod ring."""
     from repro_torch.configs.base import ACESyncConfig
     from repro_torch.core import planexec
     from repro_torch.core.compression import Level
-    levels = (Level("INT8", 1.0, 8),)
-    for ring in (None, 2):
-        with pytest.raises(NotImplementedError, match="ring slice"):
-            planexec.exec_grid((0,), (4096,), levels, 2, ring=ring)
-    assert planexec.exec_grid((0,), (4096,), levels, 3, ring=-1)[1] == (0,)
-    assert planexec.ring_override(ACESyncConfig().ring_chunks) is None
+    levels = (Level("INT8", 1.0, 8), Level("FULL", 1.0, 16))
+    sizes = (443_697 * 1024, 4096)            # paper-350m's whole model
+    ring = planexec.ring_override(ACESyncConfig().ring_chunks)
+    assert ring is None
+    for P in (2, 3, 4):
+        sig, chunks, hier = planexec.exec_grid((0, 1), sizes, levels, P,
+                                               ring=ring)
+        assert chunks[0] >= 2 and chunks[1] == 0 and sig[0] % chunks[0] == 0
+        assert hier == (0, 0)
+        assert planexec.exec_grid((0, 1), sizes, levels, P,
+                                  ring=-1)[1] == (0, 0)
+    assert planexec.exec_grid((0, 1), sizes, levels, 1, ring=ring)[1] \
+        == (0, 0)
 
 
 def test_backend_follows_the_layout(monkeypatch):

@@ -120,24 +120,19 @@ def test_sync_tree_apply_fn_matches_plain_scatter():
 
 
 def test_sync_tree_multi_pod_raises():
-    """The multi-pod exchange runs one-shot only: a 2-pod plan that asks
-    for the ring (ring_chunks 0 = auto, or K > 0) and a plan whose chunk
-    grid rings raise — the ring is the ring slice's — instead of quietly
-    running one-shot.  (The one-shot multi-pod path itself is held to the
-    live reference in tests/test_torch_multipod.py.)"""
-    import dataclasses
+    """What the multi-pod exchange still refuses: a two-tier fleet (the
+    two-tier slice's), and a plan whose omega does not match the pod
+    count (a 2-pod plan run without its pod group) — instead of quietly
+    running something else.  The ring itself (ring_chunks 0 = auto, or
+    K > 0) is held to the one-shot exchange and to the live reference in
+    tests/test_torch_ring.py."""
     sizes = [4096, 2048]
-    plan = TScheduler(ACESyncConfig(ring_chunks=-1), sizes, 2,
+    plan = TScheduler(ACESyncConfig(), sizes, 2,
                       device="cpu").plan_from_levels([1, 0], (0.5, 0.5))
-    for ring in (None, 2):
-        with pytest.raises(NotImplementedError, match="ring slice"):
-            tpe.build_exec_plan(plan, sizes, n_pods=2, ring=ring,
-                                device="cpu")
-    with pytest.raises(NotImplementedError, match="ring slice"):
-        TScheduler(ACESyncConfig(), sizes, 2, device="cpu") \
-            .plan_from_levels([1, 0], (0.5, 0.5))
-    ep = tpe.build_exec_plan(plan, sizes, n_pods=2, ring=-1, device="cpu")
-    ringed = dataclasses.replace(ep, chunks=(0, 2) + ep.chunks[2:])
+    with pytest.raises(NotImplementedError, match="two-tier slice"):
+        tpe.build_exec_plan(plan, sizes, n_pods=4, n_edge=2, device="cpu")
+    ep = tpe.build_exec_plan(plan, sizes, n_pods=2, ring=2, device="cpu")
+    assert ep.chunks == (0, 2) + (0,) * (len(ep.chunks) - 2)
     tree = {"a": torch.zeros(4096), "b": torch.zeros(2048)}
-    with pytest.raises(NotImplementedError, match="ring slice"):
-        tsync.sync_tree(tree, tree, ringed, gamma=1.0)
+    with pytest.raises(ValueError, match="2 weights for 1 pods"):
+        tsync.sync_tree(tree, tree, ep, gamma=1.0)
