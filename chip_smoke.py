@@ -34,7 +34,8 @@ Phases (any failure exits nonzero before the result lines):
    plain version on the card, bit for bit: row counts 1-23 with a
    denormal row, an all-zero row and -0 entries, gamma 1.0 / 0.9 / 0.6,
    top-k at every k of the ladder, and one call over all 443,697 rows,
-   which is timed;
+   which is timed, and K16 also against its single-call library
+   counterpart ``torch.mul(q, s)``, which is timed too;
 7. the multi-pod main path: P pods as processes sharing the card (the
    pod group is gloo, staged through pinned host memory), paper-350m at
    full width under ``acesync`` with the default ``ACESyncConfig`` (the
@@ -56,16 +57,39 @@ Phases (any failure exits nonzero before the result lines):
    every sync step and round; the ring hops posted equal to what the
    chunk grids ask for; the losses finite; and K1-K4, K12-K15, K5-K8
    (P = 2) and K8-K11 (P = 3) must have launched (launches of all pods,
-   over the whole path).  Per step kind: step times, the transport's host
-   time, peak memory per pod.  Pods that share one card time-share it:
-   these are not a deployment's step times.
+   over the whole path).  FULL's bytes (a reduce-scatter and an
+   all-gather) must equal ``FullCodec.wire_bytes`` within the shard
+   padding.  Per step kind: step times, the transport's host time, peak
+   memory per pod.  Pods that share one card time-share it: these are
+   not a deployment's step times;
+8. the two-tier path: a fleet of C = 2 clusters x E = 2 members, four
+   pod processes sharing the card (``spawn_pods(..., n_edge=2)``: the
+   ``intra`` and ``cross`` sub-groups), paper-350m at full width pinned
+   at 12 layers (``PATHS["hier"]``; four deeper members do not fit, and a
+   run that does not fit fails), global batch 8, under ``acesync_hier``
+   with ``replan_every=4``: 6 steps (one ``delta_sync``, one device
+   replan), one all-rungs ``grad_sync`` with the bf16 intra stage and one
+   with the INT8 intra stage and the cross tier forced to a 2-chunk ring,
+   then one all-rungs ``sync_tree`` round under the two-tier plan with
+   the cross tier one-shot and forced to the ring, and the flat plan.
+   The members' parameters after every ``delta_sync`` and their
+   all-rungs aggregates must be bit-identical; the ring's aggregate and
+   residuals the one-shot's; the bytes of every sync per tier equal to
+   the priced ones (``plan_wire_bytes(..., n_cross=2)`` of the cross
+   tier's payload rungs exactly, FULL within its shard padding,
+   ``plan_intra_bytes``); the two-tier round's cross-tier bytes below the
+   flat round's; and K5, K6, K12, K13, K3 / K11 and K4 / K8 must have
+   launched.  Prints the tier grids, the bytes per tier, the cross-tier
+   reduction, step means and peak memory per member.
 
 Output: progress lines with each phase's seconds, the pod link's latency
 and rate, then the ``nvidia-smi`` line, the kernels' JSON line (each
 kernel's launches in total and per main path: ``one_pod`` (phase 5),
-``p2`` and ``p3`` (phase 7, all pods), each counted from 0 just before
-its run; ``paths`` gives each path's pods and depth; ``link`` the
-measured link), and as the last line ``{"ok": true, "device": {...}}``.
+``p2`` and ``p3`` (phase 7, all pods) and ``hier`` (phase 8, all
+members), each counted from 0 just before its run; K16's ``library_ms``
+is ``torch.mul(q, s)``'s time; ``paths`` gives each path's pods, members
+per cluster and depth; ``link`` the measured link), and as the last line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -134,6 +158,11 @@ PATHS = {
            "min_delta": 2, "min_replans": 1},
     "p3": {"pods": 3, "batch": 6, "steps": 4, "n_layers": 16,
            "min_delta": 1, "min_replans": 0},
+    # phase 8: C = 2 clusters x E = 2 members (``edge``); four pods at 16
+    # layers would need ~76 of the card's 80 GB (phase 7's ~1.2 GiB a
+    # layer), so 12, and a run that does not fit fails
+    "hier": {"pods": 4, "edge": 2, "batch": 8, "steps": 6, "n_layers": 12,
+             "min_delta": 1, "min_replans": 1},
 }
 
 
@@ -486,12 +515,43 @@ def flat_phase(torch, ops, ref, dev) -> dict:
                  plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                  bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                  bytes=nbytes, gbps=nbytes / (ms * 1e-3) / 1e9)
+        extra = ""
+        if name == "dequant_int8":
+            r["library_ms"], n_den = dequant_library(torch, ops, ref, g, e)
+            extra = (f", library torch.mul {r['library_ms']:.3f} ms (bit for "
+                     f"bit but {n_den} denormal products K16 flushes)")
         log(f"phase 6b: {name} over {NB_350M} rows bit-exact; kernel "
             f"{ms:.3f} ms, plain {plain_ms:.3f} ms, {r['gbps']:.0f} GB/s, "
-            f"bound {r['bound_ms']:.3f} ms")
+            f"bound {r['bound_ms']:.3f} ms{extra}")
     del g, e
     torch.cuda.empty_cache()
     return results
+
+
+def dequant_library(torch, ops, ref, g, e):
+    """K16's single-call library counterpart, ``torch.mul(q, s)`` with the
+    int8 codes promoted to f32, on phase 6b's full-model operands: timed,
+    and held against K16 bit for bit on every entry but the products that
+    are denormal, which K16 flushes to zero as the reference does (their
+    count is returned; the check fails if any other entry differs)."""
+    R = g.shape[0]
+    q, s, _ = ref.quantize_int8_ref(ref.ef_accumulate(g, e, 0.9))
+    s = s.clone()
+    s[1 % R] = 3e-39                                  # a denormal scale
+    lib = torch.mul(q, s)
+    if lib.dtype != torch.float32:
+        fail(f"torch.mul(int8, f32) gave {lib.dtype}")
+    kern = ops.dequant_int8(q, s, R * LANES).reshape(R, LANES)
+    tiny = torch.finfo(torch.float32).tiny
+    den = (lib != 0) & (lib.abs() < tiny)
+    same = kern.view(torch.int32) == lib.view(torch.int32)
+    flushed = den & (kern == 0)
+    if not bool((same | flushed).all()):
+        fail("torch.mul(q, s) and K16 differ outside the denormal products")
+    ms = time_ms(torch, lambda: torch.mul(q, s), 10)
+    del q, s, lib, kern
+    torch.cuda.empty_cache()
+    return ms, int(den.sum())
 
 
 def small_agreement(torch):
@@ -625,18 +685,44 @@ def bits_hash(torch, t):
     return (b * (w % 65521 + 1)).sum()
 
 
-def rung_bytes(ep, n_pods, codecs) -> int:
-    """Analytic wire bytes (``plan_wire_bytes``) of an executed plan's
-    rungs whose codec is in ``codecs``, summed over the backward
-    segments' padded signatures."""
-    sigs = ep.seg_sig if ep.segmented else (ep.sig,)
-    return sum(ep.levels[r].wire_bytes(S * ep.block, n_pods, ep.block)
-               for sig in sigs for r, S in enumerate(sig)
-               if S and ep.levels[r].codec.name in codecs)
-
-
-#: the payload-gather codecs (one coalesced all_gather per segment)
-GATHER_CODECS = ("int8", "int4", "topk", "sign")
+def tier_priced(ep, n_pods, n_edge):
+    """Analytic bytes per member of an executed plan on a fleet of
+    ``n_pods`` members in clusters of ``n_edge``, per tier:
+    ``(payload, full, intra, full_pad, intra_pad)`` — the cross tier's
+    payload rungs (gather and ring: two-tier rungs at the cluster count,
+    flat rungs at the fleet size), FULL's flat sum over the fleet, the
+    intra tier's (``planexec.sig_wire_bytes`` / ``sig_intra_bytes`` per
+    piece), and bounds on the bytes the bf16 sums' reduce-scatter +
+    all-gather moves beyond ``FullCodec.wire_bytes`` on the cross and
+    intra tiers: a piece of n entries is cut into P shards of ceil(n / P),
+    which pads it by fewer than 4 (P - 1) bytes received (none where P
+    divides n).  On a flat fleet (``n_edge`` 1) the payload is the gather
+    and ring rungs' ``plan_wire_bytes``."""
+    from repro_torch.codecs import build_codec
+    from repro_torch.core.planexec import INTRA_FULL
+    n_cross = n_pods // n_edge
+    grids = (zip(ep.seg_sig, ep.seg_hier) if ep.segmented
+             else ((ep.sig, ep.hier),))
+    pay = full = intra = fpad = ipad = 0
+    for sig, hier in grids:
+        for r, S in enumerate(sig):
+            if not S:
+                continue
+            lv, n = ep.levels[r], S * ep.block
+            h = hier[r] if hier else 0
+            if h:
+                pay += lv.wire_bytes(n, n_cross)
+                inner = build_codec("full" if h == INTRA_FULL else "int8")
+                intra += inner.wire_bytes(n, n_edge)
+                if h == INTRA_FULL and n % n_edge:
+                    ipad += 4 * (n_edge - 1)
+            elif lv.codec.name == "full":
+                full += lv.wire_bytes(n, n_pods)
+                if n % n_pods:
+                    fpad += 4 * (n_pods - 1)
+            else:
+                pay += lv.wire_bytes(n, n_pods)
+    return pay, full, intra, fpad, ipad
 
 
 def ring_entries(ep, n_pods) -> int:
@@ -690,7 +776,7 @@ def sync_round(group, trainer, state, batch, omega, out):
             "err": [int(bits_hash(torch, x)) for x in T.leaves(new_e)],
             "bytes": sum(x["bytes"] for x in new
                          if x["op"] in ("gather", "ring")),
-            "want": rung_bytes(ep, P, GATHER_CODECS),
+            "want": tier_priced(ep, P, 1)[0],
             "chunks": [list(c) for c in (ep.seg_chunks if ep.segmented
                                          else (ep.chunks,))],
             "hops": sum(1 for x in new if x["op"] == "ring"),
@@ -756,12 +842,13 @@ def pod_main_path(group, spec):
             ep = trainer.exec_plan(plan)
             out["ringed"] += sum(1 for x in new if x["op"] == "ring")
             out["want_ringed"] += ring_entries(ep, P)
+            pay, full, _, pad, _ = tier_priced(ep, P, 1)
             out["bytes"].append((kind, sum(x["bytes"] for x in new
                                            if x["op"] in ("gather", "ring")),
-                                 rung_bytes(ep, P, GATHER_CODECS),
+                                 pay,
                                  sum(x["bytes"] for x in new
                                      if x["op"] == "full"),
-                                 rung_bytes(ep, P, ("full",))))
+                                 full, pad))
         if kind == "delta_sync":
             out["param_hashes"].append(
                 [bits_hash(torch, x) for x in T.leaves(res[0]["params"])])
@@ -851,11 +938,20 @@ def multipod_run(spec) -> dict:
                  f"delta_sync rounds")
         if pod["replans"] < spec["min_replans"]:
             fail(f"{tag}: {pod['replans']} device replans applied")
-        for kind, got, want, _, _ in pod["bytes"]:
+        for kind, got, want, full, full_priced, pad in pod["bytes"]:
             if got != want:
                 fail(f"{tag}: pod {pod['pod']} moved {got} bytes (gather + "
                      f"ring) in a {kind} step, plan_wire_bytes of the "
                      f"gather rungs is {want}")
+            if not (0 <= full - full_priced < pad
+                    or full == full_priced):
+                fail(f"{tag}: pod {pod['pod']} moved {full} FULL bytes in a "
+                     f"{kind} step, FullCodec.wire_bytes prices "
+                     f"{full_priced} (shard padding at most {pad})")
+        if pod["ringed"] != pod["want_ringed"]:
+            fail(f"{tag}: the training run's sync steps posted "
+                 f"{pod['ringed']} ring hops on pod {pod['pod']}, their "
+                 f"chunk grids ask for {pod['want_ringed']}")
         for name, rnd in pod["round"].items():
             if rnd["bytes"] != rnd["want"]:
                 fail(f"{tag}: sync_tree round '{name}' moved {rnd['bytes']} "
@@ -878,10 +974,6 @@ def multipod_run(spec) -> dict:
             fail(f"{tag}: {what} differ across pods")
     if not first["param_hashes"] or not first["agg_hashes"]:
         fail(f"{tag}: nothing was hashed")
-        if pod["ringed"] != pod["want_ringed"]:
-            fail(f"{tag}: the training run's sync steps posted "
-                 f"{pod['ringed']} ring hops on pod {pod['pod']}, their "
-                 f"chunk grids ask for {pod['want_ringed']}")
     if not first["round"]["k2"]["hops"] or not first["ringed"]:
         fail(f"{tag}: the forced 2-chunk plans posted no ring hop")
     launches = {k: sum(pod["launches"][k] for pod in pods)
@@ -898,11 +990,12 @@ def multipod_run(spec) -> dict:
                 f"{ms}; steady mean {mean:.2f} ms, of it transport "
                 f"{comm:.2f} ms host time ({sync:.2f} ms waiting for the "
                 f"card before the staged copies)")
-    for kind, got, want, full, full_priced in first["bytes"]:
+    for kind, got, want, full, full_priced, pad in first["bytes"]:
         log(f"{tag}: {kind} moved {got} B (gather + ring) = plan_wire_bytes "
-            f"of the gather rungs {want} B; FULL's pod-order sum gathered "
-            f"{full} B per pod, FullCodec.wire_bytes prices {full_priced} B "
-            f"(a bf16 ring all-reduce)")
+            f"of the gather rungs {want} B; FULL's reduce-scatter + "
+            f"all-gather moved {full} B per pod, FullCodec.wire_bytes "
+            f"prices {full_priced} B (a bf16 ring all-reduce; shard padding "
+            f"allowed {pad} B)")
     for name, rnd in first["round"].items():
         log(f"{tag}: sync_tree round '{name}': chunk grid {rnd['chunks']}, "
             f"{rnd['hops']} ring hops, {rnd['bytes']} B = plan_wire_bytes, "
@@ -943,6 +1036,8 @@ def multipod_phase(torch) -> dict:
                           "expandable_segments:True")
     runs, link = {}, None
     for path, spec in PATHS.items():
+        if spec.get("edge", 1) > 1:
+            continue
         runs[path], got = multipod_run(spec)
         link = link or got
     r2, r3 = runs["p2"], runs["p3"]
@@ -955,6 +1050,297 @@ def multipod_phase(torch) -> dict:
         fail(f"phase 7: kernels never launched: P=2 {missing2 + missing}, "
              f"P=3 {missing3 + missing}")
     return runs, link
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the two-tier hierarchy
+# ---------------------------------------------------------------------------
+
+#: phase 8's sync_tree round: exec plans by (hier, ring) argument
+HIER_PLANS = {"two_tier": (None, -1), "two_tier_ring": (None, 2),
+              "flat": (-1, -1)}
+
+
+def tier_logged(entries):
+    """``(payload, full, intra)`` bytes of log entries: the fleet's and the
+    cross tier's gathers and ring hops, their FULL sums, and everything
+    the intra tier received."""
+    cross = [x for x in entries if x["tier"] in ("fleet", "cross")]
+    return (sum(x["bytes"] for x in cross if x["op"] in ("gather", "ring")),
+            sum(x["bytes"] for x in cross if x["op"] == "full"),
+            sum(x["bytes"] for x in entries if x["tier"] == "intra"))
+
+
+def tier_grids(ep):
+    """The executed tier grid(s) of a plan, one per backward segment."""
+    return [list(h) for h in (ep.seg_hier if ep.segmented else (ep.hier,))]
+
+
+def hier_round(group, trainer, state, batch, omega, out):
+    """Phase 8's all-rungs sync_tree round, one member: the same gradients
+    and residuals through the two-tier plan with its cross tier one-shot,
+    forced to a 2-chunk ring, and the flat plan; per plan the hashes of
+    aggregate and residuals and the bytes per tier, logged and priced."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.core import planexec
+    from repro_torch.core import sync as S
+
+    plan = trainer.scheduler.plan_from_levels(list(ALL_RUNGS), omega)
+    _, grads, _ = trainer._grad_step(state["params"], batch)
+    errors = state["ace"].errors
+    for name, (hier, ring) in HIER_PLANS.items():
+        ep = planexec.build_exec_plan(
+            plan, layout=trainer.leaf_layout, n_pods=group.size,
+            n_edge=group.n_edge, hier=hier, ring=ring,
+            segments=planexec.config_segments(trainer.run.acesync),
+            device=group.device)
+        log0 = len(group.log)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agg, new_e = S.sync_tree(grads, errors, ep, gamma=0.9, pods=group)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out["round"][name] = {
+            "agg": [int(bits_hash(torch, x)) for x in T.leaves(agg)],
+            "err": [int(bits_hash(torch, x)) for x in T.leaves(new_e)],
+            "logged": tier_logged(group.log[log0:]),
+            "priced": tier_priced(ep, group.size, group.n_edge),
+            "hier": tier_grids(ep), "ms": secs * 1e3}
+        del agg, new_e
+        torch.cuda.empty_cache()
+
+
+def hier_pod_path(group, spec):
+    """Phase 8, one fleet member (slot c * E + e of C clusters x E
+    members): paper-350m at full width, ``spec["n_layers"]`` layers,
+    through TrainSession under ``acesync_hier`` (the default config with
+    ``replan_every=4``), one all-rungs grad_sync with the bf16 intra
+    stage and one with the INT8 intra stage and the cross tier forced to
+    a 2-chunk ring, and the all-rungs sync_tree round.  Returns this
+    member's hashes, bytes per tier, times and launches."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import (ACESyncConfig, RunConfig,
+                                          ShapeConfig)
+    from repro_torch.core import planexec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.session import TrainSession
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(ARCHS["paper-350m"], n_layers=spec["n_layers"])
+    run = RunConfig(model=cfg,
+                    shape=ShapeConfig("session", 1024, spec["batch"],
+                                      "train"),
+                    total_steps=100, warmup_steps=2,
+                    acesync=ACESyncConfig(replan_every=4))
+    sess = TrainSession(build_model(cfg, run, device=group.device), run,
+                        strategy="acesync_hier", pods=group)
+    cfg = sess.model.cfg
+    trainer = sess.trainer
+    step = trainer.step
+    out = {"times": [], "param_hashes": [], "agg_hashes": [], "bytes": [],
+           "round": {}}
+
+    def timed(state, batch, plan, kind="grad_sync"):
+        log0 = len(group.log)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = step(state, batch, plan, kind)
+        e1.record()
+        new = group.log[log0:]
+        out["times"].append((kind, e0, e1, sum(x["seconds"] for x in new)))
+        if kind in ("delta_sync", "grad_sync"):
+            ep = trainer.exec_plan(plan)
+            out["bytes"].append((kind, tier_logged(new),
+                                 tier_priced(ep, group.size, group.n_edge),
+                                 tier_grids(ep)))
+        if kind == "delta_sync":
+            out["param_hashes"].append(
+                [int(bits_hash(torch, x)) for x in T.leaves(res[0]["params"])])
+        return res
+
+    trainer.step = timed
+    sess.init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    group.barrier()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sess.run(spec["steps"], log_every=1 if group.rank == 0 else 0)
+    update_rows = adamw.update_rows
+
+    def hashed(p, g_rows, *a, **k):
+        out["agg_hashes"].append(int(bits_hash(torch, g_rows)))
+        return update_rows(p, g_rows, *a, **k)
+
+    state = sess.state
+    plan = trainer.scheduler.plan_from_levels(list(ALL_RUNGS),
+                                              sess.loop.plan.omega)
+    adamw.update_rows = hashed
+    try:
+        # all rungs: the bf16 intra stage, then the INT8 intra stage with
+        # the cross tier forced to a 2-chunk ring
+        for hier, ring in ((1, None), (2, 2)):
+            ep = planexec.build_exec_plan(
+                plan, layout=trainer.leaf_layout, n_pods=group.size,
+                n_edge=group.n_edge, hier=hier,
+                ring=planexec.ring_override(0) if ring is None else ring,
+                segments=planexec.config_segments(trainer.run.acesync),
+                device=group.device)
+            state, metrics = trainer.step(state, next(sess.pipeline), ep,
+                                          "grad_sync")
+    finally:
+        adamw.update_rows = update_rows
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    hier_round(group, trainer, state, next(sess.pipeline),
+               sess.loop.plan.omega, out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    per_kind: dict = {}
+    for kind, e0, e1, comm_s in out.pop("times"):
+        per_kind.setdefault(kind, []).append((e0.elapsed_time(e1),
+                                              comm_s * 1e3))
+    return {
+        "pod": group.rank, "backend": group.backend,
+        "losses": sess.losses + [float(metrics["loss"])],
+        "kinds": [k for h in sess.history for k in h["kinds"]],
+        "finite": all(bool(torch.isfinite(x).all())
+                      for x in T.leaves(state["params"])),
+        "replans": sess.loop.device_replans, "launches": launches,
+        "peak": torch.cuda.max_memory_allocated(),
+        "reserved": torch.cuda.max_memory_reserved(), "wall": wall,
+        "train_s": train_s, "per_kind": per_kind, "bytes": out["bytes"],
+        "round": out["round"], "param_hashes": out["param_hashes"],
+        "agg_hashes": out["agg_hashes"], "layers": cfg.n_layers,
+        "width": (cfg.d_model, cfg.vocab_size),
+        "plan": list(sess.loop.plan.level_idx),
+        "tier_grid": list(sess.loop.plan.hier)}
+
+
+def check_tier_bytes(tag, logged, priced):
+    """Gate one sync's bytes per tier: payload and INT8 intra bytes equal
+    to the priced ones, the bf16 sums' within their shard padding."""
+    pay, full, intra = logged
+    w_pay, w_full, w_intra, fpad, ipad = priced
+    if pay != w_pay:
+        fail(f"{tag}: cross-tier payload bytes {pay}, priced {w_pay}")
+    for what, got, want, pad in (("FULL", full, w_full, fpad),
+                                 ("intra", intra, w_intra, ipad)):
+        if not (got == want or 0 <= got - want < pad):
+            fail(f"{tag}: {what} bytes {got}, priced {want} (shard padding "
+                 f"below {pad})")
+
+
+def hier_phase(torch):
+    """Phase 8: the two-tier path, C = 2 clusters x E = 2 members as four
+    processes sharing the card; checks what the members return and
+    returns the launch counts (all members)."""
+    from repro_torch.launch.mesh import spawn_pods
+    spec = PATHS["hier"]
+    n_pods, n_edge = spec["pods"], spec["edge"]
+    tag = f"phase 8 ({n_pods // n_edge} x {n_edge})"
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pods = spawn_pods(hier_pod_path, n_pods, "cuda", args=(spec,),
+                      n_edge=n_edge, timeout=900)
+    wall = time.perf_counter() - t0
+    first = pods[0]
+    if first["width"] != (1024, 50304):
+        fail(f"{tag}: not the full width: {first['width']}")
+    if first["layers"] != spec["n_layers"]:
+        fail(f"{tag}: ran {first['layers']} layers")
+    if not any(first["tier_grid"]):
+        fail(f"{tag}: the knapsack's plan has no two-tier rung: "
+             f"{first['tier_grid']}")
+    for pod in pods:
+        p = pod["pod"]
+        if not pod["finite"] or not all(math.isfinite(x)
+                                        for x in pod["losses"]):
+            fail(f"{tag}: non-finite loss or parameters on member {p}")
+        if pod["kinds"].count("delta_sync") < spec["min_delta"]:
+            fail(f"{tag}: only {pod['kinds'].count('delta_sync')} "
+                 f"delta_sync rounds")
+        if pod["replans"] < spec["min_replans"]:
+            fail(f"{tag}: {pod['replans']} device replans applied")
+        for i, (kind, logged, priced, grid) in enumerate(pod["bytes"]):
+            check_tier_bytes(f"{tag}: member {p} sync step {i} ({kind})",
+                             logged, priced)
+        rnd = pod["round"]
+        for name, r in rnd.items():
+            check_tier_bytes(f"{tag}: member {p} round '{name}'",
+                             r["logged"], r["priced"])
+            if r["agg"] != first["round"][name]["agg"]:
+                fail(f"{tag}: round '{name}' aggregate of member {p} "
+                     f"differs from member 0's")
+        for what in ("agg", "err"):
+            if rnd["two_tier_ring"][what] != rnd["two_tier"][what]:
+                fail(f"{tag}: member {p}: the cross tier's ring and "
+                     f"one-shot {what} differ")
+        cross = {n: r["logged"][0] + r["logged"][1] for n, r in rnd.items()}
+        if not cross["two_tier"] < cross["flat"]:
+            fail(f"{tag}: two-tier cross bytes {cross['two_tier']} not "
+                 f"below the flat round's {cross['flat']}")
+    for key, what in (("param_hashes", "parameters after delta_sync"),
+                      ("agg_hashes", "all-rungs aggregates"),
+                      ("losses", "fleet-mean losses"), ("plan", "plans")):
+        if any(pod[key] != first[key] for pod in pods[1:]):
+            fail(f"{tag}: {what} differ across members")
+    if not first["param_hashes"] or not first["agg_hashes"]:
+        fail(f"{tag}: nothing was hashed")
+    launches = {k: sum(pod["launches"][k] for pod in pods)
+                for k in first["launches"]}
+    need = ("decode_accum_int8", "decode_accum_int4", "quantize_int8",
+            "ef_int4", "gather_ef_sign", "sign_vote_accum_fp",
+            "gather_ef_topk", "topk_scatter_accum")
+    missing = [k for k in need if launches[k] < 1]
+    if missing:
+        fail(f"{tag}: kernels never launched: {missing}")
+    for kind in sorted(first["per_kind"]):
+        for pod in pods:
+            rows = pod["per_kind"][kind]
+            steady = rows[1:] or rows
+            mean = sum(r[0] for r in steady) / len(steady)
+            comm = sum(r[1] for r in steady) / len(steady)
+            log(f"{tag}: member {pod['pod']} {kind}: {len(rows)} steps, ms "
+                f"{[round(r[0], 2) for r in rows]}; steady mean "
+                f"{mean:.2f} ms, of it transport {comm:.2f} ms host time")
+    for kind, logged, priced, grid in first["bytes"]:
+        log(f"{tag}: {kind}: tier grid {grid}; cross tier {logged[0]} B "
+            f"payload + {logged[1]} B FULL (priced {priced[0]} + "
+            f"{priced[1]}), intra {logged[2]} B (priced {priced[2]})")
+    rnd = first["round"]
+    for name, r in rnd.items():
+        log(f"{tag}: sync_tree round '{name}': tier grid {r['hier']}; "
+            f"cross {r['logged'][0] + r['logged'][1]} B, intra "
+            f"{r['logged'][2]} B per member (priced {r['priced'][:3]}); "
+            f"{[round(p['round'][name]['ms'], 1) for p in pods]} ms per "
+            f"member")
+    two = rnd["two_tier"]["logged"]
+    flat = rnd["flat"]["logged"]
+    log(f"{tag}: cross-tier bytes per member, two-tier {two[0] + two[1]} "
+        f"against flat {flat[0] + flat[1]}: "
+        f"{1 - (two[0] + two[1]) / (flat[0] + flat[1]):.2%} fewer; the "
+        f"cross tier's ring and one-shot bit-identical")
+    log(f"{tag}: {first['layers']} layers, backend {first['backend']}, "
+        f"plan {first['plan']} tier grid {first['tier_grid']}, losses "
+        f"{[round(x, 4) for x in first['losses']]}; "
+        f"{len(first['param_hashes'])} delta_sync rounds and the all-rungs "
+        f"aggregates bit-identical on {n_pods} members; training "
+        f"{[round(p['train_s'], 1) for p in pods]} s; peak memory per "
+        f"member {[round(p['peak'] / 2**30, 2) for p in pods]} GiB "
+        f"(reserved {[round(p['reserved'] / 2**30, 2) for p in pods]}); "
+        f"launches (all members) {launches}; wall {wall:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -998,6 +1384,7 @@ def main() -> int:
     results.update(timed_phase("phase 6b", flat_phase, torch, ops, ref, dev))
     runs, link = timed_phase("phase 7", multipod_phase, torch)
     by_path.update(runs)
+    by_path["hier"] = timed_phase("phase 8", hier_phase, torch)
     log(f"pod link (phase 7, P = 2 ping-pong): latency "
         f"{link['latency_s']:.6g} s per hop, rate "
         f"{link['rate_bytes_per_s']:.6g} B/s; phase seconds {phase_s}")
@@ -1011,18 +1398,20 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # phase 5 (one pod) + phase 7 (every pod at P = 2 and 3)
+            # phase 5 (one pod) + phase 7 (every pod at P = 2 and 3) +
+            # phase 8 (every member of the 2 x 2 fleet)
             "launches": sum(n.get(name, 0) for n in by_path.values()),
             "launches_by_path": {path: n.get(name, 0)
                                  for path, n in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms"),
             "parity": "bit-exact", "bytes": r["bytes"],
             "gbps": r["gbps"]})
     print(card, flush=True)
     paths = {"one_pod": {"pods": 1, "layers": 24}}
-    paths.update({path: {"pods": spec["pods"],
+    paths.update({path: {"pods": spec["pods"], "edge": spec.get("edge", 1),
                          "layers": spec["n_layers"] or 24}
                   for path, spec in PATHS.items()})
     print(json.dumps({"kernels": kernels, "paths": paths,

@@ -32,10 +32,14 @@ A :class:`Codec` owns one rung of the compression ladder:
     reference folds its own payload first and its two pods can differ in
     the last bit.
 
+  * ``ef_sync_hier`` — the two-tier round on a hierarchical fleet: the
+    intra codec's ``ef_sync`` over the cluster, then the cluster
+    aggregate re-encoded (no error feedback, unit weights) and exchanged
+    over the cross tier, through the ring or one-shot.
+
 Every collective takes a :class:`~repro_torch.launch.mesh.PodGroup`
-(``pods``) where the reference names its mesh axis.  The two-tier
-exchange (``ef_sync_hier``) belongs to a later slice of the port and
-raises ``NotImplementedError``.
+(``pods``, or ``intra`` / ``cross`` for the two tiers) where the
+reference names its mesh axis.
 """
 from __future__ import annotations
 
@@ -48,10 +52,6 @@ from repro_torch.core.compression import BLOCK, pad_to_blocks
 from repro_torch.kernels.ref import (FIXED_POINT_BITS, ef_accumulate,
                                      fixed_point, fma_f32, from_fixed_point,
                                      ftz)
-
-_HIER = ("the two-tier exchange is not ported yet: it comes with the "
-         "two-tier slice of repro_torch")
-
 
 def _need_pods(pods, n_pods: int):
     if pods is None or pods.size != n_pods:
@@ -137,6 +137,10 @@ class Codec:
     #: ``wire_decode_fold``); False for FULL's sum and SKIP's nothing.  In
     #: the reference it also marks the rungs the chunked ring may carry.
     supports_ring: bool = True
+    #: True for dense quantisers whose cluster aggregate re-encodes
+    #: faithfully without a second error-feedback stage: the rungs the
+    #: two-tier exchange carries (``ef_sync_hier``)
+    supports_hier: bool = False
     #: True when the accumulate is order-sensitive even in deterministic
     #: mode (top-k's float scatter-add): the fold stays in float, in
     #: canonical pod order 0..P-1, which every pod shares.  False: the
@@ -493,9 +497,48 @@ class Codec:
         self._ring_walk(wires, pods, hops_f, hops_b, on_recv)
         return parts
 
-    # ---- later slices ---------------------------------------------------
-    def ef_sync_hier(self, *args, **kwargs):
-        raise NotImplementedError(_HIER)
+    # ---- the two-tier round (hierarchical fleets) -------------------------
+    def ef_sync_hier(self, flat: torch.Tensor, e_flat: torch.Tensor,
+                     omega_intra: torch.Tensor, omega_own: torch.Tensor, *,
+                     gamma: float, n_cross: int, n_edge: int,
+                     intra_mode: int, n_chunks: int = 0,
+                     block: int = BLOCK, cross=None, intra=None,
+                     bidir: bool = True,
+                     deterministic: Optional[bool] = None,
+                     fixed_bits: int = FIXED_POINT_BITS
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Two-tier EF sync -> ``(agg, new_e)``: the E members of a cluster
+        aggregate over ``intra``, and ONE payload per cluster crosses the
+        ``cross`` tier, so a member receives (C - 1) payloads there
+        instead of (C*E - 1).
+
+        Tier 1 is the intra codec's ``ef_sync`` (FULL's bf16 sum or INT8's
+        gather + fold, :data:`~repro_torch.core.planexec.INTRA_FULL` /
+        ``INTRA_INT8``) over ``intra`` with the members' weights
+        ``omega_intra``; its residual is the member's error feedback.  The
+        cluster aggregate is bit-identical on the cluster's members, so
+        tier 2 re-encodes it with this codec with ``gamma=0`` (no
+        cluster-level error feedback) and exchanges it over ``cross`` with
+        unit weights (omega was applied at tier 1): the chunked ring when
+        ``n_chunks`` > 0, else one-shot."""
+        from repro_torch.core.planexec import INTRA_INT8
+        inner = build_codec("int8" if intra_mode == INTRA_INT8 else "full")
+        agg_c, new_e = inner.ef_sync(
+            flat, e_flat, omega_intra, omega_own, gamma=gamma,
+            n_pods=n_edge, block=block, pods=intra,
+            deterministic=deterministic, fixed_bits=fixed_bits)
+        del flat, e_flat
+        zeros = torch.zeros_like(agg_c)
+        unit = torch.ones((n_cross,), dtype=torch.float32,
+                          device=agg_c.device)
+        kw = dict(gamma=0.0, n_pods=n_cross, block=block, pods=cross,
+                  deterministic=deterministic, fixed_bits=fixed_bits)
+        if n_chunks and self.supports_ring and n_cross > 1:
+            agg, _ = self.ef_sync_ring(agg_c, zeros, unit, unit[0],
+                                       n_chunks=n_chunks, bidir=bidir, **kw)
+        else:
+            agg, _ = self.ef_sync(agg_c, zeros, unit, unit[0], **kw)
+        return agg, new_e
 
     def __repr__(self) -> str:  # pragma: no cover - debugging nicety
         return f"<{type(self).__name__} {self.name!r}>"
@@ -566,15 +609,38 @@ def codec_for_level(level) -> Codec:
 # ---------------------------------------------------------------------------
 
 
-def plan_wire_bytes(plan, sizes, n_pods: int, block: int = BLOCK,
-                    use_sig: bool = True) -> int:
-    """Analytic per-device wire bytes for a plan, priced on its executed
-    (padded) bucket signature when it carries one."""
-    from repro_torch.core.planexec import bucket_signature, sig_wire_bytes
+def _plan_sig(plan, sizes, block: int, use_sig: bool = True):
+    """The bucket signature a plan's exchange moves: its own padded one
+    when it carries one counted in ``block``, else the exact one."""
+    from repro_torch.core.planexec import bucket_signature
     sig = getattr(plan, "bucket_sig", None) if use_sig else None
     if sig is not None and getattr(plan, "bucket_block", block) != block:
         sig = None
     if sig is None:
         sig = bucket_signature(plan.level_idx, sizes, len(plan.levels),
                                block)
-    return sig_wire_bytes(sig, plan.levels, n_pods, block)
+    return sig
+
+
+def plan_wire_bytes(plan, sizes, n_pods: int, block: int = BLOCK,
+                    use_sig: bool = True,
+                    n_cross: Optional[int] = None) -> int:
+    """Analytic per-device cross-tier wire bytes for a plan, priced on its
+    executed (padded) bucket signature when it carries one.  With a tier
+    grid (``plan.hier``) two-tier rungs are priced at ``n_cross``
+    clusters; the intra tier is :func:`plan_intra_bytes`."""
+    from repro_torch.core.planexec import sig_wire_bytes
+    return sig_wire_bytes(_plan_sig(plan, sizes, block, use_sig),
+                          plan.levels, n_pods, block,
+                          hier=getattr(plan, "hier", None), n_cross=n_cross)
+
+
+def plan_intra_bytes(plan, sizes, n_edge: int, block: int = BLOCK) -> int:
+    """Analytic per-device intra-cluster wire bytes of a plan's two-tier
+    rungs (zero for flat plans or one-member clusters)."""
+    from repro_torch.core.planexec import sig_intra_bytes
+    hier = getattr(plan, "hier", None)
+    if not hier or n_edge <= 1:
+        return 0
+    return sig_intra_bytes(_plan_sig(plan, sizes, block), plan.levels,
+                           n_edge, block, hier=hier)

@@ -89,6 +89,7 @@ class Int8Codec(Codec):
     name = "int8"
     value_bits = 8
     producer_fused = True
+    supports_hier = True
 
     def payload_bytes(self, n: int, block: int = BLOCK) -> int:
         nb = n_blocks(n, block)
@@ -228,6 +229,7 @@ class Int4Codec(Codec):
     name = "int4"
     value_bits = 4
     producer_fused = True
+    supports_hier = True
 
     def payload_bytes(self, n: int, block: int = BLOCK) -> int:
         nb = n_blocks(n, block)

@@ -15,7 +15,9 @@ and returns the port's train state: the model's Parameters are loaded in
 place (they stay the ``params`` leaves), every other leaf becomes a tensor
 on the trainer's device.  :func:`pod_state_from_reference` takes the
 reference's multi-pod state as it is, every leaf with its leading pod
-dimension, and returns pod ``pod``'s state (one per pod process).
+dimension, and returns pod ``pod``'s state (one per pod process).  On a
+hierarchical fleet that dimension is the reference's pod-major fleet
+("pod", "edge"), and ``pod`` is the fleet slot c * n_edge + e.
 """
 from __future__ import annotations
 
@@ -75,7 +77,8 @@ def state_from_reference(flat: Dict[str, np.ndarray], trainer) -> dict:
 def pod_state_from_reference(flat: Dict[str, np.ndarray], trainer,
                              pod: int) -> dict:
     """Pod ``pod``'s port state from the reference's multi-pod state
-    (leaves keyed as above, each with its leading pod dimension)."""
+    (leaves keyed as above, each with its leading pod — or pod-major
+    fleet — dimension; ``pod`` is the fleet slot)."""
     n = {np.shape(a)[0] for a in flat.values()}
     if len(n) != 1 or not 0 <= pod < n.pop():
         raise ValueError(f"expected leaves with one leading pod dimension "

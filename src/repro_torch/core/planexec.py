@@ -21,8 +21,15 @@ per-hop latency of the pod link as the port's transport measured them);
 a ringing rung's padded size is rounded up to a K multiple.  The grid is
 a function of the signature and these module constants alone, never of
 anything measured at run time, so every pod computes the same grid.
-``chunks[r] == 0`` is the one-shot ``all_gather``.  The two-tier grid
-belongs to the two-tier slice and is zeros.
+``chunks[r] == 0`` is the one-shot ``all_gather``.
+
+Tier grid (the two-tier hierarchy): on a fleet of C clusters x E members
+every hier-capable rung (INT8, INT4) goes two-tier — intra-cluster
+aggregation feeding one payload per cluster over the cross tier
+(``Codec.ef_sync_hier``) — and :func:`hier_rung_mode` picks its intra
+stage (bf16 sum or INT8 gather) from the intra and cross link rates;
+two-tier rungs ring over the C clusters, flat rungs go one-shot over the
+whole fleet.
 """
 from __future__ import annotations
 
@@ -104,6 +111,12 @@ LINK_BW = 2.409e9
 #: per-hop latency of the pod link, seconds: the fit's one-way time at
 #: zero bytes (runs: 4.313e-4, 3.828e-4, 4.282e-4)
 RING_HOP_LATENCY_S = 4.282e-4
+#: intra-cluster link rate, bytes/s, of the two-tier hierarchy: the slope
+#: of the same ping-pong over cluster 0's 2-member ``intra`` sub-group of
+#: a 2 x 2 fleet sharing the card (``linkbench --edge 2 --iters 20``; runs:
+#: 1.611e9, 1.441e9, 1.615e9; the plain pair read 2.028e9 in the same
+#: call); ``LINK_BW`` is the cross tier's rate
+INTRA_BW = 1.611e9
 #: never split a rung into more chunks than this (a design constant)
 RING_MAX_CHUNKS = 16
 #: target link time of one chunk-hop: ~50x the hop latency, which it
@@ -162,6 +175,54 @@ def ring_override(ring_chunks: int) -> Optional[int]:
     return None if ring_chunks == 0 else int(ring_chunks)
 
 
+# ---------------------------------------------------------------------------
+# two-tier (hierarchical) exchange: per-rung tier choice
+# ---------------------------------------------------------------------------
+
+#: tier grid entries: 0 = flat exchange; 1 = two-tier with a bf16-sum
+#: intra-cluster stage; 2 = two-tier with an INT8 gather + fold intra stage
+INTRA_FULL = 1
+INTRA_INT8 = 2
+
+
+def hier_override(hier_mode_cfg: int) -> Optional[int]:
+    """Translate ``ACESyncConfig.hier_mode`` (0 = roofline auto, -1 =
+    never two-tier, 1/2 = force the bf16 / INT8 intra stage) into the
+    ``hier`` argument of :func:`hier_rung_mode` / :func:`exec_grid` (None
+    = auto, <= 0 = flat, 1/2 = force)."""
+    return None if hier_mode_cfg == 0 else int(hier_mode_cfg)
+
+
+def hier_rung_mode(level: Level, nb: int, n_cross: int, n_edge: int,
+                   block: int = BLOCK, hier: Optional[int] = None) -> int:
+    """Tier choice for one rung on a (n_cross clusters) x (n_edge members)
+    fleet: 0 = flat, :data:`INTRA_FULL` / :data:`INTRA_INT8` = two-tier.
+
+    A hier-capable rung (``codec.supports_hier``) always goes two-tier on
+    a hierarchical fleet: its cross-tier volume drops from (C*E - 1) to
+    (C - 1) payloads per member.  The roofline picks only the intra
+    stage: the bf16 sum while its time on the intra link (``INTRA_BW``)
+    stays within the cross tier's transfer (``LINK_BW``), else the INT8
+    gather + fold.  A function of (signature, module constants) alone, so
+    every member computes the same grid.
+
+    ``hier``: None = the heuristic; <= 0 = flat; 1/2 = force the bf16 /
+    INT8 intra stage on every hier-capable rung."""
+    codec = level.codec
+    if (n_edge <= 1 or n_cross <= 1 or nb <= 0
+            or not getattr(codec, "supports_hier", False)):
+        return 0
+    if hier is not None:
+        if hier <= 0:
+            return 0
+        return INTRA_INT8 if hier >= 2 else INTRA_FULL
+    from repro_torch.codecs import build_codec
+    n = nb * block
+    cross_t = (n_cross - 1) * codec.payload_bytes(n, block) / LINK_BW
+    intra_full_t = build_codec("full").wire_bytes(n, n_edge, block) / INTRA_BW
+    return INTRA_FULL if intra_full_t <= cross_t else INTRA_INT8
+
+
 def exec_grid(level_idx: Sequence[int], sizes: Sequence[int],
               levels: Sequence[Level], n_pods: int, block: int = BLOCK,
               growth: Optional[float] = None, ring: Optional[int] = None,
@@ -170,28 +231,69 @@ def exec_grid(level_idx: Sequence[int], sizes: Sequence[int],
               ) -> Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[int, ...]]:
     """(sig, chunks, hier) of the executed exchange: the class-padded
     signature with each ringing rung rounded up to a chunk multiple, the
-    chunk grid (:func:`ring_chunk_count`) and the tier grid (zeros: the
-    two-tier fleet, ``n_edge`` > 1, raises)."""
-    if n_edge > 1:
-        raise NotImplementedError("the two-tier exchange comes with the "
-                                  "two-tier slice of repro_torch")
+    chunk grid (:func:`ring_chunk_count`) and the tier grid
+    (:func:`hier_rung_mode`).
+
+    ``n_pods`` is the fleet size; ``n_edge`` > 1 makes it a hierarchical
+    fleet of ``n_pods // n_edge`` clusters.  Two-tier rungs ring over the
+    clusters; flat rungs on a hierarchical fleet gather over the whole
+    fleet in one shot and never ring."""
     sig = list(bucket_signature(level_idx, sizes, len(levels), block,
                                 growth))
-    chunks = []
+    n_edge = max(int(n_edge), 1)
+    n_cross = max(n_pods // n_edge, 1)
+    chunks, hgrid = [], []
     for r, nb in enumerate(sig):
-        k = ring_chunk_count(levels[r], nb, n_pods, block, ring, bidir)
+        h = hier_rung_mode(levels[r], nb, n_cross, n_edge, block, hier)
+        if h:
+            k = ring_chunk_count(levels[r], nb, n_cross, block, ring, bidir)
+        elif n_edge > 1:
+            k = 0
+        else:
+            k = ring_chunk_count(levels[r], nb, n_pods, block, ring, bidir)
         if k > 1 and nb % k:
             sig[r] = ((nb + k - 1) // k) * k
         chunks.append(k)
-    return tuple(sig), tuple(chunks), tuple(0 for _ in sig)
+        hgrid.append(h)
+    return tuple(sig), tuple(chunks), tuple(hgrid)
 
 
 def sig_wire_bytes(sig: Sequence[int], levels: Sequence[Level],
-                   n_pods: int, block: int = BLOCK) -> int:
-    """Per-device wire bytes of an exchange with bucket signature
-    ``sig`` (padding included)."""
-    return int(sum(levels[r].wire_bytes(S * block, n_pods, block)
-                   for r, S in enumerate(sig) if S))
+                   n_pods: int, block: int = BLOCK,
+                   hier: Optional[Sequence[int]] = None,
+                   n_cross: Optional[int] = None) -> int:
+    """Per-device cross-tier wire bytes of an exchange with bucket
+    signature ``sig`` (padding included).  With a tier grid ``hier``,
+    two-tier rungs cross the slow tier once per cluster: they are priced
+    at ``n_cross`` members instead of ``n_pods``."""
+    total = 0
+    for r, S in enumerate(sig):
+        if not S:
+            continue
+        pods = n_pods
+        if hier and r < len(hier) and hier[r] and n_cross:
+            pods = n_cross
+        total += levels[r].wire_bytes(S * block, pods, block)
+    return int(total)
+
+
+def sig_intra_bytes(sig: Sequence[int], levels: Sequence[Level],
+                    n_edge: int, block: int = BLOCK,
+                    hier: Optional[Sequence[int]] = None) -> int:
+    """Intra-cluster per-device wire bytes of a hierarchical exchange: each
+    two-tier rung's tier-1 volume, priced by the intra codec its tier grid
+    entry selects (bf16 sum or INT8 gather).  Flat rungs move nothing on
+    the intra tier."""
+    if not hier or n_edge <= 1:
+        return 0
+    from repro_torch.codecs import build_codec
+    total = 0
+    for r, S in enumerate(sig):
+        if not S or not (r < len(hier) and hier[r]):
+            continue
+        name = "full" if hier[r] == INTRA_FULL else "int8"
+        total += build_codec(name).wire_bytes(S * block, n_edge, block)
+    return int(total)
 
 
 # ---------------------------------------------------------------------------
@@ -388,9 +490,23 @@ def build_exec_plan(plan, sizes: Optional[Sequence[int]] = None, *,
                                       len(level_idx), L, device), **kw)
 
 
-def exec_wire_bytes(ep: ExecPlan, n_pods: int) -> int:
-    """Analytic per-device wire bytes of the exchange ``ep`` executes."""
+def exec_wire_bytes(ep: ExecPlan, n_pods: int,
+                    n_cross: Optional[int] = None) -> int:
+    """Analytic per-device cross-tier wire bytes of the exchange ``ep``
+    executes (per backward segment for segmented plans)."""
     if ep.segmented:
-        return sum(sig_wire_bytes(s, ep.levels, n_pods, ep.block)
-                   for s in ep.seg_sig)
-    return sig_wire_bytes(ep.sig, ep.levels, n_pods, ep.block)
+        return sum(sig_wire_bytes(s, ep.levels, n_pods, ep.block, hier=h,
+                                  n_cross=n_cross)
+                   for s, h in zip(ep.seg_sig, ep.seg_hier))
+    return sig_wire_bytes(ep.sig, ep.levels, n_pods, ep.block,
+                          hier=ep.hier, n_cross=n_cross)
+
+
+def exec_intra_bytes(ep: ExecPlan, n_edge: int) -> int:
+    """Intra-tier counterpart of :func:`exec_wire_bytes` (zero on a flat
+    fleet)."""
+    if ep.segmented:
+        return sum(sig_intra_bytes(s, ep.levels, n_edge, ep.block, hier=h)
+                   for s, h in zip(ep.seg_sig, ep.seg_hier))
+    return sig_intra_bytes(ep.sig, ep.levels, n_edge, ep.block,
+                           hier=ep.hier)

@@ -16,6 +16,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 from repro_torch import resolve_device
+from repro_torch.codecs import plan_intra_bytes as _bucketed_intra_bytes
 from repro_torch.codecs import plan_wire_bytes as _bucketed_plan_bytes
 from repro_torch.configs.base import ACESyncConfig
 from repro_torch.core import knapsack
@@ -63,35 +64,58 @@ class Scheduler:
     """Host-side policy engine: telemetry + importance -> SyncPlan."""
 
     def __init__(self, cfg: ACESyncConfig, group_sizes: Sequence[int],
-                 n_pods: int, device="cuda"):
+                 n_pods: int, n_edge: int = 1, device="cuda"):
         self.cfg = cfg
         self.sizes = list(group_sizes)
+        # n_pods is the fleet size; n_edge > 1 makes it a hierarchical
+        # fleet of n_pods // n_edge clusters, whose two-tier rungs cross
+        # the slow tier once per cluster (planexec.exec_grid)
         self.n_pods = n_pods
+        self.n_edge = max(int(n_edge), 1)
+        self.n_cross = max(n_pods // self.n_edge, 1)
         self.device = resolve_device(device)
         # price levels as if >= 2 peers exchange (a 1-pod run would see
         # zero cost everywhere and the solver would pick all-SKIP)
         self.acct_pods = max(n_pods, 2)
+        self.acct_cross = max(self.n_cross, 2)
         self.levels = levels_from_config(cfg)
         self.full_level = next(l for l in self.levels if l.is_full)
         self.sync_interval = cfg.sync_interval_init
         self._full_bytes = sum(
             self.full_level.wire_bytes(n, self.acct_pods)
             for n in self.sizes)
-        self.level_acct = [self.acct_pods] * len(self.levels)
+        self._full_bytes_cross = sum(
+            self.full_level.wire_bytes(n, self.acct_cross)
+            for n in self.sizes)
+        # on a hierarchical fleet the knapsack prices hier-capable rungs at
+        # the cluster count: the bytes the cross tier moves for them
+        self.level_acct = [
+            self.acct_cross if (self.hier_enabled and getattr(
+                lv.codec, "supports_hier", False)) else self.acct_pods
+            for lv in self.levels]
         self._layout = planexec.leaf_layout(self.sizes, cfg.topk_block)
         self._device_solver = None
 
+    @property
+    def hier_enabled(self) -> bool:
+        """Whether plans get a two-tier grid: more than one cluster of more
+        than one member, and not forced flat (``hier_mode`` -1)."""
+        return (self.n_edge > 1 and self.n_cross > 1
+                and self.cfg.hier_mode >= 0)
+
     def _finalize(self, plan: SyncPlan, adaptive: bool) -> SyncPlan:
         """Attach the executed bucket signature (padded classes for
-        adaptive plans) and, for segmented lowering, the per-(segment,
-        rung) signature."""
+        adaptive plans), chunk and tier grids, and, for segmented
+        lowering, the per-(segment, rung) signature — through the same
+        ``planexec.exec_grid`` the trainer lowers with."""
         plan.adaptive = adaptive
         growth = self.pad_growth if adaptive else None
         ring = planexec.ring_override(self.cfg.ring_chunks)
+        hier_arg = planexec.hier_override(self.cfg.hier_mode)
         sig, chunks, hier = planexec.exec_grid(
             plan.level_idx, self.sizes, plan.levels, self.n_pods,
             block=self.cfg.topk_block, growth=growth, ring=ring,
-            bidir=self.cfg.ring_bidir)
+            bidir=self.cfg.ring_bidir, n_edge=self.n_edge, hier=hier_arg)
         plan.bucket_sig = sig
         plan.ring_chunks = chunks
         plan.hier = hier
@@ -100,7 +124,8 @@ class Scheduler:
         if segments != 1:
             _, _, seg_sig, _, _ = planexec.seg_grids(
                 plan.level_idx, self._layout, plan.levels, self.n_pods,
-                growth, ring, self.cfg.ring_bidir, segments=segments)
+                growth, ring, self.cfg.ring_bidir, n_edge=self.n_edge,
+                hier=hier_arg, segments=segments)
             plan.seg_sig = seg_sig or None
         return plan
 
@@ -161,7 +186,12 @@ class Scheduler:
         return self._device_solver
 
     def budget_for(self, bandwidth_mbps: float) -> float:
-        return byte_budget(self.cfg, bandwidth_mbps, self._full_bytes)
+        """Eq-(5) byte budget against the full-sync volume — on a
+        hierarchical fleet the cross tier's, the tier eq. (5)'s WAN links
+        model and the knapsack prices two-tier rungs on."""
+        full = (self._full_bytes_cross if self.hier_enabled
+                else self._full_bytes)
+        return byte_budget(self.cfg, bandwidth_mbps, full)
 
     def adapt_interval(self, divergence: float, div_ref: float) -> int:
         """Paper eq (9): grow H when divergence is small, shrink when it
@@ -187,8 +217,17 @@ class Scheduler:
 
     def plan_wire_bytes(self, plan: SyncPlan, n_pods: Optional[int] = None,
                         padded: bool = True) -> int:
-        """Bytes a sync round under ``plan`` moves per device (bucketed,
-        padding included for adaptive plans)."""
+        """Bytes a sync round under ``plan`` moves per device over the
+        cross tier (bucketed, padding included for adaptive plans; two-tier
+        rungs at the cluster count).  An explicit ``n_pods`` prices every
+        rung at that count."""
         return _bucketed_plan_bytes(
             plan, self.sizes, self.acct_pods if n_pods is None else n_pods,
-            self.cfg.topk_block, use_sig=padded)
+            self.cfg.topk_block, use_sig=padded,
+            n_cross=self.acct_cross if n_pods is None else None)
+
+    def plan_intra_bytes(self, plan: SyncPlan) -> int:
+        """Intra-cluster bytes of the plan's two-tier rungs (zero for flat
+        plans)."""
+        return _bucketed_intra_bytes(plan, self.sizes, self.n_edge,
+                                     self.cfg.topk_block)

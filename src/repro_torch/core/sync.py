@@ -24,6 +24,15 @@ in the encode pass (``Codec.ef_sync_ring``), its buffers dropped as soon
 as they are encoded.  FULL rungs sum their bf16 contributions across the
 pods in the encode pass; SKIP rungs send nothing.
 
+Hierarchical fleet (``pods.n_edge`` > 1: C clusters of E members, slot
+``c * E + e``): rungs the plan's tier grid marks two-tier
+(``ExecPlan.hier``) materialise their bucket and run
+``Codec.ef_sync_hier`` in the encode pass — the intra stage over
+``pods.intra`` with the cluster's weights ``omega.reshape(C, E)[c]``,
+then one payload per cluster over ``pods.cross``, through the ring where
+the chunk grid rings.  Flat rungs join the fleet's coalesced
+``all_gather`` and never ring; FULL sums over the whole fleet.
+
 Rung-ordered apply (``apply_fn``): the optimizer consumes each rung's
 aggregate as soon as the rung is done, on the rung's ``(S, block)`` rows
 of the packed aux buffers (params / moments, or the anchor).
@@ -118,13 +127,14 @@ def _unpack(buf: torch.Tensor, like, block: int):
     return tuple(outs)
 
 
-def _range_sync(gs, es, aux, perms, sig, chunks, NB, *, levels, block,
-                omega, omega_own, scalars, gamma, apply_fn, pods, bidir,
-                fixed_bits):
+def _range_sync(gs, es, aux, perms, sig, chunks, hgrid, NB, *, levels,
+                block, omega, omega_own, omega_intra, scalars, gamma,
+                apply_fn, pods, bidir, fixed_bits):
     """One leaf range's pack + per-rung exchange + scatter + unpack.
     Returns ``(aggs | aux_outs, errs)`` as leaf tuples for the range."""
     device = gs[0].device
     n_pods = 1 if pods is None else pods.size
+    n_edge = 1 if pods is None else pods.n_edge
     fb = _leaf_blocks(gs, block, device)
     eb = _leaf_blocks(es, block, device)
     if fb.shape[0] != NB + 1:
@@ -147,10 +157,10 @@ def _range_sync(gs, es, aux, perms, sig, chunks, NB, *, levels, block,
     # Encode pass: with more than one pod every one-shot payload rung
     # stops at its packed uint8 wire, and the range's wires go out in ONE
     # all_gather (slicing the gathered concatenation is bit-identical to
-    # gathering each piece alone).  Ring rungs, FULL / SKIP and the single
-    # pod exchange inline.  Residuals and inline aggregates scatter at
-    # once, so their buffers die early (the perms are disjoint: the
-    # scatter order is free).
+    # gathering each piece alone).  Two-tier and ring rungs, FULL / SKIP
+    # and the single pod exchange inline.  Residuals and inline aggregates
+    # scatter at once, so their buffers die early (the perms are disjoint:
+    # the scatter order is free).
     staged, wires, woff = [], [], 0
     pi = 0
     for r, S in enumerate(sig):
@@ -161,7 +171,17 @@ def _range_sync(gs, es, aux, perms, sig, chunks, NB, *, levels, block,
         codec = levels[r].codec
         idx = perm.long()
         k = chunks[r] if chunks else 0
-        if n_pods > 1 and codec.supports_ring and k:
+        if hgrid and hgrid[r] and n_edge > 1:
+            b_agg, b_err = codec.ef_sync_hier(
+                gather_rows(fb, perm).reshape(-1),
+                gather_rows(eb, perm).reshape(-1), omega_intra, omega_own,
+                gamma=gamma, n_cross=pods.n_cross, n_edge=n_edge,
+                intra_mode=hgrid[r], n_chunks=k, block=block,
+                cross=pods.cross, intra=pods.intra, bidir=bidir,
+                fixed_bits=fixed_bits)
+            scatter_agg(S, idx, b_agg)
+            del b_agg
+        elif n_pods > 1 and codec.supports_ring and k:
             b_agg, b_err = codec.ef_sync_ring(
                 gather_rows(fb, perm).reshape(-1),
                 gather_rows(eb, perm).reshape(-1), omega, omega_own,
@@ -213,15 +233,17 @@ def sync_tree(tree, errors, plan: Union[SyncPlan, ExecPlan], *,
     which is lowered here with exact (unpadded) bucket sizes; ``ring`` /
     ``bidir`` set its chunk grid (None = the roofline heuristic, <= 0 =
     the one-shot exchange, K = K chunks on every ring-capable rung) and
-    ring direction.  ExecPlans carry their own."""
+    ring direction, and a hierarchical ``pods`` its tier grid (the
+    roofline's).  ExecPlans carry their own."""
     n_pods = 1 if pods is None else pods.size
+    n_edge = 1 if pods is None else pods.n_edge
     leaves, treedef = T.flatten(tree)
     e_leaves = T.leaves(errors)
     device = leaves[0].device
     if isinstance(plan, SyncPlan):
         ep = build_exec_plan(plan, [l.numel() for l in leaves], block=block,
                              n_pods=n_pods, ring=ring, bidir=bidir,
-                             device=device)
+                             n_edge=n_edge, device=device)
     else:
         ep = plan
     omega = ep.omega
@@ -230,16 +252,21 @@ def sync_tree(tree, errors, plan: Union[SyncPlan, ExecPlan], *,
     if omega.shape[0] != n_pods:
         raise ValueError(f"plan omega has {omega.shape[0]} weights for "
                          f"{n_pods} pods")
+    # this member's weight, and its cluster's (E,) slice of the fleet's
+    # pod-major weights
     omega_own = omega[0 if pods is None else pods.rank]
+    omega_intra = (omega.reshape(-1, n_edge)[pods.rank // n_edge]
+                   if n_edge > 1 else omega[:1])
     aux = tuple(tuple(T.leaves(a)) for a in apply_aux)
     kw = dict(levels=ep.levels, block=ep.block, omega=omega,
-              omega_own=omega_own, scalars=tuple(apply_scalars),
+              omega_own=omega_own, omega_intra=omega_intra,
+              scalars=tuple(apply_scalars),
               gamma=gamma, apply_fn=apply_fn, pods=pods, bidir=ep.bidir,
               fixed_bits=fixed_bits)
     gs, es = tuple(leaves), tuple(e_leaves)
     if not ep.segmented:
         outs, errs = _range_sync(gs, es, aux, ep.perms, ep.sig, ep.chunks,
-                                 ep.total_blocks, **kw)
+                                 ep.hier, ep.total_blocks, **kw)
     else:
         n_seg = len(ep.seg_sig)
         seg_out: list = [None] * n_seg
@@ -249,8 +276,8 @@ def sync_tree(tree, errors, plan: Union[SyncPlan, ExecPlan], *,
             lo, hi = ep.seg_leaves[s], ep.seg_leaves[s + 1]
             seg_out[s], seg_err[s] = _range_sync(
                 gs[lo:hi], es[lo:hi], tuple(a[lo:hi] for a in aux),
-                ep.perms[s], ep.seg_sig[s], ep.seg_chunks[s], ep.seg_nb[s],
-                **kw)
+                ep.perms[s], ep.seg_sig[s], ep.seg_chunks[s],
+                ep.seg_hier[s], ep.seg_nb[s], **kw)
         errs = tuple(e for seg in seg_err for e in seg)
         if apply_fn is None:
             outs = tuple(g for seg in seg_out for g in seg)

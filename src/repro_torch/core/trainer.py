@@ -18,7 +18,11 @@ pod dimension, and the pods meet in the collectives of their
 the pod means of the metrics, grad stats and divergence, and
 ``param_avg``.  The exchange is the config's: the chunked ring on the
 rungs the plan's chunk grid rings (``ACESyncConfig.ring_chunks``, 0 =
-auto), the one-shot ``all_gather`` elsewhere.  The
+auto), the one-shot ``all_gather`` elsewhere, and on a hierarchical
+fleet (a pod group with ``n_edge`` > 1) the two-tier exchange on the
+rungs its tier grid marks (``ACESyncConfig.hier_mode``, 0 = auto).  The
+pod group is the whole fleet, its rank the fleet slot, so the pod means
+and the ``param_avg`` weights span every member.  The
 state is a dict of trees of tensors: ``params`` are the model's own
 Parameters, updated in place; the other entries are replaced each step.
 PyTorch runs eagerly, so there is no compiled-step cache: a plan is
@@ -64,11 +68,12 @@ class Trainer:
         self.strategy_name = self.strategy.name
         self.pods = pods
         self.n_pods = 1 if pods is None else pods.size
+        self.n_edge = 1 if pods is None else pods.n_edge
         self.param_shapes = model.param_shapes()
         self.metas = S.group_metas(self.param_shapes)
         self.sizes = [m.size for m in self.metas]
         self.scheduler = Scheduler(run.acesync, self.sizes, self.n_pods,
-                                   device=self.device)
+                                   n_edge=self.n_edge, device=self.device)
         self.leaf_layout = planexec.leaf_layout(self.sizes,
                                                 run.acesync.topk_block)
         self._exec_cache: Dict = {}
@@ -203,7 +208,8 @@ class Trainer:
 
     def _body_param_avg(self, st, batch, plan: ExecPlan):
         """FedAvg baseline: the omega-weighted parameter average across
-        the pods (on one pod, the pod's own parameters)."""
+        the pods (on one pod, the pod's own parameters); the weight is
+        the fleet slot's."""
         div = self._pmean(D.pod_divergence(st["params"], self.pods))
         if self.n_pods > 1:
             w = plan.omega[self.pods.rank]
@@ -240,7 +246,8 @@ class Trainer:
                                  growth=growth, n_pods=self.n_pods,
                                  ring=planexec.ring_override(
                                      cfg.ring_chunks),
-                                 bidir=cfg.ring_bidir,
+                                 bidir=cfg.ring_bidir, n_edge=self.n_edge,
+                                 hier=planexec.hier_override(cfg.hier_mode),
                                  segments=planexec.config_segments(cfg),
                                  device=self.device)
             while len(self._exec_cache) >= self._EXEC_CACHE_MAX:

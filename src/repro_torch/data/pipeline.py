@@ -5,7 +5,9 @@ The same seeded Markov-chain token generator as the reference, so a given
 (seed, step, row) yields the same tokens byte for byte in both packages;
 batches are int32 tensors on the pipeline's device.  With P pods, pod p
 takes rows [p*B/P, (p+1)*B/P) of each global batch of B rows, as the
-reference's batch sharding over ("pod", "data") gives them.
+reference's batch sharding over ("pod", "data") gives them; on a
+hierarchical fleet ``pod`` is the fleet slot r = c*E + e and P the fleet
+size, as the reference's pod-major ("pod", "edge") sharding gives them.
 """
 from __future__ import annotations
 

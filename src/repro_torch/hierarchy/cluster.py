@@ -1,22 +1,42 @@
 """Live device clustering with hysteresis — port of
-``repro/hierarchy/cluster.py`` for the flat pod fleet: the warm-started
-k-means refresh (:meth:`ClusterState.update`) and the mapping of device
+``repro/hierarchy/cluster.py``, numpy on the host: the warm-started
+k-means refresh (:meth:`ClusterState.update`), the mapping of device
 reliability weights onto fleet slots (:meth:`ClusterState.fleet_slots`,
-:meth:`ClusterState.fleet_omega`), numpy on the host.  Snapshots for
-checkpoints and the per-cluster policies of the two-tier exchange come
-with later slices.
+:meth:`ClusterState.fleet_omega`, pod-major ``c * n_edge + e`` on a
+hierarchical fleet), the per-cluster policies and the bottleneck
+cluster's bandwidth the hierarchical strategy budgets against, and the
+snapshot a checkpoint carries.
 
 The host loop refreshes a :class:`ClusterState` on each replan; the fleet
-omega it returns is the per-pod aggregation weight of eq. (8).
+omega it returns is the per-member aggregation weight of eq. (8).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core.clustering import (kmeans, normalise_profiles,
                                          reliability_weights)
+from repro_torch.core.scheduler import kept_fraction
+
+
+@dataclasses.dataclass
+class ClusterPolicy:
+    """Per-cluster coordination policy from the current telemetry.
+
+    ``omega`` is the cluster's total reliability mass (its share of the
+    fleet softmax); ``kept_fraction`` is the compression the scheduler
+    would pick for the cluster's mean bandwidth (eq. 5), filled in when
+    :meth:`ClusterState.policies` is given a config."""
+    cluster: int
+    members: List[int]
+    bandwidth_mbps: float
+    latency_ms: float
+    straggle: float
+    omega: float
+    kept_fraction: Optional[float] = None
 
 
 class ClusterState:
@@ -88,6 +108,34 @@ class ClusterState:
             return True
         return False
 
+    # ------------------------------------------------------------------ #
+    # host state a checkpoint carries                                    #
+    # ------------------------------------------------------------------ #
+    def snapshot(self) -> dict:
+        """JSON-able mutable state: warm-start centroids, the hysteresis
+        anchor (current assignments) and the churn counters."""
+        return {
+            "centroids": (None if self.centroids is None
+                          else [[float(v) for v in row]
+                                for row in self.centroids]),
+            "assignments": (None if self.assignments is None
+                            else list(self.assignments)),
+            "updates": self.updates,
+            "churn": self.churn,
+            "reclusters": self.reclusters,
+        }
+
+    def restore_snapshot(self, snap: dict):
+        cent = snap.get("centroids")
+        self.centroids = (None if cent is None
+                          else np.asarray(cent, dtype=np.float64))
+        assign = snap.get("assignments")
+        self.assignments = None if assign is None else [int(a)
+                                                        for a in assign]
+        self.updates = int(snap.get("updates", 0))
+        self.churn = int(snap.get("churn", 0))
+        self.reclusters = int(snap.get("reclusters", 0))
+
     def _require_assignments(self) -> List[int]:
         if self.assignments is None:
             raise RuntimeError("ClusterState.update() has not been called")
@@ -141,3 +189,43 @@ class ClusterState:
             om = grid.reshape(-1)
         om = om / om.sum()
         return tuple(float(v) for v in om)
+
+    # ------------------------------------------------------------------ #
+    # per-cluster policies                                               #
+    # ------------------------------------------------------------------ #
+    def policies(self, telemetry: Sequence[Dict[str, float]],
+                 cfg=None) -> List[ClusterPolicy]:
+        """Per-cluster policies for the current assignment; with ``cfg``
+        (an ACESyncConfig) each carries the eq-(5) kept fraction of the
+        cluster's mean bandwidth."""
+        assign = self._require_assignments()
+        w = reliability_weights(telemetry, assign)
+        out = []
+        for j in range(self.k):
+            members = [i for i, a in enumerate(assign) if a == j]
+            if not members:
+                continue
+            bw = float(np.mean([telemetry[i]["bandwidth_mbps"]
+                                for i in members]))
+            out.append(ClusterPolicy(
+                cluster=j,
+                members=members,
+                bandwidth_mbps=bw,
+                latency_ms=float(np.mean([telemetry[i]["latency_ms"]
+                                          for i in members])),
+                straggle=float(np.mean([telemetry[i].get("straggle", 1.0)
+                                        for i in members])),
+                omega=float(sum(float(w[i]) for i in members)),
+                kept_fraction=(None if cfg is None
+                               else kept_fraction(cfg, bw))))
+        return out
+
+    def bottleneck_bandwidth(self, telemetry: Sequence[Dict[str, float]],
+                             default: float = 50.0) -> float:
+        """The slowest cluster's mean bandwidth (Mbps): the cross-tier
+        exchange moves at the pace of its weakest cluster, so the
+        hierarchical strategy budgets against it."""
+        pols = self.policies(telemetry)
+        if not pols:
+            return default
+        return min(p.bandwidth_mbps for p in pols)

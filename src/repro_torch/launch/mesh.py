@@ -2,18 +2,22 @@
 port's counterpart of ``repro/launch/mesh.py``'s ``make_mesh``.
 
 The reference runs P pods as one SPMD program over a ("pod", "data",
-"model") mesh and names the pod axis in its collectives.  The port runs
-one process per pod ("data" and "model" are 1) and hands every collective
-a :class:`PodGroup`:
+"model") mesh — or a ("pod", "edge", ...) mesh for the two-tier
+hierarchy — and names the mesh axes in its collectives.  The port runs
+one process per fleet member ("data" and "model" are 1) and hands every
+collective a :class:`PodGroup`:
 
   * ``all_gather_bytes(u8) -> (P, nbytes)`` — the one-shot payload
     exchange, pod-major like the reference's ``all_gather``;
   * ``all_reduce_sum`` / ``pmean`` of small f32 tensors (grad stats,
     divergence projections, the parameter average), summed in pod order
     so that every pod gets the same bits;
-  * ``full_exchange`` — FULL's cross-pod sum of bf16 contributions,
-    summed in f32 in pod order and rounded to bf16 once, as the reference
-    does on XLA:CPU (bf16(sum of f32(contrib))), identical on every pod;
+  * ``full_exchange`` — FULL's cross-pod sum of bf16 contributions as a
+    reduce-scatter and an all-gather: each pod sums, in f32 and in pod
+    order, the shard of the vector it owns, rounds it to bf16 once, and
+    the shards are gathered back — bf16(sum of f32(contrib)), as the
+    reference's psum gives it on XLA:CPU, identical on every pod, at the
+    bytes a bf16 ring all-reduce moves (``FullCodec.wire_bytes``);
   * ``ring_stage`` / ``ring_hop`` / ``ring_to_device`` — the point-to-point
     hops of the chunked ring (the reference's ``ppermute``): one hop of a
     chunk goes to pod (rank + 1) % P and comes from (rank - 1) % P
@@ -21,6 +25,15 @@ a :class:`PodGroup`:
     flight together;
   * a log of the bytes each collective received per pod (``log``), so a
     run can hold the exchange to the analytic ``plan_wire_bytes``.
+
+A hierarchical fleet of C clusters x E members (``n_edge`` = E > 1) is
+one world group of C*E ranks, slot ``r = c*E + e`` pod-major as the
+reference's ``pod * n_edge + edge``.  Its :class:`PodGroup` (tier
+"fleet") carries two sub-groups, each a :class:`PodGroup` of its own with
+rank and size local to it (the reference's mesh axes): ``intra``, the E
+members of its cluster (``EDGE_AXIS``), and ``cross``, the C members with
+its edge index (``POD_AXIS``).  The three share one byte log, each entry
+naming its tier.
 
 The backend follows from the layout, before any collective runs: NCCL
 when every pod has a card of its own; gloo when pods share a card or run
@@ -39,7 +52,7 @@ import os
 import socket
 import time
 import traceback
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -66,49 +79,121 @@ def pod_device(rank: int, n_pods: int, device_type: str) -> torch.device:
 
 
 class PodGroup:
-    """One pod's handle on the pod group (rank, size, device, collectives
-    and the byte log)."""
+    """One pod's handle on a pod group (rank, size, device, collectives
+    and the byte log).  ``pg`` is the ``torch.distributed`` group (None:
+    the world), ``ranks`` the global rank of each member, ``tier`` the
+    name its log entries carry; ``log`` may be shared with other groups
+    of the same process.  On a hierarchical fleet :meth:`split_tiers`
+    adds the ``intra`` and ``cross`` sub-groups."""
 
-    def __init__(self, rank: int, size: int, device, backend: str):
+    def __init__(self, rank: int, size: int, device, backend: str, *,
+                 tier: str = "fleet", pg=None,
+                 ranks: Optional[Sequence[int]] = None,
+                 log: Optional[List[dict]] = None):
         self.rank = int(rank)
         self.size = int(size)
         self.device = torch.device(device)
         self.backend = backend
+        self.tier = tier
+        self.pg = pg
+        self.ranks = list(range(self.size)) if ranks is None else list(ranks)
         #: staged through host memory: CUDA tensors under gloo
         self.staged = backend == "gloo" and self.device.type == "cuda"
-        #: one entry per collective: op, bytes received per pod, host
+        #: one entry per collective: op, tier, bytes received per pod, host
         #: seconds in the call, and of those the seconds spent waiting for
         #: the card before a staged copy
-        self.log: List[dict] = []
+        self.log: List[dict] = [] if log is None else log
         self._sync_s = 0.0
+        #: members per cluster, and the tier sub-groups (hierarchical
+        #: fleets only)
+        self.n_edge = 1
+        self.intra: Optional["PodGroup"] = None
+        self.cross: Optional["PodGroup"] = None
+
+    @property
+    def n_cross(self) -> int:
+        return self.size // self.n_edge
+
+    def split_tiers(self, n_edge: int) -> None:
+        """Make this fleet of C = size / n_edge clusters hierarchical: the
+        ``intra`` group of the E members of its cluster (ranks c*E ..
+        c*E+E-1) and the ``cross`` group of the C members with its edge
+        index (ranks e, E+e, ...).  Every rank creates every sub-group, in
+        the same order, including the groups it is not in."""
+        E = int(n_edge)
+        if E < 1 or self.size % E:
+            raise ValueError(f"{self.size} fleet members do not split into "
+                             f"clusters of {E}")
+        self.n_edge = E
+        if E == 1:
+            return
+        C = self.size // E
+        layouts = ([("intra", [c * E + e for e in range(E)])
+                    for c in range(C)]
+                   + [("cross", [c * E + e for c in range(C)])
+                      for e in range(E)])
+        for tier, ranks in layouts:
+            pg = dist.new_group(ranks)
+            if self.rank in ranks:
+                setattr(self, tier, PodGroup(
+                    ranks.index(self.rank), len(ranks), self.device,
+                    self.backend, tier=tier, pg=pg, ranks=ranks,
+                    log=self.log))
 
     # ---- transport -------------------------------------------------------
+    def _stage(self, u8: torch.Tensor) -> torch.Tensor:
+        """What the transport reads: a pinned host copy after a stream
+        synchronisation when staged, else ``u8`` itself."""
+        if not self.staged:
+            return u8
+        src = torch.empty((u8.numel(),), dtype=torch.uint8, pin_memory=True)
+        src.copy_(u8, non_blocking=True)
+        t0 = time.perf_counter()
+        # the gloo call reads the host copy: it must have landed (the wait
+        # also covers the device work queued before the copy)
+        torch.cuda.current_stream(u8.device).synchronize()
+        self._sync_s += time.perf_counter() - t0
+        return src
+
     def _gather_flat(self, u8: torch.Tensor) -> torch.Tensor:
         """(nbytes,) uint8 on this pod -> (P, nbytes) on its device."""
         P, n = self.size, u8.numel()
         if self.backend == "nccl":
             out = torch.empty((P, n), dtype=torch.uint8, device=u8.device)
-            dist.all_gather_into_tensor(out.view(-1), u8)
+            dist.all_gather_into_tensor(out.view(-1), u8, group=self.pg)
             return out
-        pin = self.staged
-        src = u8
-        if pin:
-            src = torch.empty((n,), dtype=torch.uint8, pin_memory=True)
-            src.copy_(u8, non_blocking=True)
-            t0 = time.perf_counter()
-            # the gloo call reads the host copy: it must have landed (the
-            # wait also covers the device work queued before the copy)
-            torch.cuda.current_stream(u8.device).synchronize()
-            self._sync_s += time.perf_counter() - t0
-        out = torch.empty((P, n), dtype=torch.uint8, pin_memory=pin)
-        dist.all_gather(list(out.unbind(0)), src)
-        return out.to(u8.device, non_blocking=True) if pin else out
+        src = self._stage(u8)
+        out = torch.empty((P, n), dtype=torch.uint8, pin_memory=self.staged)
+        dist.all_gather(list(out.unbind(0)), src, group=self.pg)
+        return out.to(u8.device, non_blocking=True) if self.staged else out
 
-    def _collective(self, op: str, u8: torch.Tensor) -> torch.Tensor:
+    def _scatter_flat(self, u8: torch.Tensor) -> torch.Tensor:
+        """(P * k,) uint8 on this pod, piece q for pod q -> (P, k) on its
+        device, row p the piece pod p sent here (``all_to_all``)."""
+        P = self.size
+        if self.backend == "nccl":
+            out = torch.empty_like(u8)
+            dist.all_to_all_single(out, u8, group=self.pg)
+            return out.view(P, -1)
+        src = self._stage(u8)
+        out = torch.empty((u8.numel(),), dtype=torch.uint8,
+                          pin_memory=self.staged)
+        dist.all_to_all_single(out, src, group=self.pg)
+        out = out.to(u8.device, non_blocking=True) if self.staged else out
+        return out.view(P, -1)
+
+    def _collective(self, op: str, u8: torch.Tensor,
+                    scatter: bool = False) -> torch.Tensor:
         self._sync_s = 0.0
         t0 = time.perf_counter()
-        out = self._gather_flat(u8.contiguous().view(-1))
-        self.log.append({"op": op, "bytes": (self.size - 1) * u8.numel(),
+        u8 = u8.contiguous().view(-1)
+        if scatter:
+            out = self._scatter_flat(u8)
+            got = (self.size - 1) * (u8.numel() // self.size)
+        else:
+            out = self._gather_flat(u8)
+            got = (self.size - 1) * u8.numel()
+        self.log.append({"op": op, "tier": self.tier, "bytes": got,
                          "seconds": time.perf_counter() - t0,
                          "sync_seconds": self._sync_s})
         return out
@@ -147,15 +232,33 @@ class PodGroup:
 
     def full_exchange(self, contrib: torch.Tensor) -> torch.Tensor:
         """FULL's cross-pod sum: bf16 contributions -> f32 aggregate,
-        bf16(sum over pods, in pod order, of f32(contrib))."""
+        bf16(sum over pods, in pod order, of f32(contrib)).
+
+        A reduce-scatter, then an all-gather, both logged as op "full":
+        the n entries, padded to P shards of m = ceil(n / P), go shard q to
+        pod q (``all_to_all``); each pod sums the P copies of its shard in
+        f32 in pod order and rounds once to bf16; one ``all_gather`` of the
+        bf16 shards returns the whole vector.  Each pod receives
+        4 (P-1) m bytes: ``FullCodec.wire_bytes`` (2 (P-1)/P 2n) plus less
+        than 4 (P-1) bytes of shard padding, none where P divides n."""
         if contrib.dtype != torch.bfloat16:
             raise ValueError(f"FULL sums bf16 contributions, got "
                              f"{contrib.dtype}")
-        parts = self._gather_values(contrib, "full")
+        P = self.size
+        flat = contrib.contiguous().reshape(-1)
+        n = flat.numel()
+        m = -(-n // P)
+        if m * P != n:
+            flat = torch.cat([flat, flat.new_zeros(m * P - n)])
+        parts = self._collective("full", flat.view(torch.uint8),
+                                 scatter=True).view(torch.bfloat16)
         acc = parts[0].float()
-        for p in range(1, self.size):
+        for p in range(1, P):
             acc = ftz(acc + parts[p].float())
-        return acc.to(torch.bfloat16).float()
+        shard = acc.to(torch.bfloat16)
+        whole = self._collective("full", shard.view(torch.uint8))
+        out = whole.view(torch.bfloat16).reshape(-1)[:n]
+        return out.float().reshape(contrib.shape)
 
     # ---- the ring's point-to-point hops ---------------------------------
     def ring_stage(self, wires: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -179,8 +282,9 @@ class PodGroup:
                  bwd: Optional[torch.Tensor], tag: int) -> "RingHop":
         """Post one hop of a ring chunk: ``fwd`` goes to pod (rank + 1) % P
         while a buffer of its size comes from (rank - 1) % P, ``bwd`` the
-        other way round; None posts nothing in that direction.  ``tag``
-        names the (hop, chunk) on every pod alike, so that messages cannot
+        other way round; None posts nothing in that direction.  Peers are
+        local to the group and sent to by their global rank.  ``tag`` names
+        the (hop, chunk) on every pod alike, so that messages cannot
         cross.  Buffers are the transport's (:meth:`ring_stage`, or what
         an earlier hop received).  Returns the hop's handle; its log entry
         (op "ring") counts the bytes received."""
@@ -191,19 +295,20 @@ class PodGroup:
             if buf is None:
                 recvs.append(None)
                 continue
-            dst, src, t = (r + d) % P, (r - d) % P, 2 * tag + (d < 0)
+            dst, src = self.ranks[(r + d) % P], self.ranks[(r - d) % P]
+            t = 2 * tag + (d < 0)
             out = torch.empty((buf.numel(),), dtype=torch.uint8,
                               device=buf.device, pin_memory=self.staged)
             recvs.append(out)
             if self.backend == "nccl":
-                ops += [dist.P2POp(dist.isend, buf, dst, tag=t),
-                        dist.P2POp(dist.irecv, out, src, tag=t)]
+                ops += [dist.P2POp(dist.isend, buf, dst, self.pg, t),
+                        dist.P2POp(dist.irecv, out, src, self.pg, t)]
             else:
-                works.append(dist.irecv(out, src, tag=t))
-                works.append(dist.isend(buf, dst, tag=t))
+                works.append(dist.irecv(out, src, group=self.pg, tag=t))
+                works.append(dist.isend(buf, dst, group=self.pg, tag=t))
         if ops:
             works = dist.batch_isend_irecv(ops)
-        entry = {"op": "ring",
+        entry = {"op": "ring", "tier": self.tier,
                  "bytes": sum(x.numel() for x in recvs if x is not None),
                  "seconds": time.perf_counter() - t0,
                  "sync_seconds": self._sync_s}
@@ -218,14 +323,19 @@ class PodGroup:
 
     def barrier(self) -> None:
         if self.backend == "nccl":
-            dist.barrier(device_ids=[self.device.index])
+            dist.barrier(group=self.pg, device_ids=[self.device.index])
         else:
-            dist.barrier()
+            dist.barrier(group=self.pg)
 
     # ---- the byte log ----------------------------------------------------
-    def bytes_logged(self, op: Optional[str] = None) -> int:
+    def bytes_logged(self, op=None, tier=None) -> int:
+        """Bytes received in the log's entries of op(s) ``op`` and tier(s)
+        ``tier`` (a name or a tuple of names; None: all)."""
+        def hit(val, want):
+            return want is None or val == want or (
+                isinstance(want, tuple) and val in want)
         return sum(e["bytes"] for e in self.log
-                   if op is None or e["op"] == op)
+                   if hit(e["op"], op) and hit(e["tier"], tier))
 
 
 class RingHop:
@@ -259,8 +369,8 @@ def free_tcp_address() -> str:
         return f"tcp://localhost:{s.getsockname()[1]}"
 
 
-def _pod_main(rank, n_pods, device_type, init_method, threads, fn, args,
-              results):
+def _pod_main(rank, n_pods, n_edge, device_type, init_method, threads, fn,
+              args, results):
     """Body of one pod process: join the group, run ``fn``, report."""
     try:
         if threads:
@@ -277,6 +387,7 @@ def _pod_main(rank, n_pods, device_type, init_method, threads, fn, args,
             timeout=datetime.timedelta(seconds=TIMEOUT_S), **kw)
         try:
             group = PodGroup(rank, n_pods, dev, backend)
+            group.split_tiers(n_edge)
             results.put((rank, True, fn(group, *args)))
         finally:
             dist.destroy_process_group()
@@ -285,10 +396,12 @@ def _pod_main(rank, n_pods, device_type, init_method, threads, fn, args,
 
 
 def spawn_pods(fn: Callable, n_pods: int, device="cuda", args=(), *,
-               init_method: Optional[str] = None, threads: int = 0,
-               timeout: float = 3600.0) -> list:
+               n_edge: int = 1, init_method: Optional[str] = None,
+               threads: int = 0, timeout: float = 3600.0) -> list:
     """Run ``fn(group, *args)`` in ``n_pods`` fresh processes, one per pod,
-    and return their results in rank order.  ``fn`` and its arguments and
+    and return their results in rank order.  ``n_edge`` > 1 makes the
+    pods a hierarchical fleet of ``n_pods / n_edge`` clusters (the
+    group's ``intra`` / ``cross`` sub-groups, :meth:`PodGroup.split_tiers`).  ``fn`` and its arguments and
     results must pickle (``fn`` by import path).  Rendezvous is
     ``init_method`` (default: a free ``tcp://localhost`` port).  Raises if
     a pod fails or the run outlasts ``timeout`` seconds; every process is
@@ -297,6 +410,9 @@ def spawn_pods(fn: Callable, n_pods: int, device="cuda", args=(), *,
     import queue as queue_mod
 
     device_type = torch.device(device).type
+    if n_edge < 1 or n_pods % n_edge:
+        raise ValueError(f"{n_pods} pods do not split into clusters of "
+                         f"{n_edge}")
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     init_method = init_method or free_tcp_address()
@@ -307,8 +423,8 @@ def spawn_pods(fn: Callable, n_pods: int, device="cuda", args=(), *,
     try:
         for r in range(n_pods):
             p = ctx.Process(target=_pod_main,
-                            args=(r, n_pods, device_type, init_method,
-                                  threads, fn, args, results))
+                            args=(r, n_pods, n_edge, device_type,
+                                  init_method, threads, fn, args, results))
             p.start()
             procs.append(p)
         out, errors = {}, []

@@ -11,7 +11,9 @@ loop — port of ``repro/launch/session.py``::
 Runs on the card (``device="cuda"``) unless the caller asks for the CPU.
 One session is one pod: with a pod group (``pods=``, see
 :func:`repro_torch.launch.mesh.spawn_pods`) it runs on the group's device
-and trains on its pod's rows of every global batch.
+and trains on its pod's rows of every global batch.  A hierarchical pod
+group (``spawn_pods(..., n_edge=E)``) carries the fleet's cluster size
+(``n_edge``) into the trainer, its scheduler and the clustering.
 """
 from __future__ import annotations
 

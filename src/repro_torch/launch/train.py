@@ -25,17 +25,24 @@ mean, and every pod reads the same seeded telemetry.
 
 Omega comes from the live device clustering (:class:`~repro_torch.
 hierarchy.ClusterState`): reliability weights summed into one slot per
-pod.  Checkpointing, fault injection and elastic membership come with
-later slices of the port.
+fleet member.  On a hierarchical fleet (C clusters x E members) the
+clustering keeps one cluster per cross-tier slot (k = C), the slots are
+pod-major (``c * E + e``), and the clustering is handed to the strategy
+(``acesync_hier`` budgets against its bottleneck cluster).
+Checkpointing, fault injection and elastic membership come with later
+slices of the port.
 
 CLI::
 
     python -m repro_torch.launch.train --steps 8 [--smoke] [--device cuda]
     python -m repro_torch.launch.train --pods 2 --steps 8 ...  # P processes
+    python -m repro_torch.launch.train --pods 4 --edge 2 \
+        --strategy acesync_hier ...          # 2 clusters x 2 members
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import time
 from typing import Optional, Union
@@ -87,8 +94,15 @@ class TrainLoop:
         self.trainer = Trainer(model, run, strategy=strategy, pods=pods)
         self.strategy = self.trainer.strategy
         self.profiles = make_profiles(n_edge_devices, seed)
-        self.clusters = ClusterState(n_edge_devices, run.acesync.n_clusters,
-                                     hysteresis=run.acesync.cluster_hysteresis)
+        sched = self.trainer.scheduler
+        # one cluster per cross-tier slot on a hierarchical fleet, the
+        # config's n_clusters on a flat one
+        self.clusters = ClusterState(
+            n_edge_devices,
+            sched.n_cross if sched.hier_enabled else run.acesync.n_clusters,
+            hysteresis=run.acesync.cluster_hysteresis)
+        self._plan_takes_clusters = "clusters" in inspect.signature(
+            self.strategy.make_plan).parameters
         #: apply replans and H at the step that launches them (all pods
         #: must switch plans on the same step)
         self.blocking_replans = self.trainer.n_pods > 1
@@ -110,10 +124,12 @@ class TrainLoop:
     def _policy_inputs(self, step: int):
         """Telemetry snapshot -> (telemetry, fleet omega): the clustering
         is refreshed (warm-started k-means with hysteresis) and the device
-        reliability weights are summed into one slot per pod."""
+        reliability weights are summed into one slot per fleet member."""
         telem = snapshot(self.profiles, step)
         self.clusters.update(telem)
-        return telem, self.clusters.fleet_omega(telem, self.trainer.n_pods)
+        sched = self.trainer.scheduler
+        return telem, self.clusters.fleet_omega(telem, sched.n_cross,
+                                                sched.n_edge)
 
     def refresh_plan(self, state, step: int):
         cfg = self.run.acesync
@@ -135,8 +151,10 @@ class TrainLoop:
             with torch.no_grad():
                 imp = acesync.scores_from(ace.importance, ace.struct_feat,
                                           cfg).cpu().tolist()
-        self._plan = self.strategy.make_plan(sched, importance=imp,
-                                             telemetry=telem, omega=omega)
+        kw = dict(importance=imp, telemetry=telem, omega=omega)
+        if self._plan_takes_clusters:
+            kw["clusters"] = self.clusters
+        self._plan = self.strategy.make_plan(sched, **kw)
         return self._plan
 
     def poll_replan(self, block: bool = False) -> bool:
@@ -237,13 +255,16 @@ def _summary(sess) -> dict:
 
 
 def _pod_run(group, arch, kw, steps):
-    """One pod's CLI run (spawned by ``--pods``)."""
+    """One pod's CLI run (spawned by ``--pods``): its summary, the payload
+    bytes it received over the cross tier (the fleet's gathers and rings
+    and the cross sub-group's) and within its cluster."""
     from repro_torch.launch.session import TrainSession
     sess = TrainSession.from_config(arch, pods=group, **kw)
     sess.run(steps, log_every=10 if group.rank == 0 else 0)
+    payload = ("gather", "ring")
     return dict(_summary(sess), pod=group.rank,
-                wire_bytes=group.bytes_logged("gather")
-                + group.bytes_logged("ring"))
+                wire_bytes=group.bytes_logged(payload, ("fleet", "cross")),
+                intra_bytes=group.bytes_logged(payload, "intra"))
 
 
 def main(argv=None):
@@ -261,14 +282,21 @@ def main(argv=None):
                     help="global batch (split over the pods)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--pods", type=int, default=1,
-                    help="pods, one process each")
+                    help="pods (fleet members), one process each")
+    ap.add_argument("--edge", type=int, default=1,
+                    help="members per cluster: --pods P --edge E runs a "
+                         "two-tier fleet of P/E clusters")
     args = ap.parse_args(argv)
+    if args.pods % args.edge:
+        ap.error(f"--pods {args.pods} does not split into clusters of "
+                 f"--edge {args.edge}")
 
     kw = _session_kwargs(args)
     if args.pods > 1:
         from repro_torch.launch.mesh import spawn_pods
         outs = spawn_pods(_pod_run, args.pods, args.device,
-                          args=(args.arch, kw, args.steps))
+                          args=(args.arch, kw, args.steps),
+                          n_edge=args.edge)
         print(json.dumps(dict(outs[0], pods=outs)))
         return
     sess = TrainSession.from_config(args.arch, device=args.device, **kw)

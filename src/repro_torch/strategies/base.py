@@ -94,8 +94,10 @@ class SyncStrategy:
                   omega: Optional[Sequence[float]] = None,
                   clusters=None) -> SyncPlan:
         """Turn (importance, telemetry, omega) into a compression plan.
-        ``clusters`` is the loop's cluster state
-        (None outside a TrainLoop; the port has no clusters yet)."""
+        ``clusters`` is the loop's live
+        :class:`~repro_torch.hierarchy.ClusterState` (None outside a
+        TrainLoop); the loop passes it only to strategies whose
+        ``make_plan`` names it."""
         return scheduler.full_plan(omega)
 
     def budget_bandwidth(self, telemetry: Optional[Sequence[dict]] = None,

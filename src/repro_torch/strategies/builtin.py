@@ -1,6 +1,5 @@
 """The built-in synchronization strategies — port of
-``repro/strategies/builtin.py`` (``acesync_hier`` belongs to the two-tier
-slice and is not ported yet).
+``repro/strategies/builtin.py``.
 
 The first four are the paper's Table 1 regimes, migrated from the seed's
 string dispatch with plan-identical behavior (tests/test_strategies.py
@@ -79,10 +78,10 @@ class ACESync(_PeriodicStrategy):
     sync_kind = "delta_sync"
 
     def make_plan(self, scheduler: Scheduler, *, importance=None,
-                  telemetry=None, omega=None) -> SyncPlan:
+                  telemetry=None, omega=None, clusters=None) -> SyncPlan:
         imp = (list(importance) if importance is not None
                else [1.0] * len(scheduler.sizes))
-        bw = mean_bandwidth(telemetry)
+        bw = self.budget_bandwidth(telemetry, clusters)
         return scheduler.plan(imp, bw, omega)
 
     def device_plan_fn(self, scheduler: Scheduler, cfg):
@@ -91,6 +90,28 @@ class ACESync(_PeriodicStrategy):
         plane."""
         from repro_torch.core import acesync
         return acesync.device_replan_fn(scheduler, cfg)
+
+
+@register_strategy
+class ACESyncHier(ACESync):
+    """ACE-Sync on the two-tier topology (paper eq. 8 made live).
+
+    The control plane of :class:`ACESync` — importance + knapsack +
+    divergence-controlled H — coordinated per cluster: the loop's
+    :class:`~repro_torch.hierarchy.ClusterState` maps devices onto the
+    fleet's (cluster, member) slots, and the byte budget is priced against
+    the bottleneck cluster's bandwidth instead of the fleet mean, since the
+    cross tier moves at the pace of its weakest cluster.  The two-tier
+    execution is chosen rung by rung in ``planexec.exec_grid`` whenever
+    the fleet is hierarchical, so on a flat fleet its exchange is plain
+    acesync's."""
+    name = "acesync_hier"
+
+    def budget_bandwidth(self, telemetry=None, clusters=None,
+                         default: float = 50.0) -> float:
+        if clusters is not None and getattr(clusters, "assignments", None):
+            return clusters.bottleneck_bandwidth(telemetry, default)
+        return mean_bandwidth(telemetry, default)
 
 
 @register_strategy

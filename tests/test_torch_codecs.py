@@ -172,13 +172,16 @@ def test_ef_sync_gather_matches_reference_kernel_path(name, kw):
 
 
 def test_multi_pod_paths_raise():
-    """The two-tier exchange is a later slice and raises, naming it; the
-    one-shot and the ring multi-pod rounds without their pod group raise
-    too, and so does a float ring fold in arrival order on 3 pods."""
+    """The two-tier, one-shot and ring multi-pod rounds without their pod
+    groups raise, and so does a float ring fold in arrival order on 3
+    pods."""
     c = tbuild("int8")
-    with pytest.raises(NotImplementedError, match="two-tier slice"):
-        c.ef_sync_hier()
     one = torch.ones(2)
+    for mode in (1, 2):
+        with pytest.raises(ValueError, match="pod group"):
+            c.ef_sync_hier(torch.zeros(2048), torch.zeros(2048), one,
+                           one[0], gamma=1.0, n_cross=2, n_edge=2,
+                           intra_mode=mode)
     with pytest.raises(ValueError, match="pod group"):
         c.ef_sync_gather(torch.zeros(2, 1024), torch.zeros(2, 1024),
                          torch.zeros(1, dtype=torch.int32), one, one[0],

@@ -275,3 +275,79 @@ def test_nccl_pods_ring_matches_one_shot(dev):
                                       pods[0][-1][0][k].view(np.int32))
                 assert np.array_equal(err[k].view(np.int32),
                                       res[-1][1][k].view(np.int32))
+
+
+def _hier_pod(group):
+    """One member of a 2 x 2 fleet: the all-rungs sync_tree round under a
+    two-tier plan (INT8 intra stage) with the cross tier one-shot and
+    forced to 2 chunks, and under the bf16 intra stage; per plan the
+    aggregate, the residuals and the bytes per tier, logged and priced."""
+    from repro_torch.core import planexec
+    from repro_torch.core import sync as S
+    from repro_torch.core.compression import Level
+    from repro_torch.core.scheduler import SyncPlan
+
+    F = group.size
+    levels = tuple(Level(*x) for x in RING_LEVELS)
+    omega = tuple(float(x) for x in np.arange(1, F + 1) / (F * (F + 1) / 2))
+    plan = SyncPlan(tuple(range(len(levels))), levels, omega, 1)
+    r = np.random.RandomState(11)
+    tree = {f"p{i}": torch.from_numpy(
+                r.randn(F, n).astype(np.float32)[group.rank]).to(group.device)
+            for i, n in enumerate(RING_SIZES)}
+    errs = {k: torch.full_like(v, 0.03) for k, v in tree.items()}
+    out = {"backend": group.backend}
+    for hier, ring in ((2, -1), (2, 2), (1, -1)):
+        ep = planexec.build_exec_plan(plan, RING_SIZES, n_pods=F,
+                                      n_edge=group.n_edge, hier=hier,
+                                      ring=ring, device=group.device)
+        since = len(group.log)
+        agg, ne = S.sync_tree(tree, errs, ep, gamma=0.9, pods=group)
+        new = group.log[since:]
+        cross = sum(x["bytes"] for x in new if x["tier"] != "intra")
+        intra = sum(x["bytes"] for x in new if x["tier"] == "intra")
+        out[(hier, ring)] = (
+            {k: v.cpu().numpy() for k, v in agg.items()},
+            {k: v.cpu().numpy() for k, v in ne.items()}, (cross, intra),
+            (planexec.exec_wire_bytes(ep, F, n_cross=group.n_cross),
+             planexec.exec_intra_bytes(ep, group.n_edge)), ep.hier)
+    return out
+
+
+def _check_hier_fleet(members, backend):
+    for p, res in enumerate(members):
+        assert res["backend"] == backend
+        for key in ((2, -1), (2, 2), (1, -1)):
+            agg, err, got, want, hier = res[key]
+            assert any(hier), key
+            assert tuple(got) == tuple(want) and min(want) > 0, (p, key)
+            for k in agg:
+                assert np.array_equal(
+                    agg[k].view(np.int32),
+                    members[0][key][0][k].view(np.int32)), (p, key, k)
+        # the cross tier's ring gives the one-shot's bits
+        for i in (0, 1):
+            for k in res[(2, -1)][i]:
+                assert np.array_equal(res[(2, 2)][i][k].view(np.int32),
+                                      res[(2, -1)][i][k].view(np.int32))
+
+
+def test_two_tier_sync_tree_on_one_card(dev):
+    """Phase 8's two-tier sync_tree on one card: a 2 x 2 fleet of pods
+    sharing it (gloo, staged): the aggregate the same on every member,
+    the cross tier's 2-chunk ring bit-identical to its one-shot, the
+    bytes per tier equal to the priced cross and intra bytes."""
+    from repro_torch.launch.mesh import spawn_pods
+    members = spawn_pods(_hier_pod, 4, "cuda", n_edge=2, timeout=600)
+    _check_hier_fleet(members, "gloo" if torch.cuda.device_count() < 4
+                      else "nccl")
+
+
+def test_nccl_hier_fleet_matches_one_shot(dev):
+    """A card per member of a 2 x 2 fleet (NCCL, with the intra and cross
+    sub-groups made by ``dist.new_group``): as the one-card test."""
+    from repro_torch.launch.mesh import spawn_pods
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs a card per fleet member (four CUDA devices)")
+    members = spawn_pods(_hier_pod, 4, "cuda", n_edge=2, timeout=600)
+    _check_hier_fleet(members, "nccl")

@@ -614,3 +614,71 @@ def test_cli_trains_two_pods_on_cpu(tmp_path):
     assert a["steps"] == b["steps"] == 5
     assert a["last_loss"] == b["last_loss"] and np.isfinite(a["last_loss"])
     assert a["wire_bytes"] == b["wire_bytes"] > 0
+
+
+#: element counts of the FULL exchange checks: divisible by 2 and 4 but
+#: not 3, by all three, and by none (odd)
+FULL_SIZES = (4096, 3 * 1024, 1001)
+
+
+def _full_contribs(n_pods, n):
+    """Per-pod bf16 contributions (as f32 values), with denormal and
+    signed-zero entries."""
+    import torch
+    r = np.random.RandomState(n)
+    x = (r.randn(n_pods, n) * np.exp(r.randn(n_pods, 1) * 3)).astype(
+        np.float32)
+    x[:, ::7] *= 1e-39
+    x[:, 1::11] = -0.0
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def _full_pod(group):
+    """One pod: ``full_exchange`` of every FULL_SIZES vector (one of them
+    2-D), with the bytes it logged."""
+    import torch
+    out = {}
+    for n in FULL_SIZES:
+        c = torch.from_numpy(_full_contribs(group.size, n)[group.rank])
+        if n == 4096:
+            c = c.reshape(4, 1024)
+        since = len(group.log)
+        got = group.full_exchange(c.to(torch.bfloat16))
+        out[n] = (got.numpy(), [(x["op"], x["tier"], x["bytes"])
+                                for x in group.log[since:]])
+    return out
+
+
+@pytest.mark.parametrize("n_pods", (2, 3, 4))
+def test_full_exchange_is_a_reduce_scatter_at_the_priced_bytes(tmp_path,
+                                                              n_pods):
+    """FULL's exchange (a reduce-scatter and an all-gather): on every pod
+    the bits of a plain pod-order f32 sum, denormals flushed, rounded
+    once to bf16; two log entries "full"; the bytes received
+    4 (P-1) ceil(n/P), which is ``FullCodec.wire_bytes`` plus less than
+    4 (P-1) bytes of shard padding, and exactly it where P divides n."""
+    import torch
+    from repro_torch.codecs import build_codec
+    from repro_torch.launch.mesh import spawn_pods
+    pods = spawn_pods(_full_pod, n_pods, "cpu",
+                      init_method=f"file://{tmp_path / 'store'}", threads=1,
+                      timeout=300)
+    tiny = np.float32(np.finfo(np.float32).tiny)
+    full = build_codec("full")
+    for n in FULL_SIZES:
+        parts = _full_contribs(n_pods, n)
+        acc = parts[0].copy()
+        for p in range(1, n_pods):
+            acc = acc + parts[p]
+            acc = np.where(np.abs(acc) < tiny, acc * np.float32(0), acc)
+        want = torch.from_numpy(acc).to(torch.bfloat16).float().numpy()
+        priced = full.wire_bytes(n, n_pods)
+        for p, res in enumerate(pods):
+            got, log = res[n]
+            np.testing.assert_array_equal(_bits(got.reshape(-1)),
+                                          _bits(want), err_msg=f"{n} {p}")
+            assert [x[:2] for x in log] == [("full", "fleet")] * 2
+            moved = sum(x[2] for x in log)
+            assert moved == 4 * (n_pods - 1) * -(-n // n_pods)
+            assert priced <= moved < priced + 4 * (n_pods - 1)
+            assert (moved == priced) == (n % n_pods == 0), (n, moved)

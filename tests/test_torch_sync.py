@@ -120,17 +120,19 @@ def test_sync_tree_apply_fn_matches_plain_scatter():
 
 
 def test_sync_tree_multi_pod_raises():
-    """What the multi-pod exchange still refuses: a two-tier fleet (the
-    two-tier slice's), and a plan whose omega does not match the pod
-    count (a 2-pod plan run without its pod group) — instead of quietly
-    running something else.  The ring itself (ring_chunks 0 = auto, or
-    K > 0) is held to the one-shot exchange and to the live reference in
+    """What the multi-pod exchange refuses: a plan whose omega does not
+    match the pod count (a 2-pod plan run without its pod group) —
+    instead of quietly running something else.  A two-tier fleet lowers
+    (INT8 two-tier, FULL flat); it is held to the live reference in
+    tests/test_torch_hier.py, and the ring (ring_chunks 0 = auto, or
+    K > 0) to the one-shot exchange and the reference in
     tests/test_torch_ring.py."""
     sizes = [4096, 2048]
     plan = TScheduler(ACESyncConfig(), sizes, 2,
                       device="cpu").plan_from_levels([1, 0], (0.5, 0.5))
-    with pytest.raises(NotImplementedError, match="two-tier slice"):
-        tpe.build_exec_plan(plan, sizes, n_pods=4, n_edge=2, device="cpu")
+    hep = tpe.build_exec_plan(plan, sizes, n_pods=4, n_edge=2, hier=2,
+                              device="cpu")
+    assert hep.hier[:2] == (0, tpe.INTRA_INT8)
     ep = tpe.build_exec_plan(plan, sizes, n_pods=2, ring=2, device="cpu")
     assert ep.chunks == (0, 2) + (0,) * (len(ep.chunks) - 2)
     tree = {"a": torch.zeros(4096), "b": torch.zeros(2048)}

@@ -184,7 +184,8 @@ def test_rung_ordered_apply_equals_barriered_apply(kind):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("strategy", ["acesync", "bandwidth_tiered", "fedavg",
+@pytest.mark.parametrize("strategy", ["acesync", "acesync_hier",
+                                      "bandwidth_tiered", "fedavg",
                                       "fullsync", "localsgd", "topk"])
 def test_every_strategy_trains_on_cpu(strategy):
     from repro_torch.strategies import list_strategies
