@@ -80,13 +80,41 @@ Phases (any failure exits nonzero before the result lines):
    ``plan_intra_bytes``); the two-tier round's cross-tier bytes below the
    flat round's; and K5, K6, K12, K13, K3 / K11 and K4 / K8 must have
    launched.  Prints the tier grids, the bytes per tier, the cross-tier
-   reduction, step means and peak memory per member.
+   reduction, step means and peak memory per member;
+9. the fault-tolerant train loop.  9a, restart-replay on one pod in phase
+   5's configuration (paper-350m, 24 layers, batch 8, seq 1024,
+   ``replan_every`` 4, ``ckpt_every`` 4, ``blocking_replans``, in a
+   process of its own with deterministic algorithms and cuBLAS, so that
+   no other phase runs under them): run A trains 10 steps; run B trains 9
+   in a fresh directory, leaves a crashed writer's ``step_….tmp`` and
+   bit-rots the newest checkpoint's largest leaf; a fresh TrainSession
+   must restore step 4, record 8 as corrupt and train to step 10 with
+   params, moments, anchor and EF residuals, the plan, H and the loop
+   counters bit-identical to run A's.  Prints the bytes per checkpoint,
+   save()'s foreground seconds, the background write's seconds and
+   rate, and the restore's seconds.  9b, elastic membership: three pod
+   processes sharing the card at 12 layers, global batch 6, the default
+   ``ACESyncConfig`` with ``replan_every`` 4, ``ckpt_every`` 5, 12
+   steps, pod 2 preempted at step 4 and back at step 8: the membership
+   events [2, 3] at steps 4 and 8, the global batch 6 -> 4 -> 6, right
+   after the rejoin every state leaf of the rejoining pod bit-identical
+   to pod 0's, after every ``delta_sync`` the parameters bit-identical
+   on every live pod and the bytes moved equal to ``plan_wire_bytes`` at
+   that pod count, omega and the plan identical on every live pod,
+   finite losses; then pods 0 and 1 restore the step-10 checkpoint
+   (three pods' rows) as a P = 2 fleet and must read back the rows they
+   wrote.  Prints the seconds from each membership event to the end of
+   the first step at the new pod count.  Phases 7, 8 and 9b print each
+   pod's host time in the loop's heartbeat exchanges.  The checkpoints
+   go to ``build/chip_smoke_ckpt`` (free space printed first), removed
+   at the end.
 
 Output: progress lines with each phase's seconds, the pod link's latency
 and rate, then the ``nvidia-smi`` line, the kernels' JSON line (each
 kernel's launches in total and per main path: ``one_pod`` (phase 5),
-``p2`` and ``p3`` (phase 7, all pods) and ``hier`` (phase 8, all
-members), each counted from 0 just before its run; K16's ``library_ms``
+``p2`` and ``p3`` (phase 7, all pods), ``hier`` (phase 8, all
+members), ``restart`` (phase 9a, its three runs) and ``elastic`` (phase
+9b, all pods), each counted from 0 just before its run; K16's ``library_ms``
 is ``torch.mul(q, s)``'s time; ``paths`` gives each path's pods, members
 per cluster and depth; ``link`` the measured link), and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -97,6 +125,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -104,6 +133,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+#: checkpoint directories of every phase (phases 5, 7 and 8 get empty
+#: ones, so that no stale checkpoint is resumed); removed at the end
+CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"
 
 NB_350M = 443_697                   # blocks of paper-350m's 11 groups
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM datasheet
@@ -164,6 +196,16 @@ PATHS = {
     "hier": {"pods": 4, "edge": 2, "batch": 8, "steps": 6, "n_layers": 12,
              "min_delta": 1, "min_replans": 1},
 }
+#: phase 9a: restart-replay on one pod, phase 5's configuration: run A
+#: trains ``steps`` steps, run B ``steps - 1`` and restarts from the
+#: checkpoints of every ``ckpt_every`` steps
+RESTART = {"pods": 1, "batch": 8, "steps": 10, "ckpt_every": 4,
+           "n_layers": None}
+#: phase 9b: elastic membership, P = 3 pod processes sharing the card at
+#: phase 8's depth (three full-depth pods and their checkpoint copies do
+#: not fit), pod 2 preempted at step 4 and back at step 8
+ELASTIC = {"pods": 3, "batch": 6, "steps": 12, "ckpt_every": 5,
+           "n_layers": 12, "kill": 4, "rejoin": 8, "killed": 2}
 
 
 def fail(msg: str):
@@ -601,6 +643,7 @@ def main_path(torch, ops) -> dict:
     sess = TrainSession.from_config(
         "paper-350m", strategy="acesync", smoke=False, seq_len=1024,
         batch=8, steps=100, device="cuda", warmup_steps=2,
+        ckpt_dir=str(CKPT_ROOT / "phase5"),
         acesync=ACESyncConfig(replan_every=4))
     cfg = sess.model.cfg
     assert (cfg.n_layers, cfg.d_model, cfg.vocab_size) == (24, 1024, 50304)
@@ -683,6 +726,17 @@ def bits_hash(torch, t):
     b = t.detach().contiguous().view(torch.int32).reshape(-1).to(torch.int64)
     w = torch.arange(b.numel(), device=b.device, dtype=torch.int64)
     return (b * (w % 65521 + 1)).sum()
+
+
+def log_heartbeats(tag, pods, who="pod"):
+    """Each pod's host milliseconds in the loop's heartbeat exchanges
+    (waiting for the other pods included)."""
+    for pod in pods:
+        hb = pod["heartbeat_ms"]
+        if hb:
+            log(f"{tag}: {who} {pod['pod']} heartbeat exchanges: {len(hb)}, "
+                f"mean {sum(hb) / len(hb):.3f} ms, max {max(hb):.3f} ms "
+                f"host time")
 
 
 def tier_priced(ep, n_pods, n_edge):
@@ -817,6 +871,7 @@ def pod_main_path(group, spec):
                     shape=ShapeConfig("session", 1024, spec["batch"],
                                       "train"),
                     total_steps=100, warmup_steps=2,
+                    ckpt_dir=str(CKPT_ROOT / f"phase7_p{P}"),
                     acesync=ACESyncConfig(replan_every=4))
     sess = TrainSession(build_model(cfg, run, device=group.device), run,
                         strategy="acesync", pods=group)
@@ -910,7 +965,8 @@ def pod_main_path(group, spec):
                          for hs in out["param_hashes"]],
         "agg_hashes": [int(h) for h in out["agg_hashes"]],
         "layers": out["layers"], "width": out["width"],
-        "plan": list(sess.loop.plan.level_idx)}
+        "plan": list(sess.loop.plan.level_idx),
+        "heartbeat_ms": [t * 1e3 for t in sess.loop.heartbeat_seconds]}
 
 
 def multipod_run(spec) -> dict:
@@ -990,6 +1046,7 @@ def multipod_run(spec) -> dict:
                 f"{ms}; steady mean {mean:.2f} ms, of it transport "
                 f"{comm:.2f} ms host time ({sync:.2f} ms waiting for the "
                 f"card before the staged copies)")
+    log_heartbeats(tag, pods)
     for kind, got, want, full, full_priced, pad in first["bytes"]:
         log(f"{tag}: {kind} moved {got} B (gather + ring) = plan_wire_bytes "
             f"of the gather rungs {want} B; FULL's reduce-scatter + "
@@ -1137,6 +1194,7 @@ def hier_pod_path(group, spec):
                     shape=ShapeConfig("session", 1024, spec["batch"],
                                       "train"),
                     total_steps=100, warmup_steps=2,
+                    ckpt_dir=str(CKPT_ROOT / "phase8"),
                     acesync=ACESyncConfig(replan_every=4))
     sess = TrainSession(build_model(cfg, run, device=group.device), run,
                         strategy="acesync_hier", pods=group)
@@ -1222,7 +1280,8 @@ def hier_pod_path(group, spec):
         "agg_hashes": out["agg_hashes"], "layers": cfg.n_layers,
         "width": (cfg.d_model, cfg.vocab_size),
         "plan": list(sess.loop.plan.level_idx),
-        "tier_grid": list(sess.loop.plan.hier)}
+        "tier_grid": list(sess.loop.plan.hier),
+        "heartbeat_ms": [t * 1e3 for t in sess.loop.heartbeat_seconds]}
 
 
 def check_tier_bytes(tag, logged, priced):
@@ -1314,6 +1373,7 @@ def hier_phase(torch):
             log(f"{tag}: member {pod['pod']} {kind}: {len(rows)} steps, ms "
                 f"{[round(r[0], 2) for r in rows]}; steady mean "
                 f"{mean:.2f} ms, of it transport {comm:.2f} ms host time")
+    log_heartbeats(tag, pods, who="member")
     for kind, logged, priced, grid in first["bytes"]:
         log(f"{tag}: {kind}: tier grid {grid}; cross tier {logged[0]} B "
             f"payload + {logged[1]} B FULL (priced {priced[0]} + "
@@ -1343,6 +1403,460 @@ def hier_phase(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the fault-tolerant train loop
+# ---------------------------------------------------------------------------
+
+
+def _disk_check(tag, n_layers, rows):
+    """Print the free space for checkpoints and fail when it is short of
+    ``rows`` pod rows of a checkpoint of paper-350m at ``n_layers`` (five
+    f32 copies of the parameters: params, m, v, anchor, EF residuals)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(ARCHS["paper-350m"],
+                              n_layers=n_layers or ARCHS["paper-350m"].n_layers)
+    model = build_model(cfg, RunConfig(model=cfg, shape=ShapeConfig(
+        "session", 1024, 1, "train")), device="meta")
+    need = rows * 5 * 4 * sum(p.numel() for p in model.parameters())
+    free = float(shutil.disk_usage(CKPT_ROOT).free)
+    log(f"{tag}: {free / 1e9:.1f} GB free on the checkpoint disk, "
+        f"{need / 1e9:.1f} GB needed")
+    if free < need:
+        fail(f"{tag}: {free / 1e9:.1f} GB free for checkpoints, "
+             f"{need / 1e9:.1f} GB needed")
+
+
+def _host_state(torch, state):
+    """Host copies of the leaves the restart gate compares."""
+    from repro_torch import tree as T
+    out = {k: [x.detach().to("cpu", copy=True) for x in T.leaves(state[k])]
+           for k in ("params", "m", "v", "anchor")}
+    out["errors"] = [x.to("cpu", copy=True)
+                     for x in T.leaves(state["ace"].errors)]
+    return out
+
+
+def restart_pod_path(group, spec):
+    """Phase 9a, in a process of its own (so that deterministic cuBLAS,
+    ``CUBLAS_WORKSPACE_CONFIG``, is set before its first use and nowhere
+    else): run A, run B with the damage, and the restarted run; returns
+    what the parent checks."""
+    import gc
+    import torch
+    from repro_torch.configs.base import ACESyncConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.session import TrainSession
+    from repro_torch.runtime import faults as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # bit-identical replays need deterministic kernels: cuDNN attention's
+    # backward is not, by default
+    torch.use_deterministic_algorithms(True)
+
+    def session(d):
+        return TrainSession.from_config(
+            "paper-350m", strategy="acesync", smoke=False, seq_len=1024,
+            batch=spec["batch"], steps=100, device="cuda", warmup_steps=2,
+            ckpt_dir=str(d), ckpt_every=spec["ckpt_every"],
+            blocking_replans=True, acesync=ACESyncConfig(replan_every=4))
+
+    def loop_state(sess):
+        lp = sess.loop
+        return (lp.plan.level_idx, lp.plan.sync_interval, lp._H,
+                lp._steps_since_sync, sess.trainer.scheduler.sync_interval)
+
+    root = Path(spec["dir"])
+    dA, dB = root / "A", root / "B"
+    out = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    a = session(dA)
+    out["n_params"] = sum(p.numel() for p in a.model.parameters())
+    a.run(spec["steps"], log_every=5)
+    a.finish()
+    out["save"] = dict(a.loop.ckpt.last_save)
+    want = _host_state(torch, a.state)
+    out["want_loop"] = loop_state(a)
+    out["losses_a"] = a.losses
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(dA)
+    b = session(dB)
+    b.run(spec["steps"] - 1, log_every=0)
+    b.finish()
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    last = (spec["steps"] - 1) // spec["ckpt_every"] * spec["ckpt_every"]
+    d_last = dB / f"step_{last:08d}"
+    os.makedirs(dB / "step_00000099.tmp")
+    biggest = max(os.listdir(d_last),
+                  key=lambda n: (d_last / n).stat().st_size)
+    out.update(last=last, corrupted=F.corrupt_checkpoint_leaf(
+        str(dB), int(biggest.split("_")[1].split(".")[0]), step=last))
+    b2 = session(dB)
+    t1 = time.perf_counter()
+    b2.init()
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t1
+    out["restored"] = int(b2.state["step"])
+    out["corrupt"] = list(b2.loop.ckpt.corrupt_steps)
+    b2.run(spec["steps"] - out["restored"], log_every=0)
+    b2.finish()
+    got = _host_state(torch, b2.state)
+    out["bad"] = {k: [i for i, (x, y) in enumerate(zip(want[k], got[k]))
+                      if not torch.equal(x, y)] for k in want}
+    out["got_loop"] = loop_state(b2)
+    out["losses_b"] = b2.losses
+    out["step_b"] = int(b2.state["step"])
+    torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t0
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def restart_phase(torch) -> dict:
+    """Phase 9a: restart-replay on one pod, paper-350m at full width and
+    24 layers (phase 5's configuration, ``ckpt_every`` 4), deterministic
+    algorithms on, in a process of its own.  Run A trains 10 steps; run B
+    trains 9 in a fresh directory, leaves a crashed writer's ``.tmp`` and
+    bit-rots the newest checkpoint's largest leaf; a fresh TrainSession
+    must restore step 4, record 8 as corrupt and train to step 10,
+    bit-identical to run A.  Returns the launch counts of the three
+    runs."""
+    import gc
+    from repro_torch.launch.mesh import spawn_pods
+    spec = dict(RESTART, dir=str(CKPT_ROOT / "restart"))
+    tag = "phase 9a"
+    # run B holds two checkpoints and writes a third beside them
+    _disk_check(tag, spec["n_layers"], 3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    saved = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    try:
+        (res,) = spawn_pods(restart_pod_path, 1, "cuda", args=(spec,),
+                            timeout=900)
+    finally:
+        if saved is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved
+        shutil.rmtree(spec["dir"], ignore_errors=True)
+    last, restored, corrupt = res["last"], res["restored"], res["corrupt"]
+    if not res["corrupted"]:
+        fail(f"{tag}: nothing to corrupt in step {last}")
+    if restored != last - spec["ckpt_every"] or last not in corrupt:
+        fail(f"{tag}: restored step {restored} (corrupt {corrupt}); "
+             f"expected {last - spec['ckpt_every']} with {last} corrupt")
+    if res["step_b"] != spec["steps"]:
+        fail(f"{tag}: the restarted run ended at step {res['step_b']}")
+    for k, bad in res["bad"].items():
+        if bad:
+            fail(f"{tag}: {k} leaves {bad} differ from the uninterrupted "
+                 f"run after restart-replay")
+    if res["got_loop"] != res["want_loop"]:
+        fail(f"{tag}: plan / H / steps_since_sync {res['got_loop']} differ "
+             f"from the uninterrupted run's {res['want_loop']}")
+    losses_a, losses_b = res["losses_a"], res["losses_b"]
+    if not all(math.isfinite(x) for x in losses_a + losses_b):
+        fail(f"{tag}: non-finite loss")
+    if losses_b != losses_a[restored:]:
+        fail(f"{tag}: the replayed losses {losses_b} differ from run A's "
+             f"{losses_a[restored:]}")
+    launches = res["launches"]
+    if not any(launches[k] for k in KERNELS):
+        fail(f"{tag}: no gather + EF encode kernel launched: {launches}")
+    save = res["save"]
+    gbs = save["bytes"] / save["write_s"] / 1e9
+    log(f"{tag}: {res['n_params']} parameters, {save['bytes']} bytes per "
+        f"checkpoint; save() of step {save['step']} {save['copy_s']:.3f} s "
+        f"in the foreground (device -> host copy), background write "
+        f"{save['write_s']:.3f} s ({gbs:.3f} GB/s to disk, fsync'd); "
+        f"restore {res['restore_s']:.3f} s (step {last} rejected by its "
+        f"CRC, step {restored} verified and loaded)")
+    log(f"{tag}: restored step {restored}, corrupt {corrupt}; params, m, "
+        f"v, anchor and EF residuals bit-identical to the uninterrupted "
+        f"run at step {spec['steps']}, plan {list(res['got_loop'][0])}, H "
+        f"{res['got_loop'][2]}; losses {[round(x, 4) for x in losses_a]}; "
+        f"launches {launches}; wall {res['wall']:.1f} s")
+    return launches
+
+
+def elastic_pod_path(group, spec):
+    """Phase 9b, one pod process: paper-350m at full width,
+    ``spec["n_layers"]`` layers, through TrainSession under the default
+    ``ACESyncConfig`` (``replan_every`` 4) with pod ``spec["killed"]``
+    preempted at step ``spec["kill"]`` and back at ``spec["rejoin"]``,
+    checkpoints every ``spec["ckpt_every"]`` steps; then pods 0 and 1
+    restore the last checkpoint (written by three pods) as a P = 2
+    fleet.  Returns this pod's per-step records, hashes, bytes, times and
+    launches."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import (ACESyncConfig, RunConfig,
+                                          ShapeConfig)
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.kernels import ops
+    from repro_torch.launch.session import TrainSession
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.faults import FaultSchedule
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(ARCHS["paper-350m"], n_layers=spec["n_layers"])
+    run = RunConfig(model=cfg,
+                    shape=ShapeConfig("session", 1024, spec["batch"],
+                                      "train"),
+                    total_steps=100, warmup_steps=2, ckpt_dir=spec["dir"],
+                    ckpt_every=spec["ckpt_every"],
+                    acesync=ACESyncConfig(replan_every=4))
+    sess = TrainSession(
+        build_model(cfg, run, device=group.device), run, strategy="acesync",
+        pods=group, fault_schedule=FaultSchedule.preempt_and_rejoin(
+            spec["killed"], spec["kill"], spec["rejoin"]))
+    loop = sess.loop
+    out = {"steps": [], "events_t": [], "saved": {}, "rejoin": None}
+    real_step = Trainer.step
+
+    def step(tr, state, batch, plan, kind="grad_sync"):
+        since = len(group.log)
+        res = real_step(tr, state, batch, plan, kind)
+        rec = {"step": loop._host_step, "P": tr.n_pods, "kind": kind,
+               "batch": loop._pipeline.shape.global_batch,
+               "rows": list(loop._pipeline.rows),
+               "omega": [float(w) for w in plan.omega],
+               "levels": list(plan.level_idx)}
+        if kind == "delta_sync":
+            ep = tr.exec_plan(plan)
+            new = group.log[since:]
+            pay, full, _, pad, _ = tier_priced(ep, tr.n_pods, 1)
+            rec["bytes"] = (sum(x["bytes"] for x in new
+                                if x["op"] in ("gather", "ring")), pay,
+                            sum(x["bytes"] for x in new
+                                if x["op"] == "full"), full, pad)
+            rec["hashes"] = [int(bits_hash(torch, x))
+                             for x in T.leaves(res[0]["params"])]
+        if not any(r["P"] == tr.n_pods for r in out["steps"][-1:]):
+            # the first step at a new pod count: its end, for the
+            # transition's seconds
+            torch.cuda.synchronize()
+            rec["t_end"] = time.perf_counter()
+        out["steps"].append(rec)
+        return res
+
+    Trainer.step = step
+    begin = loop._begin_transition
+
+    def stamped(n_new):
+        out["events_t"].append((loop._host_step, time.perf_counter()))
+        return begin(n_new)
+
+    loop._begin_transition = stamped
+    transfer = loop._transfer_state
+
+    def hashed_transfer(state, tr, grp, joining):
+        new = transfer(state, tr, grp, joining)
+        if joining and new is not None:
+            # every leaf right after the rejoin: the rejoining pod must
+            # hold rank 0's state bit for bit
+            out["rejoin"] = [int(bits_hash(torch, x)) for _, x in
+                             T.reference_leaves_with_path(new)]
+        return new
+
+    loop._transfer_state = hashed_transfer
+    save = loop.ckpt.save
+
+    def hashed_save(step_no, state, extras=None, blocking=False):
+        out["saved"][step_no] = [int(bits_hash(torch, x)) for _, x in
+                                 T.reference_leaves_with_path(state)]
+        return save(step_no, state, extras=extras, blocking=blocking)
+
+    loop.ckpt.save = hashed_save
+    sess.init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    group.barrier()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sess.run(spec["steps"], log_every=1 if group.rank == 0 else 0)
+    sess.finish()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    save_stats = dict(loop.ckpt.last_save)
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in T.leaves(sess.state["params"]))
+    # the last checkpoint (three pods' rows) restored as a P = 2 fleet
+    last = spec["steps"] // spec["ckpt_every"] * spec["ckpt_every"]
+    sub = group.regroup([0, 1])
+    restored = None
+    if sub is not None:
+        t1 = time.perf_counter()
+        state, _ = Checkpointer(spec["dir"], pods=sub).restore(
+            loop._trainer_for(sub).init_state(run.seed))
+        torch.cuda.synchronize()
+        restored = {"seconds": time.perf_counter() - t1,
+                    "hashes": [int(bits_hash(torch, x)) for _, x in
+                               T.reference_leaves_with_path(state)],
+                    "step": int(state["step"])}
+        del state
+    group.barrier()
+    return {"pod": group.rank, "steps": out["steps"],
+            "events": [(e["step"], e["n_pods"], e["members"], e["seconds"])
+                       for e in loop.membership_events],
+            "events_t": out["events_t"], "losses": sess.losses,
+            "finite": finite, "launches": launches, "train_s": train_s,
+            "peak": torch.cuda.max_memory_allocated(),
+            "saved": out["saved"], "last": last, "restored": restored,
+            "save": save_stats, "pod_times": loop.pod_step_times,
+            "heartbeat_ms": [t * 1e3 for t in loop.heartbeat_seconds],
+            "rejoin": out["rejoin"],
+            "layers": cfg.n_layers, "width": (cfg.d_model, cfg.vocab_size)}
+
+
+def elastic_phase(torch) -> dict:
+    """Phase 9b: elastic membership P = 3 -> 2 -> 3, three pod processes
+    sharing the card; checks what the pods return and returns the launch
+    counts (all pods)."""
+    import gc
+    from repro_torch.launch.mesh import spawn_pods
+    from repro_torch.runtime.fault_tolerance import (HeartbeatMonitor,
+                                                     StragglerDetector)
+    spec = dict(ELASTIC, dir=str(CKPT_ROOT / "elastic"))
+    tag = "phase 9b"
+    # a checkpoint at P = 2 and one at P = 3
+    _disk_check(tag, spec["n_layers"], 2 + spec["pods"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        pods = spawn_pods(elastic_pod_path, spec["pods"], "cuda",
+                          args=(spec,), timeout=900)
+    finally:
+        shutil.rmtree(spec["dir"], ignore_errors=True)
+    wall = time.perf_counter() - t0
+    first = pods[0]
+    if first["width"] != (1024, 50304) or first["layers"] != spec["n_layers"]:
+        fail(f"{tag}: ran {first['layers']} layers at {first['width']}")
+    kill, rejoin, killed = spec["kill"], spec["rejoin"], spec["killed"]
+    want_events = [(kill, 2), (rejoin, 3)]
+    for pod in pods:
+        p = pod["pod"]
+        ev = [e[:2] for e in pod["events"]]
+        if ev != (want_events if p != killed else want_events[1:]):
+            fail(f"{tag}: pod {p} membership events {pod['events']}")
+        if not pod["finite"] or not all(math.isfinite(x)
+                                        for x in pod["losses"]):
+            fail(f"{tag}: non-finite loss or parameters on pod {p}")
+        for rec in pod["steps"]:
+            if rec["batch"] != 2 * rec["P"]:
+                fail(f"{tag}: global batch {rec['batch']} at P = "
+                     f"{rec['P']} (step {rec['step']})")
+            if "bytes" in rec:
+                got, pay, full, priced, pad = rec["bytes"]
+                if got != pay or not (0 <= full - priced < pad
+                                      or full == priced):
+                    fail(f"{tag}: pod {p} moved {got} B (gather + ring) and "
+                         f"{full} B FULL in the delta_sync of step "
+                         f"{rec['step']} at P = {rec['P']}; plan_wire_bytes "
+                         f"{pay}, FullCodec.wire_bytes {priced} (+{pad})")
+        if p == killed and any(r["P"] == 2 for r in pod["steps"]):
+            fail(f"{tag}: the preempted pod stepped while preempted")
+    trajectory = [r["P"] for r in first["steps"]]
+    if sorted(set(trajectory)) != [2, 3]:
+        fail(f"{tag}: pod counts {trajectory}")
+    # the rejoin's state transfer: every leaf of the rejoining pod (m, v,
+    # anchor and EF residuals too, which the next delta_sync would not
+    # equalise) bit-identical to rank 0's
+    joined = pods[killed]["rejoin"]
+    if not joined or joined != first["rejoin"]:
+        fail(f"{tag}: the rejoining pod's state differs from pod 0's "
+             f"right after the rejoin ({joined and len(joined)} leaves)")
+    # every live pod: the same plan and omega at each step, the same
+    # parameters after each delta_sync
+    for pod in pods[1:]:
+        for rec in pod["steps"]:
+            same = [r for r in first["steps"] if r["step"] == rec["step"]
+                    and r["kind"] == rec["kind"]]
+            if not same:
+                fail(f"{tag}: pod {pod['pod']} stepped alone at step "
+                     f"{rec['step']}")
+            ref = same[0]
+            for key in ("omega", "levels", "P", "hashes"):
+                if rec.get(key) != ref.get(key):
+                    fail(f"{tag}: {key} of pod {pod['pod']} differ from pod "
+                         f"0's at step {rec['step']} ({rec['kind']})")
+    if first["losses"] != pods[1]["losses"]:
+        fail(f"{tag}: pod-mean losses differ across pods")
+    n_delta = {P: sum(1 for r in first["steps"] if "bytes" in r
+                      and r["P"] == P) for P in (2, 3)}
+    if not all(n_delta.values()):
+        fail(f"{tag}: delta_sync rounds per pod count {n_delta}")
+    last = first["last"]
+    for p in (0, 1):
+        res = pods[p]["restored"]
+        if res is None or res["hashes"] != pods[p]["saved"][last]:
+            fail(f"{tag}: pod {p}'s restore of step {last} as a P = 2 fleet "
+                 f"differs from the rows it wrote")
+    launches = {k: sum(pod["launches"][k] for pod in pods)
+                for k in first["launches"]}
+    enc = [k for k in (*KERNELS, *FLAT) if launches[k]]
+    dec = [k for k in DECODE if launches[k]]
+    if not enc or not dec:
+        fail(f"{tag}: no encode ({enc}) or decode ({dec}) kernel launched")
+    # the transitions' seconds: the event to the end of the first step at
+    # the new pod count, on each pod that steps there
+    for pod in pods:
+        for step_no, t_ev in pod["events_t"]:
+            after = [r for r in pod["steps"] if "t_end" in r
+                     and r["step"] >= step_no]
+            if after and any(e[0] == step_no for e in pod["events"]):
+                log(f"{tag}: pod {pod['pod']}: membership event at step "
+                    f"{step_no} -> end of the first step at P = "
+                    f"{after[0]['P']}: {after[0]['t_end'] - t_ev:.3f} s "
+                    f"(swap {[round(e[3], 3) for e in pod['events']]} s)")
+    # what the straggler rule would say of the pods' own step times
+    mon = HeartbeatMonitor(spec["pods"], timeout_s=1e9)
+    for row in first["pod_times"]:
+        for p, dt in enumerate(row):
+            if math.isfinite(dt):
+                mon.beat(p, dt, now=0.0)
+    det = StragglerDetector()
+    med = {p: sorted(s.step_times)[len(s.step_times) // 2]
+           for p, s in mon.pods.items()}
+    log(f"{tag}: pods' median step seconds {med}; straggle factors of "
+        f"those times {det.straggle_factors(mon)}, flagged "
+        f"{det.stragglers(mon)} (the loop beats every pod with the first "
+        f"live pod's time)")
+    log_heartbeats(tag, pods)
+    for pod in pods:
+        sv = pod["save"]
+        res = pod["restored"]
+        log(f"{tag}: pod {pod['pod']}: last save (step {sv.get('step')}) "
+            f"{sv.get('bytes')} B over the fleet, {sv.get('copy_s', 0):.3f} "
+            f"s foreground, {sv.get('write_s', 0):.3f} s background"
+            + (f"; P = 2 restore of step {res['step']} {res['seconds']:.3f} "
+               f"s" if res else "")
+            + f"; peak memory {pod['peak'] / 2**30:.2f} GiB")
+    log(f"{tag}: {first['layers']} layers, pod counts per step "
+        f"{trajectory}, global batch {[r['batch'] for r in first['steps']]};"
+        f" bytes = plan_wire_bytes in {n_delta} delta_sync rounds at "
+        f"P = 2 / 3, parameters bit-identical on the live pods after each; "
+        f"the rejoining pod's {len(first['rejoin'])} state leaves "
+        f"bit-identical to pod 0's at the rejoin; "
+        f"losses {[round(x, 4) for x in first['losses']]}; launches (all "
+        f"pods) {launches}; training "
+        f"{[round(p['train_s'], 1) for p in pods]} s; wall {wall:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1368,6 +1882,8 @@ def main() -> int:
         f"{build.last_build.get('path')}")
 
     phase_s = {}
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    CKPT_ROOT.mkdir(parents=True)
 
     def timed_phase(name, fn, *args):
         t = time.perf_counter()
@@ -1385,6 +1901,9 @@ def main() -> int:
     runs, link = timed_phase("phase 7", multipod_phase, torch)
     by_path.update(runs)
     by_path["hier"] = timed_phase("phase 8", hier_phase, torch)
+    by_path["restart"] = timed_phase("phase 9a", restart_phase, torch)
+    by_path["elastic"] = timed_phase("phase 9b", elastic_phase, torch)
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     log(f"pod link (phase 7, P = 2 ping-pong): latency "
         f"{link['latency_s']:.6g} s per hop, rate "
         f"{link['rate_bytes_per_s']:.6g} B/s; phase seconds {phase_s}")
@@ -1399,7 +1918,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             # phase 5 (one pod) + phase 7 (every pod at P = 2 and 3) +
-            # phase 8 (every member of the 2 x 2 fleet)
+            # phase 8 (every member of the 2 x 2 fleet) + phase 9 (the
+            # restart runs on one pod, every pod of the elastic run)
             "launches": sum(n.get(name, 0) for n in by_path.values()),
             "launches_by_path": {path: n.get(name, 0)
                                  for path, n in by_path.items()},
@@ -1413,7 +1933,8 @@ def main() -> int:
     paths = {"one_pod": {"pods": 1, "layers": 24}}
     paths.update({path: {"pods": spec["pods"], "edge": spec.get("edge", 1),
                          "layers": spec["n_layers"] or 24}
-                  for path, spec in PATHS.items()})
+                  for path, spec in dict(PATHS, restart=RESTART,
+                                         elastic=ELASTIC).items()})
     print(json.dumps({"kernels": kernels, "paths": paths,
                       "link": {k: link[k] for k in ("latency_s",
                                                     "rate_bytes_per_s")}}),

@@ -9,6 +9,8 @@ are hashable (usable as cache keys).
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -262,6 +264,12 @@ class ACESyncConfig:
     )
 
 
+def default_ckpt_dir() -> str:
+    """``repro_ckpt`` in the temporary directory (``tempfile.gettempdir``:
+    ``$TMPDIR``, else ``/tmp``)."""
+    return os.path.join(tempfile.gettempdir(), "repro_ckpt")
+
+
 @dataclass(frozen=True)
 class RunConfig:
     model: ModelConfig
@@ -282,6 +290,10 @@ class RunConfig:
     kv_chunk: int = 1024
     # ACE-Sync
     acesync: ACESyncConfig = field(default_factory=ACESyncConfig)
+    # checkpointing (the reference's /tmp/repro_ckpt where the temporary
+    # directory is /tmp; under $TMPDIR where that is set)
+    ckpt_every: int = 200
+    ckpt_dir: str = field(default_factory=default_ckpt_dir)
     seed: int = 0
 
     def replace(self, **kw) -> "RunConfig":

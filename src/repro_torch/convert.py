@@ -11,9 +11,10 @@ reference's leading pod dimension stripped — e.g.::
     ace/importance/params/w1         ace/importance/opt_v/wq
     ace/importance/feat_ema          ace/div_ema        ace/mse_ema
 
-and returns the port's train state: the model's Parameters are loaded in
-place (they stay the ``params`` leaves), every other leaf becomes a tensor
-on the trainer's device.  :func:`pod_state_from_reference` takes the
+(the paths :func:`repro_torch.tree.reference_leaf_paths` gives a port
+state, in the same order), and returns the port's train state: the
+model's Parameters are loaded in place (they stay the ``params``
+leaves), every other leaf becomes a tensor on the trainer's device.  :func:`pod_state_from_reference` takes the
 reference's multi-pod state as it is, every leaf with its leading pod
 dimension, and returns pod ``pod``'s state (one per pod process).  On a
 hierarchical fleet that dimension is the reference's pod-major fleet

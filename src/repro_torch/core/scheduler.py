@@ -193,6 +193,16 @@ class Scheduler:
                 else self._full_bytes)
         return byte_budget(self.cfg, bandwidth_mbps, full)
 
+    def snapshot(self) -> dict:
+        """The scheduler's mutable host state, what a checkpoint carries
+        for a restart to replay identically (the rest derives from the
+        config and the group sizes)."""
+        return {"sync_interval": int(self.sync_interval)}
+
+    def restore_snapshot(self, snap: dict):
+        self.sync_interval = int(snap.get("sync_interval",
+                                          self.cfg.sync_interval_init))
+
     def adapt_interval(self, divergence: float, div_ref: float) -> int:
         """Paper eq (9): grow H when divergence is small, shrink when it
         exceeds the threshold band."""

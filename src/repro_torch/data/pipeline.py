@@ -8,6 +8,9 @@ takes rows [p*B/P, (p+1)*B/P) of each global batch of B rows, as the
 reference's batch sharding over ("pod", "data") gives them; on a
 hierarchical fleet ``pod`` is the fleet slot r = c*E + e and P the fleet
 size, as the reference's pod-major ("pod", "edge") sharding gives them.
+After an elastic membership change :meth:`TokenPipeline.resized` hands
+pod p the rows of its rank in the new membership; the contents stay a
+function of (seed, step, row).
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ class TokenPipeline:
         #: the rows of each global batch this pod takes
         self.rows = range(pod * per, (pod + 1) * per)
         self.device = model.device if device is None else torch.device(device)
+        self.vocab_cap = vocab_cap
         self.vocab = min(model.cfg.vocab_size, vocab_cap)
         self.state = PipelineState(seed=seed, step=0)
         rng = np.random.RandomState(seed)
@@ -83,4 +87,24 @@ class TokenPipeline:
                 # a copy from pinned memory does not wait for the stream
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out[k] = t
+        return out
+
+    # ---- restart support ------------------------------------------------
+    def snapshot(self) -> dict:
+        return dataclasses.asdict(self.state)
+
+    def restore(self, snap: dict):
+        self.state = PipelineState(**snap)
+
+    # ---- elastic membership ---------------------------------------------
+    def resized(self, batch_rows: int, pod: int = 0,
+                n_pods: int = 1) -> "TokenPipeline":
+        """A pipeline of ``batch_rows`` rows per global batch, of which
+        this pod (rank ``pod`` of ``n_pods`` in the new membership) takes
+        its share, resuming at this pipeline's stream position."""
+        shape = dataclasses.replace(self.shape, global_batch=batch_rows)
+        out = TokenPipeline(self.model, shape, seed=self.seed,
+                            vocab_cap=self.vocab_cap, device=self.device,
+                            pod=pod, n_pods=n_pods)
+        out.restore(self.snapshot())
         return out

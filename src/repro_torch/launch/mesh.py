@@ -24,7 +24,21 @@ collective a :class:`PodGroup`:
     (forward), or the other way round (backward), both directions in
     flight together;
   * a log of the bytes each collective received per pod (``log``), so a
-    run can hold the exchange to the analytic ``plan_wire_bytes``.
+    run can hold the exchange to the analytic ``plan_wire_bytes``;
+  * elastic membership (:meth:`PodGroup.regroup`): the group of the alive
+    pods, created by every process of the fleet in one order (a new
+    ``torch.distributed`` group is collective over the whole fleet, so a
+    preempted pod's process takes part), cached per membership; and the
+    host-side exchanges of the control loop over gloo: the pods' step
+    times (:meth:`PodGroup.gather_floats`), a small object from one pod
+    (:meth:`PodGroup.broadcast_object`) and one pod's state to a
+    rejoining pod (:meth:`PodGroup.send_state`).
+
+Every group carries two gloo groups of its members besides its own:
+``host_pg`` for the control loop's host exchanges (the group itself where
+it is gloo) and ``ckpt_pg``, used only by the checkpoint writer's
+background thread (gloo matches collectives by order, so no other thread
+may run them on that group).
 
 A hierarchical fleet of C clusters x E members (``n_edge`` = E > 1) is
 one world group of C*E ranks, slot ``r = c*E + e`` pod-major as the
@@ -109,10 +123,46 @@ class PodGroup:
         self.n_edge = 1
         self.intra: Optional["PodGroup"] = None
         self.cross: Optional["PodGroup"] = None
+        #: gloo groups of the same members: the control loop's host
+        #: exchanges, and the checkpoint writer's thread
+        self.host_pg = pg if backend == "gloo" else None
+        self.ckpt_pg = None
+        #: sub-groups by membership (:meth:`regroup`), None where this pod
+        #: is not a member
+        self._members: dict = {}
 
     @property
     def n_cross(self) -> int:
         return self.size // self.n_edge
+
+    def make_host_groups(self) -> None:
+        """Create this group's gloo ``host_pg`` (where it is not gloo
+        itself) and ``ckpt_pg``; every process of the fleet calls this in
+        the same order."""
+        if self.backend != "gloo":
+            self.host_pg = dist.new_group(self.ranks, backend="gloo")
+        self.ckpt_pg = dist.new_group(self.ranks, backend="gloo")
+
+    def regroup(self, members: Sequence[int]) -> Optional["PodGroup"]:
+        """The group of fleet ranks ``members`` (this group's own ranks
+        for the whole fleet), or None where this pod is not a member.
+        Called on the fleet's group by every process of the fleet, in the
+        same order, member or not; the groups are cached per membership,
+        so a fleet that returns to a membership reuses them.  The rank of
+        a pod in the new group is its index in the sorted members."""
+        members = sorted(int(m) for m in members)
+        if members == self.ranks:
+            return self
+        key = tuple(members)
+        if key not in self._members:
+            pg = dist.new_group(members)
+            sub = PodGroup(members.index(self.rank) if self.rank in members
+                           else 0, len(members), self.device, self.backend,
+                           tier=self.tier, pg=pg, ranks=members,
+                           log=self.log)
+            sub.make_host_groups()
+            self._members[key] = sub if self.rank in members else None
+        return self._members[key]
 
     def split_tiers(self, n_edge: int) -> None:
         """Make this fleet of C = size / n_edge clusters hierarchical: the
@@ -321,6 +371,41 @@ class PodGroup:
         of pinned memory when staged)."""
         return buf.to(self.device, non_blocking=True) if self.staged else buf
 
+    # ---- host exchanges of the control loop (gloo, host_pg) -------------
+    def gather_floats(self, values: Sequence[float]) -> List[List[float]]:
+        """Every pod's ``values`` (the same count on each), in rank
+        order."""
+        x = torch.tensor(list(values), dtype=torch.float64)
+        out = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(out, x, group=self.host_pg)
+        return [o.tolist() for o in out]
+
+    def broadcast_object(self, obj, src: int = 0):
+        """Rank ``src``'s picklable ``obj`` on every pod."""
+        box = [obj if self.rank == src else None]
+        dist.broadcast_object_list(box, src=self.ranks[src],
+                                   group=self.host_pg)
+        return box[0]
+
+    def send_state(self, tensors: Sequence[torch.Tensor], src: int,
+                   dsts: Sequence[int]) -> None:
+        """Rank ``src``'s ``tensors`` into the same-shape ``tensors`` of
+        each rank in ``dsts`` (in place), one host copy at a time over
+        ``host_pg``; other ranks pass through."""
+        if self.rank != src and self.rank not in dsts:
+            return
+        with torch.no_grad():
+            for t in tensors:
+                if self.rank == src:
+                    host = t.detach().to("cpu", copy=True).contiguous()
+                    for d in dsts:
+                        dist.send(host, dst=self.ranks[d],
+                                  group=self.host_pg)
+                else:
+                    host = torch.empty(t.shape, dtype=t.dtype)
+                    dist.recv(host, src=self.ranks[src], group=self.host_pg)
+                    t.copy_(host)
+
     def barrier(self) -> None:
         if self.backend == "nccl":
             dist.barrier(group=self.pg, device_ids=[self.device.index])
@@ -387,6 +472,7 @@ def _pod_main(rank, n_pods, n_edge, device_type, init_method, threads, fn,
             timeout=datetime.timedelta(seconds=TIMEOUT_S), **kw)
         try:
             group = PodGroup(rank, n_pods, dev, backend)
+            group.make_host_groups()
             group.split_tiers(n_edge)
             results.put((rank, True, fn(group, *args)))
         finally:

@@ -19,6 +19,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import tempfile
 from collections import defaultdict
 from pathlib import Path
 
@@ -91,11 +92,14 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
 
-    sess = TrainSession.from_config(
-        "paper-350m", smoke=False, seq_len=args.seq_len, batch=args.batch,
-        steps=100, device="cuda", warmup_steps=2,
-        acesync=ACESyncConfig(replan_every=4))
-    sess.run(8, log_every=0)
+    # a fresh state every time: no checkpoint is resumed or written
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        sess = TrainSession.from_config(
+            "paper-350m", smoke=False, seq_len=args.seq_len,
+            batch=args.batch, steps=100, device="cuda", warmup_steps=2,
+            acesync=ACESyncConfig(replan_every=4), ckpt_dir=ckpt_dir,
+            ckpt_every=0)
+        sess.run(8, log_every=0)
     tr = sess.trainer
     batch = next(sess.pipeline)
     rr = tr.scheduler.plan_from_levels(

@@ -14,6 +14,13 @@ One session is one pod: with a pod group (``pods=``, see
 and trains on its pod's rows of every global batch.  A hierarchical pod
 group (``spawn_pods(..., n_edge=E)``) carries the fleet's cluster size
 (``n_edge``) into the trainer, its scheduler and the clustering.
+
+:meth:`TrainSession.init` resumes from the newest checkpoint in the run's
+``ckpt_dir`` that verifies (a fresh state when there is none);
+:meth:`TrainSession.finish` waits for the checkpoint writer (and raises
+what it failed with); :meth:`TrainSession.save_now` checkpoints the
+current step.  ``fault_schedule`` and ``blocking_replans`` go to the
+loop (:class:`~repro_torch.launch.train.TrainLoop`).
 """
 from __future__ import annotations
 
@@ -32,13 +39,15 @@ class TrainSession:
 
     def __init__(self, model, run: RunConfig,
                  strategy: Union[str, SyncStrategy] = "acesync",
-                 n_edge_devices: int = 8, seed: int = 0, pods=None):
+                 n_edge_devices: int = 8, seed: int = 0, pods=None,
+                 fault_schedule=None, blocking_replans: bool = False):
         self.model = model
         self.run_config = run
         self.pods = pods
         self.loop = TrainLoop(model, run, strategy=strategy,
                               n_edge_devices=n_edge_devices, seed=seed,
-                              pods=pods)
+                              pods=pods, fault_schedule=fault_schedule,
+                              blocking_replans=blocking_replans)
         self.pipeline = TokenPipeline(
             model, run.shape, seed=seed,
             pod=0 if pods is None else pods.rank,
@@ -51,6 +60,7 @@ class TrainSession:
                     smoke: bool = True, seq_len: int = 256, batch: int = 8,
                     steps: int = 100, n_edge_devices: int = 8,
                     seed: int = 0, device="cuda", pods=None,
+                    fault_schedule=None, blocking_replans: bool = False,
                     **run_kw) -> "TrainSession":
         """Build a session from an architecture name + strategy spec.
         ``batch`` is the global batch (split over the pods of ``pods``,
@@ -63,7 +73,9 @@ class TrainSession:
             device = pods.device
         model = build_model(cfg, run, device=device)
         return cls(model, run, strategy=strategy,
-                   n_edge_devices=n_edge_devices, seed=seed, pods=pods)
+                   n_edge_devices=n_edge_devices, seed=seed, pods=pods,
+                   fault_schedule=fault_schedule,
+                   blocking_replans=blocking_replans)
 
     @property
     def trainer(self):
@@ -74,9 +86,11 @@ class TrainSession:
         return self.loop.strategy
 
     def init(self):
-        """Initialise fresh state (checkpoint restore is a later slice)."""
-        if self.state is None:
-            self.state = self.trainer.init_state(self.run_config.seed)
+        """Restore the newest checkpoint that verifies, or initialise
+        fresh state."""
+        if self.state is None and not self.loop.idle:
+            self.state = self.loop.restore_or_init(self.run_config.seed,
+                                                   self.pipeline)
         return self.state
 
     def run(self, n_steps: Optional[int] = None,
@@ -87,7 +101,22 @@ class TrainSession:
             self.state, self.pipeline,
             n_steps if n_steps is not None else self.run_config.total_steps,
             log_every=log_every)
+        # the pipeline the loop drains (re-balanced by a membership change)
+        self.pipeline = self.loop._pipeline
         return self
+
+    def finish(self):
+        """Wait for pending checkpoint writes (re-raises a failed one)."""
+        self.loop.ckpt.wait()
+
+    def save_now(self) -> int:
+        """Checkpoint the current step (blocking); returns the step."""
+        step = int(self.state["step"])
+        if self.loop._pipeline is None:
+            self.loop._pipeline = self.pipeline
+        self.loop.ckpt.save(step, self.state,
+                            extras=self.loop.ckpt_extras(), blocking=True)
+        return step
 
     @property
     def history(self):

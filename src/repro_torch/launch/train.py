@@ -29,8 +29,43 @@ fleet member.  On a hierarchical fleet (C clusters x E members) the
 clustering keeps one cluster per cross-tier slot (k = C), the slots are
 pod-major (``c * E + e``), and the clustering is handed to the strategy
 (``acesync_hier`` budgets against its bottleneck cluster).
-Checkpointing, fault injection and elastic membership come with later
-slices of the port.
+
+Surviving the fleet, as the reference does:
+
+  * checkpoints every ``RunConfig.ckpt_every`` steps to ``ckpt_dir``
+    (:class:`~repro_torch.checkpoint.checkpointer.Checkpointer`, the
+    reference's on-disk format) carry the whole train state and, in the
+    manifest extras, the plan, the scheduler's sync interval, the
+    clustering, the loop counters and the pipeline position;
+    :meth:`TrainLoop.restore_or_init` resumes from the newest one that
+    verifies, and with ``blocking_replans`` a restart replays the
+    uninterrupted run bit for bit (on the card only where the process
+    runs with ``torch.use_deterministic_algorithms(True)`` and
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: attention's backward is not
+    deterministic by default; neither the loop nor the CLI sets them);
+  * a seeded :class:`~repro_torch.runtime.faults.FaultSchedule` kills and
+    rejoins pods, corrupts checkpoint leaves and delays heartbeats at
+    fixed steps; every pod process holds the same schedule;
+  * heartbeats: each pod records its step times, and the pods exchange
+    them where the monitor is read — at each replan boundary (which
+    blocks on P > 1 already), before a step's fault events and at the
+    end of ``run_steps`` — in one small gather over the whole fleet,
+    preempted pods included (its seconds in ``heartbeat_seconds``).
+    Every pod then beats each live pod, step by step, with the first
+    live pod's time, as the reference beats every pod with its one host
+    time after each step — so every pod holds the same monitor, the
+    straggle factors are uniform, and omega stays a function of the state
+    trajectory.  With more than one pod the heartbeat timeouts are
+    therefore checked at those points, not after every step;
+  * elastic membership on a flat fleet: a killed pod's process stays
+    alive and idle with its device state freed; the others continue as a
+    fleet of P - 1 on the group of the alive pods (:meth:`PodGroup.
+    regroup <repro_torch.launch.mesh.PodGroup.regroup>`), renumbered in
+    pod order, with the batch re-balanced to the same rows per pod; at
+    its rejoin the pod adopts the state of the new fleet's rank 0 (the
+    reference's tile) and the loop's host state with it.  The transition
+    is eager: it swaps at the event step, the reference's
+    ``blocking_replans`` behaviour.
 
 CLI::
 
@@ -38,22 +73,31 @@ CLI::
     python -m repro_torch.launch.train --pods 2 --steps 8 ...  # P processes
     python -m repro_torch.launch.train --pods 4 --edge 2 \
         --strategy acesync_hier ...          # 2 clusters x 2 members
+    ... --ckpt-dir DIR --ckpt-every N        # checkpoint; a rerun resumes
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import inspect
 import json
+import math
 import time
-from typing import Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
-from repro_torch.configs.base import RunConfig
+from repro_torch import tree as T
+from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.configs.base import RunConfig, default_ckpt_dir
 from repro_torch.core import acesync
 from repro_torch.core.trainer import Trainer
 from repro_torch.data.telemetry import make_profiles, snapshot
 from repro_torch.hierarchy import ClusterState
+from repro_torch.runtime import faults as F
+from repro_torch.runtime.fault_tolerance import (ElasticPlanner,
+                                                 HeartbeatMonitor, MeshPlan,
+                                                 StragglerDetector)
 from repro_torch.strategies import (STEP_ADVANCING, SYNC_KINDS, SyncStrategy,
                                     list_strategies)
 
@@ -84,15 +128,29 @@ class _HostFetch:
 
 
 class TrainLoop:
-    """Host control loop around the trainer's step kinds."""
+    """Host control loop around the trainer's step kinds.
+
+    ``pods`` is the fleet's pod group (None: one pod); a flat fleet
+    changes its membership on a kill or a rejoin, a hierarchical one keeps
+    its members; ``fault_schedule`` a :class:`~repro_torch.runtime.faults.
+    FaultSchedule` (the same on every pod); ``blocking_replans`` applies
+    replans and the eq-(9) interval at the step that launches them
+    (always on with more than one pod)."""
 
     def __init__(self, model, run: RunConfig,
                  strategy: Union[str, SyncStrategy] = "acesync",
-                 n_edge_devices: int = 8, seed: int = 0, pods=None):
+                 n_edge_devices: int = 8, seed: int = 0, pods=None,
+                 fault_schedule: Optional[F.FaultSchedule] = None,
+                 blocking_replans: bool = False):
         self.model = model
         self.run = run
         self.trainer = Trainer(model, run, strategy=strategy, pods=pods)
         self.strategy = self.trainer.strategy
+        #: the whole fleet's group, and the group of the current members
+        #: (None while this pod is preempted)
+        self.fleet = pods
+        self.pods = pods
+        self.ckpt = Checkpointer(run.ckpt_dir, pods=pods)
         self.profiles = make_profiles(n_edge_devices, seed)
         sched = self.trainer.scheduler
         # one cluster per cross-tier slot on a hierarchical fleet, the
@@ -103,9 +161,18 @@ class TrainLoop:
             hysteresis=run.acesync.cluster_hysteresis)
         self._plan_takes_clusters = "clusters" in inspect.signature(
             self.strategy.make_plan).parameters
+        n = self.trainer.n_pods
+        self.monitor = HeartbeatMonitor(n)
+        self.straggler = StragglerDetector()
+        # elastic membership only on a flat fleet (the edge dimension of a
+        # hierarchical one is cluster topology, not membership)
+        self.elastic = pods is not None and pods.n_edge == 1
+        self.planner = (ElasticPlanner(MeshPlan(n_pods=n, data=1, model=1))
+                        if self.elastic else None)
+        self.faults = fault_schedule
         #: apply replans and H at the step that launches them (all pods
-        #: must switch plans on the same step)
-        self.blocking_replans = self.trainer.n_pods > 1
+        #: must switch plans on the same step; one pod: replays exactly)
+        self.blocking_replans = bool(blocking_replans) or n > 1
         self.history = []
         self.comm_bytes = 0.0
         self._plan = None
@@ -115,19 +182,59 @@ class TrainLoop:
         self._pending_replan = None     # (fetch, omega)
         self._div_fetch: Optional[_HostFetch] = None
         self.device_replans = 0         # device replans applied
+        self._pipeline = None           # the stream run_steps is draining
+        # ---- elastic state ----
+        #: the alive pods, and the members of the current group (the
+        #: same on every process of the fleet, preempted ones included)
+        self._members: List[int] = list(range(n))
+        self._group_members = tuple(self._members)
+        self._trainers: Dict[tuple, Trainer] = {self._group_members:
+                                                self.trainer}
+        self._elastic_pending = None
+        self._hb_delay: Dict[int, int] = {}
+        self._hb_now: Optional[float] = None
+        #: this pod's heartbeats not yet exchanged: per step, the pods
+        #: to beat, its step time (None: preempted) and its clock
+        self._hb_rows: List[tuple] = []
+        #: this pod is preempted: its process idles, its state freed
+        self.idle = False
+        self._param_shapes = None
+        #: membership transitions applied: the swap step, the step the
+        #: event fired, the new pod count and members, and the seconds
+        #: the swap took on this pod (the reference's
+        #: ``served_from_warm_cache`` means nothing without a compile
+        #: cache and is left out)
+        self.membership_events: List[dict] = []
+        #: every pod's step time (seconds) of each step, in fleet rank
+        #: order (NaN: preempted); P > 1 only
+        self.pod_step_times: List[List[float]] = []
+        #: host seconds this pod spent in each heartbeat exchange
+        #: (waiting for the other pods included); P > 1 only
+        self.heartbeat_seconds: List[float] = []
 
     @property
     def plan(self):
         return self._plan
 
+    def _log(self, msg: str) -> None:
+        if not self.idle and (self.pods is None or self.pods.rank == 0):
+            print(msg, flush=True)
+
     # ---- policy refresh ---------------------------------------------------
-    def _policy_inputs(self, step: int):
-        """Telemetry snapshot -> (telemetry, fleet omega): the clustering
-        is refreshed (warm-started k-means with hysteresis) and the device
-        reliability weights are summed into one slot per fleet member."""
+    def _policy_inputs(self, step: int, sched=None):
+        """Telemetry snapshot -> (telemetry, fleet omega): the straggle
+        factors of the heartbeat monitor multiply into the telemetry's
+        (device i reports through alive pod i mod P), the clustering is
+        refreshed (warm-started k-means with hysteresis) and the device
+        reliability weights are summed into one slot per fleet member of
+        ``sched`` (default: the current trainer's)."""
         telem = snapshot(self.profiles, step)
+        sf = self.straggler.straggle_factors(self.monitor)
+        alive = sorted(sf) or [0]
+        for i, t in enumerate(telem):
+            t["straggle"] *= sf.get(alive[i % len(alive)], 1.0)
         self.clusters.update(telem)
-        sched = self.trainer.scheduler
+        sched = sched or self.trainer.scheduler
         return telem, self.clusters.fleet_omega(telem, sched.n_cross,
                                                 sched.n_edge)
 
@@ -187,35 +294,333 @@ class TrainLoop:
         return self.strategy.adapt(self.trainer.scheduler,
                                    float(prev.get()))
 
+    # ---- checkpoint state ---------------------------------------------------
+    def _plan_snapshot(self) -> Optional[dict]:
+        p = self._plan
+        if p is None:
+            return None
+        return {"level_idx": list(p.level_idx),
+                "omega": [float(w) for w in p.omega],
+                "sync_interval": int(p.sync_interval),
+                "adaptive": bool(p.adaptive)}
+
+    def ckpt_extras(self) -> dict:
+        """Everything outside the state a restart needs, JSON-able (it
+        rides in the manifest): the pipeline position, the plan, the
+        scheduler's sync interval, the clustering and the loop counters."""
+        return {
+            "pipeline": (self._pipeline.snapshot()
+                         if self._pipeline is not None else None),
+            "plan": self._plan_snapshot(),
+            "scheduler": self.trainer.scheduler.snapshot(),
+            "clusters": self.clusters.snapshot(),
+            "loop": {"steps_since_sync": int(self._steps_since_sync),
+                     "H": None if self._H is None else int(self._H),
+                     "n_pods": int(self.trainer.n_pods),
+                     "comm_bytes": float(self.comm_bytes)},
+        }
+
+    def _restore_extras(self, extras: dict, pipeline):
+        if extras.get("pipeline") and pipeline is not None:
+            pipeline.restore(extras["pipeline"])
+        if extras.get("scheduler"):
+            self.trainer.scheduler.restore_snapshot(extras["scheduler"])
+        if extras.get("clusters"):
+            self.clusters.restore_snapshot(extras["clusters"])
+        lp = extras.get("loop") or {}
+        self._steps_since_sync = int(lp.get("steps_since_sync", 0))
+        h = lp.get("H")
+        self._H = None if h is None else int(h)
+        self.comm_bytes = float(lp.get("comm_bytes", 0.0))
+        ps = extras.get("plan")
+        if ps:
+            # rebuilt through the scheduler, so that the bucket signature
+            # and the chunk and segment grids derive as they did mid-run
+            self._plan = self.trainer.scheduler.plan_from_levels(
+                ps["level_idx"], omega=ps["omega"],
+                sync_interval=ps.get("sync_interval"),
+                adaptive=bool(ps.get("adaptive", False)))
+
+    def restore_or_init(self, seed: int, pipeline):
+        """The newest checkpoint in ``ckpt_dir`` that verifies (with its
+        host state), else a fresh state from ``seed``."""
+        if self.ckpt.latest_step() is None:
+            return self.trainer.init_state(seed)
+        state, extras = self.ckpt.restore(self.trainer.init_state(seed))
+        self._restore_extras(extras, pipeline)
+        self._log(f"restored checkpoint @ step {int(state['step'])}")
+        return state
+
+    # ---- fault injection & elastic membership -----------------------------
+    def _apply_faults(self, step: int):
+        if self.faults is None:
+            return
+        events = self.faults.due(step)
+        if events:
+            # the monitor as of the last step, before the events touch it
+            self._exchange_heartbeats()
+        for ev in events:
+            if ev.kind == F.KILL_POD:
+                self._on_pods_dead([ev.target])
+            elif ev.kind == F.REJOIN_POD:
+                self._on_pod_rejoin(ev.target)
+            elif ev.kind == F.CORRUPT_CKPT:
+                if self.idle:
+                    continue
+                self.ckpt.wait()
+                if self.pods is None or self.pods.rank == 0:
+                    path = F.corrupt_checkpoint_leaf(
+                        self.ckpt.dir, ev.target, seed=ev.step)
+                    if path:
+                        self._log(f"FAULT step {step}: corrupted {path}")
+            elif ev.kind == F.DELAY_HEARTBEAT:
+                self._hb_delay[ev.target] = max(
+                    self._hb_delay.get(ev.target, 0), ev.duration)
+
+    def _on_pods_dead(self, pods: Sequence[int]):
+        for p in pods:
+            self.monitor.mark_dead(p)
+        if not self.elastic:
+            return
+        plan = self.planner.on_pod_failure(pods)
+        self._members = [m for m in self._members if m not in set(pods)]
+        self._log(f"ELASTIC: pods {sorted(pods)} dead -> fleet "
+                  f"P={plan.n_pods}")
+        self._begin_transition(plan.n_pods)
+
+    def _on_pod_rejoin(self, pod: int):
+        self.monitor.register(pod, now=self._hb_now)
+        if not self.elastic:
+            return
+        plan = self.planner.on_pod_join(1)
+        self._members = sorted(set(self._members) | {pod})
+        self._log(f"ELASTIC: pod {pod} rejoined -> fleet P={plan.n_pods}")
+        self._begin_transition(plan.n_pods)
+
+    def _trainer_for(self, group) -> Trainer:
+        """The trainer of a membership (cached per membership, as the
+        reference caches one per pod count: a fleet that returns to a
+        membership reuses its plans' device forms)."""
+        key = tuple(group.ranks)
+        tr = self._trainers.get(key)
+        if tr is None:
+            tr = Trainer(self.model, self.run, strategy=self.strategy,
+                         pods=group)
+            self._trainers[key] = tr
+        return tr
+
+    def _begin_transition(self, n_new: int):
+        """Stage a membership change on every process of the fleet: the
+        group of the new members (collective over the fleet, so a
+        preempted pod's process takes part); on the members, the host
+        state of a rejoining pod from the new rank 0, the membership's
+        trainer with the sync interval carried over, a plan priced at
+        the new fleet size, and the batch re-balanced to the same rows
+        per pod.  :meth:`_poll_elastic` swaps it in."""
+        members = tuple(self._members)
+        if not self.elastic or members == self._group_members:
+            return
+        t0 = time.perf_counter()
+        launched = self._host_step or 0
+        before, self._group_members = self._group_members, members
+        group = self.fleet.regroup(members)
+        if group is None:
+            self._elastic_pending = (None, None, None, launched, t0, group,
+                                     ())
+            return
+        joining = tuple(r for r, m in enumerate(members) if m not in before)
+        if joining:
+            # a rejoining pod takes the host state of the new rank 0
+            extras = group.broadcast_object(
+                self.ckpt_extras() if group.rank == 0 else None)
+            if self.idle:
+                self._alloc_params()
+                self._restore_extras(extras, self._pipeline)
+        old = self.trainer
+        tr = self._trainer_for(group)
+        tr.scheduler.restore_snapshot(old.scheduler.snapshot())
+        # omega at the new fleet size (the reference prices it at the old
+        # one, whose trainer is still current there: ROADMAP R6)
+        telem, omega = self._policy_inputs(launched, sched=tr.scheduler)
+        kw = dict(importance=None, telemetry=telem, omega=omega)
+        if self._plan_takes_clusters:
+            kw["clusters"] = self.clusters
+        plan = self.strategy.make_plan(tr.scheduler, **kw)
+        pipe = self._pipeline
+        if pipe is not None:
+            rows = self.planner.rebalanced_rows(pipe.shape.global_batch,
+                                                old.n_pods)
+            pipe = pipe.resized(rows, pod=group.rank, n_pods=group.size)
+        self._elastic_pending = (tr, plan, pipe, launched, t0, group,
+                                 joining)
+
+    def _transfer_state(self, state, tr: Trainer, group, joining):
+        """The state on the new fleet.  One process per pod, so each pod
+        keeps its own rows: a preempted pod frees its state (the dead
+        pod's EF residuals and moments leave with it), survivors keep
+        theirs, and a rejoining pod receives the state of the new rank 0
+        (the reference's tile gives the new pod row 0's).  The reference
+        cuts the pod dimension to its first rows instead, whichever pod
+        died (ROADMAP R5); both agree when the last pod dies."""
+        if group is None:
+            self._free_state(state)
+            return None
+        if self.idle:
+            state = tr.init_state(self.run.seed)
+        if joining:
+            group.send_state([leaf for _, leaf in
+                              T.reference_leaves_with_path(state)], 0,
+                             joining)
+        return state
+
+    def _free_state(self, state):
+        """A preempted pod: free the device state.  Every leaf goes down
+        to empty storage (the session may still hold the tree), the
+        model's parameters with their shapes kept for the rejoin."""
+        self._pending_replan = None
+        self._div_fetch = None
+        self._param_shapes = [tuple(p.shape) for p in
+                              T.leaves(self.model.param_tree())]
+        with torch.no_grad():
+            for _, leaf in T.reference_leaves_with_path(state):
+                leaf.data = leaf.data.new_empty((0,))
+        gc.collect()
+        if self.model.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self.idle = True
+
+    def _alloc_params(self):
+        with torch.no_grad():
+            for p, shape in zip(T.leaves(self.model.param_tree()),
+                                self._param_shapes):
+                p.data = p.data.new_empty(shape)
+
+    def _poll_elastic(self, state):
+        """Apply a staged membership transition (the transition is eager:
+        it lands at the step it was staged).  Returns the state on the
+        new fleet (None on a preempted pod)."""
+        if self._elastic_pending is None:
+            return state
+        tr, plan, pipe, launched, t0, group, joining = self._elastic_pending
+        self._elastic_pending = None
+        state = self._transfer_state(state, tr, group, joining)
+        self.pods = group
+        if group is None:
+            return None
+        self.idle = False
+        # a pending replan was priced for the old fleet: the next refresh
+        # replans at the new size
+        self._pending_replan = None
+        self.trainer = tr
+        self.ckpt.pods = group
+        if pipe is not None:
+            self._pipeline = pipe
+        self._plan = plan
+        self.membership_events.append({
+            "step": self._host_step, "launched_step": launched,
+            "n_pods": group.size, "warm_steps": (self._host_step or 0)
+            - launched, "members": list(group.ranks),
+            "seconds": time.perf_counter() - t0})
+        self._log(f"ELASTIC: swapped to P={group.size} (pods "
+                  f"{list(group.ranks)}) at step {self._host_step}")
+        return state
+
+    def _beat_pods(self) -> List[int]:
+        out = []
+        for pod in self.monitor.alive_pods():
+            d = self._hb_delay.get(pod, 0)
+            if d > 0:
+                self._hb_delay[pod] = d - 1
+                continue
+            out.append(pod)
+        return out
+
+    def _heartbeat(self, dt: Optional[float]):
+        """One pod: beat the live pods with this step's time and mark the
+        silent ones dead.  More pods: record the step's beat for the next
+        :meth:`_exchange_heartbeats`."""
+        now = time.time()
+        if self.fleet is None:
+            self._beat(self._beat_pods(), dt, now)
+        else:
+            self._hb_rows.append((self._beat_pods(), dt, now))
+
+    def _beat(self, pods: Sequence[int], dt: float, now: float):
+        self._hb_now = now
+        for pod in pods:
+            self.monitor.beat(pod, dt, now=now)
+        newly_dead = self.monitor.check(now=now)
+        if newly_dead:
+            self._on_pods_dead(newly_dead)
+
+    def _exchange_heartbeats(self):
+        """Exchange the recorded steps' times over the fleet (NaN: a
+        preempted pod) and apply each step's beats in order, with the
+        first live pod's time and clock, so that every process holds the
+        same monitor.  Every process of the fleet calls it at the same
+        steps."""
+        rows, self._hb_rows = self._hb_rows, []
+        if not rows:
+            return
+        t0 = time.perf_counter()
+        got = self.fleet.gather_floats(
+            [x for _, dt, now in rows
+             for x in (math.nan if dt is None else dt, now)])
+        self.heartbeat_seconds.append(time.perf_counter() - t0)
+        for j, (pods, _, _) in enumerate(rows):
+            times = [(g[2 * j], g[2 * j + 1]) for g in got]
+            self.pod_step_times.append([t for t, _ in times])
+            dt, now = next(x for x in times if not math.isnan(x[0]))
+            # a pod a timeout marked dead at an earlier step of the batch
+            # is beaten no more (a beat would register it again)
+            alive = set(self.monitor.alive_pods())
+            self._beat([p for p in pods if p in alive], dt, now)
+
     # ---- main loop ----------------------------------------------------------
     def _flush_metrics(self, inflight, log_every):
         fetches, rec, idx = inflight
         rec.update({k: float(f.get()) for k, f in fetches.items()})
         self.history.append(rec)
         if log_every and idx % log_every == 0:
-            print(f"step {rec['step']:5d} "
-                  f"loss={rec.get('loss', float('nan')):.4f} "
-                  f"H={rec['H']} dt={rec['dt']:.2f}s", flush=True)
+            self._log(f"step {rec['step']:5d} "
+                      f"loss={rec.get('loss', float('nan')):.4f} "
+                      f"H={rec['H']} dt={rec['dt']:.2f}s")
 
     def run_steps(self, state, pipeline, n_steps: int, log_every: int = 10):
-        cfg = self.run.acesync
-        H = (self._H if self._H is not None
-             else self.strategy.initial_interval(cfg))
-        # one synchronous read to seed the host step mirror
-        self._host_step = int(state["step"])
-        if self._plan is None:
+        """Run ``n_steps`` steps (a preempted pod idles through them in
+        step with the fleet) and return the state (None on a pod that is
+        preempted at the end)."""
+        run = self.run
+        cfg = run.acesync
+        self._pipeline = pipeline
+        if state is not None:
+            # one synchronous read to seed the host step mirror
+            self._host_step = int(state["step"])
+        if self._plan is None and not self.idle:
             self.refresh_plan(state, self._host_step)
+            if self.blocking_replans:
+                self.poll_replan(block=True)
         inflight = None
         for i in range(n_steps):
             step = self._host_step
+            if step and step % cfg.replan_every == 0:
+                self._exchange_heartbeats()
+            self._apply_faults(step)
+            state = self._poll_elastic(state)
+            if self.idle:
+                # one step kind per iteration advances the step counter
+                self._host_step += 1
+                self._heartbeat(None)
+                continue
             self.poll_replan()
             if step and step % cfg.replan_every == 0:
                 self.refresh_plan(state, step)
                 if self.blocking_replans:
                     self.poll_replan(block=True)
-                H = self.adapt_interval(state)
-                self._H = H
-            batch = next(pipeline)
+                self._H = self.adapt_interval(state)
+            H = (self._H if self._H is not None
+                 else self.strategy.initial_interval(cfg))
+            batch = next(self._pipeline)
             t0 = time.perf_counter()
             kinds = self.strategy.step_schedule(self._steps_since_sync, H)
             metrics = {}
@@ -234,23 +639,32 @@ class TrainLoop:
             if inflight is not None:
                 self._flush_metrics(inflight, log_every)
             dt = time.perf_counter() - t0
+            self._heartbeat(dt)
             inflight = (fetches, dict(step=step, dt=dt, H=H,
                                       kinds=list(kinds)), i)
+            done = self._host_step  # the state holds the post-step counter
+            if run.ckpt_every and done % run.ckpt_every == 0:
+                self.ckpt.save(done, state, extras=self.ckpt_extras())
         if inflight is not None:
             self._flush_metrics(inflight, log_every)
+        self._exchange_heartbeats()
         return state
 
 
 def _session_kwargs(args) -> dict:
-    return dict(strategy=args.strategy, smoke=args.smoke,
-                seq_len=args.seq_len, batch=args.batch, steps=args.steps,
-                warmup_steps=10)
+    kw = dict(strategy=args.strategy, smoke=args.smoke,
+              seq_len=args.seq_len, batch=args.batch, steps=args.steps,
+              warmup_steps=10, ckpt_dir=args.ckpt_dir)
+    if args.ckpt_every is not None:
+        kw["ckpt_every"] = args.ckpt_every
+    return kw
 
 
 def _summary(sess) -> dict:
     losses = sess.losses
     return {"first_loss": losses[0], "last_loss": losses[-1],
             "steps": len(losses), "comm_bytes": sess.comm_bytes,
+            "start_step": sess.history[0]["step"],
             "device": str(sess.model.device)}
 
 
@@ -261,6 +675,7 @@ def _pod_run(group, arch, kw, steps):
     from repro_torch.launch.session import TrainSession
     sess = TrainSession.from_config(arch, pods=group, **kw)
     sess.run(steps, log_every=10 if group.rank == 0 else 0)
+    sess.finish()
     payload = ("gather", "ring")
     return dict(_summary(sess), pod=group.rank,
                 wire_bytes=group.bytes_logged(payload, ("fleet", "cross")),
@@ -286,6 +701,12 @@ def main(argv=None):
     ap.add_argument("--edge", type=int, default=1,
                     help="members per cluster: --pods P --edge E runs a "
                          "two-tier fleet of P/E clusters")
+    ap.add_argument("--ckpt-dir", default=default_ckpt_dir(),
+                    help="checkpoint directory (default: repro_ckpt in "
+                         "$TMPDIR or /tmp); a run resumes from the newest "
+                         "checkpoint there that verifies")
+    ap.add_argument("--ckpt-every", type=int, default=None,
+                    help="checkpoint cadence in steps (default: RunConfig)")
     args = ap.parse_args(argv)
     if args.pods % args.edge:
         ap.error(f"--pods {args.pods} does not split into clusters of "
@@ -301,6 +722,7 @@ def main(argv=None):
         return
     sess = TrainSession.from_config(args.arch, device=args.device, **kw)
     sess.run(args.steps)
+    sess.finish()
     print(json.dumps(_summary(sess)))
 
 

@@ -6,7 +6,11 @@ indexed by leaf position, so the port flattens its nested dicts of tensors
 with these helpers: the same leaf order as the reference, hence the same
 parameter groups and the same plans.
 
-A tree is a nested ``dict`` whose non-dict values are leaves.
+A tree is a nested ``dict`` whose non-dict values are leaves.  A train
+state also holds NamedTuples (``ACEState``, ``ImportanceState``); the
+``reference_*`` helpers flatten those too, fields in declared order, as
+``jax.tree_util`` does: that order numbers a checkpoint's ``leaf_<k>.npy``
+in both packages.
 """
 from __future__ import annotations
 
@@ -72,4 +76,49 @@ def from_flat_dict(flat: Dict[str, Any]) -> dict:
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = leaf
+    return out
+
+
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
+def reference_leaves_with_path(tree, prefix: Path = ()
+                               ) -> List[Tuple[Path, Any]]:
+    """``(path, leaf)`` pairs in the reference's flatten order: dict keys
+    sorted, NamedTuple fields in declared order."""
+    if isinstance(tree, dict):
+        items = ((k, tree[k]) for k in sorted(tree))
+    elif _is_namedtuple(tree):
+        items = zip(tree._fields, tree)
+    else:
+        return [(prefix, tree)]
+    out = []
+    for key, sub in items:
+        out.extend(reference_leaves_with_path(sub, prefix + (key,)))
+    return out
+
+
+def reference_leaf_paths(tree) -> List[str]:
+    """The "/"-joined path of every leaf, in the reference's order (the
+    keys ``jax.tree_util.tree_flatten_with_path`` gives its state)."""
+    return [path_str(p) for p, _ in reference_leaves_with_path(tree)]
+
+
+def reference_unflatten(template, flat) -> Any:
+    """The inverse of :func:`reference_leaves_with_path`: ``template``'s
+    structure with its leaves replaced, in order, by ``flat``."""
+    it = iter(flat)
+
+    def fill(node):
+        if isinstance(node, dict):
+            return {k: fill(node[k]) for k in sorted(node)}
+        if _is_namedtuple(node):
+            return type(node)(*(fill(v) for v in node))
+        return next(it)
+
+    out = fill(template)
+    rest = sum(1 for _ in it)
+    if rest:
+        raise ValueError(f"{rest} leaves left over after unflatten")
     return out

@@ -513,7 +513,9 @@ def _port_train(group, ref_path, out):
     run = RunConfig(model=dataclasses.replace(SMOKE_ARCHS["paper-350m"],
                                               dtype="float32"),
                     shape=ShapeConfig("session", SEQ, 2 * F, "train"),
-                    lr=LR, warmup_steps=1, total_steps=50)
+                    lr=LR, warmup_steps=1, total_steps=50, ckpt_every=0,
+                    ckpt_dir=os.path.join(os.path.dirname(ref_path),
+                                          "port_ckpt"))
     sess = TrainSession(build_model(run.model, run, device="cpu"), run,
                         strategy="acesync_hier", pods=group)
     tr = sess.trainer

@@ -606,7 +606,8 @@ def test_cli_trains_two_pods_on_cpu(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--pods", "2",
          "--smoke", "--device", "cpu", "--seq-len", str(SEQ), "--batch",
-         "4", "--steps", "5"], capture_output=True, text=True, env=env,
+         "4", "--steps", "5", "--ckpt-dir", str(tmp_path / "ck")],
+        capture_output=True, text=True, env=env,
         cwd=tmp_path, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])

@@ -133,23 +133,34 @@ def test_trainer_step_kinds_match(setups, kind):
     assert int(tstate["step"]) == int(np.asarray(jstate["step"])[0])
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     """Without a device argument the entry points ask for the card, and
-    raise here instead of running on the CPU."""
+    raise here instead of running on the CPU: the session (with or without
+    a fault schedule), the model and the train CLI."""
+    from repro_torch.launch import train
+    from repro_torch.runtime.faults import FaultSchedule
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
-        TrainSession.from_config("paper-350m", smoke=True, steps=2)
+        TrainSession.from_config("paper-350m", smoke=True, steps=2,
+                                 ckpt_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrainSession.from_config(
+            "paper-350m", smoke=True, steps=2, ckpt_dir=str(tmp_path),
+            fault_schedule=FaultSchedule.preempt_and_rejoin(1, 2, 3))
     with pytest.raises(RuntimeError, match="CUDA"):
         tbuild(SMOKE_ARCHS["paper-350m"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--smoke", "--steps", "1", "--ckpt-dir",
+                    str(tmp_path)])
 
 
-def test_session_runs_on_cpu_when_asked():
+def test_session_runs_on_cpu_when_asked(tmp_path):
     """The main path through the session facade: 8 acesync steps with two
     delta_sync rounds and one device replan (the smoke CLI's path)."""
     sess = TrainSession.from_config(
         "paper-350m", smoke=True, seq_len=SEQ, batch=BATCH, steps=8,
-        device="cpu", warmup_steps=1,
+        device="cpu", warmup_steps=1, ckpt_dir=str(tmp_path),
         acesync=ACESyncConfig(replan_every=4))
     sess.run(8, log_every=0)
     kinds = [k for h in sess.history for k in h["kinds"]]
@@ -187,11 +198,12 @@ def test_rung_ordered_apply_equals_barriered_apply(kind):
 @pytest.mark.parametrize("strategy", ["acesync", "acesync_hier",
                                       "bandwidth_tiered", "fedavg",
                                       "fullsync", "localsgd", "topk"])
-def test_every_strategy_trains_on_cpu(strategy):
+def test_every_strategy_trains_on_cpu(tmp_path, strategy):
     from repro_torch.strategies import list_strategies
     assert strategy in list_strategies()
     sess = TrainSession.from_config(
         "paper-350m", strategy=strategy, smoke=True, seq_len=SEQ,
-        batch=BATCH, steps=4, device="cpu", warmup_steps=1)
+        batch=BATCH, steps=4, device="cpu", warmup_steps=1,
+        ckpt_dir=str(tmp_path))
     sess.run(4, log_every=0)
     assert len(sess.losses) == 4 and all(np.isfinite(sess.losses))
