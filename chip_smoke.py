@@ -84,9 +84,10 @@ Phases (any failure exits nonzero before the result lines):
 9. the fault-tolerant train loop.  9a, restart-replay on one pod in phase
    5's configuration (paper-350m, 24 layers, batch 8, seq 1024,
    ``replan_every`` 4, ``ckpt_every`` 4, ``blocking_replans``, in a
-   process of its own with deterministic algorithms and cuBLAS, so that
-   no other phase runs under them): run A trains 10 steps; run B trains 9
-   in a fresh directory, leaves a crashed writer's ``step_….tmp`` and
+   process of its own under ``RunConfig.deterministic``, so that no
+   other phase runs under deterministic algorithms and cuBLAS): run A
+   trains 10 steps; run B trains 9 in a fresh directory, leaves a
+   crashed writer's ``step_….tmp`` and
    bit-rots the newest checkpoint's largest leaf; a fresh TrainSession
    must restore step 4, record 8 as corrupt and train to step 10 with
    params, moments, anchor and EF residuals, the plan, H and the loop
@@ -107,14 +108,36 @@ Phases (any failure exits nonzero before the result lines):
    the first step at the new pod count.  Phases 7, 8 and 9b print each
    pod's host time in the loop's heartbeat exchanges.  The checkpoints
    go to ``build/chip_smoke_ckpt`` (free space printed first), removed
-   at the end.
+   at the end;
+10. serving the dense zoo, in a process of its own: paper-350m (24
+   layers), qwen3-8b (36) and gemma2-9b (42) at their full published
+   widths and depths, seeded random weights held in bf16, each served
+   by ``repro_torch.launch.serve.Server``: (a) one server batch of four
+   requests, prompts of 512 / 384 / 200 / 512 tokens (left-padded to
+   512) from ``np.random.RandomState(0)``, 32 new tokens each; (b)
+   gemma2-9b only, one 6,144-token prompt (past its 4,096 window: the
+   local ring wraps in prefill and again in decode), 16 new tokens.
+   Each workload runs twice, the first run cold.  Gates: (1) every
+   request gets its token budget and every logit is finite; (2) for (b)
+   and paper-350m's longest request, 16 teacher-forced decode steps
+   against ``lm_logits`` of one full forward at those positions within
+   the reference test's rtol = atol = 0.15 (the largest difference and
+   the share of positions whose argmax agrees printed); (3) the three
+   SMOKE configs served on the card and on the CPU from the same
+   weights: f32 logits within 1e-4 relative and equal tokens, bf16
+   prefill logits within 3e-2; (4) K1-K16 launch 0 times.  Prints per
+   model and workload the bf16 weight bytes, prefill ms (CUDA events)
+   and its share of 989 TFLOP/s at 2 * N * tokens, the decode step's
+   median / min / max ms against its bound ((weight + KV bytes) / 3.35
+   TB/s), generated tokens/s and peak allocated / reserved memory.
 
 Output: progress lines with each phase's seconds, the pod link's latency
 and rate, then the ``nvidia-smi`` line, the kernels' JSON line (each
 kernel's launches in total and per main path: ``one_pod`` (phase 5),
 ``p2`` and ``p3`` (phase 7, all pods), ``hier`` (phase 8, all
 members), ``restart`` (phase 9a, its three runs) and ``elastic`` (phase
-9b, all pods), each counted from 0 just before its run; K16's ``library_ms``
+9b, all pods), each counted from 0 just before its run; phase 10
+launches none; K16's ``library_ms``
 is ``torch.mul(q, s)``'s time; ``paths`` gives each path's pods, members
 per cluster and depth; ``link`` the measured link), and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -1439,10 +1462,11 @@ def _host_state(torch, state):
 
 
 def restart_pod_path(group, spec):
-    """Phase 9a, in a process of its own (so that deterministic cuBLAS,
-    ``CUBLAS_WORKSPACE_CONFIG``, is set before its first use and nowhere
-    else): run A, run B with the damage, and the restarted run; returns
-    what the parent checks."""
+    """Phase 9a, in a process of its own (``RunConfig.deterministic``
+    switches the whole process to deterministic algorithms and sets
+    ``CUBLAS_WORKSPACE_CONFIG`` before cuBLAS first starts, so no other
+    phase runs under them): run A, run B with the damage, and the
+    restarted run; returns what the parent checks."""
     import gc
     import torch
     from repro_torch.configs.base import ACESyncConfig
@@ -1452,16 +1476,16 @@ def restart_pod_path(group, spec):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # bit-identical replays need deterministic kernels: cuDNN attention's
-    # backward is not, by default
-    torch.use_deterministic_algorithms(True)
 
     def session(d):
+        # bit-identical replays need deterministic kernels: cuDNN
+        # attention's backward is not, by default
         return TrainSession.from_config(
             "paper-350m", strategy="acesync", smoke=False, seq_len=1024,
             batch=spec["batch"], steps=100, device="cuda", warmup_steps=2,
             ckpt_dir=str(d), ckpt_every=spec["ckpt_every"],
-            blocking_replans=True, acesync=ACESyncConfig(replan_every=4))
+            blocking_replans=True, acesync=ACESyncConfig(replan_every=4),
+            deterministic=True)
 
     def loop_state(sess):
         lp = sess.loop
@@ -1521,9 +1545,10 @@ def restart_pod_path(group, spec):
 
 def restart_phase(torch) -> dict:
     """Phase 9a: restart-replay on one pod, paper-350m at full width and
-    24 layers (phase 5's configuration, ``ckpt_every`` 4), deterministic
-    algorithms on, in a process of its own.  Run A trains 10 steps; run B
-    trains 9 in a fresh directory, leaves a crashed writer's ``.tmp`` and
+    24 layers (phase 5's configuration, ``ckpt_every`` 4), under
+    ``RunConfig.deterministic``, in a process of its own.  Run A trains
+    10 steps; run B trains 9 in a fresh directory, leaves a crashed
+    writer's ``.tmp`` and
     bit-rots the newest checkpoint's largest leaf; a fresh TrainSession
     must restore step 4, record 8 as corrupt and train to step 10,
     bit-identical to run A.  Returns the launch counts of the three
@@ -1536,16 +1561,10 @@ def restart_phase(torch) -> dict:
     _disk_check(tag, spec["n_layers"], 3)
     gc.collect()
     torch.cuda.empty_cache()
-    saved = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     try:
         (res,) = spawn_pods(restart_pod_path, 1, "cuda", args=(spec,),
                             timeout=900)
     finally:
-        if saved is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved
         shutil.rmtree(spec["dir"], ignore_errors=True)
     last, restored, corrupt = res["last"], res["restored"], res["corrupt"]
     if not res["corrupted"]:
@@ -1857,6 +1876,302 @@ def elastic_phase(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: serving the dense zoo
+# ---------------------------------------------------------------------------
+
+#: phase 10's models at full published width and depth; (a) serves four
+#: requests of these prompt lengths (left-padded to the longest) in one
+#: server batch of 4, 32 new tokens each
+SERVE_ARCHS = ("paper-350m", "qwen3-8b", "gemma2-9b")
+SERVE_A = {"prompts": (512, 384, 200, 512), "new": 32, "batch": 4}
+#: (b), gemma2-9b only: one prompt longer than the 4,096 window (a
+#: multiple of 2,048, so the reference's chunking accepts it): the local
+#: slots' ring wraps in prefill and again in decode
+SERVE_B = {"prompts": (6144,), "new": 16, "batch": 1}
+#: gate 2: teacher-forced decode steps, held to one full forward within
+#: the reference test's rtol = atol
+TF_STEPS = 16
+TF_TOL = 0.15
+#: gate 2's forward over 6,144 + 16 tokens: 6,160 is no multiple of the
+#: default 2,048 / 1,024 chunks, so it runs in 5 x 5 chunks of 1,232
+TF_CHUNK = 1232
+#: gate 3 (SMOKE configs, card against CPU from the same weights): f32
+#: logits within 1e-4 relative (atol 1e-4 x the largest magnitude) and
+#: equal greedy tokens; bf16 prefill logits within 3e-2 relative norm
+SMOKE_F32_RTOL = 1e-4
+SMOKE_BF16_REL = 3e-2
+BF16_DENSE_FLOPS = 989e12           # H100 SXM datasheet, dense bf16
+
+
+def _timed(torch, fn, log_to):
+    """``fn`` with a CUDA event pair around each call (read after the
+    run), and its logits' finiteness ANDed on the card."""
+    def f(*a):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        logits, caches = fn(*a)
+        e1.record()
+        log_to["events"].append((e0, e1))
+        log_to["finite"] = log_to["finite"] & torch.isfinite(logits).all()
+        return logits, caches
+    return f
+
+
+def serve_workload(torch, np, tserve, model, spec):
+    """Serve ``spec``'s requests twice, the first run cold (the process's
+    first launches of each kernel); returns gate 1's checks over both and
+    each run's timings."""
+    cold = serve_once(torch, np, tserve, model, spec)
+    warm = serve_once(torch, np, tserve, model, spec)
+    warm["cold"] = {k: cold[k] for k in ("prefill_ms", "decode_ms",
+                                         "tok_per_s")}
+    warm["tokens_ok"] += cold["tokens_ok"]
+    warm["finite"] = warm["finite"] and cold["finite"]
+    return warm
+
+
+def serve_once(torch, np, tserve, model, spec):
+    """Serve ``spec``'s requests once; returns gate 1's checks and the
+    timings."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import flops
+    cfg = model.cfg
+    B, new = spec["batch"], spec["new"]
+    S = max(spec["prompts"])
+    reqs = tserve.make_requests(spec["prompts"], spec["new"], cfg.vocab_size)
+    server = tserve.Server(model, S + new, B)
+    pre = {"events": [], "finite": torch.ones((), dtype=torch.bool,
+                                              device=model.device)}
+    dec = {"events": [], "finite": pre["finite"].clone()}
+    real_pre, real_dec = model.prefill, model.decode_step
+    model.prefill = _timed(torch, real_pre, pre)
+    model.decode_step = _timed(torch, real_dec, dec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        done = server.serve(reqs)
+        torch.cuda.synchronize()
+    finally:
+        model.prefill, model.decode_step = real_pre, real_dec
+    wall = time.perf_counter() - t0
+    (p0, p1), = pre["events"]
+    dms = sorted(a.elapsed_time(b) for a, b in dec["events"])
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    cache = model.init_cache(B, S + new)
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for kv in cache.values() for t in kv.values())
+    del cache
+    prefill_ms = p0.elapsed_time(p1)
+    fl = flops.model_flops(cfg, ShapeConfig("serve", S, B, "prefill"))
+    n_tok = sum(len(r.out_tokens) for r in done)
+    return {
+        "tokens_ok": [len(r.out_tokens) == r.max_new_tokens for r in done],
+        "finite": bool(pre["finite"]) and bool(dec["finite"]),
+        "batch": B, "prompt": S, "new": new, "n_requests": len(done),
+        "weight_bytes": weight_bytes, "kv_bytes": kv_bytes,
+        "prefill_ms": prefill_ms, "prefill_flops": fl,
+        "prefill_share": fl / (prefill_ms * 1e-3) / BF16_DENSE_FLOPS,
+        "decode_ms": (dms[len(dms) // 2], dms[0], dms[-1]),
+        "decode_steps": len(dms),
+        "decode_bound_ms": (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3,
+        "tok_per_s": n_tok / wall, "wall_s": wall,
+        "peak_alloc_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30}
+
+
+def teacher_forced(torch, np, model, prompt, seed):
+    """Gate 2: prefill ``prompt``, then feed the next ``TF_STEPS`` tokens
+    to ``decode_step`` one by one, against ``lm_logits`` of one full
+    forward over the whole sequence at those positions only."""
+    from repro_torch.models.layers import check_chunks
+    V = model.cfg.vocab_size
+    rng = np.random.RandomState(seed)
+    seq = np.concatenate([prompt, rng.randint(0, V, size=TF_STEPS)
+                          .astype(np.int32)])[None]
+    n = prompt.size
+    toks = torch.from_numpy(seq).to(model.device)
+    with torch.inference_mode():
+        _, caches = model.prefill(toks[:, :n], n + TF_STEPS)
+        steps = []
+        for i in range(TF_STEPS):
+            logits, caches = model.decode_step(caches, n + i,
+                                               toks[:, n + i:n + i + 1])
+            steps.append(logits[0, 0])
+        del caches
+        got = torch.stack(steps).float()
+        saved = model.q_chunk, model.kv_chunk
+        try:
+            check_chunks(seq.shape[1], seq.shape[1], *saved)
+        except ValueError:
+            model.q_chunk = model.kv_chunk = TF_CHUNK
+        try:
+            x = model(toks)[:, n:]
+        finally:
+            model.q_chunk, model.kv_chunk = saved
+        want = model.logits(x)[0].float()
+    diff = (got - want).abs()
+    ok = bool((diff <= TF_TOL + TF_TOL * want.abs()).all())
+    agree = (got[:, :V].argmax(-1) == want[:, :V].argmax(-1)).float().mean()
+    return {"tokens": seq.shape[1], "steps": TF_STEPS, "ok": ok,
+            "max_abs_diff": float(diff.max()),
+            "worst_excess": float((diff - TF_TOL * want.abs()).max()),
+            "argmax_agree": float(agree)}
+
+
+def smoke_card_vs_cpu(torch, np, tserve, arch, dev):
+    """Gate 3: ``arch``'s SMOKE config served on the card and on the CPU
+    from the same weights: f32 logits (every step) and greedy tokens,
+    and bf16 prefill logits."""
+    import copy
+    from repro_torch.configs import SMOKE_ARCHS
+    spec = {"prompts": (40, 33, 17, 40), "new": 8, "batch": 4}
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = SMOKE_ARCHS[arch]
+        wdt = torch.float32 if dtype == "float32" else torch.bfloat16
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+        host = tserve.init_model(cfg, "cpu", seed=1, dtype=wdt)
+        card = copy.deepcopy(host).to(dev)
+        card.device = torch.device(dev)
+        runs = []
+        for model in (card, host):
+            logs = []
+            real_pre, real_dec = model.prefill, model.decode_step
+
+            def rec(fn):
+                def f(*a):
+                    logits, caches = fn(*a)
+                    logs.append(logits.float().cpu())
+                    return logits, caches
+                return f
+            model.prefill, model.decode_step = rec(real_pre), rec(real_dec)
+            reqs = tserve.make_requests(spec["prompts"], spec["new"],
+                                        cfg.vocab_size, seed=2)
+            done = tserve.Server(model, 48, 4).serve(reqs)
+            model.prefill, model.decode_step = real_pre, real_dec
+            runs.append(([r.out_tokens for r in done], logs))
+        (tc, lc), (th, lh) = runs
+        if dtype == "float32":
+            err = max(float((a - b).abs().max() / b.abs().max())
+                      for a, b in zip(lc, lh))
+            out[dtype] = {"tokens_equal": tc == th, "max_rel": err,
+                          "ok": tc == th and err <= SMOKE_F32_RTOL}
+        else:
+            a, b = lc[0], lh[0]
+            err = float((a - b).norm() / b.norm())
+            out[dtype] = {"prefill_rel": err, "ok": err < SMOKE_BF16_REL}
+    return out
+
+
+def serve_path(group, spec):
+    """Phase 10, in a process of its own (its peak memory is its own):
+    each model at full width, served, gate 2 where asked, then gate 3
+    on the SMOKE configs; the kernels' launch counts over the whole
+    phase.  ``spec["device"]`` is the card (``"cuda"``)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_launch_counts()
+    out = {"models": {}, "smoke": {}}
+    for arch in SERVE_ARCHS:
+        t0 = time.perf_counter()
+        model = tserve.init_model(ARCHS[arch], spec["device"], seed=0)
+        torch.cuda.synchronize()
+        res = {"init_s": time.perf_counter() - t0,
+               "n_params": sum(p.numel() for p in model.parameters()),
+               "a": serve_workload(torch, np, tserve, model, SERVE_A)}
+        if arch == "paper-350m":
+            prompt = tserve.make_requests(SERVE_A["prompts"], 0,
+                                          model.cfg.vocab_size)[0].prompt
+            res["tf"] = teacher_forced(torch, np, model, prompt, seed=1)
+        if arch == "gemma2-9b":
+            res["b"] = serve_workload(torch, np, tserve, model, SERVE_B)
+            prompt = tserve.make_requests(SERVE_B["prompts"], 0,
+                                          model.cfg.vocab_size)[0].prompt
+            res["tf"] = teacher_forced(torch, np, model, prompt, seed=1)
+        out["models"][arch] = res
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in SERVE_ARCHS:
+        out["smoke"][arch] = smoke_card_vs_cpu(torch, np, tserve, arch,
+                                               spec["device"])
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def serve_phase(torch, card) -> None:
+    """Phase 10: paper-350m, qwen3-8b and gemma2-9b served at full width
+    and depth from seeded bf16 weights (a process of its own), and the
+    four gates."""
+    import gc
+    from repro_torch.launch.mesh import spawn_pods
+    tag = "phase 10"
+    gc.collect()
+    torch.cuda.empty_cache()
+    (res,) = spawn_pods(serve_path, 1, "cuda", args=({"device": "cuda"},),
+                        timeout=600)
+    for arch, r in res["models"].items():
+        for wl in ("a", "b"):
+            if wl not in r:
+                continue
+            w = r[wl]
+            if not all(w["tokens_ok"]) or not w["finite"]:
+                fail(f"{tag}: {arch} ({wl}): tokens per request "
+                     f"{w['tokens_ok']}, logits finite {w['finite']}")
+            med, lo, hi = w["decode_ms"]
+            log(f"{tag}: {arch} ({wl}) on {card}: {r['n_params']} "
+                f"parameters, {w['weight_bytes']} bf16 weight bytes; "
+                f"batch {w['batch']} x prompt {w['prompt']}, {w['new']} new "
+                f"tokens; prefill {w['prefill_ms']:.3f} ms "
+                f"({w['prefill_share']:.6g} of 989 TFLOP/s at 2*N*tokens "
+                f"= {w['prefill_flops']:.4g}); decode step ms median "
+                f"{med:.3f} min {lo:.3f} max {hi:.3f} over "
+                f"{w['decode_steps']} steps, bound {w['decode_bound_ms']:.6g}"
+                f" ms (weights + {w['kv_bytes']} KV bytes at 3.35 TB/s); "
+                f"{w['tok_per_s']:.2f} generated tokens/s "
+                f"({w['wall_s']:.3f} s); peak {w['peak_alloc_gib']:.3f} GiB "
+                f"allocated, {w['peak_reserved_gib']:.3f} GiB reserved; "
+                f"init {r['init_s']:.2f} s; the cold first run before it: "
+                f"prefill {w['cold']['prefill_ms']:.3f} ms, decode step "
+                f"median {w['cold']['decode_ms'][0]:.3f} ms, "
+                f"{w['cold']['tok_per_s']:.2f} tokens/s")
+        if "tf" in r:
+            tf = r["tf"]
+            log(f"{tag}: {arch} teacher-forced {tf['steps']} decode steps "
+                f"at {tf['tokens']} tokens against one forward: max |diff| "
+                f"{tf['max_abs_diff']:.4g}, argmax agrees on "
+                f"{tf['argmax_agree']:.4f} of positions (rtol = atol = "
+                f"{TF_TOL})")
+            if not tf["ok"]:
+                fail(f"{tag}: {arch}: teacher-forced decode differs from "
+                     f"the forward beyond rtol = atol = {TF_TOL} (worst "
+                     f"excess {tf['worst_excess']:.4g})")
+    for arch, r in res["smoke"].items():
+        f32, bf = r["float32"], r["bfloat16"]
+        log(f"{tag}: {arch} SMOKE card vs CPU: f32 tokens equal "
+            f"{f32['tokens_equal']}, logits max rel {f32['max_rel']:.3g} "
+            f"(<= {SMOKE_F32_RTOL}); bf16 prefill logits rel "
+            f"{bf['prefill_rel']:.3g} (< {SMOKE_BF16_REL})")
+        if not (f32["ok"] and bf["ok"]):
+            fail(f"{tag}: {arch} SMOKE config differs between card and "
+                 f"CPU: {r}")
+    launched = {k: n for k, n in res["launches"].items() if n}
+    if launched:
+        fail(f"{tag}: serving launched ACE-Sync kernels: {launched}")
+    log(f"{tag}: K1-K16 launched 0 times")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1903,6 +2218,7 @@ def main() -> int:
     by_path["hier"] = timed_phase("phase 8", hier_phase, torch)
     by_path["restart"] = timed_phase("phase 9a", restart_phase, torch)
     by_path["elastic"] = timed_phase("phase 9b", elastic_phase, torch)
+    timed_phase("phase 10", serve_phase, torch, card)
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     log(f"pod link (phase 7, P = 2 ping-pong): latency "
         f"{link['latency_s']:.6g} s per hop, rate "

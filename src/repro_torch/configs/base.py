@@ -295,6 +295,12 @@ class RunConfig:
     ckpt_every: int = 200
     ckpt_dir: str = field(default_factory=default_ckpt_dir)
     seed: int = 0
+    # deterministic kernels on the card (the port's own switch; the
+    # reference's XLA replays without one): TrainSession sets
+    # torch.use_deterministic_algorithms(True) and, where unset,
+    # CUBLAS_WORKSPACE_CONFIG=:4096:8 before the model touches the card,
+    # so that a restart replays the uninterrupted run bit for bit
+    deterministic: bool = False
 
     def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)

@@ -13,8 +13,10 @@ reference's leading pod dimension stripped — e.g.::
 
 (the paths :func:`repro_torch.tree.reference_leaf_paths` gives a port
 state, in the same order), and returns the port's train state: the
-model's Parameters are loaded in place (they stay the ``params``
-leaves), every other leaf becomes a tensor on the trainer's device.  :func:`pod_state_from_reference` takes the
+model's Parameters are loaded in place by :func:`params_from_reference`
+(they stay the ``params`` leaves; a serving model loads the reference's
+bare parameter tree through it), every other leaf becomes a tensor on
+the trainer's device.  :func:`pod_state_from_reference` takes the
 reference's multi-pod state as it is, every leaf with its leading pod
 dimension, and returns pod ``pod``'s state (one per pod process).  On a
 hierarchical fleet that dimension is the reference's pod-major fleet
@@ -36,18 +38,34 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
+def params_from_reference(flat: Dict[str, np.ndarray], model) -> dict:
+    """Load the reference's parameters, keyed by path
+    (``blocks/slot1/attn/q_norm``, ``embed``, ...), into ``model``'s
+    Parameters in place (each in the Parameter's dtype); returns the
+    model's parameter tree.  The paths must be the model's."""
+    params = model.param_tree()
+    paths = {T.path_str(p) for p, _ in T.leaves_with_path(params)}
+    if set(flat) != paths:
+        raise ValueError(f"reference params {sorted(set(flat) - paths)} "
+                         f"not in the model; model params "
+                         f"{sorted(paths - set(flat))} not given")
+    with torch.no_grad():
+        for path, p in T.leaves_with_path(params):
+            src = flat[T.path_str(path)]
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"{T.path_str(path)}: shape "
+                                 f"{src.shape} != {tuple(p.shape)}")
+            p.copy_(_tensor(src, p.device))
+    return params
+
+
 def state_from_reference(flat: Dict[str, np.ndarray], trainer) -> dict:
     """The port's train state from the reference's (see module doc)."""
     dev = trainer.device
     tree = T.from_flat_dict(flat)
-    params = trainer.model.param_tree()
-    with torch.no_grad():
-        for path, p in T.leaves_with_path(params):
-            src = flat["params/" + T.path_str(path)]
-            if tuple(src.shape) != tuple(p.shape):
-                raise ValueError(f"params/{T.path_str(path)}: shape "
-                                 f"{src.shape} != {tuple(p.shape)}")
-            p.copy_(_tensor(src, dev))
+    params = params_from_reference(
+        {k[len("params/"):]: a for k, a in flat.items()
+         if k.startswith("params/")}, trainer.model)
 
     def tensors(sub):
         return T.tree_map(lambda a: _tensor(a, dev), sub)

@@ -20,11 +20,17 @@ group (``spawn_pods(..., n_edge=E)``) carries the fleet's cluster size
 :meth:`TrainSession.finish` waits for the checkpoint writer (and raises
 what it failed with); :meth:`TrainSession.save_now` checkpoints the
 current step.  ``fault_schedule`` and ``blocking_replans`` go to the
-loop (:class:`~repro_torch.launch.train.TrainLoop`).
+loop (:class:`~repro_torch.launch.train.TrainLoop`).  With
+``RunConfig.deterministic`` the session switches the process to
+deterministic algorithms before the model is built
+(:func:`apply_determinism`).
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
+
+import torch
 
 from repro_torch.configs import ARCHS, SMOKE_ARCHS
 from repro_torch.configs.base import RunConfig, ShapeConfig
@@ -32,6 +38,17 @@ from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.launch.train import TrainLoop
 from repro_torch.models.registry import build_model
 from repro_torch.strategies import SyncStrategy
+
+
+def apply_determinism(run: RunConfig) -> None:
+    """With ``run.deterministic``: deterministic algorithms, and cuBLAS's
+    fixed workspace (``CUBLAS_WORKSPACE_CONFIG=:4096:8``, where the
+    environment does not set it already).  cuBLAS reads the variable when
+    it starts, at the first matmul on the card, so this runs before the
+    model is built.  The switch is process-wide."""
+    if run.deterministic:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
 
 
 class TrainSession:
@@ -69,6 +86,7 @@ class TrainSession:
         shape = ShapeConfig("session", seq_len, batch, "train")
         run_kw.setdefault("warmup_steps", max(2, steps // 10))
         run = RunConfig(model=cfg, shape=shape, total_steps=steps, **run_kw)
+        apply_determinism(run)
         if pods is not None:
             device = pods.device
         model = build_model(cfg, run, device=device)

@@ -39,10 +39,12 @@ Surviving the fleet, as the reference does:
     clustering, the loop counters and the pipeline position;
     :meth:`TrainLoop.restore_or_init` resumes from the newest one that
     verifies, and with ``blocking_replans`` a restart replays the
-    uninterrupted run bit for bit (on the card only where the process
-    runs with ``torch.use_deterministic_algorithms(True)`` and
-    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: attention's backward is not
-    deterministic by default; neither the loop nor the CLI sets them);
+    uninterrupted run bit for bit — on the card only with
+    ``RunConfig.deterministic`` (the CLI's ``--deterministic``), which
+    :class:`~repro_torch.launch.session.TrainSession` applies before the
+    model is built: ``torch.use_deterministic_algorithms(True)`` and
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, since attention's backward is
+    not deterministic by default;
   * a seeded :class:`~repro_torch.runtime.faults.FaultSchedule` kills and
     rejoins pods, corrupts checkpoint leaves and delays heartbeats at
     fixed steps; every pod process holds the same schedule;
@@ -74,6 +76,7 @@ CLI::
     python -m repro_torch.launch.train --pods 4 --edge 2 \
         --strategy acesync_hier ...          # 2 clusters x 2 members
     ... --ckpt-dir DIR --ckpt-every N        # checkpoint; a rerun resumes
+    ... --deterministic                      # and replays bit for bit
 """
 from __future__ import annotations
 
@@ -654,7 +657,8 @@ class TrainLoop:
 def _session_kwargs(args) -> dict:
     kw = dict(strategy=args.strategy, smoke=args.smoke,
               seq_len=args.seq_len, batch=args.batch, steps=args.steps,
-              warmup_steps=10, ckpt_dir=args.ckpt_dir)
+              warmup_steps=10, ckpt_dir=args.ckpt_dir,
+              deterministic=args.deterministic)
     if args.ckpt_every is not None:
         kw["ckpt_every"] = args.ckpt_every
     return kw
@@ -707,6 +711,10 @@ def main(argv=None):
                          "checkpoint there that verifies")
     ap.add_argument("--ckpt-every", type=int, default=None,
                     help="checkpoint cadence in steps (default: RunConfig)")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="deterministic algorithms on the card, so that a "
+                         "resumed run replays the uninterrupted one bit "
+                         "for bit")
     args = ap.parse_args(argv)
     if args.pods % args.edge:
         ap.error(f"--pods {args.pods} does not split into clusters of "

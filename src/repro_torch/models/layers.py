@@ -1,18 +1,28 @@
-"""Building blocks of the dense transformer — port of the parts of
-``repro/models/layers.py`` the dense LM trains with: RMSNorm, RoPE, causal
-attention, the SwiGLU MLP, the embedding and a chunked cross-entropy.
+"""Building blocks of the dense transformer — port of
+``repro/models/layers.py``: RMSNorm, the logit softcap, RoPE, attention
+(training / prefill, and single-token decode over a ring KV cache), the
+ring-cache writes, the SwiGLU MLP, the embedding (with gemma's sqrt(d)
+scale) and a chunked cross-entropy through the softcapped LM head.
 
 Weights are f32 masters cast to the compute dtype (bf16) at use, as the
-reference's ``.astype(dt)``.  The reference's attention is plain jnp
-online-softmax attention, not a Pallas kernel; here it is PyTorch's
-``scaled_dot_product_attention``.
+reference's ``.astype(dt)``; a serving model holds them in bf16 already.
+The reference's attention is plain jnp online-softmax attention, not a
+Pallas kernel.  Here, where no logit softcap applies, training and
+prefill attention is PyTorch's ``scaled_dot_product_attention``;
+softcapped layers (gemma2) run :func:`chunked_attention`, the
+reference's online softmax, and decode runs :func:`decode_attention`, the
+reference's f32 softmax over the ring.  Both packages accept the same
+sequence lengths (:func:`check_chunks`).
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+NEG_INF = -1e30
 
 
 def rms_norm(x, w, eps: float = 1e-6):
@@ -21,6 +31,12 @@ def rms_norm(x, w, eps: float = 1e-6):
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * (1.0 + w.float())).to(dt)
+
+
+def softcap(x, cap: Optional[float]):
+    if cap is None:
+        return x
+    return torch.tanh(x / cap) * cap
 
 
 def rope(x, positions, theta: float = 10_000.0):
@@ -39,16 +55,166 @@ def rope(x, positions, theta: float = 10_000.0):
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
 
 
-def causal_attention(q, k, v):
-    """q: (B, S, H, Dh); k, v: (B, S, KV, Dh) with H % KV == 0.
-    Returns (B, S, H, Dh)."""
-    G = q.shape[2] // k.shape[2]
+# ---------------------------------------------------------------------------
+# attention: training / prefill
+# ---------------------------------------------------------------------------
+
+
+def check_chunks(Sq: int, Sk: int, q_chunk: int, kv_chunk: int):
+    """The reference's chunking rule: ``Sq`` a multiple of
+    ``min(q_chunk, Sq)`` and ``Sk`` of ``min(kv_chunk, Sk)`` (it asserts;
+    this raises ``ValueError``).  Returns the two chunk sizes."""
+    qc, kc = min(q_chunk, Sq), min(kv_chunk, Sk)
+    if Sq % qc or Sk % kc:
+        raise ValueError(f"attention over {Sq} queries x {Sk} keys does "
+                         f"not split into chunks of {qc} x {kc}")
+    return qc, kc
+
+
+def _repeat_kv(k, v, G: int):
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
-    o = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                       v.transpose(1, 2), is_causal=True)
+    return k, v
+
+
+def causal_attention(q, k, v, window: Optional[int] = None):
+    """q: (B, S, H, Dh); k, v: (B, S, KV, Dh) with H % KV == 0.  Causal
+    SDPA, limited to the last ``window`` positions where one is given.
+    Returns (B, S, H, Dh)."""
+    k, v = _repeat_kv(k, v, q.shape[2] // k.shape[2])
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if window is None:
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    else:
+        pos = torch.arange(q.shape[1], device=q.device)
+        d = pos[:, None] - pos[None, :]
+        o = F.scaled_dot_product_attention(qt, kt, vt,
+                                           attn_mask=(d >= 0) & (d < window))
     return o.transpose(1, 2)
+
+
+def chunked_attention(q, k, v, *, causal: bool = True,
+                      window: Optional[int] = None,
+                      logit_softcap: Optional[float] = None,
+                      q_chunk: int = 2048, kv_chunk: int = 1024,
+                      q_offset: int = 0):
+    """The reference's online-softmax attention; never materialises the
+    (Sq, Sk) matrix.  q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh) with
+    H % KV == 0.  Returns (B, Sq, H, Dh).  Scores and the running
+    max / sum / accumulator are f32; p is rounded to q's dtype before PV.
+
+    A (q, kv) chunk pair whose every entry is masked is skipped: before
+    the first visible chunk the reference's accumulator is wiped by a
+    correction factor of exactly 0, after the last one a masked chunk
+    adds exactly 0, so the result is the same."""
+    B, Sq, H, Dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    q_chunk, kv_chunk = check_chunks(Sq, Sk, q_chunk, kv_chunk)
+    scale = 1.0 / math.sqrt(Dh)
+    k, v = _repeat_kv(k, v, H // KV)
+    dev = q.device
+    out = torch.empty_like(q)
+    for q0 in range(0, Sq, q_chunk):
+        qc = q[:, q0:q0 + q_chunk].float()
+        lo, hi = q_offset + q0, q_offset + q0 + q_chunk - 1
+        q_pos = torch.arange(lo, hi + 1, device=dev)
+        m = torch.full((B, H, q_chunk), NEG_INF, device=dev)
+        l = torch.zeros((B, H, q_chunk), device=dev)
+        acc = torch.zeros((B, H, q_chunk, Dh), device=dev)
+        for k0 in range(0, Sk, kv_chunk):
+            k1 = k0 + kv_chunk - 1
+            if (causal and k0 > hi) or (window is not None
+                                        and lo - k1 >= window):
+                continue
+            k_pos = torch.arange(k0, k1 + 1, device=dev)
+            s = torch.einsum("bqhd,bshd->bhqs", qc,
+                             k[:, k0:k1 + 1].float()) * scale
+            s = softcap(s, logit_softcap)
+            d = q_pos[:, None] - k_pos[None, :]
+            mask = torch.ones_like(d, dtype=torch.bool)
+            if causal:
+                mask &= d >= 0
+            if window is not None:
+                mask &= d < window
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bhqs,bshd->bhqd", p.to(q.dtype).float(),
+                              v[:, k0:k1 + 1].float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        o = (acc / l.clamp_min(1e-20)[..., None]).to(q.dtype)
+        out[:, q0:q0 + q_chunk] = o.transpose(1, 2)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# attention: decode over a ring KV cache
+# ---------------------------------------------------------------------------
+
+
+def ring_slot_positions(t: int, alloc: int, device=None):
+    """Absolute position held by each ring-cache slot after the token at
+    position ``t`` has been written (slot j holds the latest position
+    p <= t with p % alloc == j; negative => never written)."""
+    j = torch.arange(alloc, device=device)
+    return t - torch.remainder(t - j, alloc)
+
+
+def decode_attention(q, k_cache, v_cache, t: int, *,
+                     window: Optional[int] = None,
+                     logit_softcap: Optional[float] = None):
+    """Single-token attention over a ring KV cache.  q: (B, 1, H, Dh);
+    k_cache / v_cache: (B, S_alloc, KV, Dh); ``t``: absolute position of
+    the current token (already written into the cache).  f32 scores and
+    softmax over the ring, with a position and a window mask; p is
+    rounded to q's dtype before the f32 PV product."""
+    B, _, H, Dh = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qr = q.reshape(B, KV, G, Dh).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qr, k_cache.float()) \
+        * (1.0 / math.sqrt(Dh))
+    s = softcap(s, logit_softcap)
+    pos = ring_slot_positions(t, S, q.device)
+    mask = (pos >= 0) & (pos <= t)
+    if window is not None:
+        mask &= pos > (t - window)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgs,bskd->bkgd", p.float(), v_cache.float())
+    return o.reshape(B, 1, H, Dh).to(q.dtype)
+
+
+def ring_write_decode(cache, kv, t: int):
+    """Write one token (B, 1, KV, Dh) into a ring cache (B, alloc, KV, Dh)
+    at slot t % alloc, in place; returns ``cache``."""
+    cache[:, t % cache.shape[1]] = kv[:, 0]
+    return cache
+
+
+def ring_write_prefill(cache, kv):
+    """Write a full prefill (B, S, KV, Dh) into a ring cache of alloc W,
+    in place; returns ``cache``.  If S <= W this is a plain front write
+    (slot j == position j).  Otherwise only the last W positions are kept,
+    placed so position p sits in slot p % W (consistent with
+    :func:`ring_slot_positions`)."""
+    S, W = kv.shape[1], cache.shape[1]
+    if S <= W:
+        cache[:, :S] = kv
+        return cache
+    j = torch.arange(W, device=kv.device)
+    src = (S - W) + torch.remainder(j - (S - W), W)  # position in slot j
+    cache.copy_(kv.index_select(1, src))
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# attention block
+# ---------------------------------------------------------------------------
 
 
 def init_normal(generator: torch.Generator, shape, std: float, device):
@@ -58,22 +224,57 @@ def init_normal(generator: torch.Generator, shape, std: float, device):
 
 def attn_shapes(cfg, n_layers: int):
     D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {"wq": (n_layers, D, H * Dh), "wk": (n_layers, D, KV * Dh),
-            "wv": (n_layers, D, KV * Dh), "wo": (n_layers, H * Dh, D)}
+    shapes = {"wq": (n_layers, D, H * Dh), "wk": (n_layers, D, KV * Dh),
+              "wv": (n_layers, D, KV * Dh), "wo": (n_layers, H * Dh, D)}
+    if cfg.qk_norm:
+        shapes["q_norm"] = (n_layers, Dh)
+        shapes["k_norm"] = (n_layers, Dh)
+    return shapes
 
 
-def attn_apply(p, x, cfg, *, positions):
-    """x: (B, S, D) -> (B, S, D); ``p`` holds one layer's weights."""
+def attn_apply(p, x, cfg, *, positions, window: Optional[int] = None,
+               cache=None, cache_len: Optional[int] = None,
+               q_chunk: int = 2048, kv_chunk: int = 1024):
+    """x: (B, S, D) -> (B, S, D); ``p`` holds one layer's weights.
+
+    ``cache`` is one layer's ``{"k", "v"}`` ring caches (B, alloc, KV, Dh)
+    or None.  Decode (``cache_len`` given, S == 1) writes the token at
+    slot ``cache_len % alloc`` and attends over the ring; prefill
+    (``cache`` without ``cache_len``) attends over the sequence and writes
+    its tail into the ring.  The caches are written in place."""
     B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
     q = (x @ p["wq"].to(dt)).reshape(B, S, H, Dh)
     k = (x @ p["wk"].to(dt)).reshape(B, S, KV, Dh)
     v = (x @ p["wv"].to(dt)).reshape(B, S, KV, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.rms_eps)
+        k = rms_norm(k, p["k_norm"], cfg.rms_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = causal_attention(q, k, v)
+    cap = cfg.attn_logit_softcap
+    if cache is not None and cache_len is not None and S == 1:
+        kc = ring_write_decode(cache["k"], k, cache_len)
+        vc = ring_write_decode(cache["v"], v, cache_len)
+        o = decode_attention(q, kc.to(dt), vc.to(dt), cache_len,
+                             window=window, logit_softcap=cap)
+    else:
+        if cap is None:
+            check_chunks(S, S, q_chunk, kv_chunk)
+            o = causal_attention(q, k, v, window)
+        else:
+            o = chunked_attention(q, k, v, window=window, logit_softcap=cap,
+                                  q_chunk=q_chunk, kv_chunk=kv_chunk)
+        if cache is not None:
+            ring_write_prefill(cache["k"], k)
+            ring_write_prefill(cache["v"], v)
     return o.reshape(B, S, H * Dh) @ p["wo"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU)
+# ---------------------------------------------------------------------------
 
 
 def mlp_shapes(cfg, n_layers: int):
@@ -89,17 +290,31 @@ def mlp_apply(p, x):
     return h @ p["w_down"].to(dt)
 
 
-def embed_lookup(emb, tokens, dtype):
-    return F.embedding(tokens.long(), emb).to(dtype)
+# ---------------------------------------------------------------------------
+# embedding, LM head and chunked cross-entropy
+# ---------------------------------------------------------------------------
 
 
-def lm_logits(x, emb_dt):
-    return x @ emb_dt.T
+def embed_lookup(emb, tokens, cfg, dtype):
+    """Rows of ``emb`` in ``dtype``; gemma scales them by sqrt(d_model)
+    rounded to ``dtype`` (the reference's ``jnp.asarray(sqrt(d), dtype)``:
+    59.75 for d = 3584 in bf16)."""
+    x = F.embedding(tokens.long(), emb).to(dtype)
+    if cfg.emb_scale_by_dim:
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=dtype))
+    return x
 
 
-def xent_loss_chunked(x, emb, labels, *, seq_chunk: int = 512):
+def lm_logits(x, emb_dt, cfg):
+    """Logits in x's dtype against the embedding ``emb_dt`` (already in
+    that dtype), then the final softcap in that dtype."""
+    return softcap(x @ emb_dt.T, cfg.final_logit_softcap)
+
+
+def xent_loss_chunked(x, emb, labels, cfg, *, seq_chunk: int = 512):
     """Mean token cross-entropy over sequence chunks (full-vocab logits
-    only ever exist for one chunk at a time)."""
+    only ever exist for one chunk at a time); the logits go through
+    :func:`lm_logits`, final softcap included."""
     B, S, _ = x.shape
     seq_chunk = min(seq_chunk, S)
     if S % seq_chunk:
@@ -107,7 +322,7 @@ def xent_loss_chunked(x, emb, labels, *, seq_chunk: int = 512):
     emb_dt = emb.to(x.dtype)
     tot = x.new_zeros((), dtype=torch.float32)
     for c0 in range(0, S, seq_chunk):
-        logits = lm_logits(x[:, c0:c0 + seq_chunk], emb_dt).float()
+        logits = lm_logits(x[:, c0:c0 + seq_chunk], emb_dt, cfg).float()
         lse = torch.logsumexp(logits, dim=-1)
         lab = labels[:, c0:c0 + seq_chunk].long()
         gold = torch.gather(logits, -1, lab[..., None])[..., 0]

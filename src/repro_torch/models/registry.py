@@ -1,5 +1,7 @@
-"""Architecture registry of the port: ``--arch <id>`` -> model.  Dense
-only for now; the JAX package's other families come in later slices."""
+"""Architecture registry of the port: ``--arch <id>`` -> model.  The
+dense family (paper-350m and the dense zoo: qwen3-8b, gemma2-9b,
+minitron-8b, starcoder2-3b); the JAX package's other families come in
+later slices."""
 from __future__ import annotations
 
 from typing import Optional
@@ -18,3 +20,4 @@ def build_model(cfg: ModelConfig, run: Optional[RunConfig] = None,
         raise NotImplementedError(f"model family {cfg.family!r} is not "
                                   f"ported yet") from None
     return cls(cfg, run, device=device)
+

@@ -1,15 +1,27 @@
 """Decoder-only dense transformer LM — port of the dense path of
-``repro/models/transformer.py`` as an ``nn.Module``.
+``repro/models/transformer.py`` as an ``nn.Module``: the plain stack
+(paper-350m, qwen3, minitron, starcoder2) and gemma2's alternating
+local / global layers, with qk-norm, post-norms, logit softcaps and the
+sqrt(d) embedding scale where the config asks for them.
 
-The parameters keep the reference's tree and stacked layout: one slot
-whose weights carry a leading ``(n_layers, ...)`` axis, plus the embedding
-and the final norm, so the sorted-key leaf order (and hence the sync
-groups and plans) match the reference.  Compute is bf16 on f32 master
-weights; each layer is recomputed in the backward pass when the run asks
-for remat ("minimal" or "full": ``torch.utils.checkpoint``).
+The parameters keep the reference's tree and stacked layout: layers are
+grouped into repeating *groups* — ``"global"``: one slot x L groups,
+``"local_global"``: (local, global) x L/2 — and each slot's weights carry
+a leading ``(n_groups, ...)`` axis, beside the embedding and the final
+norm, so the sorted-key leaf order (and hence the sync groups and plans)
+match the reference.  Compute is bf16 on f32 master weights (or bf16
+weights, for serving); each layer is recomputed in the backward pass when
+the run asks for remat ("minimal" or "full": ``torch.utils.checkpoint``).
+
+Serving: :meth:`DenseTransformer.prefill` fills ring KV caches
+(:meth:`~DenseTransformer.init_cache`: one ``(n_groups, B, S, KV, Dh)``
+stack per slot and k / v, a local slot's S capped at the sliding window)
+and :meth:`~DenseTransformer.decode_step` writes one token into them in
+place.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
@@ -17,16 +29,19 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
+_GROUP_KINDS = {"global": ("global",), "local_global": ("local", "global")}
 
 
 class _Slot(nn.Module):
-    """One stacked layer slot: attention and MLP weights plus the two
-    pre-norms, each with a leading (n_layers, ...) axis."""
+    """One stacked layer slot: attention (with qk-norm weights where the
+    config asks) and MLP weights plus the pre-norms (and gemma2's
+    post-norms), each with a leading (n_groups, ...) axis."""
 
     def __init__(self, cfg: ModelConfig, n: int, device):
         super().__init__()
@@ -39,33 +54,44 @@ class _Slot(nn.Module):
             {k: par(s) for k, s in L.attn_shapes(cfg, n).items()})
         self.ffn = nn.ParameterDict(
             {k: par(s) for k, s in L.mlp_shapes(cfg, n).items()})
-        self.ln1 = par((n, cfg.d_model))
-        self.ln2 = par((n, cfg.d_model))
+        norms = ("ln1", "ln2") + (("ln1_post", "ln2_post")
+                                  if cfg.post_norms else ())
+        self.norms = tuple(norms)
+        for k in norms:
+            setattr(self, k, par((n, cfg.d_model)))
 
     def tree(self) -> dict:
-        return {"attn": dict(self.attn), "ffn": dict(self.ffn),
-                "ln1": self.ln1, "ln2": self.ln2}
+        out = {"attn": dict(self.attn), "ffn": dict(self.ffn)}
+        out.update({k: getattr(self, k) for k in self.norms})
+        return out
 
 
 class DenseTransformer(nn.Module):
-    """Dense decoder-only LM (the "global" layer pattern)."""
+    """Dense decoder-only LM (the "global" and "local_global" layer
+    patterns)."""
 
     def __init__(self, cfg: ModelConfig, run: Optional[RunConfig] = None,
                  device="cuda"):
         super().__init__()
-        if (cfg.family != "dense" or cfg.layer_pattern != "global"
-                or cfg.qk_norm or cfg.post_norms or cfg.frontend
-                or cfg.attn_logit_softcap or cfg.final_logit_softcap
-                or cfg.emb_scale_by_dim or not cfg.tie_embeddings):
+        if (cfg.family != "dense" or cfg.layer_pattern not in _GROUP_KINDS
+                or cfg.frontend or not cfg.tie_embeddings):
             raise NotImplementedError(
-                f"{cfg.name}: only the plain dense transformer is ported")
+                f"{cfg.name}: only the dense transformer without a "
+                f"modality frontend, with tied embeddings, is ported")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.run = run
         self.dtype = _DTYPES[cfg.dtype]
-        self.n_groups = cfg.n_layers
+        self.group_kinds = _GROUP_KINDS[cfg.layer_pattern]
+        if cfg.n_layers % len(self.group_kinds):
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not "
+                             f"split into {self.group_kinds} groups")
+        self.n_groups = cfg.n_layers // len(self.group_kinds)
+        self.q_chunk = run.q_chunk if run else 2048
+        self.kv_chunk = run.kv_chunk if run else 1024
         self.blocks = nn.ModuleDict(
-            {"slot0": _Slot(cfg, self.n_groups, self.device)})
+            {f"slot{i}": _Slot(cfg, self.n_groups, self.device)
+             for i in range(len(self.group_kinds))})
         self.embed = nn.Parameter(torch.zeros(
             (cfg.padded_vocab, cfg.d_model), dtype=torch.float32,
             device=self.device))
@@ -76,13 +102,18 @@ class DenseTransformer(nn.Module):
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
         """Random init with the reference's distributions (its RNG stream
-        differs: parity runs load the reference's weights instead)."""
-        slot = self.blocks["slot0"]
-        for p in list(slot.attn.values()) + list(slot.ffn.values()):
-            p.copy_(L.init_normal(generator, p.shape, p.shape[-2] ** -0.5,
-                                  self.device))
-        slot.ln1.zero_()
-        slot.ln2.zero_()
+        differs: parity runs load the reference's weights instead).  Each
+        leaf is drawn in f32 and copied into its Parameter, in the
+        Parameter's dtype."""
+        for slot in self.blocks.values():
+            for k, p in list(slot.attn.items()) + list(slot.ffn.items()):
+                if k.startswith("w"):
+                    p.copy_(L.init_normal(generator, p.shape,
+                                          p.shape[-2] ** -0.5, self.device))
+                else:
+                    p.zero_()
+            for k in slot.norms:
+                getattr(slot, k).zero_()
         self.embed.copy_(L.init_normal(generator, self.embed.shape, 0.02,
                                        self.device))
         self.final_norm.zero_()
@@ -90,51 +121,112 @@ class DenseTransformer(nn.Module):
     def param_tree(self) -> dict:
         """The parameters as the reference's nested tree (the tensors are
         this module's own Parameters)."""
-        return {"blocks": {"slot0": self.blocks["slot0"].tree()},
+        return {"blocks": {k: s.tree() for k, s in self.blocks.items()},
                 "embed": self.embed, "final_norm": self.final_norm}
 
     def param_shapes(self) -> dict:
-        from repro_torch import tree as T
         return T.tree_map(lambda p: tuple(p.shape), self.param_tree())
 
-    # ---------------- forward ----------------
-    _ATTN = ("wk", "wo", "wq", "wv")
-    _FFN = ("w_down", "w_gate", "w_up")
-
-    def _layer(self, x, positions, *w):
-        """One layer; ``w`` are its weights (attention, MLP, the two
-        norms) sliced out of the stacks."""
+    # ---------------- cache ----------------
+    def _slot_cache_shape(self, kind: str, B: int, S: int):
         cfg = self.cfg
-        attn = dict(zip(self._ATTN, w[:4]))
-        ffn = dict(zip(self._FFN, w[4:7]))
-        ln1, ln2 = w[7:]
-        h = L.rms_norm(x, ln1, cfg.rms_eps)
-        x = x + L.attn_apply(attn, h, cfg, positions=positions)
-        h = L.rms_norm(x, ln2, cfg.rms_eps)
-        return x + L.mlp_apply(ffn, h)
+        if kind == "local" and cfg.sliding_window:
+            S = min(S, cfg.sliding_window)
+        return (self.n_groups, B, S, cfg.n_kv_heads, cfg.head_dim)
+
+    def init_cache(self, B: int, S: int) -> dict:
+        """Zeroed ring KV caches for ``B`` sequences of up to ``S``
+        positions, in the compute dtype."""
+        return {f"slot{i}": {
+            kv: torch.zeros(self._slot_cache_shape(kind, B, S),
+                            dtype=self.dtype, device=self.device)
+            for kv in ("k", "v")} for i, kind in enumerate(self.group_kinds)}
+
+    # ---------------- forward ----------------
+    def _layer(self, kind, names, cache, cache_len, x, positions, *w):
+        """One layer of slot flavour ``kind``; ``w`` are its weights
+        sliced out of the stacks, ``names`` their paths in the slot's
+        tree."""
+        cfg = self.cfg
+        p = T.from_flat_dict(dict(zip(names, w)))
+        h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
+        h = L.attn_apply(
+            p["attn"], h, cfg, positions=positions,
+            window=cfg.sliding_window if kind == "local" else None,
+            cache=cache, cache_len=cache_len, q_chunk=self.q_chunk,
+            kv_chunk=self.kv_chunk)
+        if cfg.post_norms:
+            h = L.rms_norm(h, p["ln1_post"], cfg.rms_eps)
+        x = x + h
+        h = L.mlp_apply(p["ffn"], L.rms_norm(x, p["ln2"], cfg.rms_eps))
+        if cfg.post_norms:
+            h = L.rms_norm(h, p["ln2_post"], cfg.rms_eps)
+        return x + h
+
+    def _backbone(self, x, positions, caches=None, cache_len=None):
+        """The layer stack, group by group (each group's slots in order),
+        then the final norm.  ``caches`` (from :meth:`init_cache`) are
+        written in place."""
+        remat = (self.run is not None and self.run.remat != "none"
+                 and torch.is_grad_enabled())
+        slots = []
+        for i, kind in enumerate(self.group_kinds):
+            paths, stacks = zip(*T.leaves_with_path(
+                self.blocks[f"slot{i}"].tree()))
+            # slice the (n_groups, ...) stacks once: the backward of one
+            # unbind stacks the per-layer grads in a single pass, where
+            # indexing the stack per layer would fill and add a
+            # full-stack gradient per layer (quadratic in depth)
+            slots.append((kind, [T.path_str(q) for q in paths],
+                          list(zip(*(w.unbind(0) for w in stacks)))))
+        for g in range(self.n_groups):
+            for i, (kind, names, per_layer) in enumerate(slots):
+                cache = None
+                if caches is not None:
+                    cache = {kv: c[g] for kv, c in caches[f"slot{i}"].items()}
+                layer = partial(self._layer, kind, names, cache, cache_len)
+                if remat:
+                    x = checkpoint(layer, x, positions, *per_layer[g],
+                                   use_reentrant=False)
+                else:
+                    x = layer(x, positions, *per_layer[g])
+        return L.rms_norm(x, self.final_norm, self.cfg.rms_eps)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) -> final hidden states (B, S, D) in bf16."""
-        x = L.embed_lookup(self.embed, tokens, self.dtype)
+        x = L.embed_lookup(self.embed, tokens, self.cfg, self.dtype)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        remat = self.run is not None and self.run.remat != "none"
-        p = self.blocks["slot0"]
-        # slice the (L, ...) stacks once: the backward of one unbind
-        # stacks the per-layer grads in a single pass, where indexing the
-        # stack per layer would fill and add a full-stack gradient per
-        # layer (quadratic in depth)
-        stacks = ([p.attn[k] for k in self._ATTN]
-                  + [p.ffn[k] for k in self._FFN] + [p.ln1, p.ln2])
-        per_layer = list(zip(*(w.unbind(0) for w in stacks)))
-        for w in per_layer:
-            if remat and torch.is_grad_enabled():
-                x = checkpoint(self._layer, x, positions, *w,
-                               use_reentrant=False)
-            else:
-                x = self._layer(x, positions, *w)
-        return L.rms_norm(x, self.final_norm, self.cfg.rms_eps)
+        return self._backbone(x, positions)
 
     def loss(self, batch: dict) -> torch.Tensor:
         x = self.forward(batch["tokens"])
-        return L.xent_loss_chunked(x, self.embed, batch["labels"])
+        return L.xent_loss_chunked(x, self.embed, batch["labels"], self.cfg)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """LM-head logits (final softcap included) of hidden states."""
+        return L.lm_logits(x, self.embed.to(x.dtype), self.cfg)
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None):
+        """tokens (B, S) -> (the last position's logits (B, 1, V), ring
+        caches of ``cache_len`` (default S) positions holding the
+        prompt)."""
+        x = L.embed_lookup(self.embed, tokens, self.cfg, self.dtype)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        caches = self.init_cache(B, cache_len or S)
+        x = self._backbone(x, positions, caches=caches)
+        return self.logits(x[:, -1:]), caches
+
+    @torch.no_grad()
+    def decode_step(self, caches: dict, cache_len: int,
+                    tokens: torch.Tensor):
+        """tokens (B, 1) at position ``cache_len`` (the count of positions
+        already in the caches) -> (logits (B, 1, V), the caches, written
+        in place)."""
+        t = int(cache_len)
+        x = L.embed_lookup(self.embed, tokens, self.cfg, self.dtype)
+        positions = torch.full((x.shape[0], 1), t, device=x.device)
+        x = self._backbone(x, positions, caches=caches, cache_len=t)
+        return self.logits(x), caches

@@ -1,6 +1,8 @@
 """Tests of the port that need the card: each Hopper kernel against its
-plain PyTorch version on CUDA tensors, bit for bit, and the wrappers'
-launch counting.  They skip without a CUDA device; on the card run
+plain PyTorch version on CUDA tensors, bit for bit, the wrappers'
+launch counting, and serving on the card against the CPU (and the ring
+cache written in place).  They skip without a CUDA device; on the card
+run
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
 import pytest
@@ -351,3 +353,96 @@ def test_nccl_hier_fleet_matches_one_shot(dev):
         pytest.skip("needs a card per fleet member (four CUDA devices)")
     members = spawn_pods(_hier_pod, 4, "cuda", n_edge=2, timeout=600)
     _check_hier_fleet(members, "nccl")
+
+
+# ---------------------------------------------------------------------------
+# serving (no kernel of its own: prefill and decode against the CPU)
+# ---------------------------------------------------------------------------
+
+#: served requests (prompt lengths; 8 new tokens each), one server batch
+SERVE_PROMPTS = (40, 33, 17, 40)
+
+
+def _served(model, requests_seed=2):
+    """``model`` serving SERVE_PROMPTS: the tokens and every step's
+    logits (f32, on the host)."""
+    from repro_torch.launch import serve as tserve
+    logs = []
+    real_pre, real_dec = model.prefill, model.decode_step
+
+    def rec(fn):
+        def f(*a):
+            logits, caches = fn(*a)
+            logs.append(logits.float().cpu())
+            return logits, caches
+        return f
+
+    model.prefill, model.decode_step = rec(real_pre), rec(real_dec)
+    r = np.random.RandomState(requests_seed)
+    reqs = [tserve.Request(i, r.randint(0, model.cfg.vocab_size, size=n)
+                           .astype(np.int32), 8)
+            for i, n in enumerate(SERVE_PROMPTS)]
+    done = tserve.Server(model, 48, 4).serve(reqs)
+    return [q.out_tokens for q in done], logs
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen3-8b"])
+def test_serving_on_card_matches_cpu(dev, arch):
+    """The SMOKE config served on the card and on the CPU from the same
+    weights: in f32 every step's logits within 1e-4 relative and equal
+    greedy tokens (gemma2: the local ring wraps at window 32); in bf16
+    the prefill logits within 3e-2 relative norm."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.launch import serve as tserve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for dtype, wdt in (("float32", torch.float32),
+                       ("bfloat16", torch.bfloat16)):
+        cfg = dataclasses.replace(SMOKE_ARCHS[arch], dtype=dtype)
+        host = tserve.init_model(cfg, "cpu", seed=1, dtype=wdt)
+        card = copy.deepcopy(host).to(dev)
+        card.device = dev
+        (tc, lc), (th, lh) = _served(card), _served(host)
+        if dtype == "float32":
+            assert tc == th
+            for a, b in zip(lc, lh):
+                assert float((a - b).abs().max()) <= \
+                    1e-4 * float(b.abs().max())
+        else:
+            a, b = lc[0], lh[0]
+            assert float((a - b).norm() / b.norm()) < 3e-2
+
+
+def test_ring_write_decode_in_place_on_card(dev):
+    """The decode write updates the stacked cache in place: the same
+    storage, and no allocation; a decode step keeps every cache
+    tensor's storage."""
+    from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import layers as L
+    cache = torch.zeros((3, 4, 64, 2, 16), dtype=torch.bfloat16, device=dev)
+    kv = torch.randn((4, 1, 2, 16), device=dev).to(torch.bfloat16)
+    ptr = cache.data_ptr()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ptrs = [L.ring_write_decode(cache[1], kv, t).data_ptr()
+            for t in (0, 63, 64, 100)]
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base
+    assert torch.cuda.max_memory_allocated() == base
+    assert cache.data_ptr() == ptr and set(ptrs) == {cache[1].data_ptr()}
+    for slot in (0, 63, 36):
+        assert torch.equal(cache[1][:, slot], kv[:, 0])
+    assert not cache[0].any() and not cache[1][:, 1:36].any()
+    model = tserve.init_model(SMOKE_ARCHS["gemma2-9b"], dev, seed=0)
+    with torch.inference_mode():
+        toks = torch.randint(0, 256, (2, 40), device=dev)
+        _, caches = model.prefill(toks, 48)
+        ptrs = {(s, k): c.data_ptr() for s, kv_ in caches.items()
+                for k, c in kv_.items()}
+        _, caches2 = model.decode_step(caches, 40, toks[:, :1])
+    assert caches2 is caches
+    assert {(s, k): c.data_ptr() for s, kv_ in caches.items()
+            for k, c in kv_.items()} == ptrs

@@ -1,0 +1,320 @@
+"""Parity of the port's dense model zoo with the JAX reference on the
+CPU: the attention and cache building blocks of ``models/layers.py`` on
+seeded numpy inputs, and each of the five dense SMOKE configs
+(paper-350m, qwen3-8b, gemma2-9b, minitron-8b, starcoder2-3b): the
+parameter tree (paths and shapes equal to the reference's ``model.init``
+tree), and ``forward`` and ``loss`` from the reference's own weights.
+
+Tolerances, stated per test:
+
+* f32 (``dtype="float32"`` on both sides): within ``F32_RTOL`` = 1e-4
+  relative — elementwise ``rtol`` 1e-4 with an ``atol`` of 1e-4 times
+  the largest magnitude of the reference's tensor;
+* bf16 (the configs' compute dtype): the two frameworks round matmul
+  outputs at other points (and the port's unsoftcapped attention is
+  SDPA), so hidden states agree to ``BF16_REL`` = 3e-2 in relative
+  Frobenius norm and losses to ``LOSS_RTOL`` = 2e-2 relative (the
+  trainer parity tests' bound);
+* ring positions, ring writes and the bf16 embedding lookup are exact.
+"""
+import dataclasses
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import SMOKE_ARCHS as J_SMOKE
+from repro.models import layers as JL
+from repro.models.registry import build_model as jbuild
+from repro_torch import convert
+from repro_torch import tree as T
+from repro_torch.configs import SMOKE_ARCHS
+from repro_torch.models import layers as L
+from repro_torch.models.registry import build_model as tbuild
+
+DENSE = ["paper-350m", "qwen3-8b", "gemma2-9b", "minitron-8b",
+         "starcoder2-3b"]
+F32_RTOL = 1e-4
+BF16_REL = 3e-2
+LOSS_RTOL = 2e-2
+B, S = 2, 64
+
+
+def close_f32(got, want, rtol=F32_RTOL):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=rtol * float(np.abs(want).max()))
+
+
+def rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _np(x):
+    """A torch or jax tensor as a float64 numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy().astype(np.float64)
+    return np.asarray(jnp.asarray(x, jnp.float32), np.float64)
+
+
+def _qkv(seed, Sq, Sk, H=4, KV=2, Dh=16, dtype=np.float32):
+    r = np.random.RandomState(seed)
+    return (r.randn(B, Sq, H, Dh).astype(dtype),
+            r.randn(B, Sk, KV, Dh).astype(dtype),
+            r.randn(B, Sk, KV, Dh).astype(dtype))
+
+
+# ---------------------------------------------------------------------------
+# building blocks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cap", [None, 30.0, 50.0])
+def test_softcap_matches(cap):
+    x = np.random.RandomState(0).randn(4, 257).astype(np.float32) * 40
+    close_f32(L.softcap(torch.from_numpy(x), cap),
+              JL.softcap(jnp.asarray(x), cap), rtol=1e-6)
+    # bf16 in, bf16 out: the same two roundings (x / cap, then * cap)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = _np(L.softcap(xb, cap))
+    want = _np(JL.softcap(jnp.asarray(x, jnp.bfloat16), cap))
+    assert np.abs(got - want).max() <= (0.0 if cap is None else
+                                        2 ** -7 * np.abs(want).max())
+
+
+#: (causal, window, softcap, Sq, q_chunk, kv_chunk): chunked so that
+#: whole chunk pairs fall outside the causal or window mask (skipped by
+#: the port, wiped or added as zeros by the reference)
+ATTN_CASES = [
+    (True, None, None, 64, 16, 16),
+    (True, None, 50.0, 64, 16, 32),
+    (True, 20, 50.0, 64, 16, 16),
+    (True, 16, None, 64, 32, 8),
+    (False, None, 30.0, 48, 48, 16),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+def test_chunked_attention_matches(case):
+    causal, window, cap, Sq, qc, kc = case
+    q, k, v = _qkv(1, Sq, Sq)
+    kw = dict(causal=causal, window=window, logit_softcap=cap, q_chunk=qc,
+              kv_chunk=kc)
+    got = L.chunked_attention(*map(torch.from_numpy, (q, k, v)), **kw)
+    want = JL.chunked_attention(*map(jnp.asarray, (q, k, v)), **kw)
+    close_f32(got, want)
+    # bf16 inputs: p is rounded to bf16 before PV on both sides
+    qb, kb, vb = (x.astype(jnp.bfloat16) for x in map(jnp.asarray,
+                                                       (q, k, v)))
+    got = L.chunked_attention(*(torch.from_numpy(np.array(
+        x.astype(jnp.float32))).to(torch.bfloat16) for x in (qb, kb, vb)),
+        **kw)
+    assert rel_err(_np(got), _np(JL.chunked_attention(qb, kb, vb, **kw))) \
+        < 1e-2
+
+
+@pytest.mark.parametrize("window", [None, 16])
+def test_sdpa_attention_matches_chunked(window):
+    """The unsoftcapped path (SDPA, with the window as a mask) computes
+    the reference's chunked attention."""
+    q, k, v = _qkv(2, S, S)
+    got = L.causal_attention(*map(torch.from_numpy, (q, k, v)), window)
+    want = JL.chunked_attention(*map(jnp.asarray, (q, k, v)), window=window,
+                                q_chunk=16, kv_chunk=16)
+    close_f32(got, want)
+
+
+@pytest.mark.parametrize("shape", [(1500, 2048, 1024), (4608, 2048, 1024),
+                                   (40, 16, 16), (48, 32, 16)])
+def test_chunk_rule_refuses_what_the_reference_refuses(shape):
+    Sq, qc, kc = shape
+    q, k, v = (np.zeros((1, Sq, 1, 4), np.float32) for _ in range(3))
+    with pytest.raises(AssertionError):
+        JL.chunked_attention(*map(jnp.asarray, (q, k, v)), q_chunk=qc,
+                             kv_chunk=kc)
+    with pytest.raises(ValueError):
+        L.chunked_attention(*map(torch.from_numpy, (q, k, v)), q_chunk=qc,
+                            kv_chunk=kc)
+    with pytest.raises(ValueError):
+        L.check_chunks(Sq, Sq, qc, kc)
+
+
+def test_chunk_rule_accepts_what_the_reference_accepts():
+    for Sq in (1, 7, 512, 1000, 1024, 2048, 4096, 6144):
+        L.check_chunks(Sq, Sq, 2048, 1024)
+
+
+@pytest.mark.parametrize("alloc", [1, 8, 13])
+def test_ring_slot_positions_match(alloc):
+    for t in (0, 3, 7, 8, 12, 31, 100):
+        np.testing.assert_array_equal(
+            L.ring_slot_positions(t, alloc).numpy(),
+            np.asarray(JL.ring_slot_positions(jnp.int32(t), alloc)))
+
+
+@pytest.mark.parametrize("S,W", [(5, 8), (8, 8), (13, 8), (40, 32),
+                                 (19, 4)])
+def test_ring_write_prefill_matches(S, W):
+    r = np.random.RandomState(S * W)
+    kv = r.randn(B, S, 2, 4).astype(np.float32)
+    cache = r.randn(B, W, 2, 4).astype(np.float32)
+    ct = torch.from_numpy(cache.copy())
+    out = L.ring_write_prefill(ct, torch.from_numpy(kv))
+    assert out is ct
+    np.testing.assert_array_equal(
+        ct.numpy(), np.asarray(JL.ring_write_prefill(jnp.asarray(cache),
+                                                     jnp.asarray(kv))))
+
+
+def test_ring_write_decode_matches_in_place():
+    r = np.random.RandomState(3)
+    cache = r.randn(B, 8, 2, 4).astype(np.float32)
+    ct = torch.from_numpy(cache.copy())
+    ptr = ct.data_ptr()
+    want = jnp.asarray(cache)
+    for t in (0, 5, 8, 13, 23):
+        kv = r.randn(B, 1, 2, 4).astype(np.float32)
+        assert L.ring_write_decode(ct, torch.from_numpy(kv), t) is ct
+        want = JL.ring_write_decode(want, jnp.asarray(kv), jnp.int32(t))
+        np.testing.assert_array_equal(ct.numpy(), np.asarray(want))
+    assert ct.data_ptr() == ptr
+
+
+#: (alloc, t, window, softcap): the ring not yet full, full, wrapped
+DECODE_CASES = [(16, 5, None, None), (16, 15, None, 50.0),
+                (16, 40, None, None), (8, 21, 6, 50.0), (32, 32, 32, 50.0)]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=str)
+def test_decode_attention_matches(case):
+    alloc, t, window, cap = case
+    q, k, v = _qkv(4, 1, alloc)
+    kw = dict(window=window, logit_softcap=cap)
+    got = L.decode_attention(*map(torch.from_numpy, (q, k, v)), t, **kw)
+    close_f32(got, JL.decode_attention(*map(jnp.asarray, (q, k, v)),
+                                       jnp.int32(t), **kw))
+    qb, kb, vb = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    got = L.decode_attention(*(torch.from_numpy(np.array(
+        x.astype(jnp.float32))).to(torch.bfloat16) for x in (qb, kb, vb)),
+        t, **kw)
+    assert rel_err(_np(got), _np(JL.decode_attention(
+        qb, kb, vb, jnp.int32(t), **kw))) < 1e-2
+
+
+@pytest.mark.parametrize("d_model", [64, 3584])
+def test_embed_lookup_matches(d_model):
+    cfg = dataclasses.replace(SMOKE_ARCHS["gemma2-9b"], d_model=d_model)
+    r = np.random.RandomState(5)
+    emb = (r.randn(256, d_model) * 0.02).astype(np.float32)
+    toks = r.randint(0, 256, size=(B, 9)).astype(np.int32)
+    for dt, jdt in ((torch.bfloat16, jnp.bfloat16),
+                    (torch.float32, jnp.float32)):
+        got = L.embed_lookup(torch.from_numpy(emb), torch.from_numpy(toks),
+                             cfg, dt)
+        want = JL.embed_lookup(jnp.asarray(emb), jnp.asarray(toks), cfg, jdt)
+        np.testing.assert_array_equal(_np(got), _np(want))
+    # the scale is sqrt(d) rounded to bf16 (59.75 for d = 3584)
+    scale = float(torch.tensor(math.sqrt(d_model), dtype=torch.bfloat16))
+    assert scale == float(jnp.asarray(math.sqrt(d_model), jnp.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# the five dense SMOKE configs
+# ---------------------------------------------------------------------------
+
+
+def _key(path):
+    return "/".join(str(getattr(k, "key", k)) for k in path)
+
+
+def ref_flat(params) -> dict:
+    return {_key(p): np.asarray(x)
+            for p, x in jax.tree_util.tree_flatten_with_path(params)[0]}
+
+
+def models(arch, dtype=None, seed=0):
+    """(reference model, its params, port model loaded with them)."""
+    cfg, jcfg = SMOKE_ARCHS[arch], J_SMOKE[arch]
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+        jcfg = dataclasses.replace(jcfg, dtype=dtype)
+    jm = jbuild(jcfg)
+    params = jm.init(jax.random.PRNGKey(seed))
+    tm = tbuild(cfg, device="cpu")
+    convert.params_from_reference(ref_flat(params), tm)
+    return jm, params, tm
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_param_tree_matches_reference_init(arch):
+    params = jbuild(J_SMOKE[arch]).init(jax.random.PRNGKey(0))
+    want = [(_key(p), tuple(x.shape)) for p, x in
+            jax.tree_util.tree_flatten_with_path(params)[0]]
+    model = tbuild(SMOKE_ARCHS[arch], device="cpu")
+    got = [(T.path_str(p), tuple(x.shape))
+           for p, x in T.leaves_with_path(model.param_tree())]
+    assert got == want
+    # the module's own parameters are exactly the tree's leaves
+    assert {id(p) for p in model.parameters()} == \
+        {id(x) for x in T.leaves(model.param_tree())}
+
+
+def test_params_from_reference_refuses_other_paths():
+    _, params, tm = models("qwen3-8b")
+    flat = ref_flat(params)
+    flat.pop("blocks/slot0/attn/q_norm")
+    with pytest.raises(ValueError, match="q_norm"):
+        convert.params_from_reference(flat, tm)
+
+
+def _tokens(arch, seed=1, n=S):
+    r = np.random.RandomState(seed)
+    return r.randint(0, SMOKE_ARCHS[arch].vocab_size,
+                     size=(B, n)).astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_and_loss_match_reference(arch, dtype):
+    jm, params, tm = models(arch, dtype)
+    toks = _tokens(arch)
+    labels = np.roll(toks, -1, axis=1)
+    want_x = jm.forward(params, {"tokens": jnp.asarray(toks)})
+    want_l = jm.loss(params, {"tokens": jnp.asarray(toks),
+                              "labels": jnp.asarray(labels)})
+    with torch.no_grad():
+        got_x = tm(torch.from_numpy(toks))
+        got_l = tm.loss({"tokens": torch.from_numpy(toks),
+                         "labels": torch.from_numpy(labels)})
+    assert got_x.dtype == (torch.float32 if dtype == "float32"
+                           else torch.bfloat16)
+    if dtype == "float32":
+        close_f32(_np(got_x), _np(want_x))
+        close_f32(float(got_l), float(want_l))
+    else:
+        assert rel_err(_np(got_x), _np(want_x)) < BF16_REL
+        assert abs(float(got_l) - float(want_l)) <= \
+            LOSS_RTOL * abs(float(want_l))
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "paper-350m"])
+def test_loss_gradients_flow_through_every_leaf(arch):
+    """Remat per layer keeps every leaf's gradient (gemma2: both slots,
+    qk / post norms included) finite and, for the weights, nonzero."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    cfg = SMOKE_ARCHS[arch]
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", 32, B, "train"))
+    tm = tbuild(cfg, run, device="cpu")
+    tm.init_params(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_tokens(arch, n=32))
+    loss = tm.loss({"tokens": toks, "labels": toks.roll(-1, 1)})
+    leaves = T.leaves_with_path(tm.param_tree())
+    grads = torch.autograd.grad(loss, [p for _, p in leaves])
+    for (path, _), g in zip(leaves, grads):
+        assert torch.isfinite(g).all(), path
+        if path[-1].startswith("w") or path[-1] == "embed":
+            assert g.abs().max() > 0, path

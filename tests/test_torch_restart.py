@@ -34,7 +34,10 @@ reference, and the train CLI's resume.
   while live pod 2's leaves.  The port's rule is asserted, the
   reference's printed.
 * The CLI: ``--ckpt-dir`` / ``--ckpt-every`` on one pod and on two, run
-  twice: the second run resumes at step 6.
+  twice: the second run resumes at step 6.  With ``--deterministic`` a
+  run resumed from step 2 rewrites the uninterrupted run's step-4 and
+  step-6 checkpoints byte for byte; the switch (``RunConfig.
+  deterministic``) is applied before the model is built.
 """
 import dataclasses
 import json
@@ -273,6 +276,70 @@ def test_cli_resumes_from_its_checkpoint(tmp_path, pods):
     assert (tmp_path / "ck" / "step_00000012").is_dir()
     if pods > 1:
         assert [p["start_step"] for p in r2["pods"]] == [6] * pods
+
+
+def test_cli_deterministic_resume_replays_bit_identically(tmp_path):
+    """``--deterministic``: a run resumed from step 2 writes the step-4
+    and step-6 checkpoints of the uninterrupted run byte for byte."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    ck = tmp_path / "ck"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device",
+           "cpu", "--smoke", "--seq-len", str(SEQ), "--batch", "2",
+           "--steps", "6", "--ckpt-every", "2", "--ckpt-dir", str(ck),
+           "--deterministic"]
+    replayed = ("step_00000004", "step_00000006")
+    for run in range(2):
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             cwd=tmp_path, timeout=300)
+        assert out.returncode == 0, out.stderr[-3000:]
+        if run == 0:
+            for d in replayed:
+                (ck / d).rename(tmp_path / d)
+    assert "restored checkpoint @ step 2" in out.stdout
+    for d in replayed:
+        leaves = sorted(p.name for p in (tmp_path / d).glob("leaf_*.npy"))
+        assert leaves and leaves == sorted(
+            p.name for p in (ck / d).glob("leaf_*.npy"))
+        for name in leaves:
+            assert (tmp_path / d / name).read_bytes() == \
+                (ck / d / name).read_bytes(), (d, name)
+
+
+@pytest.mark.parametrize("preset", [None, ":16:8"])
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_deterministic_switch_precedes_the_model(tmp_path, monkeypatch,
+                                                 deterministic, preset):
+    """``RunConfig.deterministic`` reaches both settings before the model
+    first touches the card (``build_model`` mocked: the first CUDA call),
+    and leaves a ``CUBLAS_WORKSPACE_CONFIG`` already set alone."""
+    from repro_torch.launch import session as S
+    var = "CUBLAS_WORKSPACE_CONFIG"
+    monkeypatch.setenv(var, "unset-marker")
+    if preset is None:
+        monkeypatch.delenv(var)
+    else:
+        monkeypatch.setenv(var, preset)
+    events = []
+    monkeypatch.setattr(S.torch, "use_deterministic_algorithms",
+                        lambda on: events.append(("algorithms", on)))
+    real = S.build_model
+
+    def build(cfg, run, device):
+        events.append(("build", device, os.environ.get(var)))
+        return real(cfg, run, device="cpu")
+
+    monkeypatch.setattr(S, "build_model", build)
+    S.TrainSession.from_config(
+        "paper-350m", smoke=True, seq_len=SEQ, batch=2, steps=2,
+        device="cuda", ckpt_dir=str(tmp_path / "ck"),
+        deterministic=deterministic)
+    if deterministic:
+        want_var = preset or ":4096:8"
+        assert events[:2] == [("algorithms", True),
+                              ("build", "cuda", want_var)]
+    else:
+        assert events[0] == ("build", "cuda", preset)
+        assert ("algorithms", True) not in events
 
 
 # ---------------------------------------------------------------------------
