@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
-NVIDIA GPU: the quickest proof that the port builds, is right and trains.
+NVIDIA GPU: the quickest proof that the port builds, is right, trains
+and serves.
 
     python3 chip_smoke.py
 
@@ -129,15 +130,42 @@ Phases (any failure exits nonzero before the result lines):
    model and workload the bf16 weight bytes, prefill ms (CUDA events)
    and its share of 989 TFLOP/s at 2 * N * tokens, the decode step's
    median / min / max ms against its bound ((weight + KV bytes) / 3.35
-   TB/s), generated tokens/s and peak allocated / reserved memory.
+   TB/s), generated tokens/s and peak allocated / reserved memory;
+11. serving the MoE family, in a process of its own:
+   qwen3-moe-30b-a3b at full published width and depth (48 layers, 128
+   experts top-8) and dbrx-132b at full width cut to 8 of its 40 layers
+   (16 experts top-4; 262 GB of bf16 weights at 40 layers, and the port
+   has no model parallelism within a pod yet), seeded bf16 weights drawn
+   slice by slice, each served twice (the first cold) on phase 10's
+   workload (a).  Gates: (1) every request gets its token budget and
+   every logit is finite; (2) qwen3-moe: 16 teacher-forced decode steps
+   after the 512-token prompt against one forward over 528 tokens
+   within rtol = atol = 0.15, at capacity factor E / K (C >= T in every
+   call, so nothing drops on either side), restored after.  The top-k
+   is discontinuous and a bf16 near-tie that decode and forward round
+   apart swaps an expert, so the forward is routed as the prefill and
+   the decode steps routed, and their router logits must agree within
+   3e-2 of their largest; the forward on its own routes is compared
+   too and printed (the share of (token, layer) top-k sets that agree,
+   where they first part and the margin there), and so is the same
+   check in f32 compute; (3) both MoE SMOKE configs card against CPU
+   as in phase 10, the card's bf16 prefill routed as the CPU's (router
+   logits within 3e-2); (4) K1-K16 launch 0 times.  Prints phase 10's line per model, then
+   the prefill's capacity and share of (token, k) pairs dropped (pads
+   included, from one untimed prefill), its executed capacity FLOPs
+   (every expert over its C rows) beside 2 * N_active * tokens, the
+   experts each layer routes to in one untimed decode step, and two
+   decode bounds: all weights + caches (what the capacity arithmetic
+   reads) and routed (the weights that are not experts, the experts
+   routed to, the caches) at 3.35 TB/s.
 
 Output: progress lines with each phase's seconds, the pod link's latency
 and rate, then the ``nvidia-smi`` line, the kernels' JSON line (each
 kernel's launches in total and per main path: ``one_pod`` (phase 5),
 ``p2`` and ``p3`` (phase 7, all pods), ``hier`` (phase 8, all
 members), ``restart`` (phase 9a, its three runs) and ``elastic`` (phase
-9b, all pods), each counted from 0 just before its run; phase 10
-launches none; K16's ``library_ms``
+9b, all pods), each counted from 0 just before its run; phases 10 and
+11 launch none; K16's ``library_ms``
 is ``torch.mul(q, s)``'s time; ``paths`` gives each path's pods, members
 per cluster and depth; ``link`` the measured link), and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -1901,6 +1929,11 @@ TF_CHUNK = 1232
 #: equal greedy tokens; bf16 prefill logits within 3e-2 relative norm
 SMOKE_F32_RTOL = 1e-4
 SMOKE_BF16_REL = 3e-2
+#: gates 2 and 3 for the MoE family, routed as the run held against
+#: (``ReplayRoutes``): the two runs' router logits agree within this
+#: share of their largest magnitude (the bf16 bound of the CPU parity
+#: tests)
+ROUTE_GAP_REL = 3e-2
 BF16_DENSE_FLOPS = 989e12           # H100 SXM datasheet, dense bf16
 
 
@@ -1983,11 +2016,10 @@ def serve_once(torch, np, tserve, model, spec):
         "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30}
 
 
-def teacher_forced(torch, np, model, prompt, seed):
-    """Gate 2: prefill ``prompt``, then feed the next ``TF_STEPS`` tokens
-    to ``decode_step`` one by one, against ``lm_logits`` of one full
-    forward over the whole sequence at those positions only."""
-    from repro_torch.models.layers import check_chunks
+def tf_decode(torch, np, model, prompt, seed):
+    """Prefill ``prompt``, then feed the next ``TF_STEPS`` tokens (drawn
+    from ``seed``) to ``decode_step`` one by one; returns (the whole
+    sequence (1, n + TF_STEPS) on the card, the steps' logits f32)."""
     V = model.cfg.vocab_size
     rng = np.random.RandomState(seed)
     seq = np.concatenate([prompt, rng.randint(0, V, size=TF_STEPS)
@@ -2002,32 +2034,57 @@ def teacher_forced(torch, np, model, prompt, seed):
                                                toks[:, n + i:n + i + 1])
             steps.append(logits[0, 0])
         del caches
-        got = torch.stack(steps).float()
+        return toks, torch.stack(steps).float()
+
+
+def tf_forward(torch, model, toks, n):
+    """``lm_logits`` of one full forward over ``toks``, at positions
+    ``n`` onwards only (f32)."""
+    from repro_torch.models.layers import check_chunks
+    with torch.inference_mode():
         saved = model.q_chunk, model.kv_chunk
         try:
-            check_chunks(seq.shape[1], seq.shape[1], *saved)
+            check_chunks(toks.shape[1], toks.shape[1], *saved)
         except ValueError:
             model.q_chunk = model.kv_chunk = TF_CHUNK
         try:
             x = model(toks)[:, n:]
         finally:
             model.q_chunk, model.kv_chunk = saved
-        want = model.logits(x)[0].float()
+        return model.logits(x)[0].float()
+
+
+def tf_compare(got, want, V, n_tokens):
+    """Gate 2's verdict: ``got`` within rtol = atol = TF_TOL of
+    ``want``."""
     diff = (got - want).abs()
     ok = bool((diff <= TF_TOL + TF_TOL * want.abs()).all())
     agree = (got[:, :V].argmax(-1) == want[:, :V].argmax(-1)).float().mean()
-    return {"tokens": seq.shape[1], "steps": TF_STEPS, "ok": ok,
+    return {"tokens": n_tokens, "steps": TF_STEPS, "ok": ok,
             "max_abs_diff": float(diff.max()),
             "worst_excess": float((diff - TF_TOL * want.abs()).max()),
             "argmax_agree": float(agree)}
 
 
+def teacher_forced(torch, np, model, prompt, seed):
+    """Gate 2: prefill ``prompt``, then feed the next ``TF_STEPS`` tokens
+    to ``decode_step`` one by one, against ``lm_logits`` of one full
+    forward over the whole sequence at those positions only."""
+    toks, got = tf_decode(torch, np, model, prompt, seed)
+    return tf_compare(got, tf_forward(torch, model, toks, prompt.size),
+                      model.cfg.vocab_size, toks.shape[1])
+
+
 def smoke_card_vs_cpu(torch, np, tserve, arch, dev):
     """Gate 3: ``arch``'s SMOKE config served on the card and on the CPU
     from the same weights: f32 logits (every step) and greedy tokens,
-    and bf16 prefill logits."""
+    and bf16 prefill logits.  A MoE config's bf16 prefill on the card is
+    routed as the CPU's routed (``ReplayRoutes``), the two router logits
+    within ``ROUTE_GAP_REL``: the devices round apart, which swaps an
+    expert at a near-tie (see ``moe_teacher_forced``)."""
     import copy
     from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.models import moe
     spec = {"prompts": (40, 33, 17, 40), "new": 8, "batch": 4}
     out = {}
     for dtype in ("float32", "bfloat16"):
@@ -2037,8 +2094,18 @@ def smoke_card_vs_cpu(torch, np, tserve, arch, dev):
         host = tserve.init_model(cfg, "cpu", seed=1, dtype=wdt)
         card = copy.deepcopy(host).to(dev)
         card.device = torch.device(dev)
+        replay = dtype == "bfloat16" and cfg.family == "moe"
+        host_calls = []
+        real_dispatch, recorded = recording_dispatch(moe, host_calls)
+        real_route, routes = moe.route, None
         runs = []
-        for model in (card, host):
+        for model in (host, card):
+            if replay and model is host:
+                moe.dispatch = recorded
+            elif replay:
+                # the prefill's dispatches come first, one a layer
+                moe.route = routes = ReplayRoutes(
+                    real_route, [c[:2] for c in host_calls[:cfg.n_layers]])
             logs = []
             real_pre, real_dec = model.prefill, model.decode_step
 
@@ -2051,10 +2118,13 @@ def smoke_card_vs_cpu(torch, np, tserve, arch, dev):
             model.prefill, model.decode_step = rec(real_pre), rec(real_dec)
             reqs = tserve.make_requests(spec["prompts"], spec["new"],
                                         cfg.vocab_size, seed=2)
-            done = tserve.Server(model, 48, 4).serve(reqs)
-            model.prefill, model.decode_step = real_pre, real_dec
+            try:
+                done = tserve.Server(model, 48, 4).serve(reqs)
+            finally:
+                model.prefill, model.decode_step = real_pre, real_dec
+                moe.dispatch, moe.route = real_dispatch, real_route
             runs.append(([r.out_tokens for r in done], logs))
-        (tc, lc), (th, lh) = runs
+        (th, lh), (tc, lc) = runs
         if dtype == "float32":
             err = max(float((a - b).abs().max() / b.abs().max())
                       for a, b in zip(lc, lh))
@@ -2064,6 +2134,11 @@ def smoke_card_vs_cpu(torch, np, tserve, arch, dev):
             a, b = lc[0], lh[0]
             err = float((a - b).norm() / b.norm())
             out[dtype] = {"prefill_rel": err, "ok": err < SMOKE_BF16_REL}
+            if replay:
+                gap = max(routes.gaps)
+                out[dtype]["route_gap_rel"] = gap
+                out[dtype]["ok"] &= (len(routes.gaps) == cfg.n_layers
+                                     and gap <= ROUTE_GAP_REL)
     return out
 
 
@@ -2123,46 +2198,65 @@ def serve_phase(torch, card) -> None:
                         timeout=600)
     for arch, r in res["models"].items():
         for wl in ("a", "b"):
-            if wl not in r:
-                continue
-            w = r[wl]
-            if not all(w["tokens_ok"]) or not w["finite"]:
-                fail(f"{tag}: {arch} ({wl}): tokens per request "
-                     f"{w['tokens_ok']}, logits finite {w['finite']}")
-            med, lo, hi = w["decode_ms"]
-            log(f"{tag}: {arch} ({wl}) on {card}: {r['n_params']} "
-                f"parameters, {w['weight_bytes']} bf16 weight bytes; "
-                f"batch {w['batch']} x prompt {w['prompt']}, {w['new']} new "
-                f"tokens; prefill {w['prefill_ms']:.3f} ms "
-                f"({w['prefill_share']:.6g} of 989 TFLOP/s at 2*N*tokens "
-                f"= {w['prefill_flops']:.4g}); decode step ms median "
-                f"{med:.3f} min {lo:.3f} max {hi:.3f} over "
-                f"{w['decode_steps']} steps, bound {w['decode_bound_ms']:.6g}"
-                f" ms (weights + {w['kv_bytes']} KV bytes at 3.35 TB/s); "
-                f"{w['tok_per_s']:.2f} generated tokens/s "
-                f"({w['wall_s']:.3f} s); peak {w['peak_alloc_gib']:.3f} GiB "
-                f"allocated, {w['peak_reserved_gib']:.3f} GiB reserved; "
-                f"init {r['init_s']:.2f} s; the cold first run before it: "
-                f"prefill {w['cold']['prefill_ms']:.3f} ms, decode step "
-                f"median {w['cold']['decode_ms'][0]:.3f} ms, "
-                f"{w['cold']['tok_per_s']:.2f} tokens/s")
+            if wl in r:
+                check_served(tag, card, arch, r, wl)
         if "tf" in r:
-            tf = r["tf"]
-            log(f"{tag}: {arch} teacher-forced {tf['steps']} decode steps "
-                f"at {tf['tokens']} tokens against one forward: max |diff| "
-                f"{tf['max_abs_diff']:.4g}, argmax agrees on "
-                f"{tf['argmax_agree']:.4f} of positions (rtol = atol = "
-                f"{TF_TOL})")
-            if not tf["ok"]:
-                fail(f"{tag}: {arch}: teacher-forced decode differs from "
-                     f"the forward beyond rtol = atol = {TF_TOL} (worst "
-                     f"excess {tf['worst_excess']:.4g})")
+            check_teacher_forced(tag, arch, r["tf"])
+    check_smoke_and_launches(tag, res)
+
+
+def check_served(tag, card, arch, r, wl) -> None:
+    """Gate 1 on ``arch``'s workload ``wl``, and its timings' line."""
+    w = r[wl]
+    if not all(w["tokens_ok"]) or not w["finite"]:
+        fail(f"{tag}: {arch} ({wl}): tokens per request "
+             f"{w['tokens_ok']}, logits finite {w['finite']}")
+    med, lo, hi = w["decode_ms"]
+    log(f"{tag}: {arch} ({wl}) on {card}: {r['n_params']} "
+        f"parameters, {w['weight_bytes']} bf16 weight bytes; "
+        f"batch {w['batch']} x prompt {w['prompt']}, {w['new']} new "
+        f"tokens; prefill {w['prefill_ms']:.3f} ms "
+        f"({w['prefill_share']:.6g} of 989 TFLOP/s at 2*N*tokens "
+        f"= {w['prefill_flops']:.4g}); decode step ms median "
+        f"{med:.3f} min {lo:.3f} max {hi:.3f} over "
+        f"{w['decode_steps']} steps, bound {w['decode_bound_ms']:.6g}"
+        f" ms (weights + {w['kv_bytes']} KV bytes at 3.35 TB/s); "
+        f"{w['tok_per_s']:.2f} generated tokens/s "
+        f"({w['wall_s']:.3f} s); peak {w['peak_alloc_gib']:.3f} GiB "
+        f"allocated, {w['peak_reserved_gib']:.3f} GiB reserved; "
+        f"init {r['init_s']:.2f} s; the cold first run before it: "
+        f"prefill {w['cold']['prefill_ms']:.3f} ms, decode step "
+        f"median {w['cold']['decode_ms'][0]:.3f} ms, "
+        f"{w['cold']['tok_per_s']:.2f} tokens/s")
+
+
+def check_teacher_forced(tag, arch, tf) -> None:
+    """Gate 2's line, and its verdict."""
+    log(f"{tag}: {arch} teacher-forced {tf['steps']} decode steps "
+        f"at {tf['tokens']} tokens against one forward: max |diff| "
+        f"{tf['max_abs_diff']:.4g}, argmax agrees on "
+        f"{tf['argmax_agree']:.4f} of positions (rtol = atol = "
+        f"{TF_TOL})")
+    if not tf["ok"]:
+        fail(f"{tag}: {arch}: teacher-forced decode differs from "
+             f"the forward beyond rtol = atol = {TF_TOL} (worst "
+             f"excess {tf['worst_excess']:.4g}; router logits apart by "
+             f"{tf.get('route_gap_rel', 0.0):.4g} of their largest, at "
+             f"most {ROUTE_GAP_REL})")
+
+
+def check_smoke_and_launches(tag, res) -> None:
+    """Gates 3 (SMOKE configs, card against CPU) and 4 (no ACE-Sync
+    kernel launched while serving)."""
     for arch, r in res["smoke"].items():
         f32, bf = r["float32"], r["bfloat16"]
+        routed = ("" if "route_gap_rel" not in bf else
+                  f", routed as on the CPU, router logits within "
+                  f"{bf['route_gap_rel']:.3g} (<= {ROUTE_GAP_REL})")
         log(f"{tag}: {arch} SMOKE card vs CPU: f32 tokens equal "
             f"{f32['tokens_equal']}, logits max rel {f32['max_rel']:.3g} "
             f"(<= {SMOKE_F32_RTOL}); bf16 prefill logits rel "
-            f"{bf['prefill_rel']:.3g} (< {SMOKE_BF16_REL})")
+            f"{bf['prefill_rel']:.3g} (< {SMOKE_BF16_REL}){routed}")
         if not (f32["ok"] and bf["ok"]):
             fail(f"{tag}: {arch} SMOKE config differs between card and "
                  f"CPU: {r}")
@@ -2170,6 +2264,274 @@ def serve_phase(torch, card) -> None:
     if launched:
         fail(f"{tag}: serving launched ACE-Sync kernels: {launched}")
     log(f"{tag}: K1-K16 launched 0 times")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: serving the MoE family
+# ---------------------------------------------------------------------------
+
+#: phase 11's models at full published width: depth None is the published
+#: one; dbrx-132b is cut to 8 of its 40 layers (262 GB of bf16 weights at
+#: 40; the port has no model parallelism within a pod yet)
+MOE_SERVE = {"qwen3-moe-30b-a3b": None, "dbrx-132b": 8}
+
+
+def recording_dispatch(moe, log_to):
+    """``moe.dispatch`` with each call's (router logits, eidx, pos_c, C)
+    appended to ``log_to``; install it as ``moe.dispatch`` and put the
+    returned real one back after."""
+    real = moe.dispatch
+
+    def f(xf, logits, cfg, C):
+        out = real(xf, logits, cfg, C)
+        log_to.append((logits, out[1], out[2], C))
+        return out
+    return real, f
+
+
+class ReplayRoutes:
+    """A ``moe.route`` that replays recorded routes in order: each call
+    takes the next recorded (router logits, eidx) pair's experts, with
+    gates from its own logits, and records how far its router logits lie
+    from the recorded ones, as a share of their largest magnitude; once
+    the records run out it routes by itself (``real``)."""
+
+    def __init__(self, real, records):
+        self.real, self.records, self.gaps = real, list(records), []
+
+    def __call__(self, logits, k):
+        if not self.records:
+            return self.real(logits, k)
+        lg, e = (t.to(logits.device) for t in self.records.pop(0))
+        self.gaps.append(float((logits - lg).abs().max() / lg.abs().max()))
+        return logits.gather(1, e).softmax(dim=-1), e
+
+
+def routing_stats(torch, np, model, spec):
+    """Untimed: one prefill of ``spec``'s padded batch and one decode step
+    after it, their dispatches recorded.  Returns the share of (token, k)
+    pairs the prefill dropped (pads included), the experts each decode
+    layer routes to, and the decode step's routed bound: the weights
+    that are not experts, the experts routed to and the ring caches, at
+    3.35 TB/s."""
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import moe
+    cfg = model.cfg
+    B, S = spec["batch"], max(spec["prompts"])
+    toks = np.zeros((B, S), np.int32)
+    for j, r in enumerate(tserve.make_requests(spec["prompts"], 0,
+                                               cfg.vocab_size)):
+        toks[j, S - len(r.prompt):] = r.prompt
+    pre, dec = [], []
+    real, rec_pre = recording_dispatch(moe, pre)
+    rec_dec = recording_dispatch(moe, dec)[1]
+    moe.dispatch = rec_pre
+    try:
+        with torch.inference_mode():
+            logits, caches = model.prefill(
+                torch.from_numpy(toks).to(model.device), S + spec["new"])
+            nxt = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+            moe.dispatch = rec_dec
+            model.decode_step(caches, S, nxt)
+    finally:
+        moe.dispatch = real
+    dropped = sum(int((p == C).sum()) for _, _, p, C in pre)
+    pairs = sum(p.numel() for _, _, p, _ in pre)
+    touched = [int(torch.unique(e).numel()) for _, e, _, _ in dec]
+    w = model.blocks["slot0"].ffn["w_gate"]
+    expert_bytes = 3 * cfg.d_model * cfg.d_ff * w.element_size()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for kv in caches.values() for t in kv.values())
+    routed = (weight_bytes - cfg.n_layers * cfg.n_experts * expert_bytes
+              + sum(touched) * expert_bytes + kv_bytes)
+    return {"prefill_dropped": dropped / pairs, "prefill_pairs": pairs,
+            "prefill_capacity": pre[0][3], "decode_capacity": dec[0][3],
+            "touched": touched,
+            "routed_bound_ms": routed / HBM_BYTES_PER_S * 1e3}
+
+
+def moe_teacher_forced(torch, np, model, prompt, seed, dtype=None):
+    """Gate 2 for a MoE model, at capacity factor E / K (C >= T in the
+    prefill, every decode step and the forward: nothing drops on either
+    side) and, where ``dtype`` is given, in that compute dtype (the bf16
+    weights cast at use); both restored after.
+
+    The router's top-k is a discontinuous choice: where the roundings,
+    which decode and forward place differently, move two logits across
+    a near-tie, an expert swaps, the token's FFN output changes by O(1),
+    and every later layer sees it.  So the decode steps are held to a
+    forward routed as the prefill and the decode steps routed (its gates
+    from its own logits), and the two runs' router logits to within
+    ``ROUTE_GAP_REL`` of their largest magnitude: then every choice the
+    forward would have made otherwise lies within twice that of a tie.
+    The forward on its own routes is compared too, and printed: the
+    share of (token, layer) top-k sets that agree, and where they first
+    part (the earliest layer), with the forward's margin there between
+    its k-th and (k+1)-th logit."""
+    from repro_torch.models import moe
+    cfg = model.cfg
+    L, n, V, K = cfg.n_layers, prompt.size, cfg.vocab_size, \
+        cfg.experts_per_token
+    calls = []
+    real_dispatch, recorded = recording_dispatch(moe, calls)
+    real_route, real_dtype = moe.route, model.dtype
+    model.cfg = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / K, dtype=dtype or cfg.dtype)
+    if dtype:
+        model.dtype = getattr(torch, dtype)
+    moe.dispatch = recorded
+    try:
+        toks, got = tf_decode(torch, np, model, prompt, seed)
+        served = list(calls)
+        calls.clear()
+        free = tf_forward(torch, model, toks, n)
+        own = list(calls)
+        if len(served) != L * (TF_STEPS + 1) or len(own) != L:
+            raise RuntimeError(f"{len(served)} + {len(own)} dispatches "
+                               f"recorded, not {L} x ({TF_STEPS} + 2)")
+        # the served routes of the forward's rows: the prefill's, then
+        # one row per decode step, layer by layer
+        per_layer = [[served[layer]] + [served[L * (1 + i) + layer]
+                                        for i in range(TF_STEPS)]
+                     for layer in range(L)]
+        s_lg = [torch.cat([c[0] for c in r]) for r in per_layer]
+        s_e = [torch.cat([c[1] for c in r]) for r in per_layer]
+        moe.route = replay = ReplayRoutes(real_route, zip(s_lg, s_e))
+        want = tf_forward(torch, model, toks, n)
+    finally:
+        moe.dispatch, moe.route = real_dispatch, real_route
+        model.cfg, model.dtype = cfg, real_dtype
+    tf = tf_compare(got, want, V, toks.shape[1])
+    tf["free"] = tf_compare(got, free, V, toks.shape[1])
+    same = torch.stack([(s_e[i].sort(-1).values
+                         == own[i][1].sort(-1).values).all(-1)
+                        for i in range(L)])                   # (L, n + 16)
+    tf["topk_agree"] = float(same[:, n:].float().mean())
+    tf["topk_agree_prompt"] = float(same[:, :n].float().mean())
+    parted = (~same).nonzero()
+    if parted.numel():
+        layer, row = (int(v) for v in parted[int(parted[:, 0].argmin())])
+        srt = own[layer][0][row].sort(descending=True).values
+        tf["first_part"] = {
+            "layer": layer, "position": row,
+            "step": row - n if row >= n else None,
+            "margin": float(srt[K - 1] - srt[K]),
+            "logit_diff": float((own[layer][0][row]
+                                 - s_lg[layer][row]).abs().max())}
+    tf["route_gap_rel"] = max(replay.gaps)
+    tf["ok"] = tf["ok"] and tf["route_gap_rel"] <= ROUTE_GAP_REL
+    tf["capacity_factor"] = cfg.n_experts / K
+    tf["dtype"] = dtype or cfg.dtype
+    return tf
+
+
+def serve_moe_path(group, spec):
+    """Phase 11, in a process of its own: each MoE model at full width
+    (dbrx at its cut depth), served, with its routing statistics, gate 2
+    for qwen3-moe, then gate 3 on the two MoE SMOKE configs; the kernels'
+    launch counts over the whole phase."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import flops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_launch_counts()
+    out = {"models": {}, "smoke": {}}
+    for arch, depth in MOE_SERVE.items():
+        cfg = ARCHS[arch]
+        if depth:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        t0 = time.perf_counter()
+        model = tserve.init_model(cfg, spec["device"], seed=0)
+        torch.cuda.synchronize()
+        res = {"init_s": time.perf_counter() - t0, "n_layers": cfg.n_layers,
+               "n_params": sum(p.numel() for p in model.parameters()),
+               "a": serve_workload(torch, np, tserve, model, SERVE_A)}
+        w = res["a"]
+        shape = ShapeConfig("serve", w["prompt"], w["batch"], "prefill")
+        w["executed_flops"] = flops.executed_flops(cfg, shape)
+        w["executed_share"] = (w["executed_flops"] / (w["prefill_ms"] * 1e-3)
+                               / BF16_DENSE_FLOPS)
+        res["routing"] = routing_stats(torch, np, model, SERVE_A)
+        if depth is None:
+            prompt = tserve.make_requests(SERVE_A["prompts"], 0,
+                                          cfg.vocab_size)[0].prompt
+            res["tf"] = moe_teacher_forced(torch, np, model, prompt, seed=1)
+            res["tf32"] = moe_teacher_forced(torch, np, model, prompt,
+                                             seed=1, dtype="float32")
+        out["models"][arch] = res
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in MOE_SERVE:
+        out["smoke"][arch] = smoke_card_vs_cpu(torch, np, tserve, arch,
+                                               spec["device"])
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def log_moe_teacher_forced(tag, arch, tf) -> None:
+    """The lines of one ``moe_teacher_forced`` run."""
+    fr, part = tf["free"], tf.get("first_part")
+    where = "nowhere" if part is None else (
+        f"first at layer {part['layer']}, position {part['position']} "
+        f"(decode step {part['step']}), the forward's margin between its "
+        f"k-th and (k+1)-th logit {part['margin']:.4g} against a logit "
+        f"difference of {part['logit_diff']:.4g} there")
+    log(f"{tag}: {arch} in {tf['dtype']} at capacity factor "
+        f"{tf['capacity_factor']}: the forward on its own routes picks the "
+        f"decode's top-k sets on {tf['topk_agree']:.6g} of (decode token, "
+        f"layer) pairs and the prefill's on {tf['topk_agree_prompt']:.6g} "
+        f"of (prompt token, layer) pairs; they part {where}; its logits "
+        f"against the decode's: max |diff| {fr['max_abs_diff']:.4g}, "
+        f"within rtol = atol = {TF_TOL} {fr['ok']}; routed as served: "
+        f"router logits within {tf['route_gap_rel']:.4g} of their largest "
+        f"(<= {ROUTE_GAP_REL})")
+
+
+def serve_moe_phase(torch, card) -> None:
+    """Phase 11: qwen3-moe-30b-a3b at full width and depth and dbrx-132b
+    at full width (8 layers) served from seeded bf16 weights (a process
+    of its own), and the four gates."""
+    import gc
+    from repro_torch.launch.mesh import spawn_pods
+    tag = "phase 11"
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{tag}: this process holds {torch.cuda.memory_reserved() / 2**30:.3f}"
+        f" GiB of the card")
+    (res,) = spawn_pods(serve_moe_path, 1, "cuda", args=({"device": "cuda"},),
+                        timeout=600)
+    for arch, r in res["models"].items():
+        check_served(tag, card, arch, r, "a")
+        w, rt = r["a"], r["routing"]
+        touched = rt["touched"]
+        log(f"{tag}: {arch} ({r['n_layers']} layers) routing on {card}: "
+            f"prefill capacity {rt['prefill_capacity']} rows per expert, "
+            f"{rt['prefill_dropped']:.6g} of {rt['prefill_pairs']} (token, "
+            f"k) pairs dropped (pads included); executed prefill FLOPs "
+            f"{w['executed_flops']:.4g} ({w['executed_share']:.6g} of 989 "
+            f"TFLOP/s) against 2*N_active*tokens {w['prefill_flops']:.4g}; "
+            f"decode capacity {rt['decode_capacity']}, experts routed to "
+            f"per layer min {min(touched)} median "
+            f"{sorted(touched)[len(touched) // 2]} max {max(touched)}; "
+            f"decode bounds: all weights {w['decode_bound_ms']:.6g} ms, "
+            f"routed {rt['routed_bound_ms']:.6g} ms")
+        for key in ("tf32", "tf"):
+            if key in r:
+                log_moe_teacher_forced(tag, arch, r[key])
+                check_teacher_forced(tag, arch, r[key])
+    check_smoke_and_launches(tag, res)
+
+
 
 
 def main() -> int:
@@ -2219,6 +2581,7 @@ def main() -> int:
     by_path["restart"] = timed_phase("phase 9a", restart_phase, torch)
     by_path["elastic"] = timed_phase("phase 9b", elastic_phase, torch)
     timed_phase("phase 10", serve_phase, torch, card)
+    timed_phase("phase 11", serve_moe_phase, torch, card)
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     log(f"pod link (phase 7, P = 2 ping-pong): latency "
         f"{link['latency_s']:.6g} s per hop, rate "

@@ -1,12 +1,14 @@
-"""Architecture configs of the port: the paper's own dense model and the
-JAX package's dense zoo (qwen3-8b, gemma2-9b, minitron-8b, starcoder2-3b),
-each with its reduced *smoke* variant for CPU tests.  The zoo's other
-families (MoE, SSM, hybrid, enc-dec, the VLM stub) are registered once
-their models are ported."""
+"""Architecture configs of the port: the paper's own dense model, the
+JAX package's dense zoo (qwen3-8b, gemma2-9b, minitron-8b, starcoder2-3b)
+and its MoE family (qwen3-moe-30b-a3b, dbrx-132b), each with its reduced
+*smoke* variant for CPU tests.  The zoo's other families (SSM, hybrid,
+enc-dec, the VLM stub) are registered once their models are ported."""
 from __future__ import annotations
 
 from repro_torch.configs.base import (ACESyncConfig, ModelConfig, RunConfig,
                                       SHAPES, ShapeConfig)
+from repro_torch.configs.dbrx_132b import CONFIG as dbrx_132b
+from repro_torch.configs.dbrx_132b import SMOKE as dbrx_132b_smoke
 from repro_torch.configs.gemma2_9b import CONFIG as gemma2_9b
 from repro_torch.configs.gemma2_9b import SMOKE as gemma2_9b_smoke
 from repro_torch.configs.minitron_8b import CONFIG as minitron_8b
@@ -15,10 +17,15 @@ from repro_torch.configs.paper_350m import CONFIG as paper_350m
 from repro_torch.configs.paper_350m import SMOKE as paper_350m_smoke
 from repro_torch.configs.qwen3_8b import CONFIG as qwen3_8b
 from repro_torch.configs.qwen3_8b import SMOKE as qwen3_8b_smoke
+from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as qwen3_moe_30b_a3b
+from repro_torch.configs.qwen3_moe_30b_a3b import \
+    SMOKE as qwen3_moe_30b_a3b_smoke
 from repro_torch.configs.starcoder2_3b import CONFIG as starcoder2_3b
 from repro_torch.configs.starcoder2_3b import SMOKE as starcoder2_3b_smoke
 
 ARCHS = {
+    "dbrx-132b": dbrx_132b,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
     "minitron-8b": minitron_8b,
     "qwen3-8b": qwen3_8b,
     "starcoder2-3b": starcoder2_3b,
@@ -26,6 +33,8 @@ ARCHS = {
     "paper-350m": paper_350m,
 }
 SMOKE_ARCHS = {
+    "dbrx-132b": dbrx_132b_smoke,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b_smoke,
     "minitron-8b": minitron_8b_smoke,
     "qwen3-8b": qwen3_8b_smoke,
     "starcoder2-3b": starcoder2_3b_smoke,

@@ -1,5 +1,5 @@
-"""Serving driver: batched prefill + decode with the dense model zoo —
-port of ``repro/launch/serve.py``.
+"""Serving: batched prefill + decode with the dense model zoo and
+the MoE family — port of ``repro/launch/serve.py``.
 
 A request queue served by static batching: the requests are cut into
 server-batch chunks, each chunk's prompts left-padded with token 0 to its
@@ -10,6 +10,7 @@ on the card unless the caller asks for the CPU::
 
     python -m repro_torch.launch.serve --arch gemma2-9b --prompt-len 512 \
         --new-tokens 32 --requests 8 [--batch 4] [--smoke] [--device cuda]
+    python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b ...
 
 prints ``{"requests", "tokens", "wall_s", "tok_per_s"}``.  The weights
 come from a seed (no checkpoint is read) and are served in bf16.
@@ -89,9 +90,11 @@ class Server:
 def init_model(cfg: ModelConfig, device="cuda", seed: int = 0,
                dtype=torch.bfloat16):
     """``cfg``'s model on ``device`` with seeded random weights held in
-    ``dtype``: the Parameters are allocated in ``dtype`` and each leaf is
-    drawn in f32 and cast as it is copied in, so the f32 weights never
-    exist all at once (gemma2-9b: 36.97 GB in f32, 18.48 GB in bf16)."""
+    ``dtype``: the Parameters are allocated in ``dtype`` and each stacked
+    leaf is drawn in f32 one layer group at a time and cast as it is
+    copied in, so no f32 temporary exceeds one slice of a leaf
+    (qwen3-moe-30b-a3b: 60.44 GB in bf16; one (128, 2048, 768) expert
+    slice, 0.81 GB in f32)."""
     dev = resolve_device(device)
     model = build_model(cfg, device="meta").to(dtype)
     model.to_empty(device=dev)

@@ -218,8 +218,11 @@ def ring_write_prefill(cache, kv):
 
 
 def init_normal(generator: torch.Generator, shape, std: float, device):
+    """N(0, std^2) of ``shape`` in f32 on ``device``, drawn from
+    ``generator`` (on its own device); scaled in place, so the draw is
+    the only f32 temporary of its size."""
     return torch.randn(shape, generator=generator,
-                       device=generator.device).to(device) * std
+                       device=generator.device).to(device).mul_(std)
 
 
 def attn_shapes(cfg, n_layers: int):

@@ -1,0 +1,134 @@
+"""Mixture-of-Experts FFN with capacity dispatch — port of
+``repro/models/moe.py``'s single-device path (the ``mesh is None`` branch
+of its ``moe_apply``).
+
+  router logits (f32) -> top-k experts per token -> position in expert by
+  a one-hot cumsum over the (token, k) pairs -> scatter into an (E, C, D)
+  buffer -> batched expert FFN -> gather back -> gate-weighted combine.
+
+Every expert takes at most C = :func:`capacity` rows; the pairs past it
+are dropped, as in the reference: the pairs count in token-major order
+(k minor), left-pad tokens take capacity like any other, and among equal
+logits the lower expert index wins (``jax.lax.top_k``'s rule, which
+``torch.topk`` does not promise, so :func:`route` sorts stably).  The
+expert FFN is three batched matmuls over all E experts at their full
+capacity, the reference's arithmetic: an expert no token routes to still
+runs on zero rows.  Expert parallelism and FSDP (the reference's mesh
+branch) are not ported.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+#: std of the router's N(0, 1) init (``moe_init``); each expert weight's
+#: is 1 / sqrt(shape[-2])
+ROUTER_STD = 0.02
+
+
+def moe_shapes(cfg, n_layers: int):
+    D, Fe, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {"router": (n_layers, D, E),
+            "w_gate": (n_layers, E, D, Fe),
+            "w_up": (n_layers, E, D, Fe),
+            "w_down": (n_layers, E, Fe, D)}
+
+
+def init_std(name: str, shape) -> float:
+    """The std of leaf ``name``'s normal init, as ``moe_init``."""
+    return ROUTER_STD if name == "router" else shape[-2] ** -0.5
+
+
+def capacity(n_tokens: int, cfg) -> int:
+    """Rows per expert for ``n_tokens`` tokens: ceil(cf * T * K / E)
+    rounded up to a multiple of 8, at least 8."""
+    c = int(math.ceil(cfg.capacity_factor * n_tokens *
+                      cfg.experts_per_token / cfg.n_experts))
+    return max(8, ((c + 7) // 8) * 8)
+
+
+def route(logits: torch.Tensor, k: int):
+    """The top ``k`` of each row of ``logits`` (T, E) f32 in
+    ``jax.lax.top_k``'s order: descending in the floats' total order
+    (-0.0 below +0.0), the lower expert index first among equal logits.
+    Returns (gates (T, k): the softmax over the k kept logits, in f32;
+    eidx (T, k))."""
+    bits = logits.view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)   # monotone
+    idx = torch.sort(key, dim=-1, descending=True, stable=True)[1][:, :k]
+    return torch.softmax(logits.gather(1, idx), dim=-1), idx
+
+
+def dispatch(xf: torch.Tensor, logits: torch.Tensor, cfg, C: int):
+    """Capacity dispatch of ``xf`` (T, D) by ``logits`` (T, E) f32.
+    Returns (ebuf (E, C, D), eidx (T, K), pos_c (T, K): the row of each
+    pair in its expert, C where it was dropped, gate_keep (T, K): the
+    gates with dropped pairs zeroed, in xf's dtype)."""
+    T, D = xf.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    dt = xf.dtype
+    gates, eidx = route(logits, K)
+    flat_e = eidx.reshape(T * K)
+    # the one-hot transposed, (E, T*K), so that the cumsum scans one
+    # contiguous row per expert (along dim 0 of the (T*K, E) matrix the
+    # prefill ran twice as slow on an H100); built by comparison, as
+    # F.one_hot checks its input's range on the host, a sync with the
+    # card in every layer
+    onehot = (torch.arange(E, device=flat_e.device)[:, None]
+              == flat_e[None, :]).to(torch.int32)
+    pos = torch.cumsum(onehot, 1, dtype=torch.int32).gather(
+        0, flat_e[None, :])[0].long() - 1
+    keep = pos < C
+    pos_c = torch.where(keep, pos, C).reshape(T, K)
+    gate_keep = (gates * keep.reshape(T, K)).to(dt)
+    vals = xf.repeat_interleave(K, dim=0) * keep[:, None].to(dt)
+    # row C of each expert takes the dropped pairs (all of them zeros) and
+    # is cut off: the kept (expert, row) pairs are unique, so a plain
+    # indexed copy places them, without an accumulating scatter
+    buf = xf.new_zeros((E, C + 1, D))
+    buf[flat_e, pos_c.reshape(-1)] = vals
+    return buf[:, :C], eidx, pos_c, gate_keep
+
+
+def expert_ffn(ebuf, wg, wu, wd):
+    """Each expert's SwiGLU over its (C, D) rows: ebuf (E, C, D), wg / wu
+    (E, D, Fe), wd (E, Fe, D), in ebuf's dtype."""
+    dt = ebuf.dtype
+    h = F.silu(ebuf @ wg.to(dt)) * (ebuf @ wu.to(dt))
+    return h @ wd.to(dt)
+
+
+def combine(out, eidx, pos_c, gate_keep):
+    """Inverse of :func:`dispatch`: each pair's row of ``out`` (E, C, D)
+    (a dropped pair reads row C - 1, times its zero gate), gate-weighted
+    and summed over k -> (T, D)."""
+    C = out.shape[1]
+    picked = out[eidx, pos_c.clamp(max=C - 1)]              # (T, K, D)
+    return (picked * gate_keep[..., None]).sum(dim=1)
+
+
+def moe_apply(p, x, cfg):
+    """x (B, S, D) -> (B, S, D); ``p`` holds one layer's ``router``,
+    ``w_gate``, ``w_up``, ``w_down``.  The B * S tokens share the
+    capacity of one dispatch."""
+    B, S, D = x.shape
+    T = B * S
+    xf = x.reshape(T, D)
+    logits = xf.float() @ p["router"].float()
+    C = capacity(T, cfg)
+    ebuf, eidx, pos_c, gk = dispatch(xf, logits, cfg, C)
+    out = expert_ffn(ebuf, p["w_gate"], p["w_up"], p["w_down"])
+    return combine(out, eidx, pos_c, gk).reshape(B, S, D)
+
+
+def load_balance_loss(logits_f32, eidx, cfg):
+    """Switch-style auxiliary load-balance loss: E * sum over experts of
+    (mean router probability) x (share of tokens whose first choice it
+    is).  No loss of the port calls it, as none of the reference's
+    does."""
+    E = cfg.n_experts
+    me = torch.softmax(logits_f32, dim=-1).mean(dim=0)
+    ce = F.one_hot(eidx[:, 0], E).float().mean(dim=0)
+    return E * torch.sum(me * ce)

@@ -1,15 +1,15 @@
 """Architecture registry of the port: ``--arch <id>`` -> model.  The
 dense family (paper-350m and the dense zoo: qwen3-8b, gemma2-9b,
-minitron-8b, starcoder2-3b); the JAX package's other families come in
-later slices."""
+minitron-8b, starcoder2-3b) and the MoE family (qwen3-moe-30b-a3b,
+dbrx-132b); the JAX package's other families come in later slices."""
 from __future__ import annotations
 
 from typing import Optional
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.models.transformer import DenseTransformer
+from repro_torch.models.transformer import DenseTransformer, MoETransformer
 
-_FAMILY_CLS = {"dense": DenseTransformer}
+_FAMILY_CLS = {"dense": DenseTransformer, "moe": MoETransformer}
 
 
 def build_model(cfg: ModelConfig, run: Optional[RunConfig] = None,

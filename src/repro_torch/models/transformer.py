@@ -1,17 +1,21 @@
-"""Decoder-only dense transformer LM — port of the dense path of
-``repro/models/transformer.py`` as an ``nn.Module``: the plain stack
-(paper-350m, qwen3, minitron, starcoder2) and gemma2's alternating
-local / global layers, with qk-norm, post-norms, logit softcaps and the
-sqrt(d) embedding scale where the config asks for them.
+"""Decoder-only transformer LMs — port of ``repro/models/transformer.py``
+as ``nn.Module``s: the dense stack (paper-350m, qwen3, minitron,
+starcoder2) and gemma2's alternating local / global layers, with
+qk-norm, post-norms, logit softcaps and the sqrt(d) embedding scale where
+the config asks for them; and :class:`MoETransformer` (qwen3-moe,
+dbrx), the same stack with each layer's FFN a capacity-dispatch
+mixture of experts (``models/moe.py``).
 
 The parameters keep the reference's tree and stacked layout: layers are
 grouped into repeating *groups* — ``"global"``: one slot x L groups,
 ``"local_global"``: (local, global) x L/2 — and each slot's weights carry
 a leading ``(n_groups, ...)`` axis, beside the embedding and the final
 norm, so the sorted-key leaf order (and hence the sync groups and plans)
-match the reference.  Compute is bf16 on f32 master weights (or bf16
-weights, for serving); each layer is recomputed in the backward pass when
-the run asks for remat ("minimal" or "full": ``torch.utils.checkpoint``).
+match the reference.  The FFN's leaves, init and apply are the
+reference's hooks (``_ffn_shapes`` / ``_ffn_init`` / ``_ffn_apply``).
+Compute is bf16 on f32 master weights (or bf16 weights, for serving);
+each layer is recomputed in the backward pass when the run asks for
+remat ("minimal" or "full": ``torch.utils.checkpoint``).
 
 Serving: :meth:`DenseTransformer.prefill` fills ring KV caches
 (:meth:`~DenseTransformer.init_cache`: one ``(n_groups, B, S, KV, Dh)``
@@ -32,6 +36,7 @@ from repro_torch import resolve_device
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -40,10 +45,10 @@ _GROUP_KINDS = {"global": ("global",), "local_global": ("local", "global")}
 
 class _Slot(nn.Module):
     """One stacked layer slot: attention (with qk-norm weights where the
-    config asks) and MLP weights plus the pre-norms (and gemma2's
-    post-norms), each with a leading (n_groups, ...) axis."""
+    config asks) and FFN weights (``ffn_shapes``) plus the pre-norms (and
+    gemma2's post-norms), each with a leading (n_groups, ...) axis."""
 
-    def __init__(self, cfg: ModelConfig, n: int, device):
+    def __init__(self, cfg: ModelConfig, n: int, device, ffn_shapes: dict):
         super().__init__()
 
         def par(shape):
@@ -53,7 +58,7 @@ class _Slot(nn.Module):
         self.attn = nn.ParameterDict(
             {k: par(s) for k, s in L.attn_shapes(cfg, n).items()})
         self.ffn = nn.ParameterDict(
-            {k: par(s) for k, s in L.mlp_shapes(cfg, n).items()})
+            {k: par(s) for k, s in ffn_shapes.items()})
         norms = ("ln1", "ln2") + (("ln1_post", "ln2_post")
                                   if cfg.post_norms else ())
         self.norms = tuple(norms)
@@ -66,18 +71,30 @@ class _Slot(nn.Module):
         return out
 
 
+def _draw(p: torch.Tensor, generator: torch.Generator, std: float):
+    """Fill the stacked leaf ``p`` (n_groups, ...) with N(0, std^2) one
+    slice of its leading axis at a time, each drawn in f32 and copied in
+    in ``p``'s dtype: no f32 temporary is larger than one slice."""
+    for s in p:
+        s.copy_(L.init_normal(generator, s.shape, std, p.device))
+
+
 class DenseTransformer(nn.Module):
     """Dense decoder-only LM (the "global" and "local_global" layer
-    patterns)."""
+    patterns).  Also the base of the MoE variant."""
+
+    #: the config family this class builds
+    family = "dense"
 
     def __init__(self, cfg: ModelConfig, run: Optional[RunConfig] = None,
                  device="cuda"):
         super().__init__()
-        if (cfg.family != "dense" or cfg.layer_pattern not in _GROUP_KINDS
+        if (cfg.family != self.family
+                or cfg.layer_pattern not in _GROUP_KINDS
                 or cfg.frontend or not cfg.tie_embeddings):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense transformer without a "
-                f"modality frontend, with tied embeddings, is ported")
+                f"{cfg.name}: only the dense and MoE transformers without "
+                f"a modality frontend, with tied embeddings, are ported")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.run = run
@@ -90,7 +107,8 @@ class DenseTransformer(nn.Module):
         self.q_chunk = run.q_chunk if run else 2048
         self.kv_chunk = run.kv_chunk if run else 1024
         self.blocks = nn.ModuleDict(
-            {f"slot{i}": _Slot(cfg, self.n_groups, self.device)
+            {f"slot{i}": _Slot(cfg, self.n_groups, self.device,
+                               self._ffn_shapes(self.n_groups))
              for i in range(len(self.group_kinds))})
         self.embed = nn.Parameter(torch.zeros(
             (cfg.padded_vocab, cfg.d_model), dtype=torch.float32,
@@ -98,20 +116,32 @@ class DenseTransformer(nn.Module):
         self.final_norm = nn.Parameter(torch.zeros(
             (cfg.d_model,), dtype=torch.float32, device=self.device))
 
+    # ---------------- FFN hooks ----------------
+    def _ffn_shapes(self, n: int) -> dict:
+        return L.mlp_shapes(self.cfg, n)
+
+    def _ffn_init(self, ffn: nn.ParameterDict,
+                  generator: torch.Generator) -> None:
+        for p in ffn.values():
+            _draw(p, generator, p.shape[-2] ** -0.5)
+
+    def _ffn_apply(self, p: dict, x: torch.Tensor) -> torch.Tensor:
+        return L.mlp_apply(p, x)
+
     # ---------------- params ----------------
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
         """Random init with the reference's distributions (its RNG stream
         differs: parity runs load the reference's weights instead).  Each
-        leaf is drawn in f32 and copied into its Parameter, in the
-        Parameter's dtype."""
+        stacked leaf is drawn slice by slice along its leading axis, in
+        f32, and copied into its Parameter in the Parameter's dtype."""
         for slot in self.blocks.values():
-            for k, p in list(slot.attn.items()) + list(slot.ffn.items()):
+            for k, p in slot.attn.items():
                 if k.startswith("w"):
-                    p.copy_(L.init_normal(generator, p.shape,
-                                          p.shape[-2] ** -0.5, self.device))
+                    _draw(p, generator, p.shape[-2] ** -0.5)
                 else:
                     p.zero_()
+            self._ffn_init(slot.ffn, generator)
             for k in slot.norms:
                 getattr(slot, k).zero_()
         self.embed.copy_(L.init_normal(generator, self.embed.shape, 0.02,
@@ -158,7 +188,7 @@ class DenseTransformer(nn.Module):
         if cfg.post_norms:
             h = L.rms_norm(h, p["ln1_post"], cfg.rms_eps)
         x = x + h
-        h = L.mlp_apply(p["ffn"], L.rms_norm(x, p["ln2"], cfg.rms_eps))
+        h = self._ffn_apply(p["ffn"], L.rms_norm(x, p["ln2"], cfg.rms_eps))
         if cfg.post_norms:
             h = L.rms_norm(h, p["ln2_post"], cfg.rms_eps)
         return x + h
@@ -230,3 +260,23 @@ class DenseTransformer(nn.Module):
         positions = torch.full((x.shape[0], 1), t, device=x.device)
         x = self._backbone(x, positions, caches=caches, cache_len=t)
         return self.logits(x), caches
+
+
+class MoETransformer(DenseTransformer):
+    """The dense transformer with each layer's FFN a capacity-dispatch
+    mixture of experts (``models/moe.py``): the slot's ``ffn`` holds the
+    ``router`` (n, D, E) and the expert stacks ``w_gate`` / ``w_up``
+    (n, E, D, Fe) and ``w_down`` (n, E, Fe, D)."""
+
+    family = "moe"
+
+    def _ffn_shapes(self, n: int) -> dict:
+        return moe.moe_shapes(self.cfg, n)
+
+    def _ffn_init(self, ffn: nn.ParameterDict,
+                  generator: torch.Generator) -> None:
+        for k, p in ffn.items():
+            _draw(p, generator, moe.init_std(k, p.shape))
+
+    def _ffn_apply(self, p: dict, x: torch.Tensor) -> torch.Tensor:
+        return moe.moe_apply(p, x, self.cfg)

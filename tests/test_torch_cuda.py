@@ -1,7 +1,7 @@
 """Tests of the port that need the card: each Hopper kernel against its
 plain PyTorch version on CUDA tensors, bit for bit, the wrappers'
-launch counting, and serving on the card against the CPU (and the ring
-cache written in place).  They skip without a CUDA device; on the card
+launch counting, and serving on the card against the CPU (the dense
+SMOKE configs, the MoE FFN, and the ring cache written in place).  They skip without a CUDA device; on the card
 run
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
@@ -411,6 +411,44 @@ def test_serving_on_card_matches_cpu(dev, arch):
                     1e-4 * float(b.abs().max())
         else:
             a, b = lc[0], lh[0]
+            assert float((a - b).norm() / b.norm()) < 3e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "dbrx-132b"])
+def test_moe_apply_on_card_matches_cpu(dev, arch, dtype):
+    """The MoE FFN on the card and on the CPU from the same inputs, at
+    capacity factors 1.25 and 0.5: the dispatch (experts, rows, drops)
+    equal; the output in f32 within 1e-4 relative, in bf16 within 3e-2
+    relative norm."""
+    import dataclasses
+    from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    r = np.random.RandomState(0)
+    for cf in (1.25, 0.5):
+        cfg = dataclasses.replace(SMOKE_ARCHS[arch], capacity_factor=cf)
+        D, E, Fe = cfg.d_model, cfg.n_experts, cfg.d_ff
+        p = {"router": r.randn(D, E) * 0.02,
+             "w_gate": r.randn(E, D, Fe) / np.sqrt(D),
+             "w_up": r.randn(E, D, Fe) / np.sqrt(D),
+             "w_down": r.randn(E, Fe, D) / np.sqrt(Fe)}
+        host = {k: torch.from_numpy(v.astype(np.float32)).to(wdt)
+                for k, v in p.items()}
+        card = {k: v.to(dev) for k, v in host.items()}
+        x = torch.from_numpy(r.randn(4, 48, D).astype(np.float32)).to(wdt)
+        xf = x.reshape(-1, D)
+        C = moe.capacity(xf.shape[0], cfg)
+        logits = xf.float() @ host["router"].float()
+        _, e_h, p_h, _ = moe.dispatch(xf, logits, cfg, C)
+        _, e_c, p_c, _ = moe.dispatch(xf.to(dev), logits.to(dev), cfg, C)
+        assert torch.equal(e_c.cpu(), e_h) and torch.equal(p_c.cpu(), p_h)
+        a = moe.moe_apply(card, x.to(dev), cfg).float().cpu()
+        b = moe.moe_apply(host, x, cfg).float()
+        if dtype == "float32":
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+        else:
             assert float((a - b).norm() / b.norm()) < 3e-2
 
 

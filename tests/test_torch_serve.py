@@ -1,6 +1,7 @@
 """Parity of the port's serving path with the JAX reference on the CPU:
-``prefill`` / ``decode_step`` on the five dense SMOKE configs, the ports
-of the reference's own decode tests, ``Server.serve`` and the serve CLI.
+``prefill`` / ``decode_step`` on the five dense and the two MoE SMOKE
+configs, the ports of the reference's own decode tests, ``Server.serve``
+and the serve CLI.
 
 * The reference's ``test_decode_matches_forward_dense`` (teacher-forced
   decode against one full forward, rtol = atol = 0.15 as there) and
@@ -12,7 +13,13 @@ of the reference's own decode tests, ``Server.serve`` and the serve CLI.
   40-token prompt, caches of 48): the logits of every step and the
   caches against the reference's — f32 within ``F32_RTOL`` = 1e-4
   relative (see tests/test_torch_models.py), bf16 within ``BF16_REL``
-  = 3e-2 in relative norm.
+  = 3e-2 in relative norm.  A MoE config in bf16 is routed as the
+  reference routed (``force_reference_routing`` of
+  tests/test_torch_models.py: every choice it overrides a near-tie).
+* MoE: teacher-forced decode against one forward (rtol = atol = 0.15)
+  at the capacity factor E / K, under which no pair drops on either
+  side (prefill, decode and the forward see other token counts, hence
+  other capacities).
 * ``Server.serve``: 8 requests of mixed prompt lengths (12-40 tokens)
   and token budgets in server batches of 4, so both chunks are
   left-padded, against the reference ``Server`` on the same weights
@@ -26,6 +33,9 @@ of the reference's own decode tests, ``Server.serve`` and the serve CLI.
 * The CLI prints the reference's JSON keys; a prompt length the
   reference refuses is refused; without a card, serving raises unless
   the CPU is asked for.
+* ``init_model`` draws each stacked leaf one slice of its leading axis
+  at a time (no f32 draw larger than one slice), the router with std
+  0.02.
 """
 import dataclasses
 import json
@@ -47,8 +57,9 @@ from repro.models.registry import build_model as jbuild
 from repro_torch.configs import SMOKE_ARCHS
 from repro_torch.launch import serve as tserve
 from repro_torch.models.registry import build_model as tbuild
-from test_torch_models import (BF16_REL, DENSE, F32_RTOL, close_f32,
-                               models, rel_err, _np)
+from test_torch_models import (BF16_REL, DENSE, F32_RTOL, MOE, close_f32,
+                               force_reference_routing, models, rel_err,
+                               _np)
 
 ROOT = Path(__file__).resolve().parents[1]
 #: the reference test's teacher-forced tolerance
@@ -90,6 +101,28 @@ def test_decode_matches_forward_dense():
                                    rtol=TF_TOL, atol=TF_TOL)
 
 
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_decode_matches_forward_without_drops(arch):
+    """Teacher-forced decode reproduces the forward logits (MoE smoke) at
+    the capacity factor E / K: C >= T at every step, so no pair drops in
+    prefill (T = 16), decode (T = 1) or the forward (T = 32)."""
+    jm, params, tm = models(arch)
+    cfg = tm.cfg
+    tm.cfg = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    toks = np.asarray(jax.random.randint(jax.random.PRNGKey(5), (1, 32), 0,
+                                         256))
+    full = _np(_full_logits(tm, toks))
+    logits, cache = tm.prefill(torch.from_numpy(toks[:, :16]), cache_len=32)
+    np.testing.assert_allclose(_np(logits[0, -1]), full[0, 15], rtol=TF_TOL,
+                               atol=TF_TOL)
+    for t in range(16, 32):
+        logits, cache = tm.decode_step(cache, t,
+                                       torch.from_numpy(toks[:, t:t + 1]))
+        np.testing.assert_allclose(_np(logits[0, 0]), full[0, t],
+                                   rtol=TF_TOL, atol=TF_TOL)
+
+
 def test_sliding_window_ring_cache_consistency():
     """gemma2 smoke (window 32): decode beyond the window allocation stays
     finite and teacher-forced matches the forward and the reference's
@@ -115,23 +148,25 @@ def test_sliding_window_ring_cache_consistency():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
-def test_prefill_decode_match_reference(arch, dtype):
+@pytest.mark.parametrize("arch", DENSE + MOE)
+def test_prefill_decode_match_reference(arch, dtype, monkeypatch):
     jm, params, tm = models(arch, dtype)
     r = np.random.RandomState(11)
     toks = r.randint(0, SMOKE_ARCHS[arch].vocab_size,
                      size=(2, 48)).astype(np.int32)
-    logits, cache = tm.prefill(torch.from_numpy(toks[:, :40]), cache_len=48)
-    jlogits, jcache = jm.prefill(params, {"tokens": jnp.asarray(
-        toks[:, :40])}, cache_len=48)
-    assert logits.shape == tuple(jlogits.shape)
-    _check(logits, jlogits, dtype)
-    for t in range(40, 48):
-        logits, cache = tm.decode_step(cache, t,
-                                       torch.from_numpy(toks[:, t:t + 1]))
-        jlogits, jcache = jm.decode_step(params, jcache, jnp.int32(t),
-                                         jnp.asarray(toks[:, t:t + 1]))
+    with force_reference_routing(arch, dtype, monkeypatch):
+        jlogits, jcache = jm.prefill(params, {"tokens": jnp.asarray(
+            toks[:, :40])}, cache_len=48)
+        logits, cache = tm.prefill(torch.from_numpy(toks[:, :40]),
+                                   cache_len=48)
+        assert logits.shape == tuple(jlogits.shape)
         _check(logits, jlogits, dtype)
+        for t in range(40, 48):
+            jlogits, jcache = jm.decode_step(params, jcache, jnp.int32(t),
+                                             jnp.asarray(toks[:, t:t + 1]))
+            logits, cache = tm.decode_step(
+                cache, t, torch.from_numpy(toks[:, t:t + 1]))
+            _check(logits, jlogits, dtype)
     for slot, kv in jcache.items():
         for name, want in kv.items():
             got = cache[slot][name]
@@ -151,8 +186,8 @@ def _requests(mod, vocab):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
-def test_server_tokens_match_reference(arch, dtype):
+@pytest.mark.parametrize("arch", DENSE + MOE)
+def test_server_tokens_match_reference(arch, dtype, monkeypatch):
     jm, params, tm = models(arch, None if dtype == "bfloat16" else dtype)
     if dtype == "bfloat16":
         # the reference's main casts the weights once
@@ -162,45 +197,55 @@ def test_server_tokens_match_reference(arch, dtype):
     V = tm.cfg.vocab_size
     want = jserve.Server(jm, cache_len, 4).serve(
         params, _requests(jserve, V))
-    chunks = []       # per server batch: (prefill's args, decode's args)
 
-    def watched(fn, prefill):
-        def f(*a):
-            if prefill:
-                chunks.append((a, []))
-            else:
-                chunks[-1][1].append(a)
-            return fn(*a)
-        return f
-
-    tm.prefill = watched(tm.prefill, True)
-    tm.decode_step = watched(tm.decode_step, False)
-    got = tserve.Server(tm, cache_len, 4).serve(_requests(tserve, V))
-    assert [len(r.out_tokens) for r in got] == [m for _, m in REQS]
-    assert all(r.t_done >= r.t_submit > 0 for r in got)
-
-    # the reference teacher-forced along the port's tokens: each token the
-    # port chose is the reference's argmax (bf16: within TIE_ULPS of it)
+    # the reference teacher-forced along the port's tokens, one call
+    # ahead of the port's (a MoE port in bf16 routes as it did): each
+    # token the port chose is the reference's argmax (bf16: within
+    # TIE_ULPS of it)
     jpre = jax.jit(jm.prefill, static_argnums=2)
     jdec = jax.jit(jm.decode_step)
     margins, ties = [], set()
-    for c, ((toks, clen), steps) in enumerate(chunks):
-        logits, cache = jpre(params, {"tokens": jnp.asarray(toks.numpy())},
-                             clen)
-        for step, (_, t, fed) in enumerate(steps):
-            ref = np.asarray(logits[:, -1, :V], np.float64)
-            for j, rid in enumerate(range(4 * c, 4 * c + 4)):
-                if step >= REQS[rid][1]:
-                    continue
-                row, srt = ref[j], np.sort(ref[j])
-                tie = (TIE_ULPS * bf16_ulp(srt[-1])
-                       if dtype == "bfloat16" else 0.0)
-                assert row[int(fed[j, 0])] >= srt[-1] - tie, (rid, step)
-                margins.append(srt[-1] - srt[-2])
-                if margins[-1] <= tie:
-                    ties.add(rid)
-            logits, cache = jdec(params, cache, jnp.int32(t),
-                                 jnp.asarray(fed.numpy(), jnp.int32))
+    ref = {"chunk": -1}
+
+    def check(fed):
+        c, step = ref["chunk"], ref["step"]
+        logits = np.asarray(ref["logits"][:, -1, :V], np.float64)
+        for j, rid in enumerate(range(4 * c, 4 * c + 4)):
+            if step >= REQS[rid][1]:
+                continue
+            row, srt = logits[j], np.sort(logits[j])
+            tie = (TIE_ULPS * bf16_ulp(srt[-1])
+                   if dtype == "bfloat16" else 0.0)
+            assert row[int(fed[j, 0])] >= srt[-1] - tie, (rid, step)
+            margins.append(srt[-1] - srt[-2])
+            if margins[-1] <= tie:
+                ties.add(rid)
+
+    def lockstep(fn, prefill):
+        def f(*a):
+            if prefill:
+                toks, clen = a
+                ref["chunk"] += 1
+                ref["step"] = 0
+                ref["logits"], ref["cache"] = jpre(
+                    params, {"tokens": jnp.asarray(toks.numpy())}, clen)
+            else:
+                _, t, fed = a
+                check(fed)
+                ref["logits"], ref["cache"] = jdec(
+                    params, ref["cache"], jnp.int32(t),
+                    jnp.asarray(fed.numpy(), jnp.int32))
+                ref["step"] += 1
+            return fn(*a)
+        return f
+
+    with force_reference_routing(arch, dtype, monkeypatch):
+        tm.prefill = lockstep(tm.prefill, True)
+        tm.decode_step = lockstep(tm.decode_step, False)
+        got = tserve.Server(tm, cache_len, 4).serve(_requests(tserve, V))
+    assert [len(r.out_tokens) for r in got] == [m for _, m in REQS]
+    assert all(r.t_done >= r.t_submit > 0 for r in got)
+    assert ref["chunk"] == 1
     print(f"{arch} {dtype}: smallest top-2 margin of the reference's "
           f"logits along the port's tokens {min(margins):.4g}; requests "
           f"through a bf16 tie {sorted(ties)}")
@@ -249,6 +294,31 @@ def test_init_model_casts_leaf_by_leaf():
     assert float(model.blocks["slot0"].ln1_post.abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_cli_serves_on_cpu_and_defaults_to_cuda(arch):
+    """The serve CLI takes the MoE archs: on the CPU when asked (the
+    reference's JSON keys), and on the card by default, raising without
+    one, as ``init_model`` does."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+           "--arch", arch, "--requests", "2", "--prompt-len", "24",
+           "--new-tokens", "3"]
+    out = subprocess.run(cmd + ["--device", "cpu"], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(res) == {"requests", "tokens", "wall_s", "tok_per_s"}
+    assert res["requests"] == 2 and res["tokens"] == 6
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tserve.init_model(SMOKE_ARCHS[arch])
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode != 0 and "CUDA" in out.stderr
+    assert '"tokens"' not in out.stdout
+
+
 def test_serving_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -261,3 +331,38 @@ def test_serving_defaults_to_cuda():
         timeout=300)
     assert out.returncode != 0 and "CUDA" in out.stderr
     assert '"tokens"' not in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b"] + MOE)
+def test_init_model_draws_slice_by_slice(arch, monkeypatch):
+    """Every f32 draw of ``init_model`` is one slice of a stacked leaf
+    (or the embedding, which is not stacked); each stacked leaf's slices
+    come from ``n_groups`` draws; the router's std is 0.02 and the expert
+    weights' 1 / sqrt(shape[-2])."""
+    from repro_torch.models import layers as L
+    draws = []
+    real = L.init_normal
+
+    def counted(gen, shape, std, device):
+        draws.append(tuple(shape))
+        return real(gen, shape, std, device)
+
+    monkeypatch.setattr(L, "init_normal", counted)
+    # 4 layers: at least two slices in every stack (gemma2: 2 groups)
+    cfg = dataclasses.replace(SMOKE_ARCHS[arch], n_layers=4)
+    model = tserve.init_model(cfg, device="cpu", seed=0)
+    embed = tuple(model.embed.shape)
+    want = [tuple(p.shape[1:]) for slot in model.blocks.values()
+            for k, p in list(slot.attn.items()) + list(slot.ffn.items())
+            for _ in range(p.shape[0]) if k.startswith("w") or k == "router"]
+    assert sorted(draws) == sorted(want + [embed])
+    assert model.n_groups >= 2
+    if arch in MOE:
+        ffn = model.blocks["slot0"].ffn
+        r = ffn["router"].detach().float()
+        assert abs(float(r.std()) - 0.02) < 0.1 * 0.02
+        assert float(r.abs().max()) > 0
+        for k in ("w_gate", "w_up", "w_down"):
+            w = ffn[k].detach().float()
+            std = w.shape[-2] ** -0.5
+            assert abs(float(w.std()) - std) < 0.1 * std, k

@@ -207,3 +207,18 @@ def test_every_strategy_trains_on_cpu(tmp_path, strategy):
         ckpt_dir=str(tmp_path))
     sess.run(4, log_every=0)
     assert len(sess.losses) == 4 and all(np.isfinite(sess.losses))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "dbrx-132b"])
+def test_training_refuses_the_moe_family(arch, tmp_path):
+    """Training a MoE config is not ported yet (only serving is): the
+    Trainer refuses it loudly, through ``TrainSession`` too."""
+    cfg = SMOKE_ARCHS[arch]
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", SEQ, BATCH, "train"),
+                    ckpt_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="MoE"):
+        TTrainer(tbuild(cfg, run, device="cpu"), run)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        TrainSession.from_config(arch, smoke=True, steps=2, device="cpu",
+                                 seq_len=SEQ, batch=BATCH,
+                                 ckpt_dir=str(tmp_path))
