@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
 NVIDIA GPU: the quickest proof that the port builds, is right, trains
-and serves.
+(paper-350m and the model zoo) and serves.
 
     python3 chip_smoke.py
 
@@ -16,8 +16,12 @@ Phases (any failure exits nonzero before the result lines):
    paper-350m (NB = 443,697 rows of 1024 f32), the top-k kernel at every
    k the ladder's top-k rungs use; time kernel and plain version on that
    perm with CUDA events;
-4. agreement on a small input: one smoke-model ``grad_sync`` step on the
-   card (kernels) and on the CPU (plain versions) from the same weights;
+4. agreement on a small input: one SMOKE-model ``grad_sync`` step under
+   a plan with a group on every rung on the card (kernels) and on the
+   CPU (plain versions) from the same weights and batch, for paper-350m
+   (bf16), qwen3-moe-30b-a3b and gemma2-9b (f32): the losses within 2e-2
+   relative, the updated weights within 1e-3, and for the MoE the top-k
+   sets of every dispatch (forward and the backward's recompute) equal;
 5. the main path: paper-350m at full width (24 layers, d 1024, vocab
    50,304, seq 1024, batch 8) under ``acesync`` with ``replan_every=4``
    through ``TrainSession`` for 8 steps (two ``delta_sync`` rounds, one
@@ -159,13 +163,36 @@ Phases (any failure exits nonzero before the result lines):
    reads) and routed (the weights that are not experts, the experts
    routed to, the caches) at 3.35 TB/s.
 
+12. training the zoo, one process per model: qwen3-moe-30b-a3b,
+   gemma2-9b and qwen3-8b at their full published widths, cut in depth
+   (``TRAIN_ZOO``) to what the card holds with 8 GiB to spare at the
+   train step's measured bytes per parameter (``ZOO_BYTES_PER_PARAM``,
+   from ``python -m repro_torch.launch.memory``; reckoned before
+   anything is built, and a depth that does not fit fails), seeded
+   weights, seq 1024, batch 8, each through ``TrainSession`` under
+   ``acesync`` with ``replan_every=4`` for 8 steps (two ``delta_sync``
+   rounds, one device replan), then one ``grad_sync`` with a group on
+   every rung; then qwen3-moe at its depth twice more under
+   ``RunConfig.deterministic`` (a process of its own), 3 steps ending in
+   a ``delta_sync``.  Gates: (1) every loss finite; (2) K1-K4 launched on
+   every model's path; (3) the two deterministic runs' parameter hashes
+   equal; (5) the peak allocated memory leaves 8 GiB free (gate 4 is
+   phase 4's).  Prints per model the layers, parameters (total and
+   active), train-state bytes, init seconds, ms per step kind (CUDA
+   events: median of the steady steps, min and max), tokens/s and MFU
+   at 6 * N_active * tokens of 989 TFLOP/s (MoE: also the executed
+   capacity FLOPs, 3x the forward's every expert at C, and the share of
+   (token, k) pairs one untimed training forward drops), K1-K4's
+   launches and peak memory allocated and reserved.
+
 Output: progress lines with each phase's seconds, the pod link's latency
 and rate, then the ``nvidia-smi`` line, the kernels' JSON line (each
 kernel's launches in total and per main path: ``one_pod`` (phase 5),
 ``p2`` and ``p3`` (phase 7, all pods), ``hier`` (phase 8, all
-members), ``restart`` (phase 9a, its three runs) and ``elastic`` (phase
-9b, all pods), each counted from 0 just before its run; phases 10 and
-11 launch none; K16's ``library_ms``
+members), ``restart`` (phase 9a, its three runs), ``elastic`` (phase
+9b, all pods), ``zoo_<arch>`` (phase 12, each model's process) and
+``zoo_determinism`` (phase 12, both runs), each counted from 0 just
+before its run; phases 10 and 11 launch none; K16's ``library_ms``
 is ``torch.mul(q, s)``'s time; ``paths`` gives each path's pods, members
 per cluster and depth; ``link`` the measured link), and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -647,41 +674,77 @@ def dequant_library(torch, ops, ref, g, e):
     return ms, int(den.sum())
 
 
+#: phase 4's SMOKE configs and their compute dtype (None: the config's,
+#: bf16): paper-350m, and the MoE family and gemma2's local / global
+#: layers in f32, where the card and the CPU route every token alike
+SMALL_AGREEMENT = (("paper-350m", None), ("qwen3-moe-30b-a3b", "float32"),
+                   ("gemma2-9b", "float32"))
+
+
 def small_agreement(torch):
-    """Phase 4: one smoke-model grad_sync step on the card and on the CPU
-    from the same state and batch; the losses and updated weights must
-    agree (the CPU runs the plain versions, the card the kernels)."""
+    """Phase 4: one SMOKE-model grad_sync step on the card and on the CPU
+    from the same state and batch, for each of ``SMALL_AGREEMENT``; the
+    losses and updated weights must agree (the CPU runs the plain
+    versions, the card the kernels), and a MoE model's top-k sets in
+    every dispatch (the forward's and the backward's recompute) must be
+    the same on both."""
     from repro_torch import convert
     from repro_torch import tree as T
     from repro_torch.configs import SMOKE_ARCHS
     from repro_torch.configs.base import RunConfig, ShapeConfig
     from repro_torch.core.trainer import Trainer
     from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import moe
     from repro_torch.models.registry import build_model
 
-    run = RunConfig(model=SMOKE_ARCHS["paper-350m"],
-                    shape=ShapeConfig("s", 64, 2, "train"), lr=1e-2,
-                    warmup_steps=1)
-    card = Trainer(build_model(run.model, run, device="cuda"), run)
-    host = Trainer(build_model(run.model, run, device="cpu"), run)
-    states = [card.init_state(0)]
-    states.append(convert.move_state(states[0], host))
-    outs = []
-    for tr, state in zip((card, host), states):
-        batch = next(TokenPipeline(tr.model, run.shape, seed=1))
-        plan = tr.scheduler.plan_from_levels(
-            [i % 8 for i in range(len(tr.sizes))], (1.0,))
-        state, m = tr.step(state, batch, plan, "grad_sync")
-        outs.append((float(m["loss"]),
-                     [p.detach().cpu() for p in T.leaves(state["params"])]))
-    (lc, pc), (lh, ph) = outs
-    if not (math.isfinite(lc) and abs(lc - lh) <= 2e-2 * abs(lh)):
-        fail(f"small-input loss: card {lc} vs cpu {lh}")
-    worst = max(float((a - b).abs().max()) for a, b in zip(pc, ph))
-    if worst > 1e-3:
-        fail(f"small-input updated weights differ by {worst}")
-    log(f"phase 4: smoke grad_sync step card loss {lc:.6f} vs cpu "
-        f"{lh:.6f}; max weight difference {worst:.3g}")
+    for arch, dtype in SMALL_AGREEMENT:
+        cfg = SMOKE_ARCHS[arch]
+        if dtype:
+            cfg = dataclasses.replace(cfg, dtype=dtype)
+        run = RunConfig(model=cfg, shape=ShapeConfig("s", 64, 2, "train"),
+                        lr=1e-2, warmup_steps=1)
+        card = Trainer(build_model(run.model, run, device="cuda"), run)
+        host = Trainer(build_model(run.model, run, device="cpu"), run)
+        states = [card.init_state(0)]
+        states.append(convert.move_state(states[0], host))
+        outs, routes = [], []
+        for tr, state in zip((card, host), states):
+            batch = next(TokenPipeline(tr.model, run.shape, seed=1))
+            plan = tr.scheduler.plan_from_levels(
+                [i % 8 for i in range(len(tr.sizes))], (1.0,))
+            calls = []
+            real, recorded = recording_dispatch(moe, calls)
+            moe.dispatch = recorded
+            try:
+                state, m = tr.step(state, batch, plan, "grad_sync")
+            finally:
+                moe.dispatch = real
+            routes.append([c[1].sort(-1).values.cpu() for c in calls])
+            outs.append((float(m["loss"]),
+                         [p.detach().cpu() for p in
+                          T.leaves(state["params"])]))
+        (lc, pc), (lh, ph) = outs
+        tag = f"phase 4: {arch} ({cfg.dtype})"
+        if not (math.isfinite(lc) and abs(lc - lh) <= 2e-2 * abs(lh)):
+            fail(f"{tag}: small-input loss: card {lc} vs cpu {lh}")
+        worst = max(float((a - b).abs().max()) for a, b in zip(pc, ph))
+        if worst > 1e-3:
+            fail(f"{tag}: small-input updated weights differ by {worst}")
+        rc, rh = routes
+        if cfg.family == "moe":
+            # the forward's dispatches and the backward's recompute
+            if len(rc) != 2 * cfg.n_layers or len(rh) != len(rc):
+                fail(f"{tag}: {len(rc)} / {len(rh)} dispatches recorded, "
+                     f"not 2 x {cfg.n_layers}")
+            parted = sum(int((a != b).any(-1).sum())
+                         for a, b in zip(rc, rh))
+            if parted:
+                fail(f"{tag}: the card's top-k sets differ from the CPU's "
+                     f"on {parted} (token, dispatch) rows")
+        log(f"{tag}: grad_sync step card loss {lc:.6f} vs cpu {lh:.6f}; "
+            f"max weight difference {worst:.3g}"
+            + (f"; top-k sets equal in all {len(rc)} dispatches"
+               if rc else ""))
 
 
 def main_path(torch, ops) -> dict:
@@ -2534,6 +2597,276 @@ def serve_moe_phase(torch, card) -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training the zoo
+# ---------------------------------------------------------------------------
+
+#: phase 12's models at full published width, cut in depth to the most
+#: layers one card holds: the step's peak at ``ZOO_BYTES_PER_PARAM``
+#: bytes per parameter must leave ``ZOO_FREE_GIB`` of the card free
+#: (reckoned by ``zoo_reckoning`` before anything is built; a depth that
+#: does not fit fails, with no retry at a smaller one): qwen3-moe 2 of 48
+#: layers (3 would need 97.5 GiB of the card's 79.18), gemma2-9b 2 of 42
+#: (one local / global pair; 4 would need 76.5), qwen3-8b 5 of 36 (6
+#: would need 79.6)
+TRAIN_ZOO = {"qwen3-moe-30b-a3b": {"n_layers": 2, "batch": 8},
+             "gemma2-9b": {"n_layers": 2, "batch": 8},
+             "qwen3-8b": {"n_layers": 5, "batch": 8}}
+#: the largest peak of a train step kind at full width, bytes per
+#: parameter, that ``python -m repro_torch.launch.memory`` measured at
+#: these depths, batch 8 x 1024, on an H100 (gemma2-9b's ``local`` step:
+#: 47.23), rounded up
+ZOO_BYTES_PER_PARAM = 48.0
+ZOO_FREE_GIB = 8.0
+ZOO_SEQ = 1024
+ZOO_STEPS = 8
+#: the determinism runs: qwen3-moe at its phase-12 depth, twice, under
+#: ``RunConfig.deterministic``, ``steps`` steps with the sync interval H
+#: set so that the last is a delta_sync
+ZOO_DET = {"arch": "qwen3-moe-30b-a3b", "steps": 3, "H": 3}
+
+
+def zoo_config(arch, spec):
+    """(the config at phase 12's depth, its parameter count)."""
+    from repro_torch.configs import ARCHS
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=spec["n_layers"])
+    return cfg, cfg.param_count()
+
+
+def zoo_reckoning(card_bytes):
+    """Gate 5, before anything is built: each model's reckoned peak (its
+    parameters x ``ZOO_BYTES_PER_PARAM``) must leave ``ZOO_FREE_GIB`` of
+    the card free."""
+    for arch, spec in TRAIN_ZOO.items():
+        cfg, n = zoo_config(arch, spec)
+        peak = n * ZOO_BYTES_PER_PARAM
+        free = (card_bytes - peak) / 2**30
+        log(f"phase 12: {arch} at {cfg.n_layers} of its layers: {n:,} "
+            f"parameters x {ZOO_BYTES_PER_PARAM} B = {peak / 2**30:.2f} GiB "
+            f"reckoned peak, {free:.2f} GiB of {card_bytes / 2**30:.2f} "
+            f"free")
+        if free < ZOO_FREE_GIB:
+            fail(f"phase 12: {arch} at {cfg.n_layers} layers does not fit "
+                 f"the card with {ZOO_FREE_GIB} GiB to spare")
+
+
+def zoo_session(torch, arch, spec, deterministic=False, H=None):
+    """A TrainSession of ``arch`` at phase 12's depth and batch, built as
+    phase 9b builds its reduced-depth sessions, under ``acesync`` with
+    ``replan_every=4``."""
+    from repro_torch.configs.base import (ACESyncConfig, RunConfig,
+                                          ShapeConfig)
+    from repro_torch.launch.session import TrainSession, apply_determinism
+    from repro_torch.models.registry import build_model
+    cfg, _ = zoo_config(arch, spec)
+    ace = ACESyncConfig(replan_every=4)
+    if H:
+        ace = dataclasses.replace(ace, sync_interval_init=H)
+    run = RunConfig(model=cfg, shape=ShapeConfig("session", ZOO_SEQ,
+                                                 spec["batch"], "train"),
+                    total_steps=100, warmup_steps=2, ckpt_dir=spec["dir"],
+                    ckpt_every=0, deterministic=deterministic, acesync=ace)
+    apply_determinism(run)
+    return TrainSession(build_model(cfg, run, device="cuda"), run,
+                        strategy="acesync")
+
+
+def zoo_train_path(group, spec):
+    """Phase 12, one model in a process of its own: ``spec["arch"]`` at
+    full width and phase 12's depth through TrainSession for
+    ``ZOO_STEPS`` steps (two delta_sync rounds, one device replan), then
+    one grad_sync under a plan with a group on every rung; each step on
+    CUDA events, the kernels' launch counts from 0 just before the run,
+    then one untimed training forward with its dispatches recorded (MoE:
+    the share of (token, k) pairs it drops)."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.memory import state_bytes
+    from repro_torch.models import flops, moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch = spec["arch"]
+    t0 = time.perf_counter()
+    sess = zoo_session(torch, arch, spec)
+    sess.init()
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "state_bytes": state_bytes(sess.state)}
+    cfg = sess.model.cfg
+    tr = sess.trainer
+    times, step = [], tr.step
+
+    def timed(state, batch, plan, kind="grad_sync"):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = step(state, batch, plan, kind)
+        e1.record()
+        times.append((kind, e0, e1))
+        return res
+
+    tr.step = timed
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    sess.run(ZOO_STEPS, log_every=0)
+    plan = tr.scheduler.plan_from_levels(
+        [i % 8 for i in range(len(tr.sizes))], (1.0,))
+    batch = next(sess.pipeline)
+    state, metrics = tr.step(sess.state, batch, plan, "grad_sync")
+    torch.cuda.synchronize()
+    out["launches"] = ops.launch_counts()
+    out["peak_alloc"] = torch.cuda.max_memory_allocated()
+    out["peak_reserved"] = torch.cuda.max_memory_reserved()
+    out["card_bytes"] = torch.cuda.get_device_properties(0).total_memory
+    out["losses"] = sess.losses + [float(metrics["loss"])]
+    out["finite_params"] = all(bool(torch.isfinite(p).all())
+                               for p in T.leaves(state["params"]))
+    kinds = [k for h in sess.history for k in h["kinds"]]
+    out["delta_rounds"] = kinds.count("delta_sync")
+    out["replans"] = sess.loop.device_replans
+    out["ms"] = {}
+    for kind, e0, e1 in times:
+        out["ms"].setdefault(kind, []).append(e0.elapsed_time(e1))
+    # the all-rungs grad_sync was the last step timed
+    out["ms"]["grad_sync_all_rungs"] = [out["ms"].pop("grad_sync")[-1]]
+    shape = ShapeConfig("train", ZOO_SEQ, spec["batch"], "train")
+    out["model_flops"] = flops.model_flops(cfg, shape)
+    out["executed_flops"] = flops.executed_flops(cfg, shape)
+    out["n_params"] = sum(p.numel() for p in T.leaves(state["params"]))
+    out["n_active"] = cfg.active_param_count()
+    out["n_layers"] = cfg.n_layers
+    if cfg.family == "moe":
+        calls = []
+        real, recorded = recording_dispatch(moe, calls)
+        moe.dispatch = recorded
+        try:
+            with torch.no_grad():
+                sess.model.loss(batch)
+        finally:
+            moe.dispatch = real
+        out["dropped"] = (sum(int((p == C).sum()) for _, _, p, C in calls)
+                          / sum(p.numel() for _, _, p, _ in calls))
+        out["capacity"] = calls[0][3]
+    return out
+
+
+def zoo_det_path(group, spec):
+    """Phase 12's determinism runs, in a process of its own (the switch
+    is process-wide): ``ZOO_DET["arch"]`` at its phase-12 depth under
+    ``RunConfig.deterministic``, twice from the same seed, each
+    ``ZOO_DET["steps"]`` steps ending in a delta_sync; the hashes of the
+    parameters after each run and the launches of both."""
+    import gc
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_launch_counts()
+    out = {"hashes": [], "kinds": []}
+    for _ in range(2):
+        sess = zoo_session(torch, ZOO_DET["arch"], spec, deterministic=True,
+                           H=ZOO_DET["H"])
+        sess.run(ZOO_DET["steps"], log_every=0)
+        out["kinds"].append([k for h in sess.history for k in h["kinds"]])
+        out["hashes"].append([int(bits_hash(torch, p))
+                              for p in T.leaves(sess.model.param_tree())])
+        out["losses"] = sess.losses
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def _spread(ms):
+    """(median, min, max) of the steady steps: all but the first of a
+    kind (one-time set-up), or the one there is."""
+    steady = sorted(ms[1:] or ms)
+    return steady[len(steady) // 2], steady[0], steady[-1]
+
+
+def zoo_phase(torch, card) -> dict:
+    """Phase 12: qwen3-moe-30b-a3b, gemma2-9b and qwen3-8b trained at
+    full width and reduced depth, one process each, then the determinism
+    runs.  Returns the kernels' launches per path."""
+    import gc
+    from repro_torch.launch.mesh import spawn_pods
+    tag = "phase 12"
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_reckoning(torch.cuda.get_device_properties(0).total_memory)
+    launches = {}
+    for arch, spec in TRAIN_ZOO.items():
+        spec = dict(spec, arch=arch, dir=str(CKPT_ROOT / f"zoo_{arch}"))
+        (r,) = spawn_pods(zoo_train_path, 1, "cuda", args=(spec,),
+                          timeout=600)
+        launches[f"zoo_{arch}"] = r["launches"]
+        tokens = spec["batch"] * ZOO_SEQ
+        if not all(math.isfinite(x) for x in r["losses"]):
+            fail(f"{tag}: {arch}: non-finite loss {r['losses']}")
+        if not r["finite_params"]:
+            fail(f"{tag}: {arch}: non-finite parameters")
+        if r["delta_rounds"] < 2 or r["replans"] < 1:
+            fail(f"{tag}: {arch}: {r['delta_rounds']} delta_sync rounds, "
+                 f"{r['replans']} device replans")
+        missing = [k for k in KERNELS if r["launches"].get(k, 0) < 1]
+        if missing:
+            fail(f"{tag}: {arch}: kernels never launched: {missing}")
+        free = (r["card_bytes"] - r["peak_alloc"]) / 2**30
+        if free < ZOO_FREE_GIB:
+            fail(f"{tag}: {arch}: peak {r['peak_alloc'] / 2**30:.2f} GiB "
+                 f"leaves {free:.2f} GiB free, under {ZOO_FREE_GIB}")
+        log(f"{tag}: {arch} on {card}: {r['n_layers']} layers, "
+            f"{r['n_params']:,} parameters ({r['n_active']:,} active), "
+            f"batch {spec['batch']} x {ZOO_SEQ}; train state "
+            f"{r['state_bytes']:,} B; init {r['init_s']:.2f} s; peak "
+            f"{r['peak_alloc'] / 2**30:.3f} GiB allocated "
+            f"({r['peak_reserved'] / 2**30:.3f} reserved), "
+            f"{free:.2f} GiB free, {r['peak_alloc'] / r['n_params']:.2f} B per "
+            f"parameter")
+        for kind, ms in r["ms"].items():
+            med, lo, hi = _spread(ms)
+            log(f"{tag}: {arch}: {kind}: {len(ms)} steps, ms "
+                f"{[round(x, 3) for x in ms]}; steady median {med:.3f} "
+                f"(min {lo:.3f}, max {hi:.3f})")
+        med = _spread(r["ms"]["local"])[0]
+        mfu = r["model_flops"] / (med * 1e-3) / BF16_DENSE_FLOPS
+        line = (f"{tag}: {arch}: local step {tokens / (med * 1e-3):.1f} "
+                f"tokens/s, MFU {mfu:.6g} at 6 * N_active * tokens "
+                f"({r['model_flops']:.4g} FLOPs) of 989 TFLOP/s")
+        if "dropped" in r:
+            ex = r["executed_flops"] / (med * 1e-3) / BF16_DENSE_FLOPS
+            line += (f"; executed capacity FLOPs {r['executed_flops']:.4g} "
+                     f"({ex:.6g} of peak); capacity {r['capacity']} rows "
+                     f"per expert, one training forward drops "
+                     f"{r['dropped']:.6g} of its (token, k) pairs")
+        log(line)
+        log(f"{tag}: {arch}: losses {[round(x, 4) for x in r['losses']]}; "
+            f"{r['delta_rounds']} delta_sync rounds, {r['replans']} device "
+            f"replan(s); K1-K4 launches "
+            f"{[r['launches'].get(k, 0) for k in KERNELS]}")
+    spec = dict(TRAIN_ZOO[ZOO_DET["arch"]],
+                dir=str(CKPT_ROOT / "zoo_determinism"))
+    (d,) = spawn_pods(zoo_det_path, 1, "cuda", args=(spec,), timeout=600)
+    launches["zoo_determinism"] = d["launches"]
+    if any(k.count("delta_sync") != 1 for k in d["kinds"]):
+        fail(f"{tag}: determinism runs' step kinds {d['kinds']}")
+    if d["hashes"][0] != d["hashes"][1]:
+        parted = sum(a != b for a, b in zip(*d["hashes"]))
+        fail(f"{tag}: the two deterministic runs differ in {parted} of "
+             f"{len(d['hashes'][0])} parameter leaves")
+    log(f"{tag}: {ZOO_DET['arch']} under RunConfig.deterministic, twice "
+        f"{ZOO_DET['steps']} steps ({d['kinds'][0]}): parameter hashes "
+        f"equal on all {len(d['hashes'][0])} leaves; losses "
+        f"{[round(x, 4) for x in d['losses']]}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2582,6 +2915,7 @@ def main() -> int:
     by_path["elastic"] = timed_phase("phase 9b", elastic_phase, torch)
     timed_phase("phase 10", serve_phase, torch, card)
     timed_phase("phase 11", serve_moe_phase, torch, card)
+    by_path.update(timed_phase("phase 12", zoo_phase, torch, card))
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     log(f"pod link (phase 7, P = 2 ping-pong): latency "
         f"{link['latency_s']:.6g} s per hop, rate "
@@ -2614,6 +2948,12 @@ def main() -> int:
                          "layers": spec["n_layers"] or 24}
                   for path, spec in dict(PATHS, restart=RESTART,
                                          elastic=ELASTIC).items()})
+    paths.update({f"zoo_{arch}": {"pods": 1, "arch": arch,
+                                  "layers": spec["n_layers"],
+                                  "batch": spec["batch"]}
+                  for arch, spec in TRAIN_ZOO.items()})
+    paths["zoo_determinism"] = dict(paths[f"zoo_{ZOO_DET['arch']}"],
+                                    runs=2, steps=ZOO_DET["steps"])
     print(json.dumps({"kernels": kernels, "paths": paths,
                       "link": {k: link[k] for k in ("latency_s",
                                                     "rate_bytes_per_s")}}),

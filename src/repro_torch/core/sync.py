@@ -37,6 +37,10 @@ Rung-ordered apply (``apply_fn``): the optimizer consumes each rung's
 aggregate as soon as the rung is done, on the rung's ``(S, block)`` rows
 of the packed aux buffers (params / moments, or the anchor).
 
+Memory: the residuals are written over the packed errors, and on one pod
+each rung runs in row chunks of :data:`SYNC_ROWS` — every codec encodes
+a row on its own, so either gives the same bits as the whole bucket.
+
 Backward segments: a segmented plan runs one pack + exchange per leaf
 range, walked in reverse leaf order as the reference does.  In this slice
 the segments run after the backward pass; interleaving them with it is
@@ -57,6 +61,10 @@ from repro_torch.core import compression as C
 from repro_torch.core.planexec import ExecPlan, build_exec_plan, n_blocks
 from repro_torch.core.scheduler import SyncPlan
 from repro_torch.kernels.ref import FIXED_POINT_BITS
+
+#: rows of a rung that one pod encodes and applies at a time (128 MiB of
+#: f32 rows at block 1024)
+SYNC_ROWS = 32768
 
 
 @dataclass(frozen=True)
@@ -142,7 +150,10 @@ def _range_sync(gs, es, aux, perms, sig, chunks, hgrid, NB, *, levels,
                          f"was built for {NB}")
     abufs = [_leaf_blocks(a, block, device) for a in aux]
     agg = None if apply_fn is not None else torch.zeros_like(fb)
-    err = torch.zeros_like(fb)
+    # the residuals overwrite the packed errors in place: every row is in
+    # exactly one rung's perm (pad entries: the zero row NB, whose residual
+    # is zero), and a rung reads its rows of eb before it writes them
+    err = eb
 
     def scatter_agg(S, idx, b_agg):
         if apply_fn is None:
@@ -197,10 +208,22 @@ def _range_sync(gs, es, aux, perms, sig, chunks, hgrid, NB, *, levels,
             wires.append(wire)
             woff += wire.numel()
         else:
-            b_agg, b_err = codec.ef_sync_gather(
-                fb, eb, perm, omega, omega_own, gamma=gamma, n_pods=n_pods,
-                block=block, pods=pods, fixed_bits=fixed_bits)
-            scatter_agg(S, idx, b_agg)
+            # on one pod nothing crosses a link, every codec encodes a row
+            # on its own and the apply is elementwise, so the rung runs in
+            # row chunks: the same bits, its temporaries bounded to a
+            # chunk's
+            step = S if n_pods > 1 else SYNC_ROWS
+            for r0 in range(0, S, step):
+                n = min(step, S - r0)
+                ix = idx[r0:r0 + n]
+                b_agg, b_err = codec.ef_sync_gather(
+                    fb, eb, perm[r0:r0 + n], omega, omega_own, gamma=gamma,
+                    n_pods=n_pods, block=block, pods=pods,
+                    fixed_bits=fixed_bits)
+                scatter_agg(n, ix, b_agg)
+                err.index_copy_(0, ix, b_err.reshape(n, block))
+                del b_agg, b_err
+            continue
         err.index_copy_(0, idx, b_err.reshape(S, block))
     if wires:
         gathered = pods.all_gather_bytes(

@@ -1,0 +1,177 @@
+"""Where a train step's memory goes on the card: one architecture at full
+width and a given depth, its train step taken apart stage by stage, the
+bytes each stage holds and the peak it reaches, per parameter.
+
+    python -m repro_torch.launch.memory --arch qwen3-moe-30b-a3b \
+        --layers 1 [--seq-len 1024] [--batch 8] [--out FILE]
+
+Needs a CUDA device.  The session is built as ``chip_smoke.py`` builds
+its reduced-depth sessions (the published config with ``n_layers``
+replaced) under ``acesync`` with ``replan_every=4``.  The stages are the
+``local`` step's own (``Trainer._body_local``): forward and loss, the
+backward, the global-norm clip, AdamW; each is run once from the fresh
+state with the peak statistics reset before it, and what it leaves
+allocated and the peak above that are read with
+``torch.cuda.max_memory_allocated``.  Then each step kind (``local``,
+``delta_sync`` and an all-rungs ``grad_sync``) runs once through
+``Trainer.step`` with its own peak.  Prints one JSON object (and writes
+it to ``--out`` where given): bytes and bytes per parameter by owner —
+the train state, the model's activations kept for the backward, the
+gradients, and each stage's transient above what it started from.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import tempfile
+from pathlib import Path
+
+import torch
+
+
+def _alloc() -> int:
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _peak_from(start: int):
+    """Reset the peak statistic; returns a reader of the peak above
+    ``start``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def read() -> int:
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - start
+    return read
+
+
+def state_bytes(state) -> int:
+    """Bytes of every tensor of a train state (each storage once)."""
+    seen, total = set(), 0
+
+    def walk(x):
+        nonlocal total
+        if isinstance(x, torch.Tensor):
+            key = (x.untyped_storage().data_ptr(), x.device)
+            if key not in seen:
+                seen.add(key)
+                total += x.untyped_storage().nbytes()
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                walk(v)
+    walk(state)
+    return total
+
+
+def step_memory(trainer, state, batch, all_rungs_plan, plan) -> dict:
+    """Bytes by owner of one train step of ``trainer`` from ``state``
+    (which the step kinds advance).  ``plan`` is the loop's plan,
+    ``all_rungs_plan`` one with a group on every rung."""
+    from repro_torch import tree as T
+    from repro_torch.optim import adamw
+
+    run = trainer.run
+    params = state["params"]
+    n = sum(p.numel() for p in T.leaves(params))
+    out = {"n_params": n, "state": state_bytes(state)}
+    base = _alloc()
+    out["allocated_at_start"] = base
+
+    leaves, treedef = T.flatten(params)
+    peak = _peak_from(base)
+    with torch.enable_grad():
+        loss = trainer.model.loss(batch)
+    out["activations"] = _alloc() - base
+    out["forward_peak"] = peak()
+    peak = _peak_from(base)
+    grads = torch.autograd.grad(loss, leaves)
+    del loss
+    out["gradients"] = _alloc() - base
+    out["backward_peak"] = peak()
+    held = base + out["gradients"]
+    grads = T.unflatten(treedef, list(grads))
+    peak = _peak_from(held)
+    with torch.no_grad():
+        grads, _ = adamw.clip_by_global_norm(grads, run.grad_clip)
+        out["clip_peak"] = peak()
+        peak = _peak_from(held)
+        new = trainer._optimize(params, grads, state["m"], state["v"],
+                                state["step"])
+        out["adamw_held"] = _alloc() - held
+        out["adamw_peak"] = peak()
+    del grads, new
+
+    kinds = {}
+    for kind, p in (("local", plan), ("delta_sync", plan),
+                    ("grad_sync_all_rungs", all_rungs_plan)):
+        start = _alloc()
+        peak = _peak_from(start)
+        state, _ = trainer.step(state, batch, p,
+                                kind.replace("_all_rungs", ""))
+        kinds[kind] = {"peak_above_start": peak(),
+                       "peak": peak() + start}
+    out["kinds"] = kinds
+    out["peak"] = max(k["peak"] for k in kinds.values())
+    out["per_param"] = {k: v / n for k, v in out.items()
+                        if isinstance(v, int) and k != "n_params"}
+    out["per_param"].update({f"{k}_peak": v["peak"] / n
+                             for k, v in kinds.items()})
+    return out
+
+
+def main(argv=None):
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import (ACESyncConfig, RunConfig,
+                                          ShapeConfig)
+    from repro_torch.launch.session import TrainSession
+    from repro_torch.models.registry import build_model
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="paper-350m")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth (default: the published one)")
+    ap.add_argument("--seq-len", type=int, default=1024)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("memory: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    cfg = ARCHS[args.arch]
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        run = RunConfig(model=cfg, shape=ShapeConfig(
+            "session", args.seq_len, args.batch, "train"),
+            total_steps=100, warmup_steps=2, ckpt_dir=ckpt_dir,
+            ckpt_every=0, acesync=ACESyncConfig(replan_every=4))
+        sess = TrainSession(build_model(cfg, run, device="cuda"), run,
+                            strategy="acesync")
+        sess.init()
+    tr = sess.trainer
+    batch = next(sess.pipeline)
+    rr = tr.scheduler.plan_from_levels(
+        [i % 8 for i in range(len(tr.sizes))], (1.0,))
+    # the state is handed over, as TrainSession.run hands it to the loop:
+    # each step kind frees the state it replaces
+    res = step_memory(tr, sess.take_state(), batch, rr, tr.default_plan())
+    res.update(arch=args.arch, n_layers=cfg.n_layers,
+               tokens=args.seq_len * args.batch,
+               device=torch.cuda.get_device_name(0),
+               total_bytes=torch.cuda.get_device_properties(0).total_memory,
+               reserved_at_end=torch.cuda.memory_reserved())
+    text = json.dumps(res)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(text)
+    print(text)
+
+
+if __name__ == "__main__":
+    main()

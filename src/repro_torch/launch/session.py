@@ -115,13 +115,23 @@ class TrainSession:
             log_every: int = 10) -> "TrainSession":
         """Run n_steps (default: the RunConfig total) of the control loop."""
         self.init()
+        # the loop takes the state over (CPython moves a call's arguments
+        # into the callee's frame), so the state it starts from — its
+        # moments, anchor and residuals — is freed as soon as a step has
+        # replaced it, not held by the session to the end of the run
         self.state = self.loop.run_steps(
-            self.state, self.pipeline,
+            self.take_state(), self.pipeline,
             n_steps if n_steps is not None else self.run_config.total_steps,
             log_every=log_every)
         # the pipeline the loop drains (re-balanced by a membership change)
         self.pipeline = self.loop._pipeline
         return self
+
+    def take_state(self):
+        """The current state, handed over: the session lets go of it (its
+        ``state`` is None until it is given one back)."""
+        state, self.state = self.state, None
+        return state
 
     def finish(self):
         """Wait for pending checkpoint writes (re-raises a failed one)."""

@@ -3,7 +3,10 @@
 6*N*D for training (N = params, active params for MoE; D = tokens),
 2*N*D for inference (forward only).  Attention's quadratic term is not
 included.  :func:`executed_flops` counts what the MoE's capacity
-arithmetic runs instead: every expert over all its C rows.
+arithmetic runs instead: every expert over all its C rows, in a forward
+and (3x) in a train step.  The MFU of a train step is
+:func:`model_flops` over its seconds against the card's bf16 dense peak
+(989 TFLOP/s on an H100 SXM).
 """
 from __future__ import annotations
 
@@ -24,19 +27,20 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
 
 
 def executed_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
-    """FLOPs of one forward (prefill or decode) as the capacity dispatch
-    executes it: 2 * N_dense per token for what is not an expert, and
-    2 * 3 * D * Fe * E * C per layer in the experts, C the capacity of
-    the step's tokens, whatever the router sent.  Equal to
+    """FLOPs as the capacity dispatch executes them: for one forward
+    (prefill or decode), 2 * N_dense per token for what is not an
+    expert, and 2 * 3 * D * Fe * E * C per layer in the experts, C the
+    capacity of the step's tokens, whatever the router sent; for a train
+    step, 3x its forward's (the backward twice the forward, as 6 * N * D
+    counts it; a layer recomputed under remat is not counted).  Equal to
     :func:`model_flops` for a dense model."""
-    if shape.kind == "train":
-        raise ValueError("executed_flops counts one forward, not a step")
     if cfg.family != "moe":
         return model_flops(cfg, shape)
-    tokens = shape.global_batch * (shape.seq_len if shape.kind == "prefill"
-                                   else 1)
+    tokens = shape.global_batch * (1 if shape.kind == "decode"
+                                   else shape.seq_len)
     expert = 3 * cfg.d_model * cfg.d_ff
     dense = (cfg.active_param_count()
              - cfg.n_layers * cfg.experts_per_token * expert)
-    return (2.0 * dense * tokens + 2.0 * expert * cfg.n_experts
-            * capacity(tokens, cfg) * cfg.n_layers)
+    forward = (2.0 * dense * tokens + 2.0 * expert * cfg.n_experts
+               * capacity(tokens, cfg) * cfg.n_layers)
+    return 3.0 * forward if shape.kind == "train" else forward

@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -316,8 +317,8 @@ def lm_logits(x, emb_dt, cfg):
 
 def xent_loss_chunked(x, emb, labels, cfg, *, seq_chunk: int = 512):
     """Mean token cross-entropy over sequence chunks (full-vocab logits
-    only ever exist for one chunk at a time); the logits go through
-    :func:`lm_logits`, final softcap included."""
+    only ever exist for one chunk at a time, in the backward too); the
+    logits go through :func:`lm_logits`, final softcap included."""
     B, S, _ = x.shape
     seq_chunk = min(seq_chunk, S)
     if S % seq_chunk:
@@ -325,9 +326,22 @@ def xent_loss_chunked(x, emb, labels, cfg, *, seq_chunk: int = 512):
     emb_dt = emb.to(x.dtype)
     tot = x.new_zeros((), dtype=torch.float32)
     for c0 in range(0, S, seq_chunk):
-        logits = lm_logits(x[:, c0:c0 + seq_chunk], emb_dt, cfg).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        lab = labels[:, c0:c0 + seq_chunk].long()
-        gold = torch.gather(logits, -1, lab[..., None])[..., 0]
-        tot = tot + torch.sum(lse - gold)
+        args = (x[:, c0:c0 + seq_chunk], emb_dt,
+                labels[:, c0:c0 + seq_chunk].long(), cfg)
+        if torch.is_grad_enabled():
+            # the chunk's logits are recomputed in the backward, the same
+            # arithmetic, rather than kept: only one chunk's full-vocab
+            # logits ever exist
+            nll = checkpoint(_chunk_nll, *args, use_reentrant=False)
+        else:
+            nll = _chunk_nll(*args)
+        tot = tot + nll
     return tot / float(B * S)
+
+
+def _chunk_nll(x, emb_dt, labels, cfg):
+    """Summed token cross-entropy of one sequence chunk."""
+    logits = lm_logits(x, emb_dt, cfg).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.sum(lse - gold)

@@ -83,7 +83,11 @@ def dispatch(xf: torch.Tensor, logits: torch.Tensor, cfg, C: int):
     keep = pos < C
     pos_c = torch.where(keep, pos, C).reshape(T, K)
     gate_keep = (gates * keep.reshape(T, K)).to(dt)
-    vals = xf.repeat_interleave(K, dim=0) * keep[:, None].to(dt)
+    # each token's row K times, as the reference's product with ones: the
+    # backward sums the K copies' gradients (a reduction, where
+    # repeat_interleave's backward accumulates them by index)
+    vals = xf[:, None, :].expand(T, K, D).reshape(T * K, D) \
+        * keep[:, None].to(dt)
     # row C of each expert takes the dropped pairs (all of them zeros) and
     # is cut off: the kept (expert, row) pairs are unique, so a plain
     # indexed copy places them, without an accumulating scatter
@@ -100,12 +104,36 @@ def expert_ffn(ebuf, wg, wu, wd):
     return h @ wd.to(dt)
 
 
+class _PickRows(torch.autograd.Function):
+    """``out[eidx, pos_c.clamp(max=C - 1)]``: each (token, k) pair's row
+    of the experts' output (E, C, D) -> (T, K, D), a dropped pair reading
+    row C - 1.  The backward is the reverse of :func:`dispatch`'s indexed
+    copy: the kept (expert, row) pairs are unique, so each kept pair's
+    gradient is copied to its row, and the dropped pairs' go to a row C
+    that is cut off.  Autograd's own backward of the gather accumulates
+    by index instead (atomics on the card) and adds the dropped pairs'
+    gradients, 0 * g, into row C - 1; the values are the same."""
+
+    @staticmethod
+    def forward(ctx, out, eidx, pos_c):
+        ctx.save_for_backward(eidx, pos_c)
+        ctx.out_shape = out.shape
+        return out[eidx, pos_c.clamp(max=out.shape[1] - 1)]
+
+    @staticmethod
+    def backward(ctx, g):
+        eidx, pos_c = ctx.saved_tensors
+        E, C, D = ctx.out_shape
+        grad = g.new_zeros((E, C + 1, D))
+        grad[eidx, pos_c] = g
+        return grad[:, :C], None, None
+
+
 def combine(out, eidx, pos_c, gate_keep):
     """Inverse of :func:`dispatch`: each pair's row of ``out`` (E, C, D)
     (a dropped pair reads row C - 1, times its zero gate), gate-weighted
     and summed over k -> (T, D)."""
-    C = out.shape[1]
-    picked = out[eidx, pos_c.clamp(max=C - 1)]              # (T, K, D)
+    picked = _PickRows.apply(out, eidx, pos_c)              # (T, K, D)
     return (picked * gate_keep[..., None]).sum(dim=1)
 
 

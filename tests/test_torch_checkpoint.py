@@ -400,3 +400,68 @@ def test_reference_checkpoint_restores_to_converted_state(pods):
         assert len(o["from_ref"]) == len(o["want_ref"])
         for a, b in zip(o["from_ref"], o["want_ref"]):
             np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family's train state, both ways
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "dbrx-132b"])
+def test_moe_checkpoints_restore_across_packages(arch, tmp_path):
+    """A MoE train state (the expert stacks and router, their AdamW
+    moments, EF residuals and anchor) in the reference's on-disk format,
+    both ways: the reference's checkpoint of its initial state restores
+    in the port to exactly ``convert.state_from_reference``'s state, and
+    the port's checkpoint of its state one step on restores in the
+    reference to the port's arrays; the leaf order is the reference's."""
+    from repro.configs import SMOKE_ARCHS as J_SMOKE
+    from repro.configs.base import RunConfig as JRun, ShapeConfig as JShape
+    from repro.core.trainer import Trainer as JTrainer
+    from repro.models.registry import build_model as jbuild
+    from repro_torch import convert
+    from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.registry import build_model
+    kw = dict(warmup_steps=1, total_steps=50)
+    jrun = JRun(model=J_SMOKE[arch], shape=JShape("t", SEQ, 2, "train"), **kw)
+    run = RunConfig(model=SMOKE_ARCHS[arch],
+                    shape=ShapeConfig("t", SEQ, 2, "train"), **kw)
+    jst = JTrainer(jbuild(jrun.model, jrun), jrun, mesh=None,
+                   strategy="acesync").init_state(jax.random.PRNGKey(0))
+    JCheckpointer(str(tmp_path / "ref")).save(3, jst, extras={"tag": 3},
+                                              blocking=True)
+    tr = Trainer(build_model(run.model, run, device="cpu"), run)
+    flat = {_key(p): np.asarray(x)[0]
+            for p, x in jax.tree_util.tree_flatten_with_path(jst)[0]}
+    state = convert.state_from_reference(flat, tr)
+    assert T.reference_leaf_paths(state) == list(flat)
+    assert any(k.endswith("ffn/router") for k in flat)
+    want = _host_leaves(state)
+    got, extras = Checkpointer(str(tmp_path / "ref")).restore(
+        tr.init_state(99))
+    assert extras == {"tag": 3}
+    for a, b in zip(_host_leaves(got), want):
+        np.testing.assert_array_equal(a, b)
+    # the port's checkpoint of the state one step on, read by the reference
+    state = convert.state_from_reference(flat, tr)
+    batch = next(TokenPipeline(tr.model, run.shape, seed=0))
+    plan = tr.scheduler.plan_from_levels(
+        [i % 8 for i in range(len(tr.sizes))], (1.0,))
+    state, _ = tr.step(state, batch, plan, "grad_sync")
+    saved = _host_leaves(state)
+    Checkpointer(str(tmp_path / "port")).save(5, state, extras={"tag": 5},
+                                              blocking=True)
+    specs = jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype),
+                         jst)
+    back, extras = JCheckpointer(str(tmp_path / "port")).restore(specs)
+    assert extras == {"tag": 5}
+    leaves = jax.tree.leaves(back)
+    assert len(leaves) == len(saved)
+    moved = 0
+    for leaf, a, b in zip(leaves, saved, want):
+        np.testing.assert_array_equal(np.asarray(leaf)[0], a)
+        moved += not np.array_equal(a, b)
+    assert moved

@@ -1,7 +1,9 @@
 """Tests of the port that need the card: each Hopper kernel against its
 plain PyTorch version on CUDA tensors, bit for bit, the wrappers'
-launch counting, and serving on the card against the CPU (the dense
-SMOKE configs, the MoE FFN, and the ring cache written in place).  They skip without a CUDA device; on the card
+launch counting, serving on the card against the CPU (the dense
+SMOKE configs, the MoE FFN, and the ring cache written in place), and
+training the MoE family on the card (one step against the CPU's, and
+its backward reproducible under ``RunConfig.deterministic``).  They skip without a CUDA device; on the card
 run
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
@@ -484,3 +486,99 @@ def test_ring_write_decode_in_place_on_card(dev):
     assert caches2 is caches
     assert {(s, k): c.data_ptr() for s, kv_ in caches.items()
             for k, c in kv_.items()} == ptrs
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "dbrx-132b"])
+def test_moe_training_step_on_card_matches_cpu(dev, arch):
+    """One grad_sync step of the MoE SMOKE config in f32 on the card (the
+    kernels) and on the CPU (the plain versions) from the same state and
+    batch: the same top-k sets in every dispatch (the forward's and the
+    backward's recompute), the loss within 1e-5 relative and the updated
+    weights within 1e-3 (chip_smoke.py phase 4's bound)."""
+    import dataclasses
+    from repro_torch import convert
+    from repro_torch import tree as T
+    from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(SMOKE_ARCHS[arch], dtype="float32")
+    run = RunConfig(model=cfg, shape=ShapeConfig("s", 64, 2, "train"),
+                    lr=1e-2, warmup_steps=1)
+    card = Trainer(build_model(cfg, run, device=dev), run)
+    host = Trainer(build_model(cfg, run, device="cpu"), run)
+    states = [card.init_state(0)]
+    states.append(convert.move_state(states[0], host))
+    real = moe.dispatch
+    outs = []
+    for tr, state in zip((card, host), states):
+        calls = []
+
+        def rec(xf, logits, c, C, calls=calls):
+            res = real(xf, logits, c, C)
+            calls.append(res[1].sort(-1).values.cpu())
+            return res
+        batch = next(TokenPipeline(tr.model, run.shape, seed=1))
+        plan = tr.scheduler.plan_from_levels(
+            [i % 8 for i in range(len(tr.sizes))], (1.0,))
+        moe.dispatch = rec
+        try:
+            state, m = tr.step(state, batch, plan, "grad_sync")
+        finally:
+            moe.dispatch = real
+        outs.append((float(m["loss"]), calls,
+                     [p.detach().cpu() for p in T.leaves(state["params"])]))
+    (lc, rc, pc), (lh, rh, ph) = outs
+    assert len(rc) == len(rh) == 2 * cfg.n_layers
+    for a, b in zip(rc, rh):
+        assert torch.equal(a, b)
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    assert max(float((a - b).abs().max()) for a, b in zip(pc, ph)) <= 1e-3
+
+
+DETERMINISM_SCRIPT = r"""
+import sys, torch
+from repro_torch import tree as T
+from repro_torch.configs import SMOKE_ARCHS
+from repro_torch.configs.base import RunConfig, ShapeConfig
+from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.launch.session import apply_determinism
+from repro_torch.models.registry import build_model
+import dataclasses
+cfg = dataclasses.replace(SMOKE_ARCHS["qwen3-moe-30b-a3b"],
+                          capacity_factor=0.5)
+run = RunConfig(model=cfg, shape=ShapeConfig("s", 512, 8, "train"),
+                deterministic=True)
+apply_determinism(run)
+model = build_model(cfg, run, device="cuda")
+model.init_params(torch.Generator(device="cuda").manual_seed(0))
+batch = next(TokenPipeline(model, run.shape, seed=1))
+leaves = T.leaves(model.param_tree())
+runs = []
+for _ in range(2):
+    loss = model.loss(batch)
+    runs.append([g.clone() for g in torch.autograd.grad(loss, leaves)])
+same = [torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for a, b in zip(*runs)]
+print("SAME", all(same), sum(same), len(same))
+"""
+
+
+def test_moe_backward_bit_reproducible_under_deterministic(dev):
+    """Under ``RunConfig.deterministic`` (``apply_determinism``, in a
+    process of its own: the switch is process-wide and cuBLAS reads its
+    workspace setting when it starts) the MoE SMOKE model's gradients at
+    a capacity factor that drops pairs are the same bits twice."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    env = dict(os.environ, PYTHONPATH=str(
+        Path(__file__).resolve().parents[1] / "src"))
+    res = subprocess.run([sys.executable, "-c", DETERMINISM_SCRIPT],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "SAME True" in res.stdout, res.stdout

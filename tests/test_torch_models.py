@@ -290,7 +290,7 @@ class RouteLog:
             own = real(logits, k)[1]
             ref_e, ref_l = self.ref.pop(0)
             ref_e = torch.from_numpy(np.array(ref_e)).long()
-            gap = float(np.abs(logits.numpy() - ref_l).max())
+            gap = float(np.abs(logits.detach().numpy() - ref_l).max())
             assert gap <= BF16_REL * float(np.abs(ref_l).max()), gap
             at_ref = logits.gather(1, ref_e)
             self.flips += int((own.sort(1)[0] != ref_e.sort(1)[0])

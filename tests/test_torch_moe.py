@@ -245,8 +245,8 @@ def test_executed_flops_count_every_expert_at_capacity():
     """``flops.executed_flops``: the dense part at 2 * N per token, plus
     every expert over its C rows; serving's workload (a) on qwen3-moe
     (T = 2,048, C = 160) executes 9.28e12 FLOPs in the experts against
-    7.42e12 of active expert work (1.25x); a dense model's equal
-    ``model_flops``."""
+    7.42e12 of active expert work (1.25x); a train step 3x its
+    forward's; a dense model's equal ``model_flops``."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models import flops
     cfg = ARCHS["qwen3-moe-30b-a3b"]
@@ -268,5 +268,126 @@ def test_executed_flops_count_every_expert_at_capacity():
     dense = SMOKE_ARCHS["qwen3-8b"]
     assert flops.executed_flops(dense, shape) == flops.model_flops(dense,
                                                                    shape)
-    with pytest.raises(ValueError):
-        flops.executed_flops(cfg, ShapeConfig("t", 512, 4, "train"))
+    # a train step executes 3x its forward: the backward twice the
+    # forward, as 6 * N * D counts it against 2 * N * D
+    train = ShapeConfig("t", 512, 4, "train")
+    assert flops.executed_flops(cfg, train) == 3.0 * executed
+    assert flops.model_flops(cfg, train) == 3.0 * active
+    assert flops.executed_flops(dense, train) == flops.model_flops(dense,
+                                                                   train)
+
+
+# ---------------------------------------------------------------------------
+# gradients through the capacity dispatch
+# ---------------------------------------------------------------------------
+
+
+def _grad_rel(got, want):
+    """max |got - want| relative to want's largest magnitude."""
+    got = got.detach().double().numpy()
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_gradients_match_reference_with_drops(arch):
+    """At capacity factor 0.25 most (token, k) pairs drop.  The f32
+    gradients of ``moe_apply`` into x, the router (through the top-k:
+    ``jax.lax.top_k``'s gradient in the reference) and the expert stacks
+    equal ``jax.grad``'s within 1e-5 of each leaf's largest magnitude, and
+    a token whose every pair was dropped gets exactly zero gradient into
+    x (and so, through its router logits, into the router)."""
+    cfg, jcfg = cfgs(arch, capacity_factor=0.25)
+    w = _ffn_weights(cfg, 6)
+    r = np.random.RandomState(7)
+    x = r.randn(2, 48, cfg.d_model).astype(np.float32)
+    cot = r.randn(*x.shape).astype(np.float32)
+
+    def jloss(p, xx):
+        return jnp.sum(JM.moe_apply(p, xx, jcfg) * cot)
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(
+        {k: jnp.asarray(v) for k, v in w.items()}, jnp.asarray(x))
+    tw = {k: torch.from_numpy(v).requires_grad_() for k, v in w.items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    (TM.moe_apply(tw, tx, cfg) * torch.from_numpy(cot)).sum().backward()
+    assert _grad_rel(tx.grad, jgx) <= 1e-5
+    for k in w:
+        assert _grad_rel(tw[k].grad, jgp[k]) <= 1e-5, k
+    # the tokens whose every pair was dropped
+    xf = torch.from_numpy(x).reshape(-1, cfg.d_model)
+    T = xf.shape[0]
+    C = TM.capacity(T, cfg)
+    _, _, pos_c, _ = TM.dispatch(xf, xf @ torch.from_numpy(w["router"]),
+                                 cfg, C)
+    gone = (pos_c == C).all(dim=1)
+    assert 0 < int(gone.sum()) < T
+    assert torch.all(tx.grad.reshape(T, -1)[gone] == 0)
+    assert torch.all(tx.grad.reshape(T, -1)[~gone].abs().amax(1) > 0)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_router_gradient_flows_through_the_kept_logits(arch):
+    """The gradient of the dispatch's outputs (the buffer and the kept
+    gates) into the router logits equals ``jax.grad``'s through
+    ``jax.lax.top_k`` (f32, within 1e-6 relative); it is exactly zero
+    outside each row's top k and on every row whose pairs all dropped;
+    an all-ties row routes to the lowest k experts."""
+    cfg, jcfg = cfgs(arch, capacity_factor=0.5)
+    _, _, xf, logits = _dispatch_case(arch, "random", seed=8)
+    logits[::7] = 0.25                                 # all-ties rows
+    T, K = xf.shape[0], cfg.experts_per_token
+    C = TM.capacity(T, cfg)
+    r = np.random.RandomState(9)
+    rb = r.randn(cfg.n_experts, C, cfg.d_model).astype(np.float32)
+    rg = r.randn(T, K).astype(np.float32)
+
+    def jloss(lg):
+        ebuf, _, _, gk = JM._dispatch_local(jnp.asarray(xf), lg, jcfg, C)
+        return jnp.sum(ebuf * rb) + jnp.sum(gk * rg)
+    want = np.asarray(jax.grad(jloss)(jnp.asarray(logits)))
+    lg = torch.from_numpy(logits).requires_grad_()
+    ebuf, eidx, pos_c, gk = TM.dispatch(torch.from_numpy(xf), lg, cfg, C)
+    ((ebuf * torch.from_numpy(rb)).sum()
+     + (gk * torch.from_numpy(rg)).sum()).backward()
+    got = lg.grad
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                               atol=1e-6 * np.abs(want).max())
+    top = torch.zeros_like(got, dtype=torch.bool).scatter_(1, eidx, True)
+    assert torch.all(got[~top] == 0)
+    gone = (pos_c == C).all(dim=1)
+    assert int(gone.sum()) > 0 and torch.all(got[gone] == 0)
+    assert eidx[::7].tolist() == [list(range(K))] * len(eidx[::7])
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_combine_backward_is_an_indexed_copy(arch):
+    """``combine``'s backward copies each kept pair's gradient to its
+    (expert, row) and nothing else: equal to autograd's accumulating
+    backward of the plain gather, to ``jax.grad`` of the reference's
+    ``_combine_local`` (f32, 1e-6 relative), and exactly zero on every row
+    no kept pair reads."""
+    cfg, jcfg = cfgs(arch, capacity_factor=0.5)
+    _, _, xf, logits = _dispatch_case(arch, "random", seed=10)
+    T, K = xf.shape[0], cfg.experts_per_token
+    C = TM.capacity(T, cfg)
+    _, eidx, pos_c, gk = TM.dispatch(torch.from_numpy(xf),
+                                     torch.from_numpy(logits), cfg, C)
+    assert int((pos_c == C).sum()) > 0
+    r = np.random.RandomState(11)
+    out = torch.from_numpy(
+        r.randn(cfg.n_experts, C, cfg.d_model).astype(np.float32))
+    cot = torch.from_numpy(r.randn(T, cfg.d_model).astype(np.float32))
+    o1 = out.clone().requires_grad_()
+    (TM.combine(o1, eidx, pos_c, gk) * cot).sum().backward()
+    o2 = out.clone().requires_grad_()
+    plain = (o2[eidx, pos_c.clamp(max=C - 1)] * gk[..., None]).sum(1)
+    (plain * cot).sum().backward()
+    assert torch.equal(o1.grad, o2.grad)
+    want = np.asarray(jax.grad(lambda o: jnp.sum(JM._combine_local(
+        o, jnp.asarray(eidx.numpy()), jnp.asarray(pos_c.numpy()),
+        jnp.asarray(gk.numpy())) * cot.numpy()))(jnp.asarray(out.numpy())))
+    np.testing.assert_allclose(o1.grad.numpy(), want, rtol=1e-6,
+                               atol=1e-6 * np.abs(want).max())
+    read = torch.zeros((cfg.n_experts, C + 1), dtype=torch.bool)
+    read[eidx, pos_c] = True
+    assert torch.all(o1.grad[~read[:, :C]] == 0)
