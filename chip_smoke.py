@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
 NVIDIA GPU: the quickest proof that the port builds, is right, trains
-(paper-350m and the model zoo) and serves.
+(paper-350m and the model zoo) and serves (the dense, MoE and recurrent
+families).
 
     python3 chip_smoke.py
 
@@ -184,6 +185,34 @@ Phases (any failure exits nonzero before the result lines):
    capacity FLOPs, 3x the forward's every expert at C, and the share of
    (token, k) pairs one untimed training forward drops), K1-K4's
    launches and peak memory allocated and reserved.
+13. serving the recurrent families, in a process of its own:
+   falcon-mamba-7b (64 mamba layers, d 4096, d_inner 8192, state 16) and
+   recurrentgemma-2b (26 layers: 8 (rec, rec, local attn) groups and 2
+   rec layers, d 2560, window 2048) at full published width and depth,
+   seeded bf16 weights drawn slice by slice, each served by ``Server``
+   on phase 10's workload (a) and on (b): one 4,096-token prompt, batch
+   1, 16 new tokens (recurrentgemma's ring wraps in prefill and again in
+   decode); each workload twice, the first cold.  Gates: (1) every
+   request gets its token budget and every logit is finite; (2) in f32
+   compute (the bf16 weights cast at use), 16 teacher-forced decode
+   steps after (a)'s 512-token request and after (b) against one forward
+   within rtol = atol = 0.15 — the forward runs over the next multiple
+   of 256 (the scan's chunk rule refuses 528 and 4,112 tokens), its
+   extra tail tokens from the seed, compared at the 16 decoded positions
+   only.  The same check in bf16 compute is printed beside its control,
+   a forward 256 tokens longer at the same positions: with 64 layers of
+   random weights the bf16 forward differs from itself across lengths
+   (the matmuls' shapes change their rounding) by more than the
+   tolerance, so bf16 cannot hold the gate; (3) both SMOKE configs card
+   against CPU as in phase 10; (4) K1-K16 launch 0 times; (5)
+   falcon-mamba's peak allocation above its weights during (b)'s
+   prefill stays below one f32 (1, 4096, 8192, 16) tensor (the scan
+   holds one 256-position chunk at a time); (6) a 300-token prompt is
+   refused with a ``ValueError`` naming its length, before any decode
+   step.  Prints phase 10's line per model and workload (the decode
+   bound counts the recurrent states read and written), and the
+   recurrent-state and ring bytes per sequence beside qwen3-8b's KV
+   bytes at the same length.
 
 Output: progress lines with each phase's seconds, the pod link's latency
 and rate, then the ``nvidia-smi`` line, the kernels' JSON line (each
@@ -192,7 +221,7 @@ kernel's launches in total and per main path: ``one_pod`` (phase 5),
 members), ``restart`` (phase 9a, its three runs), ``elastic`` (phase
 9b, all pods), ``zoo_<arch>`` (phase 12, each model's process) and
 ``zoo_determinism`` (phase 12, both runs), each counted from 0 just
-before its run; phases 10 and 11 launch none; K16's ``library_ms``
+before its run; phases 10, 11 and 13 launch none; K16's ``library_ms``
 is ``torch.mul(q, s)``'s time; ``paths`` gives each path's pods, members
 per cluster and depth; ``link`` the measured link), and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -2058,11 +2087,12 @@ def serve_once(torch, np, tserve, model, spec):
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
     cache = model.init_cache(B, S + new)
-    kv_bytes = sum(t.numel() * t.element_size()
-                   for kv in cache.values() for t in kv.values())
+    kv_bytes = sum(flops.cache_bytes(cache))
+    step_bytes = flops.decode_step_bytes(weight_bytes, cache)
     del cache
     prefill_ms = p0.elapsed_time(p1)
-    fl = flops.model_flops(cfg, ShapeConfig("serve", S, B, "prefill"))
+    fl = flops.model_flops(cfg, ShapeConfig("serve", S, B, "prefill"),
+                           n=model.active_param_count())
     n_tok = sum(len(r.out_tokens) for r in done)
     return {
         "tokens_ok": [len(r.out_tokens) == r.max_new_tokens for r in done],
@@ -2073,7 +2103,7 @@ def serve_once(torch, np, tserve, model, spec):
         "prefill_share": fl / (prefill_ms * 1e-3) / BF16_DENSE_FLOPS,
         "decode_ms": (dms[len(dms) // 2], dms[0], dms[-1]),
         "decode_steps": len(dms),
-        "decode_bound_ms": (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3,
+        "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
         "tok_per_s": n_tok / wall, "wall_s": wall,
         "peak_alloc_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30}
@@ -2117,15 +2147,15 @@ def tf_forward(torch, model, toks, n):
         return model.logits(x)[0].float()
 
 
-def tf_compare(got, want, V, n_tokens):
-    """Gate 2's verdict: ``got`` within rtol = atol = TF_TOL of
+def tf_compare(got, want, V, n_tokens, tol=TF_TOL):
+    """Gate 2's verdict: ``got`` within rtol = atol = ``tol`` of
     ``want``."""
     diff = (got - want).abs()
-    ok = bool((diff <= TF_TOL + TF_TOL * want.abs()).all())
+    ok = bool((diff <= tol + tol * want.abs()).all())
     agree = (got[:, :V].argmax(-1) == want[:, :V].argmax(-1)).float().mean()
-    return {"tokens": n_tokens, "steps": TF_STEPS, "ok": ok,
+    return {"tokens": n_tokens, "steps": TF_STEPS, "ok": ok, "tol": tol,
             "max_abs_diff": float(diff.max()),
-            "worst_excess": float((diff - TF_TOL * want.abs()).max()),
+            "worst_excess": float((diff - tol * want.abs()).max()),
             "argmax_agree": float(agree)}
 
 
@@ -2283,7 +2313,8 @@ def check_served(tag, card, arch, r, wl) -> None:
         f"= {w['prefill_flops']:.4g}); decode step ms median "
         f"{med:.3f} min {lo:.3f} max {hi:.3f} over "
         f"{w['decode_steps']} steps, bound {w['decode_bound_ms']:.6g}"
-        f" ms (weights + {w['kv_bytes']} KV bytes at 3.35 TB/s); "
+        f" ms (weights + {w['kv_bytes']} cache bytes, recurrent states "
+        f"read and written, at 3.35 TB/s); "
         f"{w['tok_per_s']:.2f} generated tokens/s "
         f"({w['wall_s']:.3f} s); peak {w['peak_alloc_gib']:.3f} GiB "
         f"allocated, {w['peak_reserved_gib']:.3f} GiB reserved; "
@@ -2299,10 +2330,10 @@ def check_teacher_forced(tag, arch, tf) -> None:
         f"at {tf['tokens']} tokens against one forward: max |diff| "
         f"{tf['max_abs_diff']:.4g}, argmax agrees on "
         f"{tf['argmax_agree']:.4f} of positions (rtol = atol = "
-        f"{TF_TOL})")
+        f"{tf['tol']}; worst excess over rtol {tf['worst_excess']:.4g})")
     if not tf["ok"]:
         fail(f"{tag}: {arch}: teacher-forced decode differs from "
-             f"the forward beyond rtol = atol = {TF_TOL} (worst "
+             f"the forward beyond rtol = atol = {tf['tol']} (worst "
              f"excess {tf['worst_excess']:.4g}; router logits apart by "
              f"{tf.get('route_gap_rel', 0.0):.4g} of their largest, at "
              f"most {ROUTE_GAP_REL})")
@@ -2867,6 +2898,229 @@ def zoo_phase(torch, card) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: serving the recurrent families
+# ---------------------------------------------------------------------------
+
+#: phase 13's models, at full published width and depth
+RECURRENT_SERVE = ("falcon-mamba-7b", "recurrentgemma-2b")
+#: (b): one prompt twice recurrentgemma's 2,048 window (its local ring
+#: wraps in prefill and again in decode; mamba's state does not grow)
+SERVE_LONG = {"prompts": (4096,), "new": 16, "batch": 1}
+#: gate 5: falcon-mamba's peak allocation above its weights during (b)'s
+#: prefill stays below one f32 (1, 4096, 8192, 16) tensor, the scan's
+#: discretised input for the whole sequence
+SCAN_PEAK_LIMIT = 4 * 4096 * 8192 * 16
+#: gate 6: a prompt length the scan's chunk rule refuses
+REFUSED_PROMPT = 300
+#: the KV bytes per sequence printed beside the recurrent states
+KV_REFERENCE_ARCH = "qwen3-8b"
+#: gate 2 runs in f32 compute (the bf16 weights cast at use) for these
+#: models, its bf16 reading printed beside its control: in bf16 the
+#: 64-layer random falcon-mamba's forward differs from itself across
+#: lengths (a forward 256 positions longer, at the same positions) by
+#: more than TF_TOL, so decode cannot be held to it there
+TF_F32_COMPUTE = ("falcon-mamba-7b",)
+#: gate 2's rtol = atol in f32 compute: five times the largest reading
+#: of decode against the forward, and of the control, on the card
+#: (2.036e-3, falcon-mamba (a))
+TF_F32_TOL = 1e-2
+
+
+def recurrent_teacher_forced(torch, np, model, prompt, seed, dtype=None):
+    """Gate 2 for a recurrent model, in compute dtype ``dtype`` (the bf16
+    weights cast at use; default the config's), restored after: prefill
+    ``prompt``, then ``TF_STEPS`` decode steps, against one forward.  The
+    forward obeys the scan's chunk rule too (n + 16 is refused), so it
+    runs over the next multiple of 256, the tail's extra tokens drawn
+    from the seed, and only positions n .. n + 15 are compared: both
+    models are causal, so the tail cannot reach them.  The attention's
+    chunks are set to the scan's for it (they divide every length the
+    scan takes).  The control: a second forward, 256 positions longer,
+    at the same positions (the same function; only the matmuls' shapes
+    differ)."""
+    from repro_torch.models.mamba import SCAN_CHUNK
+    cfg, real_dtype = model.cfg, model.dtype
+    saved = (getattr(model, "q_chunk", None), getattr(model, "kv_chunk", None))
+    if dtype:
+        model.cfg = dataclasses.replace(cfg, dtype=dtype)
+        model.dtype = getattr(torch, dtype)
+    try:
+        toks, got = tf_decode(torch, np, model, prompt, seed)
+        n, total = prompt.size, toks.shape[1]
+        padded = -(-total // SCAN_CHUNK) * SCAN_CHUNK
+        tail = np.random.RandomState(seed + 1).randint(
+            0, cfg.vocab_size, size=(1, padded + SCAN_CHUNK - total))
+        full = torch.cat([toks, torch.from_numpy(tail.astype(np.int32))
+                          .to(toks.device)], 1)
+        if saved[0] is not None:
+            model.q_chunk = model.kv_chunk = SCAN_CHUNK
+        with torch.inference_mode():
+            want, longer = (
+                model.logits(model(full[:, :length])[:, n:n + TF_STEPS])[0]
+                .float() for length in (padded, padded + SCAN_CHUNK))
+    finally:
+        model.cfg, model.dtype = cfg, real_dtype
+        if saved[0] is not None:
+            model.q_chunk, model.kv_chunk = saved
+    tol = TF_F32_TOL if dtype == "float32" else TF_TOL
+    tf = tf_compare(got, want, cfg.vocab_size, padded, tol)
+    tf["compared"] = (n, n + TF_STEPS)
+    tf["dtype"] = dtype or cfg.dtype
+    tf["control"] = tf_compare(longer, want, cfg.vocab_size,
+                               padded + SCAN_CHUNK, tol)
+    return tf
+
+
+def prefill_peak_above(torch, model, spec):
+    """Gate 5, untimed: one prefill of ``spec``'s prompt; the peak
+    allocated bytes above what was allocated before it (the weights)."""
+    from repro_torch.launch import serve as tserve
+    prompt = tserve.make_requests(spec["prompts"], 0,
+                                  model.cfg.vocab_size)[0].prompt
+    toks = torch.from_numpy(prompt[None]).to(model.device)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        model.prefill(toks, prompt.size + spec["new"])
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before, before
+
+
+def refused_prompt(torch, np, tserve, model):
+    """Gate 6: a ``REFUSED_PROMPT``-token request raises ``ValueError``
+    naming its length, before any decode step."""
+    steps = []
+    real = model.decode_step
+
+    def counted(*a):
+        steps.append(1)
+        return real(*a)
+
+    model.decode_step = counted
+    req = tserve.Request(0, np.zeros(REFUSED_PROMPT, np.int32), 8)
+    try:
+        tserve.Server(model, REFUSED_PROMPT + 8, 1).serve([req])
+    except ValueError as e:
+        return {"refused": str(REFUSED_PROMPT) in str(e), "error": str(e),
+                "decode_steps": len(steps)}
+    finally:
+        model.decode_step = real
+    return {"refused": False, "error": None, "decode_steps": len(steps)}
+
+
+def serve_recurrent_path(group, spec):
+    """Phase 13, in a process of its own: each recurrent model at full
+    width and depth served on workloads (a) and (b), gate 2 after (a)'s
+    512-token request and after (b), gate 5 (mamba), gate 6, the state
+    bytes; then gate 3 on the two SMOKE configs; the kernels' launch
+    counts over the whole phase."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import flops
+    from repro_torch.models.registry import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_launch_counts()
+    kv_model = build_model(ARCHS[KV_REFERENCE_ARCH], device="meta")
+    out = {"models": {}, "smoke": {}}
+    for arch in RECURRENT_SERVE:
+        cfg = ARCHS[arch]
+        t0 = time.perf_counter()
+        model = tserve.init_model(cfg, spec["device"], seed=0)
+        torch.cuda.synchronize()
+        res = {"init_s": time.perf_counter() - t0, "n_layers": cfg.n_layers,
+               "n_params": sum(p.numel() for p in model.parameters())}
+        for wl, wspec in (("a", SERVE_A), ("b", SERVE_LONG)):
+            res[wl] = serve_workload(torch, np, tserve, model, wspec)
+            length = max(wspec["prompts"]) + wspec["new"]
+            res[wl]["state"] = flops.cache_bytes(model.init_cache(1, length))
+            res[wl]["kv_reference"] = flops.cache_bytes(
+                kv_model.init_cache(1, length))[1]
+            prompt = tserve.make_requests(wspec["prompts"], 0,
+                                          cfg.vocab_size)[0].prompt
+            res[wl]["tf_served"] = recurrent_teacher_forced(
+                torch, np, model, prompt, seed=1)
+            if arch in TF_F32_COMPUTE:
+                res[wl]["tf_f32"] = recurrent_teacher_forced(
+                    torch, np, model, prompt, seed=1, dtype="float32")
+        if cfg.family == "ssm":
+            res["b"]["prefill_peak"] = prefill_peak_above(torch, model,
+                                                          SERVE_LONG)
+        res["refused"] = refused_prompt(torch, np, tserve, model)
+        out["models"][arch] = res
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in RECURRENT_SERVE:
+        out["smoke"][arch] = smoke_card_vs_cpu(torch, np, tserve, arch,
+                                               spec["device"])
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def serve_recurrent_phase(torch, card) -> None:
+    """Phase 13: falcon-mamba-7b and recurrentgemma-2b served at full
+    width and depth from seeded bf16 weights (a process of its own), and
+    the six gates."""
+    import gc
+    from repro_torch.launch.mesh import spawn_pods
+    tag = "phase 13"
+    gc.collect()
+    torch.cuda.empty_cache()
+    (res,) = spawn_pods(serve_recurrent_path, 1, "cuda",
+                        args=({"device": "cuda"},), timeout=600)
+    for arch, r in res["models"].items():
+        for wl in ("a", "b"):
+            w = r[wl]
+            check_served(tag, card, arch, r, wl)
+            state, ring = w["state"]
+            log(f"{tag}: {arch} ({wl}) per sequence at "
+                f"{w['prompt'] + w['new']} positions: {state} B of "
+                f"recurrent state (conv carries and scan states), {ring} B "
+                f"of ring KV caches; {KV_REFERENCE_ARCH} holds "
+                f"{w['kv_reference']} B of KV cache at that length")
+            for key in ("tf_served", "tf_f32"):
+                if key not in w:
+                    continue
+                tf, ctl = w[key], w[key]["control"]
+                log(f"{tag}: {arch} ({wl}) in {tf['dtype']} compute, "
+                    f"positions {tf['compared'][0]}-{tf['compared'][1] - 1}: "
+                    f"teacher-forced decode against the forward max |diff| "
+                    f"{tf['max_abs_diff']:.4g} (argmax agrees on "
+                    f"{tf['argmax_agree']:.4f}); the control, a forward "
+                    f"{ctl['tokens']} tokens long against it, max |diff| "
+                    f"{ctl['max_abs_diff']:.4g} (argmax "
+                    f"{ctl['argmax_agree']:.4f})")
+            tf = w["tf_f32" if arch in TF_F32_COMPUTE else "tf_served"]
+            check_teacher_forced(tag, f"{arch} ({wl}, {tf['dtype']} "
+                                 f"compute)", tf)
+        if "prefill_peak" in r["b"]:
+            peak, before = r["b"]["prefill_peak"]
+            log(f"{tag}: {arch} (b) prefill of {SERVE_LONG['prompts'][0]} "
+                f"tokens: peak {peak} B allocated above the {before} B "
+                f"held before it (the weights), limit {SCAN_PEAK_LIMIT} B "
+                f"(one f32 (1, 4096, 8192, 16) tensor)")
+            if peak >= SCAN_PEAK_LIMIT:
+                fail(f"{tag}: {arch}: the prefill's peak {peak} B above "
+                     f"the weights reaches {SCAN_PEAK_LIMIT} B: the scan "
+                     f"does not hold one chunk at a time")
+        ref = r["refused"]
+        log(f"{tag}: {arch}: a {REFUSED_PROMPT}-token prompt refused "
+            f"{ref['refused']} after {ref['decode_steps']} decode steps: "
+            f"{ref['error']}")
+        if not ref["refused"] or ref["decode_steps"]:
+            fail(f"{tag}: {arch}: a {REFUSED_PROMPT}-token prompt was not "
+                 f"refused before decoding: {ref}")
+    check_smoke_and_launches(tag, res)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2916,6 +3170,7 @@ def main() -> int:
     timed_phase("phase 10", serve_phase, torch, card)
     timed_phase("phase 11", serve_moe_phase, torch, card)
     by_path.update(timed_phase("phase 12", zoo_phase, torch, card))
+    timed_phase("phase 13", serve_recurrent_phase, torch, card)
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     log(f"pod link (phase 7, P = 2 ping-pong): latency "
         f"{link['latency_s']:.6g} s per hop, rate "

@@ -1,14 +1,18 @@
 """Architecture configs of the port: the paper's own dense model, the
-JAX package's dense zoo (qwen3-8b, gemma2-9b, minitron-8b, starcoder2-3b)
-and its MoE family (qwen3-moe-30b-a3b, dbrx-132b), each with its reduced
-*smoke* variant for CPU tests.  The zoo's other families (SSM, hybrid,
-enc-dec, the VLM stub) are registered once their models are ported."""
+JAX package's dense zoo (qwen3-8b, gemma2-9b, minitron-8b, starcoder2-3b),
+its MoE family (qwen3-moe-30b-a3b, dbrx-132b) and its recurrent families
+(falcon-mamba-7b, the selective-scan SSM; recurrentgemma-2b, the RG-LRU +
+local-attention hybrid), each with its reduced *smoke* variant for CPU
+tests.  The zoo's other families (enc-dec, the VLM stub) are registered
+once their models are ported."""
 from __future__ import annotations
 
 from repro_torch.configs.base import (ACESyncConfig, ModelConfig, RunConfig,
                                       SHAPES, ShapeConfig)
 from repro_torch.configs.dbrx_132b import CONFIG as dbrx_132b
 from repro_torch.configs.dbrx_132b import SMOKE as dbrx_132b_smoke
+from repro_torch.configs.falcon_mamba_7b import CONFIG as falcon_mamba_7b
+from repro_torch.configs.falcon_mamba_7b import SMOKE as falcon_mamba_7b_smoke
 from repro_torch.configs.gemma2_9b import CONFIG as gemma2_9b
 from repro_torch.configs.gemma2_9b import SMOKE as gemma2_9b_smoke
 from repro_torch.configs.minitron_8b import CONFIG as minitron_8b
@@ -20,6 +24,9 @@ from repro_torch.configs.qwen3_8b import SMOKE as qwen3_8b_smoke
 from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as qwen3_moe_30b_a3b
 from repro_torch.configs.qwen3_moe_30b_a3b import \
     SMOKE as qwen3_moe_30b_a3b_smoke
+from repro_torch.configs.recurrentgemma_2b import CONFIG as recurrentgemma_2b
+from repro_torch.configs.recurrentgemma_2b import \
+    SMOKE as recurrentgemma_2b_smoke
 from repro_torch.configs.starcoder2_3b import CONFIG as starcoder2_3b
 from repro_torch.configs.starcoder2_3b import SMOKE as starcoder2_3b_smoke
 
@@ -30,6 +37,8 @@ ARCHS = {
     "qwen3-8b": qwen3_8b,
     "starcoder2-3b": starcoder2_3b,
     "gemma2-9b": gemma2_9b,
+    "falcon-mamba-7b": falcon_mamba_7b,
+    "recurrentgemma-2b": recurrentgemma_2b,
     "paper-350m": paper_350m,
 }
 SMOKE_ARCHS = {
@@ -39,6 +48,8 @@ SMOKE_ARCHS = {
     "qwen3-8b": qwen3_8b_smoke,
     "starcoder2-3b": starcoder2_3b_smoke,
     "gemma2-9b": gemma2_9b_smoke,
+    "falcon-mamba-7b": falcon_mamba_7b_smoke,
+    "recurrentgemma-2b": recurrentgemma_2b_smoke,
     "paper-350m": paper_350m_smoke,
 }
 

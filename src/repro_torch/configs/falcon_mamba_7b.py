@@ -1,0 +1,15 @@
+"""falcon-mamba-7b: 64L d_model=4096 attn-free, vocab=65024, ssm_state=16,
+mamba1 arch. [arXiv:2410.05355; unverified]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="falcon-mamba-7b", family="ssm",
+    n_layers=64, d_model=4096, n_heads=0, d_ff=0, vocab_size=65024,
+    ssm_state=16, ssm_conv=4, ssm_expand=2,
+)
+
+SMOKE = ModelConfig(
+    name="falcon-mamba-7b-smoke", family="ssm",
+    n_layers=2, d_model=64, n_heads=0, d_ff=0, vocab_size=256,
+    ssm_state=4, ssm_conv=4, ssm_expand=2,
+)

@@ -1,16 +1,24 @@
-"""Serving: batched prefill + decode with the dense model zoo and
-the MoE family — port of ``repro/launch/serve.py``.
+"""Serving: batched prefill + decode with the dense model zoo, the
+MoE family and the recurrent families — port of
+``repro/launch/serve.py``.
 
 A request queue served by static batching: the requests are cut into
 server-batch chunks, each chunk's prompts left-padded with token 0 to its
-longest (the pads are attended and take positions, as in the reference),
-prefilled into ring KV caches of ``prompt + new tokens`` positions, then
-decoded greedily one token per step, the caches written in place.  Runs
-on the card unless the caller asks for the CPU::
+longest (the pads are attended, or run through the recurrence, and take
+positions, as in the reference), prefilled into caches for ``prompt +
+new tokens`` positions — ring KV caches, and for falcon-mamba-7b and
+recurrentgemma-2b each recurrent layer's conv carry and scan state —
+then decoded greedily one token per step, the caches written in place.
+A prompt length the reference refuses (its attention chunks, or for the
+recurrent families its scan chunks: at most 256 or a multiple of 256)
+raises ``ValueError`` in the prefill.  Runs on the card unless the
+caller asks for the CPU::
 
     python -m repro_torch.launch.serve --arch gemma2-9b --prompt-len 512 \
         --new-tokens 32 --requests 8 [--batch 4] [--smoke] [--device cuda]
     python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b ...
+    python -m repro_torch.launch.serve --arch falcon-mamba-7b ...
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b ...
 
 prints ``{"requests", "tokens", "wall_s", "tok_per_s"}``.  The weights
 come from a seed (no checkpoint is read) and are served in bf16.
@@ -94,7 +102,8 @@ def init_model(cfg: ModelConfig, device="cuda", seed: int = 0,
     leaf is drawn in f32 one layer group at a time and cast as it is
     copied in, so no f32 temporary exceeds one slice of a leaf
     (qwen3-moe-30b-a3b: 60.44 GB in bf16; one (128, 2048, 768) expert
-    slice, 0.81 GB in f32)."""
+    slice, 0.81 GB in f32; falcon-mamba-7b's (4096, 16384) ``in_proj``,
+    0.27 GB)."""
     dev = resolve_device(device)
     model = build_model(cfg, device="meta").to(dtype)
     model.to_empty(device=dev)

@@ -2,20 +2,53 @@
 ``repro/models/flops.py``, the "useful compute" yardstick:
 6*N*D for training (N = params, active params for MoE; D = tokens),
 2*N*D for inference (forward only).  Attention's quadratic term is not
-included.  :func:`executed_flops` counts what the MoE's capacity
-arithmetic runs instead: every expert over all its C rows, in a forward
-and (3x) in a train step.  The MFU of a train step is
+included.  N is the config's (active) count unless the caller, which
+holds the model, passes the tree's (``LanguageModel.active_param_count``:
+the config's count approximates the hybrid's RG-LRU gates).
+:func:`executed_flops` counts what the MoE's capacity arithmetic runs
+instead: every expert over all its C rows, in a forward and (3x) in a
+train step.  The MFU of a train step is
 :func:`model_flops` over its seconds against the card's bf16 dense peak
-(989 TFLOP/s on an H100 SXM).
+(989 TFLOP/s on an H100 SXM).  :func:`decode_step_bytes` is what one
+decode step must move, the bound of a decode step at the card's memory
+rate, from the split of :func:`cache_bytes`.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.moe import capacity
 
+#: the cache entries that are recurrent state (the conv carry and the
+#: scan state); every other entry is a ring KV cache
+_STATE = ("conv", "h")
 
-def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
-    n = cfg.active_param_count()
+
+def cache_bytes(caches: dict) -> tuple:
+    """(recurrent-state bytes, ring KV bytes) of a model's caches."""
+    state = ring = 0
+    for slot in caches.values():
+        for name, t in slot.items():
+            b = t.numel() * t.element_size()
+            if name in _STATE:
+                state += b
+            else:
+                ring += b
+    return state, ring
+
+
+def decode_step_bytes(weight_bytes: int, caches: dict) -> int:
+    """The bytes one decode step must move: every weight read once, each
+    ring KV cache read whole, each recurrent state read and written."""
+    state, ring = cache_bytes(caches)
+    return weight_bytes + 2 * state + ring
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeConfig,
+                n: int | None = None) -> float:
+    """The yardstick's FLOPs; ``n`` the model's N (default the config's
+    active count)."""
+    if n is None:
+        n = cfg.active_param_count()
     if shape.kind == "train":
         tokens = shape.global_batch * shape.seq_len
         return 6.0 * n * tokens

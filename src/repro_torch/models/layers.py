@@ -287,10 +287,11 @@ def mlp_shapes(cfg, n_layers: int):
             "w_down": (n_layers, Fd, D)}
 
 
-def mlp_apply(p, x):
-    """SwiGLU MLP; ``p`` holds one layer's weights."""
+def mlp_apply(p, x, act=F.silu):
+    """SwiGLU MLP; ``p`` holds one layer's weights; ``act`` the gate's
+    activation."""
     dt = x.dtype
-    h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+    h = act(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
     return h @ p["w_down"].to(dt)
 
 

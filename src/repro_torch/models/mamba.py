@@ -1,0 +1,339 @@
+"""Mamba-1 selective-state-space LM (falcon-mamba-7b) — port of
+``repro/models/mamba.py``.
+
+The selective scan runs the recurrence
+    h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t * x_t
+chunk by chunk (the reference's chunk rule, :func:`scan_chunk`): within a
+chunk of Q positions the (B, Q, D_inner, N) discretised tensors are built
+and scanned in log2(Q) batched levels (:func:`chunked_linear_recurrence`,
+pairwise reduction as ``jax.lax.associative_scan`` does it), and only the
+(B, D_inner, N) state is carried from one chunk to the next, so the
+(B, S, D_inner, N) tensor of the whole sequence never exists.  The scan
+is f32 whatever the compute dtype; the projections, the depthwise conv
+and the gates run in the compute dtype, as in the reference.
+
+:class:`RecurrentLM` holds what this model and the hybrid
+(``models/rglru.py``) share: the embedding and final norm, on the model
+API of ``transformer.LanguageModel`` (``forward``, ``loss``, ``logits``,
+``prefill``, ``decode_step``).  Caches (the conv carry and the scan
+state, per layer) are written in place, as the dense ring caches are.
+"""
+from __future__ import annotations
+
+import math
+from functools import partial
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import _DTYPES, LanguageModel, _draw
+
+SCAN_CHUNK = 256
+
+
+def ssm_layer_shapes(cfg) -> dict:
+    """One mamba layer's parameter shapes (without the layer axis)."""
+    D, Di, N, R, W = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                      cfg.ssm_dt_rank, cfg.ssm_conv)
+    return {"in_proj": (D, 2 * Di), "conv_w": (W, Di), "conv_b": (Di,),
+            "x_proj": (Di, R + 2 * N), "dt_proj": (R, Di), "dt_bias": (Di,),
+            "A_log": (Di, N), "D": (Di,), "out_proj": (Di, D), "norm": (D,)}
+
+
+# ---------------------------------------------------------------------------
+# activations as the reference composes them
+# ---------------------------------------------------------------------------
+# jax.nn's sigmoid, silu, softplus and (tanh) gelu are compositions of
+# elementwise ops, each rounded to the input's dtype as XLA runs them;
+# torch's fused versions round once, which in bf16 differs in 15-45% of
+# the outputs.  These apply the same ops in the same order (each torch op
+# on a bf16 tensor rounds its result), with constants rounded to the
+# dtype as jax rounds them.  Where the reference casts such a result to
+# f32, XLA (allowing excess precision) drops the bf16 round trip and
+# reads the final op's f32 result: ``f32=True`` returns that.
+
+
+def _last(x, f32: bool):
+    return x.float() if f32 else x
+
+
+def sigmoid(x, f32: bool = False):
+    return 1.0 / _last(1.0 + torch.exp(-x), f32)
+
+
+def silu(x, f32: bool = False):
+    return _last(x, f32) * _last(sigmoid(x), f32)
+
+
+def softplus(x, f32: bool = False):
+    """``jnp.logaddexp(x, 0)``."""
+    return (_last(x.clamp_min(0.0), f32)
+            + _last(torch.log1p(torch.exp(-x.abs())), f32))
+
+
+def _const(v: float, dtype) -> float:
+    return float(torch.tensor(v, dtype=dtype))
+
+
+def gelu_tanh(x):
+    """``jax.nn.gelu`` with its default ``approximate=True``."""
+    inner = x + _const(0.044715, x.dtype) * (x * x * x)
+    cdf = 0.5 * (1.0 + torch.tanh(_const((2 / math.pi) ** 0.5, x.dtype)
+                                  * inner))
+    return x * cdf
+
+
+# ---------------------------------------------------------------------------
+# the depthwise conv and the chunked linear recurrence
+# ---------------------------------------------------------------------------
+
+
+def causal_depthwise_conv(x, w, b, carry: Optional[torch.Tensor] = None):
+    """x: (B, S, C); w: (W, C); b: (C,).  Left-padded causal depthwise
+    conv; ``carry``: (B, W-1, C), the previous context (decode).  Returns
+    (y, the new carry: the last W-1 inputs).  The W taps are added one by
+    one in x's dtype, then the bias, as the reference adds them: in bf16
+    each sum is rounded (``F.conv1d`` accumulates in f32 and rounds once,
+    which differs in about half the outputs)."""
+    B, S, C = x.shape
+    W = w.shape[0]
+    if carry is None:
+        carry = x.new_zeros((B, W - 1, C))
+    xp = torch.cat([carry.to(x.dtype), x], dim=1)          # (B, S+W-1, C)
+    y = x.new_zeros((B, S, C))
+    for i in range(W):
+        y = y + xp[:, i:i + S] * w[i].to(x.dtype)
+    y = y + b.to(x.dtype)
+    return y, (xp[:, S:] if W > 1 else carry)
+
+
+def scan_chunk(S: int, chunk: int = SCAN_CHUNK) -> int:
+    """The reference's chunk rule for a scan over ``S`` positions: chunks
+    of ``min(chunk, S)`` that divide ``S`` (it asserts; this raises
+    ``ValueError``).  Returns the chunk."""
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"a scan over {S} positions does not split into "
+                         f"chunks of {Q}")
+    return Q
+
+
+def _affine_scan(a, b, want_a: bool = True):
+    """Inclusive scan along dim 1 of the affine maps h -> a_t * h + b_t:
+    ``(a_cum, b_cum)`` with ``b_cum_t = a_t * b_cum_{t-1} + b_t`` (and
+    ``a_cum`` the running product; None unless ``want_a``).  Pairwise
+    reduction: adjacent pairs are combined, the half-length sequence is
+    scanned, and the even positions are filled from it — log2(Q) levels
+    of a few batched elementwise ops, no step per position."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    a0, a1 = a[:, 0:n - 1:2], a[:, 1::2]
+    sa, sb = _affine_scan(a0 * a1, torch.addcmul(b[:, 1::2],
+                                                 b[:, 0:n - 1:2], a1))
+    m = (n - 1) // 2                      # even positions 2, 4, ... < n
+    out_b = torch.empty_like(b)
+    out_b[:, :1] = b[:, :1]
+    out_b[:, 1::2] = sb
+    out_b[:, 2::2] = torch.addcmul(b[:, 2::2], sb[:, :m], a[:, 2::2])
+    if not want_a:
+        return None, out_b
+    out_a = torch.empty_like(a)
+    out_a[:, :1] = a[:, :1]
+    out_a[:, 1::2] = sa
+    out_a[:, 2::2] = sa[:, :m] * a[:, 2::2]
+    return out_a, out_b
+
+
+def chunked_linear_recurrence(h0, S: int, inputs, readout,
+                              chunk: int = SCAN_CHUNK):
+    """h_t = a_t * h_{t-1} + b_t for t < S from ``h0`` (B, ...), f32,
+    chunk by chunk under :func:`scan_chunk`'s rule.  ``inputs(c0, c1)``
+    gives the chunk's (a, b), each (B, c1 - c0, ...) f32 and made for
+    this call (b is written); ``readout(c0, c1, hs)`` maps the chunk's
+    states (B, c1 - c0, ...) to its outputs (B, c1 - c0, ...).  Only one
+    chunk's tensors and the carried state exist at a time.  Returns (the
+    outputs concatenated along dim 1, the last state)."""
+    Q = scan_chunk(S, chunk)
+    h = h0.float()
+    ys = []
+    for c0 in range(0, S, Q):
+        a, b = inputs(c0, c0 + Q)
+        b[:, 0].addcmul_(a[:, 0], h)      # the carried state enters here
+        hs = _affine_scan(a, b, want_a=False)[1]
+        ys.append(readout(c0, c0 + Q, hs))
+        h = hs[:, -1].clone()
+        del a, b, hs
+    return torch.cat(ys, dim=1), h
+
+
+def selective_scan_chunked(u, dt, A, Bc, Cc, h0, *, chunk: int = SCAN_CHUNK):
+    """u, dt: (B, S, Di); A: (Di, N); Bc, Cc: (B, S, N); h0: (B, Di, N).
+    Returns (y (B, S, Di), hT (B, Di, N)), both f32."""
+    A = A.float()
+
+    def inputs(c0, c1):
+        dtc = dt[:, c0:c1].float()
+        a = (dtc[..., None] * A).exp_()                          # (B,Q,Di,N)
+        b = ((dtc * u[:, c0:c1].float())[..., None]
+             * Bc[:, c0:c1, None, :].float())                    # (B,Q,Di,N)
+        return a, b
+
+    def readout(c0, c1, hs):
+        return torch.matmul(hs, Cc[:, c0:c1, :, None].float())[..., 0]
+
+    return chunked_linear_recurrence(h0, u.shape[1], inputs, readout,
+                                     chunk)
+
+
+def mamba_mix(p, x, cfg, cache=None):
+    """One mamba mixer.  x: (B, S, D) -> (B, S, D); ``p`` holds one
+    layer's weights.  ``cache``: {"conv": (B, W-1, Di) in the compute
+    dtype, "h": (B, Di, N) f32} or None; written in place."""
+    B, S, _ = x.shape
+    Di, N, R = cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank
+    dt_ = x.dtype
+    u, z = (x @ p["in_proj"].to(dt_)).split(Di, dim=-1)
+    u, new_conv = causal_depthwise_conv(
+        u, p["conv_w"].to(dt_), p["conv_b"],
+        cache["conv"] if cache is not None else None)
+    # the skip term reads u as f32, unrounded (see the activations above)
+    u32 = silu(u, f32=True)
+    u = u32.to(dt_)
+    dtr, Bc, Cc = (u @ p["x_proj"].to(dt_)).split([R, N, N], dim=-1)
+    dt = softplus(dtr @ p["dt_proj"].to(dt_) + p["dt_bias"].to(dt_))
+    A = -torch.exp(p["A_log"].float())
+    h0 = (cache["h"] if cache is not None
+          else x.new_zeros((B, Di, N), dtype=torch.float32))
+    y, hT = selective_scan_chunked(u, dt, A, Bc, Cc, h0)
+    y = (y + u32 * p["D"].float()).to(dt_)
+    y = y * silu(z)
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+        cache["h"].copy_(hT)
+    return y @ p["out_proj"].to(dt_)
+
+
+# ---------------------------------------------------------------------------
+# the models
+# ---------------------------------------------------------------------------
+
+
+def _params(shapes: dict, device) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        k: nn.Parameter(torch.zeros(s, dtype=torch.float32, device=device))
+        for k, s in shapes.items()})
+
+
+class RecurrentLM(LanguageModel):
+    """The embedding and the final norm of the recurrent LMs, and the
+    model API (``transformer.LanguageModel``); a subclass builds its
+    layers and runs them in :meth:`_backbone`."""
+
+    #: the config family a subclass builds
+    family = ""
+
+    def __init__(self, cfg: ModelConfig, run: Optional[RunConfig] = None,
+                 device="cuda"):
+        super().__init__()
+        if (cfg.family != self.family or cfg.frontend
+                or not cfg.tie_embeddings):
+            raise NotImplementedError(
+                f"{cfg.name}: {type(self).__name__} builds the "
+                f"{self.family!r} family without a modality frontend, "
+                f"with tied embeddings")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.run = run
+        self.dtype = _DTYPES[cfg.dtype]
+        self.embed = nn.Parameter(torch.zeros(
+            (cfg.padded_vocab, cfg.d_model), dtype=torch.float32,
+            device=self.device))
+        self.final_norm = nn.Parameter(torch.zeros(
+            (cfg.d_model,), dtype=torch.float32, device=self.device))
+
+    def _init_shared(self, generator: torch.Generator) -> None:
+        self.embed.copy_(L.init_normal(generator, self.embed.shape, 0.02,
+                                       self.device))
+        self.final_norm.zero_()
+
+    def _remat(self) -> bool:
+        return (self.run is not None and self.run.remat != "none"
+                and torch.is_grad_enabled())
+
+    def _call(self, layer, remat: bool, x, *args):
+        """``layer(x, *args)``, recomputed in the backward under remat."""
+        if remat:
+            return checkpoint(layer, x, *args, use_reentrant=False)
+        return layer(x, *args)
+
+
+class MambaLM(RecurrentLM):
+    """Attention-free mamba-1 LM: one stacked ``slot0`` of n_layers
+    mamba layers, ``blocks/slot0/{A_log, D, conv_b, conv_w, dt_bias,
+    dt_proj, in_proj, norm, out_proj, x_proj}`` each (n_layers, ...)."""
+
+    family = "ssm"
+
+    def __init__(self, cfg: ModelConfig, run: Optional[RunConfig] = None,
+                 device="cuda"):
+        super().__init__(cfg, run, device)
+        self.n_groups = cfg.n_layers
+        self.blocks = nn.ModuleDict({"slot0": _params(
+            {k: (self.n_groups,) + s
+             for k, s in ssm_layer_shapes(cfg).items()}, self.device)})
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        """The reference's distributions: ``A_log`` rows log(1..N), ``D``
+        ones, ``conv_b`` / ``dt_bias`` / ``norm`` zeros, every other leaf
+        N(0, 1) / sqrt(shape[0]) of its per-layer shape, drawn one layer
+        at a time."""
+        N = self.cfg.ssm_state
+        for k, p in self.blocks["slot0"].items():
+            if k == "A_log":
+                p.copy_(torch.log(torch.arange(
+                    1, N + 1, dtype=torch.float32, device=p.device))
+                    .expand(p.shape))
+            elif k == "D":
+                p.fill_(1.0)
+            elif k in ("conv_b", "dt_bias", "norm"):
+                p.zero_()
+            else:
+                _draw(p, generator, p.shape[1] ** -0.5)
+        self._init_shared(generator)
+
+    def param_tree(self) -> dict:
+        return {"blocks": {"slot0": dict(self.blocks["slot0"])},
+                "embed": self.embed, "final_norm": self.final_norm}
+
+    def init_cache(self, B: int, S: int) -> dict:
+        """Zeroed per-layer caches for ``B`` sequences (their size does not
+        depend on ``S``): the conv carry in the compute dtype, the scan
+        state in f32."""
+        cfg, n = self.cfg, self.n_groups
+        return {"slot0": {
+            "conv": torch.zeros((n, B, cfg.ssm_conv - 1, cfg.d_inner),
+                                dtype=self.dtype, device=self.device),
+            "h": torch.zeros((n, B, cfg.d_inner, cfg.ssm_state),
+                             dtype=torch.float32, device=self.device)}}
+
+    def _layer(self, names, cache, x, *w):
+        p = dict(zip(names, w))
+        h = L.rms_norm(x, p["norm"], self.cfg.rms_eps)
+        return x + mamba_mix(p, h, self.cfg, cache)
+
+    def _backbone(self, x, positions, caches=None, cache_len=None):
+        remat = self._remat()
+        names, stacks = zip(*self.blocks["slot0"].items())
+        per_layer = list(zip(*(w.unbind(0) for w in stacks)))
+        for i, w in enumerate(per_layer):
+            cache = (None if caches is None else
+                     {k: c[i] for k, c in caches["slot0"].items()})
+            x = self._call(partial(self._layer, names, cache), remat, x, *w)
+        return L.rms_norm(x, self.final_norm, self.cfg.rms_eps)

@@ -1,15 +1,20 @@
 """Architecture registry of the port: ``--arch <id>`` -> model.  The
 dense family (paper-350m and the dense zoo: qwen3-8b, gemma2-9b,
-minitron-8b, starcoder2-3b) and the MoE family (qwen3-moe-30b-a3b,
-dbrx-132b); the JAX package's other families come in later slices."""
+minitron-8b, starcoder2-3b), the MoE family (qwen3-moe-30b-a3b,
+dbrx-132b), the SSM (falcon-mamba-7b) and the RG-LRU hybrid
+(recurrentgemma-2b); the JAX package's other families (enc-dec, the VLM
+stub) come in later slices."""
 from __future__ import annotations
 
 from typing import Optional
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models.mamba import MambaLM
+from repro_torch.models.rglru import GriffinLM
 from repro_torch.models.transformer import DenseTransformer, MoETransformer
 
-_FAMILY_CLS = {"dense": DenseTransformer, "moe": MoETransformer}
+_FAMILY_CLS = {"dense": DenseTransformer, "moe": MoETransformer,
+               "ssm": MambaLM, "hybrid": GriffinLM}
 
 
 def build_model(cfg: ModelConfig, run: Optional[RunConfig] = None,
@@ -20,4 +25,3 @@ def build_model(cfg: ModelConfig, run: Optional[RunConfig] = None,
         raise NotImplementedError(f"model family {cfg.family!r} is not "
                                   f"ported yet") from None
     return cls(cfg, run, device=device)
-

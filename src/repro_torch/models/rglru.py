@@ -1,0 +1,238 @@
+"""Griffin-style hybrid LM (recurrentgemma-2b) — port of
+``repro/models/rglru.py``: RG-LRU recurrent blocks and local
+sliding-window attention in a repeating (rec, rec, attn) pattern.
+
+RG-LRU recurrence (per channel):
+    a_t = exp(-c * softplus(Lambda) * sigmoid(W_a u_t + b_a))
+    i_t = sigmoid(W_i u_t + b_i)
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
+run by mamba's chunked linear recurrence
+(:func:`repro_torch.models.mamba.chunked_linear_recurrence`); the carried
+state is (B, D_rnn).  The attention slot is ``layers.attn_apply`` with the
+config's sliding window: its ring caches hold ``min(S, window)``
+positions.
+"""
+from __future__ import annotations
+
+from functools import partial
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch import tree as T
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models import layers as L
+from repro_torch.models.mamba import (SCAN_CHUNK, RecurrentLM, _params,
+                                      causal_depthwise_conv,
+                                      chunked_linear_recurrence, gelu_tanh,
+                                      sigmoid, silu, softplus)
+from repro_torch.models.transformer import _draw
+
+RGLRU_C = 8.0
+GROUP_KINDS = ("rec", "rec", "attn")
+
+
+def rglru_scan(u, a, h0, *, chunk: int = SCAN_CHUNK):
+    """u, a: (B, S, Dr) input and decay; h0: (B, Dr).  Returns (y (B, S,
+    Dr), hT (B, Dr)), f32."""
+    def inputs(c0, c1):
+        return (a[:, c0:c1].float(),
+                u[:, c0:c1].to(torch.float32, copy=True))
+
+    return chunked_linear_recurrence(h0, u.shape[1], inputs,
+                                     lambda c0, c1, hs: hs, chunk)
+
+
+def rec_shapes(cfg) -> dict:
+    """One RG-LRU mixer's parameter shapes (without the layer axis)."""
+    D, Dr, W = cfg.d_model, cfg.lru_width, cfg.conv1d_width
+    return {"w_x": (D, Dr), "w_y": (D, Dr), "conv_w": (W, Dr),
+            "conv_b": (Dr,), "w_a": (Dr, Dr), "b_a": (Dr,), "w_i": (Dr, Dr),
+            "b_i": (Dr,), "lam": (Dr,), "w_out": (Dr, D)}
+
+
+def rec_mix(p, x, cfg, cache=None):
+    """RG-LRU temporal mixer.  x: (B, S, D) -> (B, S, D); ``p`` holds one
+    layer's weights.  ``cache``: {"conv": (B, W-1, Dr) in the compute
+    dtype, "h": (B, Dr) f32} or None; written in place."""
+    B, S, _ = x.shape
+    dt = x.dtype
+    u = x @ p["w_x"].to(dt)
+    gate = x @ p["w_y"].to(dt)
+    u, new_conv = causal_depthwise_conv(
+        u, p["conv_w"].to(dt), p["conv_b"],
+        cache["conv"] if cache is not None else None)
+    # r and i * u are read as f32, unrounded (models/mamba.py)
+    r = sigmoid(u @ p["w_a"].to(dt) + p["b_a"].to(dt), f32=True)
+    i = sigmoid(u @ p["w_i"].to(dt) + p["b_i"].to(dt), f32=True).to(dt)
+    log_a = -RGLRU_C * softplus(p["lam"].float()) * r
+    a = torch.exp(log_a)
+    gated_in = (torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
+                * (i.float() * u.float()))
+    h0 = (cache["h"] if cache is not None
+          else x.new_zeros((B, cfg.lru_width), dtype=torch.float32))
+    y, hT = rglru_scan(gated_in, a, h0)
+    y = y.to(dt) * gelu_tanh(gate)
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+        cache["h"].copy_(hT)
+    return y @ p["w_out"].to(dt)
+
+
+class _Block(nn.Module):
+    """One stacked block slot, (n, ...) leaves: the pre-norms ``ln1`` /
+    ``ln2``, the SwiGLU ``ffn`` and the ``mix``er (RG-LRU or attention)."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, n: int, device):
+        super().__init__()
+        self.kind = kind
+        mix = ({k: (n,) + s for k, s in rec_shapes(cfg).items()}
+               if kind == "rec" else L.attn_shapes(cfg, n))
+        self.mix = _params(mix, device)
+        self.ffn = _params(L.mlp_shapes(cfg, n), device)
+        self.ln1 = nn.Parameter(torch.zeros((n, cfg.d_model), device=device))
+        self.ln2 = nn.Parameter(torch.zeros((n, cfg.d_model), device=device))
+
+    def tree(self) -> dict:
+        return {"ffn": dict(self.ffn), "ln1": self.ln1, "ln2": self.ln2,
+                "mix": dict(self.mix)}
+
+    def init(self, generator: torch.Generator) -> None:
+        """The reference's distributions: RG-LRU ``lam`` linspace(0.1,
+        1.5), the biases, ``conv_b`` and the norms zeros, every other
+        RG-LRU leaf N(0, 1) / sqrt(shape[0]) of its per-layer shape; the
+        attention and FFN weights as in the dense model (1 / sqrt of the
+        input width)."""
+        for k, p in self.mix.items():
+            if self.kind == "attn":
+                _draw(p, generator, p.shape[-2] ** -0.5)
+            elif k == "lam":
+                p.copy_(torch.linspace(0.1, 1.5, p.shape[-1],
+                                       dtype=torch.float32,
+                                       device=p.device).expand(p.shape))
+            elif k.startswith("b_") or k == "conv_b":
+                p.zero_()
+            else:
+                _draw(p, generator, p.shape[1] ** -0.5)
+        for p in self.ffn.values():
+            _draw(p, generator, p.shape[-2] ** -0.5)
+        self.ln1.zero_()
+        self.ln2.zero_()
+
+
+class GriffinLM(RecurrentLM):
+    """recurrentgemma-style hybrid: n_layers // 3 groups of (rec, rec,
+    local attn) slots, each stacked on (n_groups, ...) under
+    ``blocks/slot{i}``, then the leftover rec layers unrolled under
+    ``tail/slot{i}`` with a leading axis of 1 (their caches are
+    ``tail{i}``)."""
+
+    family = "hybrid"
+
+    def __init__(self, cfg: ModelConfig, run: Optional[RunConfig] = None,
+                 device="cuda"):
+        super().__init__(cfg, run, device)
+        self.n_groups = cfg.n_layers // len(GROUP_KINDS)
+        self.tail_rec = cfg.n_layers - len(GROUP_KINDS) * self.n_groups
+        self.q_chunk = run.q_chunk if run else 2048
+        self.kv_chunk = run.kv_chunk if run else 1024
+        self.blocks = nn.ModuleDict({
+            f"slot{i}": _Block(cfg, kind, self.n_groups, self.device)
+            for i, kind in enumerate(GROUP_KINDS)})
+        self.tail = nn.ModuleDict({
+            f"slot{i}": _Block(cfg, "rec", 1, self.device)
+            for i in range(self.tail_rec)})
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        for blk in list(self.blocks.values()) + list(self.tail.values()):
+            blk.init(generator)
+        self._init_shared(generator)
+
+    def param_tree(self) -> dict:
+        return {"blocks": {k: b.tree() for k, b in self.blocks.items()},
+                "embed": self.embed, "final_norm": self.final_norm,
+                "tail": {k: b.tree() for k, b in self.tail.items()}}
+
+    def _rec_cache(self, B: int, n: int) -> dict:
+        cfg = self.cfg
+        return {"conv": torch.zeros((n, B, cfg.conv1d_width - 1,
+                                     cfg.lru_width), dtype=self.dtype,
+                                    device=self.device),
+                "h": torch.zeros((n, B, cfg.lru_width), dtype=torch.float32,
+                                 device=self.device)}
+
+    def init_cache(self, B: int, S: int) -> dict:
+        """Zeroed caches for ``B`` sequences of up to ``S`` positions: per
+        rec slot the conv carry (compute dtype) and the state (f32), per
+        attention slot ring KV caches of ``min(S, window)`` positions;
+        ``tail{i}`` for the tail's rec layers."""
+        cfg = self.cfg
+        W = min(S, cfg.sliding_window or S)
+        out = {}
+        for i, kind in enumerate(GROUP_KINDS):
+            out[f"slot{i}"] = (self._rec_cache(B, self.n_groups)
+                               if kind == "rec" else
+                               {kv: torch.zeros(
+                                   (self.n_groups, B, W, cfg.n_kv_heads,
+                                    cfg.head_dim), dtype=self.dtype,
+                                   device=self.device) for kv in ("k", "v")})
+        for i in range(self.tail_rec):
+            out[f"tail{i}"] = self._rec_cache(B, 1)
+        return out
+
+    def _layer(self, kind, names, cache, cache_len, x, positions, *w):
+        """One block; returns its output in f32, unrounded.  Inside one
+        jitted step the reference's norms read a residual sum as f32
+        without its bf16 rounding (XLA elides the round trip of the
+        norm's ``astype(f32)``, as for the activations of
+        ``models/mamba.py``), while the residual stream itself is
+        rounded: so each norm here reads the f32 sum, each residual add
+        the rounded one, and the caller rounds where the reference's
+        layer scan carries the stream (after each group)."""
+        cfg, dt = self.cfg, self.dtype
+        p = T.from_flat_dict(dict(zip(names, w)))
+        h = L.rms_norm(x, p["ln1"], cfg.rms_eps).to(dt)
+        if kind == "rec":
+            h = rec_mix(p["mix"], h, cfg, cache)
+        else:
+            h = L.attn_apply(p["mix"], h, cfg, positions=positions,
+                             window=cfg.sliding_window, cache=cache,
+                             cache_len=cache_len, q_chunk=self.q_chunk,
+                             kv_chunk=self.kv_chunk)
+        x = x.to(dt).float() + h.float()
+        h = L.mlp_apply(p["ffn"], L.rms_norm(x, p["ln2"], cfg.rms_eps)
+                        .to(dt), act=silu)
+        return x.to(dt).float() + h.float()
+
+    def _backbone(self, x, positions, caches=None, cache_len=None):
+        """The groups (each slot in order), then the tail, then the final
+        norm; ``caches`` written in place."""
+        remat = self._remat()
+
+        def unstacked(blk):
+            paths, stacks = zip(*T.leaves_with_path(blk.tree()))
+            return ([T.path_str(q) for q in paths],
+                    list(zip(*(w.unbind(0) for w in stacks))))
+
+        def run(kind, names, w, cache, x):
+            layer = partial(self._layer, kind, names, cache, cache_len)
+            return self._call(layer, remat, x, positions, *w)
+
+        slots = [unstacked(self.blocks[f"slot{i}"])
+                 for i in range(len(GROUP_KINDS))]
+        for g in range(self.n_groups):
+            for i, (kind, (names, per_layer)) in enumerate(
+                    zip(GROUP_KINDS, slots)):
+                cache = (None if caches is None else
+                         {k: c[g] for k, c in caches[f"slot{i}"].items()})
+                x = run(kind, names, per_layer[g], cache, x)
+            x = x.to(self.dtype)
+        for i in range(self.tail_rec):
+            names, per_layer = unstacked(self.tail[f"slot{i}"])
+            cache = (None if caches is None else
+                     {k: c[0] for k, c in caches[f"tail{i}"].items()})
+            x = run("rec", names, per_layer[0], cache, x)
+        x = L.rms_norm(x, self.final_norm, self.cfg.rms_eps)
+        return x.to(self.dtype)

@@ -79,7 +79,64 @@ def _draw(p: torch.Tensor, generator: torch.Generator, std: float):
         s.copy_(L.init_normal(generator, s.shape, std, p.device))
 
 
-class DenseTransformer(nn.Module):
+class LanguageModel(nn.Module):
+    """The model API the port's LMs share, around a subclass's
+    ``param_tree()``, ``init_cache(B, S)`` and ``_backbone(x, positions,
+    caches=None, cache_len=None)`` (the layer stack and the final norm;
+    the caches written in place), and its ``embed``, ``cfg``, ``dtype``:
+    ``forward`` / ``loss`` / ``logits`` for training, ``prefill`` /
+    ``decode_step`` for serving."""
+
+    def param_shapes(self) -> dict:
+        return T.tree_map(lambda p: tuple(p.shape), self.param_tree())
+
+    def active_param_count(self) -> int:
+        """N of ``flops.model_flops``, counted from the tree: the
+        parameters one token runs through."""
+        return sum(p.numel() for p in self.parameters())
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) -> final hidden states (B, S, D) in the compute
+        dtype."""
+        x = L.embed_lookup(self.embed, tokens, self.cfg, self.dtype)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        return self._backbone(x, positions)
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        x = self.forward(batch["tokens"])
+        return L.xent_loss_chunked(x, self.embed, batch["labels"], self.cfg)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """LM-head logits (final softcap included) of hidden states."""
+        return L.lm_logits(x, self.embed.to(x.dtype), self.cfg)
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None):
+        """tokens (B, S) -> (the last position's logits (B, 1, V), the
+        caches (:meth:`init_cache` of ``cache_len``, default S positions)
+        holding the prompt)."""
+        x = L.embed_lookup(self.embed, tokens, self.cfg, self.dtype)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        caches = self.init_cache(B, cache_len or S)
+        x = self._backbone(x, positions, caches=caches)
+        return self.logits(x[:, -1:]), caches
+
+    @torch.no_grad()
+    def decode_step(self, caches: dict, cache_len: int,
+                    tokens: torch.Tensor):
+        """tokens (B, 1) at position ``cache_len`` (the count of positions
+        already in the caches) -> (logits (B, 1, V), the caches, written
+        in place)."""
+        t = int(cache_len)
+        x = L.embed_lookup(self.embed, tokens, self.cfg, self.dtype)
+        positions = torch.full((x.shape[0], 1), t, device=x.device)
+        x = self._backbone(x, positions, caches=caches, cache_len=t)
+        return self.logits(x), caches
+
+
+class DenseTransformer(LanguageModel):
     """Dense decoder-only LM (the "global" and "local_global" layer
     patterns).  Also the base of the MoE variant."""
 
@@ -154,9 +211,6 @@ class DenseTransformer(nn.Module):
         return {"blocks": {k: s.tree() for k, s in self.blocks.items()},
                 "embed": self.embed, "final_norm": self.final_norm}
 
-    def param_shapes(self) -> dict:
-        return T.tree_map(lambda p: tuple(p.shape), self.param_tree())
-
     # ---------------- cache ----------------
     def _slot_cache_shape(self, kind: str, B: int, S: int):
         cfg = self.cfg
@@ -222,45 +276,6 @@ class DenseTransformer(nn.Module):
                     x = layer(x, positions, *per_layer[g])
         return L.rms_norm(x, self.final_norm, self.cfg.rms_eps)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> final hidden states (B, S, D) in bf16."""
-        x = L.embed_lookup(self.embed, tokens, self.cfg, self.dtype)
-        B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        return self._backbone(x, positions)
-
-    def loss(self, batch: dict) -> torch.Tensor:
-        x = self.forward(batch["tokens"])
-        return L.xent_loss_chunked(x, self.embed, batch["labels"], self.cfg)
-
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """LM-head logits (final softcap included) of hidden states."""
-        return L.lm_logits(x, self.embed.to(x.dtype), self.cfg)
-
-    @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None):
-        """tokens (B, S) -> (the last position's logits (B, 1, V), ring
-        caches of ``cache_len`` (default S) positions holding the
-        prompt)."""
-        x = L.embed_lookup(self.embed, tokens, self.cfg, self.dtype)
-        B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        caches = self.init_cache(B, cache_len or S)
-        x = self._backbone(x, positions, caches=caches)
-        return self.logits(x[:, -1:]), caches
-
-    @torch.no_grad()
-    def decode_step(self, caches: dict, cache_len: int,
-                    tokens: torch.Tensor):
-        """tokens (B, 1) at position ``cache_len`` (the count of positions
-        already in the caches) -> (logits (B, 1, V), the caches, written
-        in place)."""
-        t = int(cache_len)
-        x = L.embed_lookup(self.embed, tokens, self.cfg, self.dtype)
-        positions = torch.full((x.shape[0], 1), t, device=x.device)
-        x = self._backbone(x, positions, caches=caches, cache_len=t)
-        return self.logits(x), caches
-
 
 class MoETransformer(DenseTransformer):
     """The dense transformer with each layer's FFN a capacity-dispatch
@@ -280,3 +295,10 @@ class MoETransformer(DenseTransformer):
 
     def _ffn_apply(self, p: dict, x: torch.Tensor) -> torch.Tensor:
         return moe.moe_apply(p, x, self.cfg)
+
+    def active_param_count(self) -> int:
+        """The tree's count less the experts a token is not routed to."""
+        cfg = self.cfg
+        idle = (cfg.n_experts - cfg.experts_per_token) * 3 * cfg.d_model \
+            * cfg.d_ff
+        return super().active_param_count() - cfg.n_layers * idle

@@ -1,7 +1,8 @@
 """Tests of the port that need the card: each Hopper kernel against its
 plain PyTorch version on CUDA tensors, bit for bit, the wrappers'
-launch counting, serving on the card against the CPU (the dense
-SMOKE configs, the MoE FFN, and the ring cache written in place), and
+launch counting, serving on the card against the CPU (the dense and
+recurrent SMOKE configs, the chunked scans, the MoE FFN, and the ring
+cache written in place), and
 training the MoE family on the card (one step against the CPU's, and
 its backward reproducible under ``RunConfig.deterministic``).  They skip without a CUDA device; on the card
 run
@@ -388,7 +389,8 @@ def _served(model, requests_seed=2):
     return [q.out_tokens for q in done], logs
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen3-8b", "falcon-mamba-7b",
+                                  "recurrentgemma-2b"])
 def test_serving_on_card_matches_cpu(dev, arch):
     """The SMOKE config served on the card and on the CPU from the same
     weights: in f32 every step's logits within 1e-4 relative and equal
@@ -452,6 +454,31 @@ def test_moe_apply_on_card_matches_cpu(dev, arch, dtype):
             assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
         else:
             assert float((a - b).norm() / b.norm()) < 3e-2
+
+
+def test_chunked_scans_on_card_match_cpu(dev):
+    """The selective scan and the RG-LRU scan over 1024 positions (four
+    chunks) on the card within 1e-5 relative of the CPU's (f32; the two
+    devices round the same ops apart in the last bits)."""
+    from repro_torch.models import mamba, rglru
+    r = np.random.RandomState(0)
+    B, S, Di, N = 2, 1024, 256, 16
+    args = [r.randn(B, S, Di), np.log1p(np.exp(r.randn(B, S, Di))),
+            -np.exp(r.randn(Di, N) * 0.5), r.randn(B, S, N),
+            r.randn(B, S, N), r.randn(B, Di, N)]
+    host = [torch.from_numpy(a.astype(np.float32)) for a in args]
+    u, a, h0 = (torch.from_numpy(x.astype(np.float32)) for x in (
+        r.randn(B, S, Di), 1 / (1 + np.exp(-r.randn(B, S, Di))),
+        r.randn(B, Di)))
+    for got, want in (
+            (mamba.selective_scan_chunked(*(t.to(dev) for t in host)),
+             mamba.selective_scan_chunked(*host)),
+            (rglru.rglru_scan(u.to(dev), a.to(dev), h0.to(dev)),
+             rglru.rglru_scan(u, a, h0))):
+        for g, w in zip(got, want):
+            assert g.is_cuda
+            g = g.cpu()
+            assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
 def test_ring_write_decode_in_place_on_card(dev):

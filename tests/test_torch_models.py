@@ -53,6 +53,7 @@ from repro_torch.models.registry import build_model as tbuild
 DENSE = ["paper-350m", "qwen3-8b", "gemma2-9b", "minitron-8b",
          "starcoder2-3b"]
 MOE = ["qwen3-moe-30b-a3b", "dbrx-132b"]
+RECURRENT = ["falcon-mamba-7b", "recurrentgemma-2b"]
 F32_RTOL = 1e-4
 BF16_REL = 3e-2
 LOSS_RTOL = 2e-2
@@ -320,7 +321,7 @@ def force_reference_routing(arch, dtype, monkeypatch):
           f"{log.flips} (token, layer) top-k sets at a near-tie")
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_param_tree_matches_reference_init(arch):
     params = jbuild(J_SMOKE[arch]).init(jax.random.PRNGKey(0))
     want = [(_key(p), tuple(x.shape)) for p, x in
@@ -332,6 +333,12 @@ def test_param_tree_matches_reference_init(arch):
     # the module's own parameters are exactly the tree's leaves
     assert {id(p) for p in model.parameters()} == \
         {id(x) for x in T.leaves(model.param_tree())}
+    # the yardstick's N (``flops.model_flops``): the tree's count, a MoE's
+    # less the experts a token is not routed to, as the reference's
+    # config counts its active parameters
+    cfg, n = J_SMOKE[arch], sum(math.prod(s) for _, s in want)
+    assert model.active_param_count() == \
+        cfg.active_param_count() + n - cfg.param_count()
 
 
 def test_params_from_reference_refuses_other_paths():
@@ -349,7 +356,7 @@ def _tokens(arch, seed=1, n=S):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_forward_and_loss_match_reference(arch, dtype, monkeypatch):
     jm, params, tm = models(arch, dtype)
     toks = _tokens(arch)

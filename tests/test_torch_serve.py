@@ -57,9 +57,9 @@ from repro.models.registry import build_model as jbuild
 from repro_torch.configs import SMOKE_ARCHS
 from repro_torch.launch import serve as tserve
 from repro_torch.models.registry import build_model as tbuild
-from test_torch_models import (BF16_REL, DENSE, F32_RTOL, MOE, close_f32,
-                               force_reference_routing, models, rel_err,
-                               _np)
+from test_torch_models import (BF16_REL, DENSE, F32_RTOL, MOE, RECURRENT,
+                               close_f32, force_reference_routing, models,
+                               rel_err, _np)
 
 ROOT = Path(__file__).resolve().parents[1]
 #: the reference test's teacher-forced tolerance
@@ -148,22 +148,24 @@ def test_sliding_window_ring_cache_consistency():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_prefill_decode_match_reference(arch, dtype, monkeypatch):
     jm, params, tm = models(arch, dtype)
     r = np.random.RandomState(11)
     toks = r.randint(0, SMOKE_ARCHS[arch].vocab_size,
                      size=(2, 48)).astype(np.int32)
+    jpre = jax.jit(jm.prefill, static_argnums=2)
+    jdec = jax.jit(jm.decode_step)
     with force_reference_routing(arch, dtype, monkeypatch):
-        jlogits, jcache = jm.prefill(params, {"tokens": jnp.asarray(
-            toks[:, :40])}, cache_len=48)
+        jlogits, jcache = jpre(params, {"tokens": jnp.asarray(
+            toks[:, :40])}, 48)
         logits, cache = tm.prefill(torch.from_numpy(toks[:, :40]),
                                    cache_len=48)
         assert logits.shape == tuple(jlogits.shape)
         _check(logits, jlogits, dtype)
         for t in range(40, 48):
-            jlogits, jcache = jm.decode_step(params, jcache, jnp.int32(t),
-                                             jnp.asarray(toks[:, t:t + 1]))
+            jlogits, jcache = jdec(params, jcache, jnp.int32(t),
+                                   jnp.asarray(toks[:, t:t + 1]))
             logits, cache = tm.decode_step(
                 cache, t, torch.from_numpy(toks[:, t:t + 1]))
             _check(logits, jlogits, dtype)
@@ -186,7 +188,7 @@ def _requests(mod, vocab):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_server_tokens_match_reference(arch, dtype, monkeypatch):
     jm, params, tm = models(arch, None if dtype == "bfloat16" else dtype)
     if dtype == "bfloat16":
