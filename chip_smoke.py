@@ -20,9 +20,11 @@ Phases (any failure exits nonzero before the result lines):
 4. agreement on a small input: one SMOKE-model ``grad_sync`` step under
    a plan with a group on every rung on the card (kernels) and on the
    CPU (plain versions) from the same weights and batch, for paper-350m
-   (bf16), qwen3-moe-30b-a3b and gemma2-9b (f32): the losses within 2e-2
-   relative, the updated weights within 1e-3, and for the MoE the top-k
-   sets of every dispatch (forward and the backward's recompute) equal;
+   (bf16), qwen3-moe-30b-a3b and gemma2-9b (f32) at 64 positions, and
+   falcon-mamba-7b and recurrentgemma-2b (f32) at 512 (the scans'
+   backward over two chunks): the losses within 2e-2 relative, the
+   updated weights within 1e-3, and for the MoE the top-k sets of every
+   dispatch (forward and the backward's recompute) equal;
 5. the main path: paper-350m at full width (24 layers, d 1024, vocab
    50,304, seq 1024, batch 8) under ``acesync`` with ``replan_every=4``
    through ``TrainSession`` for 8 steps (two ``delta_sync`` rounds, one
@@ -181,7 +183,8 @@ Phases (any failure exits nonzero before the result lines):
    phase 4's).  Prints per model the layers, parameters (total and
    active), train-state bytes, init seconds, ms per step kind (CUDA
    events: median of the steady steps, min and max), tokens/s and MFU
-   at 6 * N_active * tokens of 989 TFLOP/s (MoE: also the executed
+   at 6 * N_active * tokens of 989 TFLOP/s, N_active counted on the
+   tree (``LanguageModel.active_param_count``; MoE: also the executed
    capacity FLOPs, 3x the forward's every expert at C, and the share of
    (token, k) pairs one untimed training forward drops), K1-K4's
    launches and peak memory allocated and reserved.
@@ -213,13 +216,29 @@ Phases (any failure exits nonzero before the result lines):
    bound counts the recurrent states read and written), and the
    recurrent-state and ring bytes per sequence beside qwen3-8b's KV
    bytes at the same length.
+14. training the recurrent families, one process per model:
+   falcon-mamba-7b and recurrentgemma-2b at their full published widths,
+   cut in depth by phase 12's rule at each model's own measured bytes per
+   parameter (``TRAIN_RECURRENT``; recurrentgemma at n_layers = 2 mod 3,
+   so that its unrolled tail trains), seeded weights, seq 1024 (four scan
+   chunks), batch 8, trained as phase 12 trains its models (8 steps
+   under ``acesync`` with ``replan_every=4``, then an all-rungs
+   ``grad_sync``).  Gates: (1) every loss finite; (2) K1-K4 launched on
+   each model's path; (3) the peak allocated memory leaves 8 GiB free;
+   (4) falcon-mamba's scan transient during the backward, measured on
+   the empty card before the session (``launch.memory.scan_memory``: the
+   peak of ``SelectiveScan``'s backward at the run's shapes above the
+   allocation just before it), stays below ``SCAN_BWD_CHUNKS`` one-chunk
+   (8, 256, 8192, 16) f32 tensors.  Prints phase 12's lines per model
+   (MFU at 6 * N * tokens with N from the tree) and the scans' saved
+   bytes, backward peak and one full-width layer's saved bytes.
 
 Output: progress lines with each phase's seconds, the pod link's latency
 and rate, then the ``nvidia-smi`` line, the kernels' JSON line (each
 kernel's launches in total and per main path: ``one_pod`` (phase 5),
 ``p2`` and ``p3`` (phase 7, all pods), ``hier`` (phase 8, all
 members), ``restart`` (phase 9a, its three runs), ``elastic`` (phase
-9b, all pods), ``zoo_<arch>`` (phase 12, each model's process) and
+9b, all pods), ``zoo_<arch>`` (phases 12 and 14, each model's process) and
 ``zoo_determinism`` (phase 12, both runs), each counted from 0 just
 before its run; phases 10, 11 and 13 launch none; K16's ``library_ms``
 is ``torch.mul(q, s)``'s time; ``paths`` gives each path's pods, members
@@ -703,11 +722,16 @@ def dequant_library(torch, ops, ref, g, e):
     return ms, int(den.sum())
 
 
-#: phase 4's SMOKE configs and their compute dtype (None: the config's,
-#: bf16): paper-350m, and the MoE family and gemma2's local / global
-#: layers in f32, where the card and the CPU route every token alike
-SMALL_AGREEMENT = (("paper-350m", None), ("qwen3-moe-30b-a3b", "float32"),
-                   ("gemma2-9b", "float32"))
+#: phase 4's SMOKE configs, their compute dtype (None: the config's,
+#: bf16) and sequence length: paper-350m, and the MoE family and gemma2's
+#: local / global layers in f32, where the card and the CPU route every
+#: token alike, at 64 positions; the recurrent families in f32 at 512, so
+#: that the scans' backward runs over two 256-position chunks
+SMALL_AGREEMENT = (("paper-350m", None, 64),
+                   ("qwen3-moe-30b-a3b", "float32", 64),
+                   ("gemma2-9b", "float32", 64),
+                   ("falcon-mamba-7b", "float32", 512),
+                   ("recurrentgemma-2b", "float32", 512))
 
 
 def small_agreement(torch):
@@ -726,11 +750,11 @@ def small_agreement(torch):
     from repro_torch.models import moe
     from repro_torch.models.registry import build_model
 
-    for arch, dtype in SMALL_AGREEMENT:
+    for arch, dtype, seq in SMALL_AGREEMENT:
         cfg = SMOKE_ARCHS[arch]
         if dtype:
             cfg = dataclasses.replace(cfg, dtype=dtype)
-        run = RunConfig(model=cfg, shape=ShapeConfig("s", 64, 2, "train"),
+        run = RunConfig(model=cfg, shape=ShapeConfig("s", seq, 2, "train"),
                         lr=1e-2, warmup_steps=1)
         card = Trainer(build_model(run.model, run, device="cuda"), run)
         host = Trainer(build_model(run.model, run, device="cpu"), run)
@@ -753,7 +777,7 @@ def small_agreement(torch):
                          [p.detach().cpu() for p in
                           T.leaves(state["params"])]))
         (lc, pc), (lh, ph) = outs
-        tag = f"phase 4: {arch} ({cfg.dtype})"
+        tag = f"phase 4: {arch} ({cfg.dtype}, seq {seq})"
         if not (math.isfinite(lc) and abs(lc - lh) <= 2e-2 * abs(lh)):
             fail(f"{tag}: small-input loss: card {lc} vs cpu {lh}")
         worst = max(float((a - b).abs().max()) for a, b in zip(pc, ph))
@@ -2664,20 +2688,22 @@ def zoo_config(arch, spec):
     return cfg, cfg.param_count()
 
 
-def zoo_reckoning(card_bytes):
+def zoo_reckoning(card_bytes, tag="phase 12", table=None):
     """Gate 5, before anything is built: each model's reckoned peak (its
-    parameters x ``ZOO_BYTES_PER_PARAM``) must leave ``ZOO_FREE_GIB`` of
-    the card free."""
-    for arch, spec in TRAIN_ZOO.items():
+    parameters x its ``bytes_per_param``, by default
+    ``ZOO_BYTES_PER_PARAM``) must leave ``ZOO_FREE_GIB`` of the card
+    free."""
+    for arch, spec in (table or TRAIN_ZOO).items():
         cfg, n = zoo_config(arch, spec)
-        peak = n * ZOO_BYTES_PER_PARAM
+        per = spec.get("bytes_per_param", ZOO_BYTES_PER_PARAM)
+        peak = n * per
         free = (card_bytes - peak) / 2**30
-        log(f"phase 12: {arch} at {cfg.n_layers} of its layers: {n:,} "
-            f"parameters x {ZOO_BYTES_PER_PARAM} B = {peak / 2**30:.2f} GiB "
+        log(f"{tag}: {arch} at {cfg.n_layers} of its layers: {n:,} "
+            f"parameters x {per} B = {peak / 2**30:.2f} GiB "
             f"reckoned peak, {free:.2f} GiB of {card_bytes / 2**30:.2f} "
             f"free")
         if free < ZOO_FREE_GIB:
-            fail(f"phase 12: {arch} at {cfg.n_layers} layers does not fit "
+            fail(f"{tag}: {arch} at {cfg.n_layers} layers does not fit "
                  f"the card with {ZOO_FREE_GIB} GiB to spare")
 
 
@@ -2703,30 +2729,37 @@ def zoo_session(torch, arch, spec, deterministic=False, H=None):
 
 
 def zoo_train_path(group, spec):
-    """Phase 12, one model in a process of its own: ``spec["arch"]`` at
-    full width and phase 12's depth through TrainSession for
-    ``ZOO_STEPS`` steps (two delta_sync rounds, one device replan), then
-    one grad_sync under a plan with a group on every rung; each step on
-    CUDA events, the kernels' launch counts from 0 just before the run,
-    then one untimed training forward with its dispatches recorded (MoE:
-    the share of (token, k) pairs it drops)."""
+    """Phase 12 or 14, one model in a process of its own:
+    ``spec["arch"]`` at full width and the phase's depth through
+    TrainSession for ``ZOO_STEPS`` steps (two delta_sync rounds, one
+    device replan), then one grad_sync under a plan with a group on every
+    rung; each step on CUDA events, the kernels' launch counts from 0
+    just before the run, then one untimed training forward with its
+    dispatches recorded (MoE: the share of (token, k) pairs it drops).  A
+    recurrent model first has its scan's memory measured on the empty
+    card (``launch.memory.scan_memory``, at the run's shapes)."""
     import torch
     from repro_torch import tree as T
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
-    from repro_torch.launch.memory import state_bytes
+    from repro_torch.launch.memory import scan_memory, state_bytes
     from repro_torch.models import flops, moe
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     arch = spec["arch"]
+    out = {}
+    shape = ShapeConfig("train", ZOO_SEQ, spec["batch"], "train")
+    cfg, _ = zoo_config(arch, spec)
+    if cfg.family in ("ssm", "hybrid"):
+        out["scan"] = scan_memory(cfg, spec["batch"], ZOO_SEQ)
+        out["scan"]["starts"] = flops.scan_start_bytes(cfg, shape)
     t0 = time.perf_counter()
     sess = zoo_session(torch, arch, spec)
     sess.init()
     torch.cuda.synchronize()
-    out = {"init_s": time.perf_counter() - t0,
-           "state_bytes": state_bytes(sess.state)}
-    cfg = sess.model.cfg
+    out.update(init_s=time.perf_counter() - t0,
+               state_bytes=state_bytes(sess.state))
     tr = sess.trainer
     times, step = [], tr.step
 
@@ -2763,11 +2796,10 @@ def zoo_train_path(group, spec):
         out["ms"].setdefault(kind, []).append(e0.elapsed_time(e1))
     # the all-rungs grad_sync was the last step timed
     out["ms"]["grad_sync_all_rungs"] = [out["ms"].pop("grad_sync")[-1]]
-    shape = ShapeConfig("train", ZOO_SEQ, spec["batch"], "train")
-    out["model_flops"] = flops.model_flops(cfg, shape)
+    out["n_active"] = sess.model.active_param_count()
+    out["model_flops"] = flops.model_flops(cfg, shape, out["n_active"])
     out["executed_flops"] = flops.executed_flops(cfg, shape)
     out["n_params"] = sum(p.numel() for p in T.leaves(state["params"]))
-    out["n_active"] = cfg.active_param_count()
     out["n_layers"] = cfg.n_layers
     if cfg.family == "moe":
         calls = []
@@ -2821,22 +2853,24 @@ def _spread(ms):
     return steady[len(steady) // 2], steady[0], steady[-1]
 
 
-def zoo_phase(torch, card) -> dict:
-    """Phase 12: qwen3-moe-30b-a3b, gemma2-9b and qwen3-8b trained at
-    full width and reduced depth, one process each, then the determinism
-    runs.  Returns the kernels' launches per path."""
+def train_models(torch, card, tag, table) -> tuple:
+    """The models of ``table`` trained at full width and their reduced
+    depth, one process each (``zoo_train_path``), gates 1, 2 and 5 of
+    phase 12 and its lines.  Returns (the kernels' launches per path,
+    each model's result)."""
     import gc
     from repro_torch.launch.mesh import spawn_pods
-    tag = "phase 12"
     gc.collect()
     torch.cuda.empty_cache()
-    zoo_reckoning(torch.cuda.get_device_properties(0).total_memory)
-    launches = {}
-    for arch, spec in TRAIN_ZOO.items():
+    zoo_reckoning(torch.cuda.get_device_properties(0).total_memory, tag,
+                  table)
+    launches, results = {}, {}
+    for arch, spec in table.items():
         spec = dict(spec, arch=arch, dir=str(CKPT_ROOT / f"zoo_{arch}"))
         (r,) = spawn_pods(zoo_train_path, 1, "cuda", args=(spec,),
                           timeout=600)
         launches[f"zoo_{arch}"] = r["launches"]
+        results[arch] = r
         tokens = spec["batch"] * ZOO_SEQ
         if not all(math.isfinite(x) for x in r["losses"]):
             fail(f"{tag}: {arch}: non-finite loss {r['losses']}")
@@ -2881,6 +2915,16 @@ def zoo_phase(torch, card) -> dict:
             f"{r['delta_rounds']} delta_sync rounds, {r['replans']} device "
             f"replan(s); K1-K4 launches "
             f"{[r['launches'].get(k, 0) for k in KERNELS]}")
+    return launches, results
+
+
+def zoo_phase(torch, card) -> dict:
+    """Phase 12: qwen3-moe-30b-a3b, gemma2-9b and qwen3-8b trained at
+    full width and reduced depth, one process each, then the determinism
+    runs.  Returns the kernels' launches per path."""
+    from repro_torch.launch.mesh import spawn_pods
+    tag = "phase 12"
+    launches, _ = train_models(torch, card, tag, TRAIN_ZOO)
     spec = dict(TRAIN_ZOO[ZOO_DET["arch"]],
                 dir=str(CKPT_ROOT / "zoo_determinism"))
     (d,) = spawn_pods(zoo_det_path, 1, "cuda", args=(spec,), timeout=600)
@@ -3121,6 +3165,65 @@ def serve_recurrent_phase(torch, card) -> None:
     check_smoke_and_launches(tag, res)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training the recurrent families
+# ---------------------------------------------------------------------------
+
+#: phase 14's models at full published width, cut in depth by phase 12's
+#: rule (``zoo_reckoning``) at each model's own bytes per parameter: the
+#: largest peak of a train step kind (the all-rungs ``grad_sync``) that
+#: ``python -m repro_torch.launch.memory`` measured for it at 8 layers,
+#: batch 8 x 1024, on an H100 80GB HBM3 at 700 W (48.046 and 49.245),
+#: rounded up.  falcon-mamba-7b 12 of 64 layers (13 would need 73.26 GiB
+#: of the card's 79.18); recurrentgemma-2b 8 of 26 (its depth keeps
+#: n_layers = 2 mod 3, so that its unrolled ``tail`` of two RG-LRU
+#: layers trains; 11 would need 73.91)
+TRAIN_RECURRENT = {
+    "falcon-mamba-7b": {"n_layers": 12, "batch": 8,
+                        "bytes_per_param": 48.1},
+    "recurrentgemma-2b": {"n_layers": 8, "batch": 8,
+                          "bytes_per_param": 49.3}}
+#: gate 4: falcon-mamba's scan transient during the backward (the peak
+#: of ``SelectiveScan``'s backward above the allocation just before it,
+#: ``launch.memory.scan_memory`` at the run's shapes) stays below this
+#: many one-chunk (8, 256, 8192, 16) f32 tensors.  Reckoned from the
+#: design before the first run: the reverse scan's inputs (the reversed
+#: a and C * dy), the chunk's states and the scan's levels (about 3) are
+#: live at once, with the (8, 1024, 8192) f32 gradients of u and dt
+#: (half a chunk tensor): under 7, and 8 with room for the allocator's
+#: rounding and cuBLAS's workspace.  Plain autograd saves more than
+#: four (8, 1024, 8192, 16) f32 tensors, 16 one-chunk tensors
+#: (tests/test_torch_recurrent_train.py).
+SCAN_BWD_CHUNKS = 8
+
+
+def recurrent_train_phase(torch, card) -> dict:
+    """Phase 14: falcon-mamba-7b and recurrentgemma-2b trained at full
+    width and reduced depth, one process each, as phase 12 trains its
+    models (gates 1-3 there, and the depth rule), and gate 4 on mamba's
+    scan.  Returns the kernels' launches per path."""
+    tag = "phase 14"
+    griffin = TRAIN_RECURRENT["recurrentgemma-2b"]["n_layers"]
+    if griffin % 3 != 2:
+        fail(f"{tag}: recurrentgemma-2b at {griffin} layers has no "
+             f"two-layer tail to train")
+    launches, results = train_models(torch, card, tag, TRAIN_RECURRENT)
+    for arch, r in results.items():
+        sc = r["scan"]
+        chunks = sc["backward_peak"] / sc["chunk_tensor"]
+        log(f"{tag}: {arch} on {card}: the scan at batch "
+            f"{TRAIN_RECURRENT[arch]['batch']} x {ZOO_SEQ} alone: saves "
+            f"{sc['saved']:,} B for its backward (chunk-start states "
+            f"{sc['starts']:,} B), backward peak {sc['backward_peak']:,} B "
+            f"above its start = {chunks:.4g} one-chunk f32 tensors of "
+            f"{sc['chunk_tensor']:,} B; one full-width layer keeps "
+            f"{sc['layer_saved']:,} B for its backward")
+        if arch == "falcon-mamba-7b" and not chunks < SCAN_BWD_CHUNKS:
+            fail(f"{tag}: {arch}: the scan's backward peaks at {chunks:.4g} "
+                 f"one-chunk tensors, not under {SCAN_BWD_CHUNKS}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3171,6 +3274,8 @@ def main() -> int:
     timed_phase("phase 11", serve_moe_phase, torch, card)
     by_path.update(timed_phase("phase 12", zoo_phase, torch, card))
     timed_phase("phase 13", serve_recurrent_phase, torch, card)
+    by_path.update(timed_phase("phase 14", recurrent_train_phase, torch,
+                               card))
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     log(f"pod link (phase 7, P = 2 ping-pong): latency "
         f"{link['latency_s']:.6g} s per hop, rate "
@@ -3187,7 +3292,9 @@ def main() -> int:
             "replaces": replaces,
             # phase 5 (one pod) + phase 7 (every pod at P = 2 and 3) +
             # phase 8 (every member of the 2 x 2 fleet) + phase 9 (the
-            # restart runs on one pod, every pod of the elastic run)
+            # restart runs on one pod, every pod of the elastic run) +
+            # phases 12 and 14 (each trained model's process, phase 12's
+            # determinism runs)
             "launches": sum(n.get(name, 0) for n in by_path.values()),
             "launches_by_path": {path: n.get(name, 0)
                                  for path, n in by_path.items()},
@@ -3206,7 +3313,8 @@ def main() -> int:
     paths.update({f"zoo_{arch}": {"pods": 1, "arch": arch,
                                   "layers": spec["n_layers"],
                                   "batch": spec["batch"]}
-                  for arch, spec in TRAIN_ZOO.items()})
+                  for arch, spec in dict(TRAIN_ZOO,
+                                         **TRAIN_RECURRENT).items()})
     paths["zoo_determinism"] = dict(paths[f"zoo_{ZOO_DET['arch']}"],
                                     runs=2, steps=ZOO_DET["steps"])
     print(json.dumps({"kernels": kernels, "paths": paths,

@@ -55,9 +55,10 @@ def _assign(dst_tree, src_tree) -> None:
         d.copy_(s)
 
 
-#: the model families whose training is ported: the dense transformers
-#: and the capacity-dispatch MoE (the reference's other families are not)
-TRAINED_FAMILIES = ("dense", "moe")
+#: the model families whose training is ported: the dense transformers,
+#: the capacity-dispatch MoE, mamba (``ssm``) and the RG-LRU hybrid
+#: (``hybrid``); the encoder-decoder and the VLM are not
+TRAINED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 class Trainer:

@@ -17,7 +17,10 @@ allocated and the peak above that are read with
 ``Trainer.step`` with its own peak.  Prints one JSON object (and writes
 it to ``--out`` where given): bytes and bytes per parameter by owner —
 the train state, the model's activations kept for the backward, the
-gradients, and each stage's transient above what it started from.
+gradients, and each stage's transient above what it started from.  For
+a recurrent arch (``ssm``, ``hybrid``) also ``scan``, measured first on
+the empty card (:func:`scan_memory`): the scan's own memory at the
+step's shapes, an owner of its own.
 """
 from __future__ import annotations
 
@@ -66,6 +69,88 @@ def state_bytes(state) -> int:
                 walk(v)
     walk(state)
     return total
+
+
+def _saved_bytes(fn, exclude=()):
+    """``fn()`` under a saved-tensors hook: (its result, the bytes of the
+    storages it saves for the backward, each once, less ``exclude``'s)."""
+    seen = {t.untyped_storage().data_ptr() for t in exclude}
+    total = 0
+
+    def pack(t):
+        nonlocal total
+        key = t.untyped_storage().data_ptr()
+        if key not in seen:
+            seen.add(key)
+            total += t.untyped_storage().nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, total
+
+
+def scan_memory(cfg, batch: int, seq: int, device="cuda") -> dict:
+    """The recurrent scan's own memory in a train step of ``cfg`` (one
+    layer's scan at the step's shapes, from seeded inputs, alone on the
+    card): ``saved``, the bytes its forward keeps for the backward;
+    ``backward_peak``, its backward's peak allocation above the
+    allocation just before it; ``chunk_tensor``, one (B, Q, Di, N) f32
+    chunk tensor's bytes for mamba's ``SelectiveScan`` (one (B, Q, Dr)
+    for the hybrid's RG-LRU, which autograd runs through); and
+    ``layer_saved``, the bytes one whole layer at full width keeps for its
+    backward (a one-layer model, no remat: what remat recomputes per
+    layer), beside which the scan's are read."""
+    from repro_torch import tree as T
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.mamba import SCAN_CHUNK, SelectiveScan
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.rglru import rglru_scan
+
+    g = torch.Generator(device=device).manual_seed(0)
+    B, S, Q = batch, seq, min(SCAN_CHUNK, seq)
+    dt_ = getattr(torch, cfg.dtype)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+
+    if cfg.family == "ssm":
+        Di, N = cfg.d_inner, cfg.ssm_state
+        A = -torch.arange(1, N + 1, dtype=torch.float32,
+                          device=device).expand(Di, N).contiguous()
+        ins = [rand(B, S, Di, dtype=dt_),
+               torch.nn.functional.softplus(rand(B, S, Di) - 4).to(dt_),
+               A, rand(B, S, N, dtype=dt_), rand(B, S, N, dtype=dt_)]
+        for t in ins:
+            t.requires_grad_(True)
+        ins.append(torch.zeros((B, Di, N), device=device))
+        scan, chunk = SelectiveScan.apply, B * Q * Di * N * 4
+    else:
+        Dr = cfg.lru_width
+        ins = [rand(B, S, Dr).requires_grad_(True),
+               torch.sigmoid(rand(B, S, Dr)).requires_grad_(True),
+               torch.zeros((B, Dr), device=device)]
+        scan, chunk = rglru_scan, B * Q * Dr * 4
+    (y, hT), saved = _saved_bytes(lambda: scan(*ins))
+    dy = rand(*y.shape)
+    peak = _peak_from(_alloc())
+    grads = torch.autograd.grad(y, [t for t in ins if t.requires_grad], dy)
+    out = {"saved": saved, "backward_peak": peak(), "chunk_tensor": chunk}
+    del y, hT, dy, grads, ins
+
+    one = dataclasses.replace(cfg, n_layers=1)
+    run = RunConfig(model=one, shape=ShapeConfig("t", S, B, "train"),
+                    remat="none")
+    model = build_model(one, run, device=device)
+    with torch.no_grad():
+        model.init_params(g)
+    tokens = next(TokenPipeline(model, run.shape, seed=0))
+    loss, out["layer_saved"] = _saved_bytes(
+        lambda: model.loss(tokens), exclude=T.leaves(model.param_tree()))
+    del loss, model
+    torch.cuda.empty_cache()
+    return out
 
 
 def step_memory(trainer, state, batch, all_rungs_plan, plan) -> dict:
@@ -146,6 +231,8 @@ def main(argv=None):
     cfg = ARCHS[args.arch]
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    scan = (scan_memory(cfg, args.batch, args.seq_len)
+            if cfg.family in ("ssm", "hybrid") else None)
     with tempfile.TemporaryDirectory() as ckpt_dir:
         run = RunConfig(model=cfg, shape=ShapeConfig(
             "session", args.seq_len, args.batch, "train"),
@@ -166,6 +253,10 @@ def main(argv=None):
                device=torch.cuda.get_device_name(0),
                total_bytes=torch.cuda.get_device_properties(0).total_memory,
                reserved_at_end=torch.cuda.memory_reserved())
+    if scan:
+        res["scan"] = scan
+        res["per_param"].update({f"scan_{k}": v / res["n_params"]
+                                 for k, v in scan.items()})
     text = json.dumps(res)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

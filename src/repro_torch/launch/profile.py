@@ -1,23 +1,30 @@
-"""Where a train step's time goes on the card: each step kind of the
-paper-350m main path under ``torch.profiler``, device time summed by
-kernel category, beside the step's wall time on CUDA events; with
-``--serve ARCH``, where serving's time goes instead: one prefill of
-``--batch`` x ``--seq-len`` tokens and the decode steps after it, the
-model at full width from seeded bf16 weights (``serve.init_model``).
+"""Where a train step's time goes on the card: each step kind of one
+pod's train path (paper-350m by default; ``--arch`` at full width, cut
+to ``--layers``) under ``torch.profiler``, device time summed by kernel
+category, beside the step's wall time on CUDA events; with ``--serve
+ARCH``, where serving's time goes instead: one prefill of ``--batch`` x
+``--seq-len`` tokens and the decode steps after it, the model at full
+width from seeded bf16 weights (``serve.init_model``).
 
     python -m repro_torch.launch.profile [--seq-len 1024] [--batch 8]
         [--repeats 3] [--out build/profile.json]
+    python -m repro_torch.launch.profile --arch falcon-mamba-7b \
+        --layers 12 --kinds local delta_sync
     python -m repro_torch.launch.profile --serve falcon-mamba-7b \
         --seq-len 512 --batch 4
 
 Needs a CUDA device.  The session first runs 8 warm-up steps through
-``TrainSession`` (two ``delta_sync`` rounds and a device replan, as in
-``chip_smoke.py``); then each step kind runs ``--repeats`` times under the
-profiler, with the acesync plan the loop is using and, for ``grad_sync``,
-also with a plan spreading the groups over all 8 ladder rungs.  Prints one
-JSON object (and writes it to ``--out``): per step kind, the mean wall
-time, the device-busy time and idle share, the device time per category,
-and the top kernels.
+``TrainSession`` under ``acesync`` with ``replan_every=4`` (two
+``delta_sync`` rounds and a device replan, as in ``chip_smoke.py``);
+then each step kind of ``--kinds`` (default: all four) runs
+``--repeats`` times under the profiler, with the acesync plan the loop
+is using and, for ``grad_sync_all_rungs``, a plan spreading the groups
+over all 8 ladder rungs.  Prints one JSON
+object (and writes it to ``--out``): per step kind, the mean wall time,
+the device-busy time and idle share, the device time per category, the
+top kernels, and the device time under mamba's selective-scan ranges
+(``models/mamba.py`` ``SCAN_RANGES``; their kernels are also in the
+categories).
 """
 from __future__ import annotations
 
@@ -30,9 +37,12 @@ from pathlib import Path
 
 import torch
 
-#: kernel-name fragments -> category (first match wins)
+#: kernel-name fragments -> category (first match wins); the port's own
+#: kernels are named in ``kernels/csrc``
 CATEGORIES = (
-    ("gather_ef", "gather+EF encode (port kernels)"),
+    ("encode_kernel", "encode (port kernels K1-K4, K12-K15)"),
+    ("decode_kernel", "fold (port kernels K5-K11)"),
+    ("dequant_int8_kernel", "dequantise (port kernel K16)"),
     ("flash", "attention"), ("fmha", "attention"), ("attention", "attention"),
     ("gemm", "matmul"), ("cutlass", "matmul"), ("nvjet", "matmul"),
     ("sm90_xmma", "matmul"), ("cublas", "matmul"),
@@ -42,6 +52,11 @@ CATEGORIES = (
     ("reduce", "reductions"), ("Memcpy", "memcpy/memset"),
     ("Memset", "memcpy/memset"),
 )
+
+
+#: the step kinds profiled by default, in order (``grad_sync_all_rungs``:
+#: ``grad_sync`` under a plan with a group on every rung)
+KINDS = ("local", "delta_sync", "grad_sync", "grad_sync_all_rungs")
 
 
 def category(name: str) -> str:
@@ -78,12 +93,19 @@ def profile_calls(fn, repeats):
             e1.record()
             torch.cuda.synchronize()
             walls.append(e0.elapsed_time(e1))
+    from repro_torch.models.mamba import SCAN_RANGES
+
     by_cat = defaultdict(float)
     by_kernel = defaultdict(float)
+    scan = {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total",
                          getattr(ev, "cuda_time_total", 0.0))
-        if ev.device_type == torch.autograd.DeviceType.CUDA and dev_us:
+        if ev.key in SCAN_RANGES and dev_us:
+            # a range is listed as a host op and as a device annotation
+            scan[ev.key] = max(scan.get(ev.key, 0.0),
+                               dev_us / 1e3 / repeats)
+        elif ev.device_type == torch.autograd.DeviceType.CUDA and dev_us:
             by_cat[category(ev.key)] += dev_us / 1e3 / repeats
             by_kernel[ev.key] += dev_us / 1e3 / repeats
     busy = sum(by_cat.values())
@@ -94,7 +116,7 @@ def profile_calls(fn, repeats):
         "idle_share": max(0.0, 1.0 - busy / wall) if wall else None,
         "by_category_ms": dict(sorted(by_cat.items(),
                                       key=lambda kv: -kv[1])),
-        "top_kernels_ms": top}
+        "top_kernels_ms": top, "scan_ranges_ms": scan}
 
 
 def card_name() -> str:
@@ -140,13 +162,24 @@ def profile_serving(arch, batch, seq_len, repeats):
 
 
 def main(argv=None):
-    from repro_torch.configs.base import ACESyncConfig
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import (ACESyncConfig, RunConfig,
+                                          ShapeConfig)
     from repro_torch.launch.session import TrainSession
+    from repro_torch.models.registry import build_model
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="paper-350m",
+                    help="the trained arch, at full width")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="its depth (default: the published one)")
     ap.add_argument("--seq-len", type=int, default=1024)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--kinds", nargs="+", default=list(KINDS),
+                    choices=KINDS, help="the step kinds profiled")
     ap.add_argument("--out", default="build/profile.json")
     ap.add_argument("--serve", metavar="ARCH", default=None,
                     help="profile serving ARCH instead of training")
@@ -158,27 +191,32 @@ def main(argv=None):
                               args.repeats), args.out)
         return
 
+    cfg = ARCHS[args.arch]
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     # a fresh state every time: no checkpoint is resumed or written
     with tempfile.TemporaryDirectory() as ckpt_dir:
-        sess = TrainSession.from_config(
-            "paper-350m", smoke=False, seq_len=args.seq_len,
-            batch=args.batch, steps=100, device="cuda", warmup_steps=2,
-            acesync=ACESyncConfig(replan_every=4), ckpt_dir=ckpt_dir,
-            ckpt_every=0)
+        run = RunConfig(model=cfg, shape=ShapeConfig(
+            "session", args.seq_len, args.batch, "train"),
+            total_steps=100, warmup_steps=2, ckpt_dir=ckpt_dir,
+            ckpt_every=0, acesync=ACESyncConfig(replan_every=4))
+        sess = TrainSession(build_model(cfg, run, device="cuda"), run,
+                            strategy="acesync")
         sess.run(8, log_every=0)
     tr = sess.trainer
     batch = next(sess.pipeline)
     rr = tr.scheduler.plan_from_levels(
         [i % 8 for i in range(len(tr.sizes))], (1.0,))
     out = {"device": torch.cuda.get_device_name(0), "card": card_name(),
+           "arch": args.arch, "layers": cfg.n_layers,
            "tokens_per_step": args.seq_len * args.batch,
            "acesync_plan": list(sess.loop.plan.level_idx), "kinds": {}}
-    state = sess.state
-    for kind, plan in (("local", sess.loop.plan),
-                       ("delta_sync", sess.loop.plan),
-                       ("grad_sync", sess.loop.plan),
-                       ("grad_sync_all_rungs", rr)):
-        state, rec = profile_kind(tr, state, batch, plan,
+    # handed over: each profiled step frees the state it replaces
+    state = sess.take_state()
+    plans = {"local": sess.loop.plan, "delta_sync": sess.loop.plan,
+             "grad_sync": sess.loop.plan, "grad_sync_all_rungs": rr}
+    for kind in args.kinds:
+        state, rec = profile_kind(tr, state, batch, plans[kind],
                                   kind.replace("_all_rungs", ""),
                                   args.repeats)
         out["kinds"][kind] = rec

@@ -11,11 +11,14 @@ train step.  The MFU of a train step is
 :func:`model_flops` over its seconds against the card's bf16 dense peak
 (989 TFLOP/s on an H100 SXM).  :func:`decode_step_bytes` is what one
 decode step must move, the bound of a decode step at the card's memory
-rate, from the split of :func:`cache_bytes`.
+rate, from the split of :func:`cache_bytes`.  :func:`scan_start_bytes`
+is what mamba's ``SelectiveScan`` saves for its backward besides its
+inputs.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models.mamba import SCAN_CHUNK
 from repro_torch.models.moe import capacity
 
 #: the cache entries that are recurrent state (the conv carry and the
@@ -77,3 +80,14 @@ def executed_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
     forward = (2.0 * dense * tokens + 2.0 * expert * cfg.n_experts
                * capacity(tokens, cfg) * cfg.n_layers)
     return 3.0 * forward if shape.kind == "train" else forward
+
+
+def scan_start_bytes(cfg: ModelConfig, shape: ShapeConfig) -> int:
+    """Bytes of the chunk-start states one mamba layer's ``SelectiveScan``
+    saves for its backward: a (B, D_inner, N) f32 state per chunk of
+    ``min(SCAN_CHUNK, S)`` positions (0 for a model without that scan).
+    Under remat they exist for one layer at a time."""
+    if cfg.family != "ssm":
+        return 0
+    chunks = shape.seq_len // min(SCAN_CHUNK, shape.seq_len)
+    return chunks * shape.global_batch * cfg.d_inner * cfg.ssm_state * 4

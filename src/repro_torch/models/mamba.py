@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
@@ -34,6 +35,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.transformer import _DTYPES, LanguageModel, _draw
 
 SCAN_CHUNK = 256
+#: the profiler ranges of :class:`SelectiveScan`'s forward and backward
+SCAN_RANGES = ("selective_scan.forward", "selective_scan.backward")
 
 
 def ssm_layer_shapes(cfg) -> dict:
@@ -151,18 +154,21 @@ def _affine_scan(a, b, want_a: bool = True):
 
 
 def chunked_linear_recurrence(h0, S: int, inputs, readout,
-                              chunk: int = SCAN_CHUNK):
+                              chunk: int = SCAN_CHUNK, starts=None):
     """h_t = a_t * h_{t-1} + b_t for t < S from ``h0`` (B, ...), f32,
     chunk by chunk under :func:`scan_chunk`'s rule.  ``inputs(c0, c1)``
     gives the chunk's (a, b), each (B, c1 - c0, ...) f32 and made for
     this call (b is written); ``readout(c0, c1, hs)`` maps the chunk's
     states (B, c1 - c0, ...) to its outputs (B, c1 - c0, ...).  Only one
-    chunk's tensors and the carried state exist at a time.  Returns (the
-    outputs concatenated along dim 1, the last state)."""
+    chunk's tensors and the carried state exist at a time.  ``starts``, a
+    list or None, receives the state each chunk starts from.  Returns
+    (the outputs concatenated along dim 1, the last state)."""
     Q = scan_chunk(S, chunk)
     h = h0.float()
     ys = []
     for c0 in range(0, S, Q):
+        if starts is not None:
+            starts.append(h)
         a, b = inputs(c0, c0 + Q)
         b[:, 0].addcmul_(a[:, 0], h)      # the carried state enters here
         hs = _affine_scan(a, b, want_a=False)[1]
@@ -172,23 +178,124 @@ def chunked_linear_recurrence(h0, S: int, inputs, readout,
     return torch.cat(ys, dim=1), h
 
 
-def selective_scan_chunked(u, dt, A, Bc, Cc, h0, *, chunk: int = SCAN_CHUNK):
+def _discretised(dtc, uc, Bq, A):
+    """One chunk's (a, b) = (exp(dt * A), dt * u * B), each (B, Q, Di, N)
+    f32, from its f32 (B, Q, Di) dt and u, (B, Q, N) B and (Di, N) A."""
+    a = (dtc[..., None] * A).exp_()
+    b = (dtc * uc)[..., None] * Bq[:, :, None, :]
+    return a, b
+
+
+def selective_scan_chunked(u, dt, A, Bc, Cc, h0, *, chunk: int = SCAN_CHUNK,
+                           starts=None):
     """u, dt: (B, S, Di); A: (Di, N); Bc, Cc: (B, S, N); h0: (B, Di, N).
-    Returns (y (B, S, Di), hT (B, Di, N)), both f32."""
+    Returns (y (B, S, Di), hT (B, Di, N)), both f32; ``starts`` as
+    :func:`chunked_linear_recurrence`'s."""
     A = A.float()
 
     def inputs(c0, c1):
-        dtc = dt[:, c0:c1].float()
-        a = (dtc[..., None] * A).exp_()                          # (B,Q,Di,N)
-        b = ((dtc * u[:, c0:c1].float())[..., None]
-             * Bc[:, c0:c1, None, :].float())                    # (B,Q,Di,N)
-        return a, b
+        return _discretised(dt[:, c0:c1].float(), u[:, c0:c1].float(),
+                            Bc[:, c0:c1].float(), A)
 
     def readout(c0, c1, hs):
         return torch.matmul(hs, Cc[:, c0:c1, :, None].float())[..., 0]
 
     return chunked_linear_recurrence(h0, u.shape[1], inputs, readout,
-                                     chunk)
+                                     chunk, starts)
+
+
+class SelectiveScan(torch.autograd.Function):
+    """:func:`selective_scan_chunked` with a backward that recomputes one
+    chunk at a time; ``mamba_mix`` calls it, served (no graph is
+    recorded) or trained.  The forward runs the chunked scan as it is
+    (the same bits) and saves the inputs and the (B, Di, N) f32 state
+    each chunk starts from.  The backward walks the chunks in
+    reverse: it rebuilds the chunk's (a, b) and states from its start
+    state, runs the adjoint recurrence
+        g_t = a_{t+1} * g_{t+1} + C_t * dy_t   (g: the gradient on h_t)
+    with the same pairwise scan on the reversed chunk, seeded by the
+    gradient carried from the chunk after it (dhT for the last), and
+    reduces the chunk's share of du, ddt, dA, dB and dC; the gradient on
+    the chunk's start state, a_0 * g_0, is carried to the chunk before
+    it, and is dh0 after the first.  Only one chunk's (B, Q, Di, N)
+    tensors exist at a time, in the forward and in the backward: the
+    backward's peak is the reverse scan's, with the chunk's states and
+    the reversed (a, C * dy) live beside the scan's levels (a itself is
+    dropped once reversed), under 7 such tensors with the (B, S, Di)
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, u, dt, A, Bc, Cc, h0):
+        starts = []
+        with record_function(SCAN_RANGES[0]):
+            y, hT = selective_scan_chunked(u, dt, A, Bc, Cc, h0,
+                                           starts=starts)
+        ctx.save_for_backward(u, dt, A, Bc, Cc, *starts)
+        ctx.h0_dtype = h0.dtype
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        with record_function(SCAN_RANGES[1]):
+            return SelectiveScan._backward(ctx, dy, dhT)
+
+    @staticmethod
+    def _backward(ctx, dy, dhT):
+        u, dt, A, Bc, Cc, *starts = ctx.saved_tensors
+        B, S, Di = u.shape
+        Q = scan_chunk(S)
+        A32 = A.float()
+        f32 = dict(dtype=torch.float32, device=u.device)
+        du, ddt = torch.empty((B, S, Di), **f32), torch.empty((B, S, Di),
+                                                              **f32)
+        dBc, dCc = (torch.empty(Bc.shape, **f32) for _ in range(2))
+        dA = torch.zeros(A.shape, **f32)
+        g = dhT.float()                   # the gradient on the chunk's end
+        # position s of the reversed chunk takes a_{Q-s} (a_Q := 1)
+        rev = torch.arange(Q, 0, -1, device=u.device) % Q
+        for c0 in reversed(range(0, S, Q)):
+            c1, h = c0 + Q, starts[c0 // Q]
+            dtc, uc = dt[:, c0:c1].float(), u[:, c0:c1].float()
+            Bq, Cq = Bc[:, c0:c1].float(), Cc[:, c0:c1].float()
+            dyq = dy[:, c0:c1].float()
+            a, b = _discretised(dtc, uc, Bq, A32)
+            b[:, 0].addcmul_(a[:, 0], h)
+            hs = _affine_scan(a, b, want_a=False)[1]
+            del b
+            dCc[:, c0:c1] = torch.matmul(hs.transpose(-1, -2),
+                                         dyq[..., None])[..., 0]
+            # the adjoint recurrence on the reversed chunk: r_s = g_{Q-1-s}
+            # = ar_s * r_{s-1} + (C * dy)_{Q-1-s}, from r_{-1} = g
+            a0 = a[:, 0].clone()
+            ar = a.index_select(1, rev)
+            del a
+            ar[:, 0] = 1.0
+            gr = dyq.flip(1)[..., None] * Cq.flip(1)[:, :, None, :]
+            gr[:, 0] += g
+            r = _affine_scan(ar, gr, want_a=False)[1]
+            del gr
+            # d(dt * u) and dB from g (reversed, as r holds it)
+            dtu = torch.matmul(r, Bq.flip(1)[..., None])[..., 0].flip(1)
+            dBc[:, c0:c1] = torch.matmul(
+                r.transpose(-1, -2),
+                (dtc * uc).flip(1)[..., None])[..., 0].flip(1)
+            # a_t * g_t, the gradient through h_t = a_t * h_{t-1} + b_t,
+            # is ar_{s+1} * r_s (s = Q-1-t), and a_0 * r_{Q-1} for t = 0
+            r[:, :-1] *= ar[:, 1:]
+            r[:, -1] *= a0
+            del ar
+            g = r[:, -1].clone()          # the gradient on the start state
+            P = r.flip(1)
+            del r
+            P[:, 1:] *= hs[:, :-1]        # ... times h_{t-1}: da_t * a_t
+            P[:, 0] *= h
+            del hs
+            ddt[:, c0:c1] = (P * A32).sum(-1) + dtu * uc
+            dA += P.mul_(dtc[..., None]).sum((0, 1))
+            del P
+            du[:, c0:c1] = dtu * dtc
+        return (du.to(u.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+                dBc.to(Bc.dtype), dCc.to(Cc.dtype), g.to(ctx.h0_dtype))
 
 
 def mamba_mix(p, x, cfg, cache=None):
@@ -210,7 +317,7 @@ def mamba_mix(p, x, cfg, cache=None):
     A = -torch.exp(p["A_log"].float())
     h0 = (cache["h"] if cache is not None
           else x.new_zeros((B, Di, N), dtype=torch.float32))
-    y, hT = selective_scan_chunked(u, dt, A, Bc, Cc, h0)
+    y, hT = SelectiveScan.apply(u, dt, A, Bc, Cc, h0)
     y = (y + u32 * p["D"].float()).to(dt_)
     y = y * silu(z)
     if cache is not None:

@@ -403,7 +403,7 @@ def test_reference_checkpoint_restores_to_converted_state(pods):
 
 
 # ---------------------------------------------------------------------------
-# the MoE family's train state, both ways
+# the MoE family's and the recurrent families' train states, both ways
 # ---------------------------------------------------------------------------
 
 
@@ -411,10 +411,29 @@ def test_reference_checkpoint_restores_to_converted_state(pods):
 def test_moe_checkpoints_restore_across_packages(arch, tmp_path):
     """A MoE train state (the expert stacks and router, their AdamW
     moments, EF residuals and anchor) in the reference's on-disk format,
-    both ways: the reference's checkpoint of its initial state restores
-    in the port to exactly ``convert.state_from_reference``'s state, and
-    the port's checkpoint of its state one step on restores in the
-    reference to the port's arrays; the leaf order is the reference's."""
+    both ways (:func:`_restores_across_packages`)."""
+    flat = _restores_across_packages(arch, tmp_path)
+    assert any(k.endswith("ffn/router") for k in flat)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b"])
+def test_recurrent_checkpoints_restore_across_packages(arch, tmp_path):
+    """A recurrent train state (mamba's ``blocks/slot0`` stacks; the
+    hybrid's (rec, rec, attn) slots and its unrolled ``tail/slot{i}``
+    leaves of shape (1, ...)) in the reference's on-disk format, both
+    ways (:func:`_restores_across_packages`)."""
+    flat = _restores_across_packages(arch, tmp_path)
+    want = ("params/blocks/slot0/A_log" if arch == "falcon-mamba-7b"
+            else "params/tail/slot1/mix/lam")
+    assert want in flat
+
+
+def _restores_across_packages(arch, tmp_path):
+    """The reference's checkpoint of its initial state restores in the
+    port to exactly ``convert.state_from_reference``'s state, and the
+    port's checkpoint of its state one step on restores in the reference
+    to the port's arrays; the leaf order is the reference's.  Returns
+    the reference state's leaf paths."""
     from repro.configs import SMOKE_ARCHS as J_SMOKE
     from repro.configs.base import RunConfig as JRun, ShapeConfig as JShape
     from repro.core.trainer import Trainer as JTrainer
@@ -438,7 +457,6 @@ def test_moe_checkpoints_restore_across_packages(arch, tmp_path):
             for p, x in jax.tree_util.tree_flatten_with_path(jst)[0]}
     state = convert.state_from_reference(flat, tr)
     assert T.reference_leaf_paths(state) == list(flat)
-    assert any(k.endswith("ffn/router") for k in flat)
     want = _host_leaves(state)
     got, extras = Checkpointer(str(tmp_path / "ref")).restore(
         tr.init_state(99))
@@ -465,3 +483,4 @@ def test_moe_checkpoints_restore_across_packages(arch, tmp_path):
         np.testing.assert_array_equal(np.asarray(leaf)[0], a)
         moved += not np.array_equal(a, b)
     assert moved
+    return flat

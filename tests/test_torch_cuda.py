@@ -4,7 +4,9 @@ launch counting, serving on the card against the CPU (the dense and
 recurrent SMOKE configs, the chunked scans, the MoE FFN, and the ring
 cache written in place), and
 training the MoE family on the card (one step against the CPU's, and
-its backward reproducible under ``RunConfig.deterministic``).  They skip without a CUDA device; on the card
+its backward reproducible under ``RunConfig.deterministic``) and the
+recurrent families (the scans' gradients and one step against the
+CPU's).  They skip without a CUDA device; on the card
 run
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
@@ -479,6 +481,72 @@ def test_chunked_scans_on_card_match_cpu(dev):
             assert g.is_cuda
             g = g.cpu()
             assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_scan_gradients_on_card_match_cpu(dev):
+    """The gradients of every input of mamba's ``SelectiveScan`` (its
+    chunk-recomputing backward) and of the RG-LRU scan (autograd) over
+    1024 positions, seeded cotangents on y and hT, on the card within
+    1e-5 of each leaf's largest magnitude of the CPU's (f32)."""
+    from repro_torch.models import mamba, rglru
+    r = np.random.RandomState(1)
+    B, S, Di, N = 2, 1024, 256, 16
+    cases = [(mamba.SelectiveScan.apply, [
+        r.randn(B, S, Di), np.log1p(np.exp(r.randn(B, S, Di))),
+        -np.exp(r.randn(Di, N) * 0.5), r.randn(B, S, N), r.randn(B, S, N),
+        r.randn(B, Di, N)], [r.randn(B, S, Di), r.randn(B, Di, N)]),
+        (rglru.rglru_scan, [r.randn(B, S, Di),
+                            1 / (1 + np.exp(-r.randn(B, S, Di))),
+                            r.randn(B, Di)],
+         [r.randn(B, S, Di), r.randn(B, Di)])]
+    for fn, args, cots in cases:
+        grads = []
+        for d in (dev, "cpu"):
+            ins = [torch.tensor(a, dtype=torch.float32, device=d,
+                                requires_grad=True) for a in args]
+            outs = fn(*ins)
+            grads.append(torch.autograd.grad(
+                outs, ins, [torch.tensor(c, dtype=torch.float32, device=d)
+                            for c in cots]))
+        for g, w in zip(*grads):
+            assert g.is_cuda
+            assert float((g.cpu() - w).abs().max()) <= \
+                1e-5 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b"])
+def test_recurrent_training_step_on_card_matches_cpu(dev, arch):
+    """One grad_sync step of a recurrent SMOKE config in f32 at 512
+    positions (the scans' backward over two chunks) on the card (the
+    kernels) and on the CPU (the plain versions) from the same state and
+    batch: the loss within 1e-5 relative and the updated weights within
+    1e-3 (chip_smoke.py phase 4's bound)."""
+    import dataclasses
+    from repro_torch import convert
+    from repro_torch import tree as T
+    from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(SMOKE_ARCHS[arch], dtype="float32")
+    run = RunConfig(model=cfg, shape=ShapeConfig("s", 512, 2, "train"),
+                    lr=1e-2, warmup_steps=1)
+    card = Trainer(build_model(cfg, run, device=dev), run)
+    host = Trainer(build_model(cfg, run, device="cpu"), run)
+    states = [card.init_state(0)]
+    states.append(convert.move_state(states[0], host))
+    outs = []
+    for tr, state in zip((card, host), states):
+        batch = next(TokenPipeline(tr.model, run.shape, seed=1))
+        plan = tr.scheduler.plan_from_levels(
+            [i % 8 for i in range(len(tr.sizes))], (1.0,))
+        state, m = tr.step(state, batch, plan, "grad_sync")
+        outs.append((float(m["loss"]),
+                     [p.detach().cpu() for p in T.leaves(state["params"])]))
+    (lc, pc), (lh, ph) = outs
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    assert max(float((a - b).abs().max()) for a, b in zip(pc, ph)) <= 1e-3
 
 
 def test_ring_write_decode_in_place_on_card(dev):

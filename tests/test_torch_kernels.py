@@ -185,3 +185,21 @@ def test_fixed_sum_order_is_a_pairwise_tree():
         s //= 2
     np.testing.assert_array_equal(_bits(tref.row_abs_sum(x).numpy()),
                                   _bits(p))
+
+
+def test_profile_names_every_port_kernel():
+    """``launch/profile.py`` files the device time of every kernel the
+    CUDA sources define (``__global__``) under a category of the port's
+    own kernels, not under elementwise."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.launch.profile import category
+    csrc = Path(tops.__file__).resolve().parent / "csrc"
+    names = [m for f in sorted(csrc.glob("*.cu")) for m in re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\(\w+\)\s+)?(\w+)",
+        f.read_text())]
+    assert len(names) == 3, names
+    for name in names:
+        assert "port kernel" in category(f"void (anonymous namespace)::"
+                                         f"{name}<Body>(Body)"), name

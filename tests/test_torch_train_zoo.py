@@ -1,7 +1,8 @@
 """Training the model zoo through the port, held to the reference on the
 CPU: every SMOKE arch of the port (the dense paper-350m, qwen3-8b,
-gemma2-9b, minitron-8b and starcoder2-3b, and the MoE qwen3-moe-30b-a3b
-and dbrx-132b) from the reference's own weights or train state.
+gemma2-9b, minitron-8b and starcoder2-3b, the MoE qwen3-moe-30b-a3b and
+dbrx-132b, and the recurrent falcon-mamba-7b and recurrentgemma-2b)
+from the reference's own weights or train state.
 
 Tolerances, stated per test:
 
@@ -28,8 +29,8 @@ Tolerances, stated per test:
   Trainer from the reference's initial state: the loss sequences within
   2e-2 relative (tests/test_torch_trainer.py's), MoE in f32 (no route can
   flip across the steps).
-* the session, the CLI and the unported families: the smoke archs train
-  finitely, with two ``delta_sync`` rounds and a device replan.
+* the session and the CLI: the smoke archs train finitely, with two
+  ``delta_sync`` rounds and a device replan.
 """
 import dataclasses
 
@@ -54,9 +55,9 @@ from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.launch.session import TrainSession
 from repro_torch.models import layers as L
 from repro_torch.models.registry import build_model as tbuild
-from test_torch_models import DENSE, MOE, force_reference_routing, ref_flat
+from test_torch_models import DENSE, MOE, RECURRENT, force_reference_routing, ref_flat
 
-ARCHS = DENSE + MOE
+ARCHS = DENSE + MOE + RECURRENT
 SEQ, BATCH = 32, 2
 RUN_KW = dict(lr=1e-2, warmup_steps=1, total_steps=50)
 F32_LOSS_RTOL = 1e-5
@@ -66,7 +67,8 @@ GRAD_COS = 0.999
 #: the archs whose Trainer step kinds run against the reference's, and
 #: the compute dtype they run in
 STEP_ARCHS = {"qwen3-moe-30b-a3b": "float32", "dbrx-132b": "float32",
-              "gemma2-9b": None, "qwen3-8b": None}
+              "gemma2-9b": None, "qwen3-8b": None, "falcon-mamba-7b": None,
+              "recurrentgemma-2b": None}
 KIND_SEQS = {
     "grad_sync": ["grad_sync"] * 3,
     "local": ["local"] * 3,
@@ -276,7 +278,7 @@ def test_session_trains_every_smoke_arch(arch, tmp_path):
     assert sess.comm_bytes > 0
 
 
-@pytest.mark.parametrize("arch", MOE + ["gemma2-9b"])
+@pytest.mark.parametrize("arch", MOE + ["gemma2-9b"] + RECURRENT)
 def test_cli_trains_a_zoo_arch_on_cpu(arch, tmp_path, capsys):
     """``python -m repro_torch.launch.train --arch ... --smoke --device
     cpu``: the JSON summary of a finite run."""

@@ -1,9 +1,10 @@
-"""The MoE family on P = 2 pods: the port's qwen3-moe-30b-a3b SMOKE model
-on two gloo pod processes against the live reference on a (2, 1, 1)
-("pod", "data", "model") CPU mesh, both from the reference's initial
-state under one plan (the groups round-robin on all 8 ladder rungs, a
-non-uniform omega, the one-shot exchange), two ``local`` steps, a
-``delta_sync`` and a ``grad_sync``, in f32 compute (the routes agree).
+"""The MoE family and the RG-LRU hybrid on P = 2 pods: the port's
+qwen3-moe-30b-a3b and recurrentgemma-2b SMOKE models, each on two gloo
+pod processes against the live reference on a (2, 1, 1) ("pod", "data",
+"model") CPU mesh, both from the reference's initial state under one
+plan (the groups round-robin on all 8 ladder rungs, a non-uniform
+omega, the one-shot exchange), two ``local`` steps, a ``delta_sync``
+and a ``grad_sync``, in f32 compute (the MoE's routes agree).
 
 The reference runs in a subprocess (XLA fixes its device count at first
 use), its Pallas kernels interpreted (``REPRO_FORCE_INTERPRET=1``); the
@@ -32,6 +33,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "qwen3-moe-30b-a3b"
+HYBRID = "recurrentgemma-2b"
 P = 2
 SEQ = 32
 LR = 1e-2
@@ -90,8 +92,8 @@ print("REF_OK")
 """
 
 
-def _port_pod(group, ref_path):
-    """One pod of the port: the same steps from the reference's initial
+def _port_pod(group, ref_path, arch):
+    """One pod of the port: ``arch``'s steps from the reference's initial
     state; per step the pod-mean loss, the parameters, and the bytes the
     pod gathered beside the priced ones."""
     import torch
@@ -107,7 +109,7 @@ def _port_pod(group, ref_path):
 
     ref = dict(np.load(ref_path))
     rank = group.rank
-    run = RunConfig(model=dataclasses.replace(SMOKE_ARCHS[ARCH],
+    run = RunConfig(model=dataclasses.replace(SMOKE_ARCHS[arch],
                                               dtype="float32"),
                     shape=ShapeConfig("t", SEQ, 2 * P, "train"), lr=LR,
                     warmup_steps=1, total_steps=50,
@@ -140,16 +142,15 @@ def _port_pod(group, ref_path):
     return out
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def _runs(tmp_path_factory, arch):
     from repro_torch.launch.mesh import spawn_pods
-    tmp = tmp_path_factory.mktemp("moe_pods")
+    tmp = tmp_path_factory.mktemp(f"{arch}_pods")
     path = tmp / "ref.npz"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                JAX_PLATFORMS="cpu", REPRO_FORCE_INTERPRET="1")
     proc = subprocess.Popen(
         [sys.executable, "-c", REF_SCRIPT, str(P), str(path),
-         json.dumps([ARCH, SEQ, LR, KINDS])], env=env,
+         json.dumps([arch, SEQ, LR, KINDS])], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         so, se = proc.communicate(timeout=600)
@@ -158,14 +159,23 @@ def runs(tmp_path_factory):
             proc.kill()
             proc.communicate()
     assert proc.returncode == 0 and "REF_OK" in so, se[-3000:]
-    port = spawn_pods(_port_pod, P, "cpu", args=(str(path),),
+    port = spawn_pods(_port_pod, P, "cpu", args=(str(path), arch),
                       init_method=f"file://{tmp / 'store'}", threads=1,
                       timeout=600)
     return dict(np.load(path)), port
 
 
-def test_moe_pod_losses_match_live_reference(runs):
-    ref, port = runs
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return _runs(tmp_path_factory, ARCH)
+
+
+@pytest.fixture(scope="module")
+def hybrid_runs(tmp_path_factory):
+    return _runs(tmp_path_factory, HYBRID)
+
+
+def _losses_match(ref, port):
     with_loss = [i for i, k in enumerate(KINDS) if k != "delta_sync"]
     tl = [port[0][f"step{i}"]["loss"] for i in with_loss]
     jl = [float(ref[f"step{i}/loss"]) for i in with_loss]
@@ -176,8 +186,7 @@ def test_moe_pod_losses_match_live_reference(runs):
         assert port[1][f"step{i}"]["loss"] == port[0][f"step{i}"]["loss"]
 
 
-def test_moe_pods_bit_identical_after_delta_sync(runs):
-    ref, port = runs
+def _bit_identical_after_delta_sync(ref, port):
     i = KINDS.index("delta_sync")
     names = port[0]["names"]
     for a, b in zip(port[0][f"params{i}"], port[1][f"params{i}"]):
@@ -195,10 +204,36 @@ def test_moe_pods_bit_identical_after_delta_sync(runs):
     print("largest parameter difference after the delta_sync", worst)
 
 
-def test_moe_pods_gather_the_priced_bytes(runs):
-    _, port = runs
+def _gather_the_priced_bytes(port):
     for p in range(P):
         for kind in SYNCS:
             i = KINDS.index(kind)
             assert port[p][f"bytes{i}"] == port[p]["priced"] > 0, (p, kind)
         assert port[p]["bytes0"] == 0
+
+
+def test_moe_pod_losses_match_live_reference(runs):
+    _losses_match(*runs)
+
+
+def test_moe_pods_bit_identical_after_delta_sync(runs):
+    _bit_identical_after_delta_sync(*runs)
+
+
+def test_moe_pods_gather_the_priced_bytes(runs):
+    _gather_the_priced_bytes(runs[1])
+
+
+def test_hybrid_pod_losses_match_live_reference(hybrid_runs):
+    _losses_match(*hybrid_runs)
+
+
+def test_hybrid_pods_bit_identical_after_delta_sync(hybrid_runs):
+    """recurrentgemma-2b's tree (its ``tail/slot{i}`` leaves of shape (1,
+    ...) among them) after the ``delta_sync``: bit-identical on both pods,
+    within ``PARAM_ATOL`` of the reference's."""
+    _bit_identical_after_delta_sync(*hybrid_runs)
+
+
+def test_hybrid_pods_gather_the_priced_bytes(hybrid_runs):
+    _gather_the_priced_bytes(hybrid_runs[1])

@@ -212,26 +212,30 @@ def test_every_strategy_trains_on_cpu(tmp_path, strategy, arch):
     assert len(sess.losses) == 4 and all(np.isfinite(sess.losses))
 
 
-#: the recurrent families' SMOKE archs: the registry builds them (they
-#: serve), the Trainer does not train them yet
-_SERVED_ONLY = {"ssm": "falcon-mamba-7b", "hybrid": "recurrentgemma-2b"}
+#: the recurrent families' SMOKE archs, which the Trainer refused until it
+#: trained them
+_RECURRENT = {"ssm": "falcon-mamba-7b", "hybrid": "recurrentgemma-2b"}
 
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid", "encdec", "vlm"])
 def test_training_refuses_an_unported_family(family, tmp_path):
-    """The families whose training the port does not have yet are refused
-    loudly by the Trainer; the registry builds the recurrent ones (ssm,
-    hybrid: their real SMOKE models) and refuses the others."""
+    """The families whose training the port does not have (encdec, vlm)
+    are refused loudly by the registry and the Trainer.  The recurrent
+    ones (ssm, hybrid) are trained now: their real SMOKE models take a
+    ``grad_sync`` step to a finite loss and finite parameters."""
     import dataclasses
     import types
     run_shape = ShapeConfig("t", SEQ, BATCH, "train")
-    if family in _SERVED_ONLY:
-        cfg = SMOKE_ARCHS[_SERVED_ONLY[family]]
+    if family in _RECURRENT:
+        cfg = SMOKE_ARCHS[_RECURRENT[family]]
         run = RunConfig(model=cfg, shape=run_shape, ckpt_dir=str(tmp_path))
-        model = tbuild(cfg, run, device="cpu")
-        assert model.cfg.family == family
-        with pytest.raises(NotImplementedError, match=family):
-            TTrainer(model, run)
+        tr = TTrainer(tbuild(cfg, run, device="cpu"), run)
+        assert tr.model.cfg.family == family
+        state, m = tr.step(tr.init_state(0), _tb(_batches(tr.model, 1)[0]),
+                           tr.default_plan(), "grad_sync")
+        assert np.isfinite(float(m["loss"]))
+        assert all(bool(torch.isfinite(p).all())
+                   for p in T.leaves(state["params"]))
         return
     cfg = dataclasses.replace(SMOKE_ARCHS["paper-350m"], family=family)
     run = RunConfig(model=cfg, shape=run_shape, ckpt_dir=str(tmp_path))
