@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
 NVIDIA GPU: the quickest proof that the port builds, is right, trains
 (paper-350m and the model zoo) and serves (the dense, MoE and recurrent
-families).
+families, the encoder-decoder and the VLM).
 
     python3 chip_smoke.py
 
@@ -20,9 +20,11 @@ Phases (any failure exits nonzero before the result lines):
 4. agreement on a small input: one SMOKE-model ``grad_sync`` step under
    a plan with a group on every rung on the card (kernels) and on the
    CPU (plain versions) from the same weights and batch, for paper-350m
-   (bf16), qwen3-moe-30b-a3b and gemma2-9b (f32) at 64 positions, and
+   (bf16), qwen3-moe-30b-a3b and gemma2-9b (f32) at 64 positions,
    falcon-mamba-7b and recurrentgemma-2b (f32) at 512 (the scans'
-   backward over two chunks): the losses within 2e-2 relative, the
+   backward over two chunks), and seamless-m4t-medium and
+   llava-next-mistral-7b (bf16) at 64, fed the pipeline's seeded
+   non-zero frames / patch embeddings: the losses within 2e-2 relative, the
    updated weights within 1e-3, and for the MoE the top-k sets of every
    dispatch (forward and the backward's recompute) equal;
 5. the main path: paper-350m at full width (24 layers, d 1024, vocab
@@ -232,15 +234,52 @@ Phases (any failure exits nonzero before the result lines):
    (8, 256, 8192, 16) f32 tensors.  Prints phase 12's lines per model
    (MFU at 6 * N * tokens with N from the tree) and the scans' saved
    bytes, backward peak and one full-width layer's saved bytes.
+15. serving the encoder-decoder and the VLM, in a process of its own:
+   seamless-m4t-medium (12 encoder + 12 decoder layers, d 1024, vocab
+   256,206) and llava-next-mistral-7b (32 layers, d 4096, 576 stub patch
+   embeddings before the tokens) at full published width and depth,
+   seeded bf16 weights drawn slice by slice, each workload twice (the
+   first cold), the Server feeding zero frames / patches as the
+   reference's does: seamless on phase 10's (a) (F = 64 frames) and
+   (b), one 4,096-token prompt (F = 512) + 16; llava on (a'), prompts
+   448 / 384 / 200 / 448 + 32 (1,024 positions with the patches; (a)'s
+   512 gives 1,088, which the chunk rule refuses), and (b), one
+   1,472-token prompt (2,048 positions) + 16.  Gates: (1) every request
+   gets its token budget and every logit is finite; (2) with seeded
+   non-zero frames / patch embeddings (zero frames make the encoder's
+   output exactly 0, so the Server's run alone tests none of the
+   encoder or the cross path), 16 teacher-forced decode steps (seamless
+   after 512 tokens, llava after 432: 1,024 positions for the forward)
+   against one forward within rtol = atol = 0.15; (3) the frontend is
+   live: the prefill logits with the seeded inputs differ from those
+   with zeros by more than 0.15; (4) both SMOKE configs card against
+   CPU as in phase 10, and a prefill with seeded inputs in f32; (5)
+   K1-K16 launch 0 times.  Prints phase 10's line per model and
+   workload (the decode bound counts the cross K/V), the cache bytes
+   per sequence (seamless: self ring and cross K/V; llava: the ring, its
+   patches' share) and seamless's prefill FLOPs as executed (the
+   encoder over the frames).
+16. training the encoder-decoder and the VLM, one process per model:
+   seamless-m4t-medium at full width and full depth, llava at full
+   width cut in depth by phase 12's rule at its own measured bytes per
+   parameter (``TRAIN_FRONTEND``), seeded weights, seq 1024 (llava's
+   576 patches among them), batch 8, the pipeline's seeded frames /
+   patch embeddings, trained as phase 12 trains its models (8 steps
+   under ``acesync`` with ``replan_every=4``, then an all-rungs
+   ``grad_sync``).  Gates: (1) every loss finite; (2) K1-K4 launched on
+   each model's path; (3) the peak allocated memory leaves 8 GiB free;
+   seamless at fewer than its 12 decoder layers fails.  Prints phase
+   12's lines per model, and seamless's MFU also at its executed FLOPs
+   (the encoder over the 128 frames, the LM head over the tokens).
 
 Output: progress lines with each phase's seconds, the pod link's latency
 and rate, then the ``nvidia-smi`` line, the kernels' JSON line (each
 kernel's launches in total and per main path: ``one_pod`` (phase 5),
 ``p2`` and ``p3`` (phase 7, all pods), ``hier`` (phase 8, all
 members), ``restart`` (phase 9a, its three runs), ``elastic`` (phase
-9b, all pods), ``zoo_<arch>`` (phases 12 and 14, each model's process) and
-``zoo_determinism`` (phase 12, both runs), each counted from 0 just
-before its run; phases 10, 11 and 13 launch none; K16's ``library_ms``
+9b, all pods), ``zoo_<arch>`` (phases 12, 14 and 16, each model's
+process) and ``zoo_determinism`` (phase 12, both runs), each counted
+from 0 just before its run; phases 10, 11, 13 and 15 launch none; K16's ``library_ms``
 is ``torch.mul(q, s)``'s time; ``paths`` gives each path's pods, members
 per cluster and depth; ``link`` the measured link), and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -726,12 +765,16 @@ def dequant_library(torch, ops, ref, g, e):
 #: bf16) and sequence length: paper-350m, and the MoE family and gemma2's
 #: local / global layers in f32, where the card and the CPU route every
 #: token alike, at 64 positions; the recurrent families in f32 at 512, so
-#: that the scans' backward runs over two 256-position chunks
+#: that the scans' backward runs over two 256-position chunks; the
+#: encoder-decoder and the VLM (bf16) at 64, fed the pipeline's seeded
+#: non-zero frames / patch embeddings
 SMALL_AGREEMENT = (("paper-350m", None, 64),
                    ("qwen3-moe-30b-a3b", "float32", 64),
                    ("gemma2-9b", "float32", 64),
                    ("falcon-mamba-7b", "float32", 512),
-                   ("recurrentgemma-2b", "float32", 512))
+                   ("recurrentgemma-2b", "float32", 512),
+                   ("seamless-m4t-medium", None, 64),
+                   ("llava-next-mistral-7b", None, 64))
 
 
 def small_agreement(torch):
@@ -2056,11 +2099,11 @@ BF16_DENSE_FLOPS = 989e12           # H100 SXM datasheet, dense bf16
 def _timed(torch, fn, log_to):
     """``fn`` with a CUDA event pair around each call (read after the
     run), and its logits' finiteness ANDed on the card."""
-    def f(*a):
+    def f(*a, **kw):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        logits, caches = fn(*a)
+        logits, caches = fn(*a, **kw)
         e1.record()
         log_to["events"].append((e0, e1))
         log_to["finite"] = log_to["finite"] & torch.isfinite(logits).all()
@@ -2090,7 +2133,9 @@ def serve_once(torch, np, tserve, model, spec):
     B, new = spec["batch"], spec["new"]
     S = max(spec["prompts"])
     reqs = tserve.make_requests(spec["prompts"], spec["new"], cfg.vocab_size)
-    server = tserve.Server(model, S + new, B)
+    # the ring holds a VLM's patches too
+    P = model.n_prefix
+    server = tserve.Server(model, P + S + new, B)
     pre = {"events": [], "finite": torch.ones((), dtype=torch.bool,
                                               device=model.device)}
     dec = {"events": [], "finite": pre["finite"].clone()}
@@ -2110,15 +2155,18 @@ def serve_once(torch, np, tserve, model, spec):
     dms = sorted(a.elapsed_time(b) for a, b in dec["events"])
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
-    cache = model.init_cache(B, S + new)
+    # the encoder-decoder's cross K/V: the served prompt's frames
+    frames = ({"F": model.frames_len(S)} if cfg.family == "encdec" else {})
+    cache = model.init_cache(B, P + S + new, **frames)
     kv_bytes = sum(flops.cache_bytes(cache))
     step_bytes = flops.decode_step_bytes(weight_bytes, cache)
     del cache
     prefill_ms = p0.elapsed_time(p1)
-    fl = flops.model_flops(cfg, ShapeConfig("serve", S, B, "prefill"),
-                           n=model.active_param_count())
+    shape = ShapeConfig("serve", P + S, B, "prefill")
+    fl = flops.model_flops(cfg, shape, n=model.active_param_count())
     n_tok = sum(len(r.out_tokens) for r in done)
     return {
+        "prefill_executed": flops.executed_flops(cfg, shape),
         "tokens_ok": [len(r.out_tokens) == r.max_new_tokens for r in done],
         "finite": bool(pre["finite"]) and bool(dec["finite"]),
         "batch": B, "prompt": S, "new": new, "n_requests": len(done),
@@ -2227,8 +2275,8 @@ def smoke_card_vs_cpu(torch, np, tserve, arch, dev):
             real_pre, real_dec = model.prefill, model.decode_step
 
             def rec(fn):
-                def f(*a):
-                    logits, caches = fn(*a)
+                def f(*a, **kw):
+                    logits, caches = fn(*a, **kw)
                     logs.append(logits.float().cpu())
                     return logits, caches
                 return f
@@ -2236,17 +2284,31 @@ def smoke_card_vs_cpu(torch, np, tserve, arch, dev):
             reqs = tserve.make_requests(spec["prompts"], spec["new"],
                                         cfg.vocab_size, seed=2)
             try:
-                done = tserve.Server(model, 48, 4).serve(reqs)
+                done = tserve.Server(model, 48 + model.n_prefix, 4).serve(reqs)
             finally:
                 model.prefill, model.decode_step = real_pre, real_dec
                 moe.dispatch, moe.route = real_dispatch, real_route
             runs.append(([r.out_tokens for r in done], logs))
         (th, lh), (tc, lc) = runs
+        if dtype == "float32" and host.float_inputs:
+            # the Server feeds zero frames / patches: hold a prefill with
+            # seeded non-zero ones too (zero frames make the encoder's
+            # output exactly 0)
+            inputs = seeded_inputs(torch, host, 4, 40, seed=3)
+            toks = torch.from_numpy(np.random.RandomState(4).randint(
+                0, cfg.vocab_size, size=(4, 40)).astype(np.int32))
+            for model, logs in ((host, lh), (card, lc)):
+                with torch.inference_mode():
+                    logits, _ = model.prefill(
+                        toks.to(model.device), 48 + model.n_prefix,
+                        **{k: v.to(model.device) for k, v in inputs.items()})
+                logs.append(logits.float().cpu())
         if dtype == "float32":
             err = max(float((a - b).abs().max() / b.abs().max())
                       for a, b in zip(lc, lh))
             out[dtype] = {"tokens_equal": tc == th, "max_rel": err,
-                          "ok": tc == th and err <= SMOKE_F32_RTOL}
+                          "ok": (tc == th and err <= SMOKE_F32_RTOL
+                                 and len(lc) == len(lh))}
         else:
             a, b = lc[0], lh[0]
             err = float((a - b).norm() / b.norm())
@@ -2801,6 +2863,7 @@ def zoo_train_path(group, spec):
     out["executed_flops"] = flops.executed_flops(cfg, shape)
     out["n_params"] = sum(p.numel() for p in T.leaves(state["params"]))
     out["n_layers"] = cfg.n_layers
+    out["family"] = cfg.family
     if cfg.family == "moe":
         calls = []
         real, recorded = recording_dispatch(moe, calls)
@@ -3224,6 +3287,224 @@ def recurrent_train_phase(torch, card) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: serving the encoder-decoder and the VLM
+# ---------------------------------------------------------------------------
+
+#: phase 15's models at full published width and depth, their workloads
+#: and gate 2's prompt.  seamless-m4t-medium: phase 10's (a) (F = 64
+#: frames) and (b), one 4,096-token prompt (F = 512).  llava: (a'), 448 /
+#: 384 / 200 / 448 tokens after its 576 patches (1,024 positions, which
+#: the chunk rule accepts; (a)'s 512 gives 1,088, which it refuses), and
+#: (b), one 1,472-token prompt (2,048 positions); gate 2 after 432 tokens
+#: (576 + 432 + 16 = 1,024 positions for the forward)
+FRONTEND_SERVE = {
+    "seamless-m4t-medium": {"a": SERVE_A,
+                            "b": {"prompts": (4096,), "new": 16,
+                                  "batch": 1},
+                            "tf_prompt": 512},
+    "llava-next-mistral-7b": {"a": {"prompts": (448, 384, 200, 448),
+                                    "new": 32, "batch": 4},
+                              "b": {"prompts": (1472,), "new": 16,
+                                    "batch": 1},
+                              "tf_prompt": 432}}
+
+
+def seeded_inputs(torch, model, B, S, seed):
+    """A frontend stub's float inputs for ``B`` sequences of ``S`` tokens,
+    N(0, 0.02^2) as the pipeline draws them, from ``seed`` on the model's
+    device (none for a token-only model)."""
+    g = torch.Generator(model.device).manual_seed(seed)
+    return {k: torch.randn(d, generator=g, device=model.device) * 0.02
+            for k, d in model.frontend_shapes(B, S).items()}
+
+
+def frontend_teacher_forced(torch, np, model, prompt, seed):
+    """Gate 2 with seeded non-zero frames / patch embeddings: prefill
+    ``prompt`` (after the VLM's patches), then ``TF_STEPS`` decode steps
+    at positions n_prefix + n + i, against ``lm_logits`` of one forward
+    over the whole sequence with the same float inputs, at those
+    positions only."""
+    V, P, n = model.cfg.vocab_size, model.n_prefix, prompt.size
+    rng = np.random.RandomState(seed)
+    seq = np.concatenate([prompt, rng.randint(0, V, size=TF_STEPS)
+                          .astype(np.int32)])[None]
+    toks = torch.from_numpy(seq).to(model.device)
+    inputs = seeded_inputs(torch, model, 1, n, seed)
+    with torch.inference_mode():
+        _, caches = model.prefill(toks[:, :n], P + n + TF_STEPS, **inputs)
+        steps = []
+        for i in range(TF_STEPS):
+            logits, caches = model.decode_step(caches, P + n + i,
+                                               toks[:, n + i:n + i + 1])
+            steps.append(logits[0, 0])
+        del caches
+        want = model.logits(model(toks, **inputs)[:, P + n:])[0].float()
+    return tf_compare(torch.stack(steps).float(), want, V,
+                      P + n + TF_STEPS)
+
+
+def frontend_live(torch, np, model, prompt, seed):
+    """Gate 3: the last position's prefill logits of ``prompt`` with
+    seeded frames / patch embeddings against those with zeros (the
+    Server's); returns their largest absolute difference."""
+    toks = torch.from_numpy(prompt[None]).to(model.device)
+    inputs = seeded_inputs(torch, model, 1, prompt.size, seed)
+    with torch.inference_mode():
+        a, _ = model.prefill(toks, **inputs)
+        b, _ = model.prefill(toks, **{k: torch.zeros_like(v)
+                                      for k, v in inputs.items()})
+    return float((a.float() - b.float()).abs().max())
+
+
+def serve_frontend_path(group, spec):
+    """Phase 15, in a process of its own: each model at full width and
+    depth served on its workloads (a) and (b), gate 2 and gate 3 after
+    them, the cache bytes per sequence; then gate 4 on the two SMOKE
+    configs; the kernels' launch counts over the whole phase."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_launch_counts()
+    out = {"models": {}, "smoke": {}}
+    for arch, wls in FRONTEND_SERVE.items():
+        cfg = ARCHS[arch]
+        t0 = time.perf_counter()
+        model = tserve.init_model(cfg, spec["device"], seed=0)
+        torch.cuda.synchronize()
+        res = {"init_s": time.perf_counter() - t0, "family": cfg.family,
+               "n_layers": (cfg.n_enc_layers, cfg.n_layers),
+               "n_params": sum(p.numel() for p in model.parameters())}
+        for wl in ("a", "b"):
+            w = wls[wl]
+            res[wl] = serve_workload(torch, np, tserve, model, w)
+            S = max(w["prompts"])
+            frames = ({"F": model.frames_len(S)}
+                      if cfg.family == "encdec" else {})
+            caches = model.init_cache(1, model.n_prefix + S + w["new"],
+                                      **frames)
+            res[wl]["seq_bytes"] = {
+                part: sum(t.numel() * t.element_size() for t in c.values())
+                for part, c in caches.items()}
+            res[wl]["frames"] = frames.get("F")
+            del caches
+        prompt = tserve.make_requests([wls["tf_prompt"]], 0,
+                                      cfg.vocab_size)[0].prompt
+        res["tf"] = frontend_teacher_forced(torch, np, model, prompt, seed=1)
+        res["live"] = frontend_live(torch, np, model, prompt, seed=2)
+        res["n_prefix"] = model.n_prefix
+        res["patch_ring_bytes"] = (
+            2 * cfg.n_layers * model.n_prefix * cfg.n_kv_heads * cfg.head_dim
+            * torch.finfo(model.dtype).bits // 8)
+        out["models"][arch] = res
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in FRONTEND_SERVE:
+        out["smoke"][arch] = smoke_card_vs_cpu(torch, np, tserve, arch,
+                                               spec["device"])
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def serve_frontend_phase(torch, card) -> None:
+    """Phase 15: seamless-m4t-medium and llava-next-mistral-7b served at
+    full width and depth from seeded bf16 weights (a process of its
+    own), and the five gates."""
+    import gc
+    from repro_torch.launch.mesh import spawn_pods
+    tag = "phase 15"
+    gc.collect()
+    torch.cuda.empty_cache()
+    (res,) = spawn_pods(serve_frontend_path, 1, "cuda",
+                        args=({"device": "cuda"},), timeout=600)
+    for arch, r in res["models"].items():
+        enc, dec = r["n_layers"]
+        for wl in ("a", "b"):
+            w = r[wl]
+            check_served(tag, card, arch, r, wl)
+            per = w["seq_bytes"]
+            if r["family"] == "encdec":
+                log(f"{tag}: {arch} ({wl}) {enc} encoder + {dec} decoder "
+                    f"layers; per sequence at {w['prompt'] + w['new']} "
+                    f"positions: {per['self']} B of self-attention ring "
+                    f"KV, {per['cross']} B of cross K/V over "
+                    f"{w['frames']} frames (written once in prefill, read "
+                    f"every decode step: in the bound); prefill executed "
+                    f"FLOPs (encoder over the frames) "
+                    f"{w['prefill_executed']:.6g} beside 2 * N * tokens "
+                    f"{w['prefill_flops']:.6g}")
+            else:
+                log(f"{tag}: {arch} ({wl}) per sequence at "
+                    f"{w['prompt'] + w['new']} tokens after its "
+                    f"{r['n_prefix']} patches: {sum(per.values())} B of "
+                    f"ring KV, {r['patch_ring_bytes']} B of it the "
+                    f"patches' positions")
+        check_teacher_forced(tag, f"{arch} (seeded non-zero frontend "
+                             f"inputs)", r["tf"])
+        log(f"{tag}: {arch}: prefill logits with seeded frontend inputs "
+            f"against zeros (the Server's): max |diff| {r['live']:.4g} "
+            f"(must exceed {TF_TOL})")
+        if not r["live"] > TF_TOL:
+            fail(f"{tag}: {arch}: the frontend inputs move the logits by "
+                 f"{r['live']:.4g}, not more than {TF_TOL}: the "
+                 f"encoder / cross path (or the patches) is not live")
+    check_smoke_and_launches(tag, res)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: training the encoder-decoder and the VLM
+# ---------------------------------------------------------------------------
+
+#: phase 16's models at full published width.  seamless-m4t-medium at its
+#: full depth (12 encoder + 12 decoder layers); llava cut in depth by
+#: phase 12's rule at its own bytes per parameter: 7 of 32 layers (8
+#: would need 76.71 GiB of the card's 79.18).  Both bytes per parameter:
+#: the largest peak of a train step kind that ``python -m
+#: repro_torch.launch.memory`` measured, batch 8 x 1024, on an H100
+#: 80GB HBM3 at 700 W, rounded up: seamless 51.405 (its ``local`` step:
+#: the backward through the 256,256-row LM head's logit chunks), llava
+#: 43.886 at 6 layers and 43.760 at 7 (the all-rungs ``grad_sync``)
+TRAIN_FRONTEND = {
+    "seamless-m4t-medium": {"n_layers": 12, "batch": 8,
+                            "bytes_per_param": 51.5},
+    "llava-next-mistral-7b": {"n_layers": 7, "batch": 8,
+                              "bytes_per_param": 43.9}}
+
+
+def frontend_train_phase(torch, card) -> dict:
+    """Phase 16: seamless-m4t-medium (full width and depth) and
+    llava-next-mistral-7b (full width, reduced depth) trained one process
+    each, as phase 12 trains its models (gates 1-3 there, and the depth
+    rule), seamless's MFU also at its executed FLOPs.  Returns the
+    kernels' launches per path."""
+    from repro_torch.configs import ARCHS
+    tag = "phase 16"
+    full = ARCHS["seamless-m4t-medium"].n_layers
+    if TRAIN_FRONTEND["seamless-m4t-medium"]["n_layers"] != full:
+        fail(f"{tag}: seamless-m4t-medium is not trained at its full "
+             f"depth of {full} decoder layers")
+    launches, results = train_models(torch, card, tag, TRAIN_FRONTEND)
+    for arch, r in results.items():
+        if r["family"] != "encdec":
+            continue
+        med = _spread(r["ms"]["local"])[0]
+        ex = r["executed_flops"] / (med * 1e-3) / BF16_DENSE_FLOPS
+        yard = r["model_flops"] / (med * 1e-3) / BF16_DENSE_FLOPS
+        log(f"{tag}: {arch}: local step MFU {ex:.6g} at its executed "
+            f"FLOPs {r['executed_flops']:.6g} (the encoder over "
+            f"{max(64, ZOO_SEQ // ARCHS[arch].audio_downsample)} frames, "
+            f"3x the forward's matmuls) beside {yard:.6g} at the "
+            f"yardstick's 6 * N * tokens {r['model_flops']:.6g}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3276,6 +3557,9 @@ def main() -> int:
     timed_phase("phase 13", serve_recurrent_phase, torch, card)
     by_path.update(timed_phase("phase 14", recurrent_train_phase, torch,
                                card))
+    timed_phase("phase 15", serve_frontend_phase, torch, card)
+    by_path.update(timed_phase("phase 16", frontend_train_phase, torch,
+                               card))
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     log(f"pod link (phase 7, P = 2 ping-pong): latency "
         f"{link['latency_s']:.6g} s per hop, rate "
@@ -3293,8 +3577,8 @@ def main() -> int:
             # phase 5 (one pod) + phase 7 (every pod at P = 2 and 3) +
             # phase 8 (every member of the 2 x 2 fleet) + phase 9 (the
             # restart runs on one pod, every pod of the elastic run) +
-            # phases 12 and 14 (each trained model's process, phase 12's
-            # determinism runs)
+            # phases 12, 14 and 16 (each trained model's process, phase
+            # 12's determinism runs)
             "launches": sum(n.get(name, 0) for n in by_path.values()),
             "launches_by_path": {path: n.get(name, 0)
                                  for path, n in by_path.items()},
@@ -3313,8 +3597,8 @@ def main() -> int:
     paths.update({f"zoo_{arch}": {"pods": 1, "arch": arch,
                                   "layers": spec["n_layers"],
                                   "batch": spec["batch"]}
-                  for arch, spec in dict(TRAIN_ZOO,
-                                         **TRAIN_RECURRENT).items()})
+                  for arch, spec in dict(TRAIN_ZOO, **TRAIN_RECURRENT,
+                                         **TRAIN_FRONTEND).items()})
     paths["zoo_determinism"] = dict(paths[f"zoo_{ZOO_DET['arch']}"],
                                     runs=2, steps=ZOO_DET["steps"])
     print(json.dumps({"kernels": kernels, "paths": paths,

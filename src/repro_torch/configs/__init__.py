@@ -1,10 +1,12 @@
-"""Architecture configs of the port: the paper's own dense model, the
-JAX package's dense zoo (qwen3-8b, gemma2-9b, minitron-8b, starcoder2-3b),
-its MoE family (qwen3-moe-30b-a3b, dbrx-132b) and its recurrent families
-(falcon-mamba-7b, the selective-scan SSM; recurrentgemma-2b, the RG-LRU +
-local-attention hybrid), each with its reduced *smoke* variant for CPU
-tests.  The zoo's other families (enc-dec, the VLM stub) are registered
-once their models are ported."""
+"""Architecture configs of the port: the paper's own dense model and the
+JAX package's whole zoo — the dense transformers (qwen3-8b, gemma2-9b,
+minitron-8b, starcoder2-3b, and llava-next-mistral-7b, the dense stack
+behind a stub of precomputed patch embeddings), the MoE family
+(qwen3-moe-30b-a3b, dbrx-132b), the recurrent families (falcon-mamba-7b,
+the selective-scan SSM; recurrentgemma-2b, the RG-LRU + local-attention
+hybrid) and the encoder-decoder seamless-m4t-medium (a stub of
+precomputed audio frame embeddings into its encoder) — each with its
+reduced *smoke* variant for CPU tests."""
 from __future__ import annotations
 
 from repro_torch.configs.base import (ACESyncConfig, ModelConfig, RunConfig,
@@ -15,6 +17,10 @@ from repro_torch.configs.falcon_mamba_7b import CONFIG as falcon_mamba_7b
 from repro_torch.configs.falcon_mamba_7b import SMOKE as falcon_mamba_7b_smoke
 from repro_torch.configs.gemma2_9b import CONFIG as gemma2_9b
 from repro_torch.configs.gemma2_9b import SMOKE as gemma2_9b_smoke
+from repro_torch.configs.llava_next_mistral_7b import \
+    CONFIG as llava_next_mistral_7b
+from repro_torch.configs.llava_next_mistral_7b import \
+    SMOKE as llava_next_mistral_7b_smoke
 from repro_torch.configs.minitron_8b import CONFIG as minitron_8b
 from repro_torch.configs.minitron_8b import SMOKE as minitron_8b_smoke
 from repro_torch.configs.paper_350m import CONFIG as paper_350m
@@ -27,6 +33,10 @@ from repro_torch.configs.qwen3_moe_30b_a3b import \
 from repro_torch.configs.recurrentgemma_2b import CONFIG as recurrentgemma_2b
 from repro_torch.configs.recurrentgemma_2b import \
     SMOKE as recurrentgemma_2b_smoke
+from repro_torch.configs.seamless_m4t_medium import \
+    CONFIG as seamless_m4t_medium
+from repro_torch.configs.seamless_m4t_medium import \
+    SMOKE as seamless_m4t_medium_smoke
 from repro_torch.configs.starcoder2_3b import CONFIG as starcoder2_3b
 from repro_torch.configs.starcoder2_3b import SMOKE as starcoder2_3b_smoke
 
@@ -38,7 +48,9 @@ ARCHS = {
     "starcoder2-3b": starcoder2_3b,
     "gemma2-9b": gemma2_9b,
     "falcon-mamba-7b": falcon_mamba_7b,
+    "llava-next-mistral-7b": llava_next_mistral_7b,
     "recurrentgemma-2b": recurrentgemma_2b,
+    "seamless-m4t-medium": seamless_m4t_medium,
     "paper-350m": paper_350m,
 }
 SMOKE_ARCHS = {
@@ -49,7 +61,9 @@ SMOKE_ARCHS = {
     "starcoder2-3b": starcoder2_3b_smoke,
     "gemma2-9b": gemma2_9b_smoke,
     "falcon-mamba-7b": falcon_mamba_7b_smoke,
+    "llava-next-mistral-7b": llava_next_mistral_7b_smoke,
     "recurrentgemma-2b": recurrentgemma_2b_smoke,
+    "seamless-m4t-medium": seamless_m4t_medium_smoke,
     "paper-350m": paper_350m_smoke,
 }
 

@@ -55,10 +55,11 @@ def _assign(dst_tree, src_tree) -> None:
         d.copy_(s)
 
 
-#: the model families whose training is ported: the dense transformers,
-#: the capacity-dispatch MoE, mamba (``ssm``) and the RG-LRU hybrid
-#: (``hybrid``); the encoder-decoder and the VLM are not
-TRAINED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: the model families whose training is ported: every family of the zoo —
+#: the dense transformers (the VLM among them), the capacity-dispatch MoE,
+#: mamba (``ssm``), the RG-LRU hybrid (``hybrid``) and the
+#: encoder-decoder (``encdec``)
+TRAINED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
 class Trainer:

@@ -3,7 +3,8 @@
 
 The same seeded Markov-chain token generator as the reference, so a given
 (seed, step, row) yields the same tokens byte for byte in both packages;
-batches are int32 tensors on the pipeline's device.  With P pods, pod p
+batches are int32 tensors on the pipeline's device, with the float inputs
+of a frontend stub (f32) where the model takes them.  With P pods, pod p
 takes rows [p*B/P, (p+1)*B/P) of each global batch of B rows, as the
 reference's batch sharding over ("pod", "data") gives them; on a
 hierarchical fleet ``pod`` is the fleet slot r = c*E + e and P the fleet
@@ -67,12 +68,31 @@ class TokenPipeline:
         return toks
 
     def host_batch(self, step: int) -> dict:
-        """This pod's rows of the numpy batch of ``step``: tokens and
-        next-token labels."""
-        S = self.shape.seq_len
+        """This pod's rows of the numpy batch of ``step``, the model's
+        ``input_specs``: tokens and next-token labels, and a frontend
+        stub's float inputs (the encoder-decoder's ``frames``, the VLM's
+        ``patch_embs``).  Each float input is drawn as the reference
+        draws it, N(0, 0.02^2) from one ``RandomState`` of (seed, step)
+        over the whole global batch, of which this pod takes its rows.
+        Where the labels are longer than the tokens (the VLM's patches
+        come first) they are left-padded with label 0, which the loss
+        scores as the reference's does (ROADMAP R9)."""
+        specs = self.model.input_specs(self.shape)
+        (_, S), _ = specs["tokens"]
         arr = np.stack([self._tokens(step, b, S + 1) for b in self.rows])
-        return {"tokens": arr[:, :-1].astype(np.int32),
-                "labels": arr[:, 1:].astype(np.int32)}
+        out = {"tokens": arr[:, :-1].astype(np.int32)}
+        labels = arr[:, 1:].astype(np.int32)
+        for name, (dims, dtype) in specs.items():
+            if dtype.is_floating_point:
+                rng = np.random.RandomState(
+                    (self.seed + step * 7919) % (2 ** 31 - 1))
+                full = rng.randn(*dims).astype(np.float32) * 0.02
+                out[name] = full[self.rows.start:self.rows.stop]
+        if "labels" in specs:
+            (_, n), _ = specs["labels"]
+            pad = np.zeros((len(self.rows), n - S), np.int32)
+            out["labels"] = np.concatenate([pad, labels], axis=1)[:, :n]
+        return out
 
     def __iter__(self) -> Iterator[dict]:
         return self

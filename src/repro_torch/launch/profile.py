@@ -127,10 +127,11 @@ def card_name() -> str:
 
 
 def profile_serving(arch, batch, seq_len, repeats):
-    """One prefill of ``batch`` random prompts of ``seq_len`` tokens and
-    the ``repeats`` decode steps after it (each profiled call after one
-    unprofiled warm-up), ``arch`` at its published width and depth from
-    seeded bf16 weights."""
+    """One prefill of ``batch`` random prompts of ``seq_len`` tokens (and
+    a frontend stub's seeded float inputs) and the ``repeats`` decode
+    steps after it (each profiled call after one unprofiled warm-up),
+    ``arch`` at its published width and depth from seeded bf16
+    weights."""
     import numpy as np
 
     from repro_torch.configs import ARCHS
@@ -140,14 +141,19 @@ def profile_serving(arch, batch, seq_len, repeats):
     model = init_model(cfg, "cuda", seed=0)
     toks = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, size=(batch, seq_len)).astype(np.int32)).cuda()
-    cache_len = seq_len + 2 * repeats + 2
+    # a frontend stub's float inputs, seeded and non-zero (zero frames
+    # would make the encoder's output exactly 0)
+    g = torch.Generator("cuda").manual_seed(0)
+    inputs = {k: torch.randn(d, generator=g, device="cuda") * 0.02
+              for k, d in model.frontend_shapes(batch, seq_len).items()}
+    cache_len = model.n_prefix + seq_len + 2 * repeats + 2
     with torch.inference_mode():
-        model.prefill(toks, cache_len)
-        prefill = profile_calls(lambda: model.prefill(toks, cache_len),
-                                repeats)
-        _, caches = model.prefill(toks, cache_len)
+        model.prefill(toks, cache_len, **inputs)
+        prefill = profile_calls(
+            lambda: model.prefill(toks, cache_len, **inputs), repeats)
+        _, caches = model.prefill(toks, cache_len, **inputs)
         nxt = toks[:, -1:]
-        pos = [seq_len]
+        pos = [model.n_prefix + seq_len]
 
         def step():
             model.decode_step(caches, pos[0], nxt)

@@ -1,14 +1,21 @@
-"""Serving: batched prefill + decode with the dense model zoo, the
-MoE family and the recurrent families — port of
-``repro/launch/serve.py``.
+"""Serving: batched prefill + decode with the whole model zoo — the
+dense transformers, the MoE family, the recurrent families, the VLM and
+the encoder-decoder — port of ``repro/launch/serve.py``.
 
 A request queue served by static batching: the requests are cut into
 server-batch chunks, each chunk's prompts left-padded with token 0 to its
 longest (the pads are attended, or run through the recurrence, and take
 positions, as in the reference), prefilled into caches for ``prompt +
-new tokens`` positions — ring KV caches, and for falcon-mamba-7b and
-recurrentgemma-2b each recurrent layer's conv carry and scan state —
-then decoded greedily one token per step, the caches written in place.
+new tokens`` positions — ring KV caches, for falcon-mamba-7b and
+recurrentgemma-2b each recurrent layer's conv carry and scan state, for
+seamless-m4t-medium each decoder layer's cross K/V of the encoder's
+output — then decoded greedily one token per step, the caches written in
+place.  A frontend stub's inputs are zeros, as the reference serves them:
+seamless-m4t-medium's ``max(64, S // 8)`` frames (with which its encoder
+contributes exactly nothing), llava-next-mistral-7b's 576 patch
+embeddings, which take the first positions of the caches; decode goes on
+after them (the reference's ``Server`` starts it at the prompt's length
+instead, and its CLI sizes the ring without them: ROADMAP R8).
 A prompt length the reference refuses (its attention chunks, or for the
 recurrent families its scan chunks: at most 256 or a multiple of 256)
 raises ``ValueError`` in the prefill.  Runs on the card unless the
@@ -19,6 +26,8 @@ caller asks for the CPU::
     python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b ...
     python -m repro_torch.launch.serve --arch falcon-mamba-7b ...
     python -m repro_torch.launch.serve --arch recurrentgemma-2b ...
+    python -m repro_torch.launch.serve --arch seamless-m4t-medium ...
+    python -m repro_torch.launch.serve --arch llava-next-mistral-7b ...
 
 prints ``{"requests", "tokens", "wall_s", "tok_per_s"}``.  The weights
 come from a seed (no checkpoint is read) and are served in bf16.
@@ -75,9 +84,15 @@ class Server:
         for j, r in enumerate(reqs):
             toks[j, S - len(r.prompt):] = r.prompt  # left-pad
             r.t_submit = time.time()
+        # a frontend stub's inputs are zeros, as the reference serves them
+        inputs = {k: torch.zeros(d, dtype=torch.float32, device=model.device)
+                  for k, d in model.frontend_shapes(self.batch, S).items()}
         logits, caches = model.prefill(
-            torch.from_numpy(toks).to(model.device), self.cache_len)
-        cache_len = S
+            torch.from_numpy(toks).to(model.device), self.cache_len,
+            **inputs)
+        # decode goes on after every prefilled position: the VLM's patches
+        # come first (the reference starts at S: ROADMAP R8)
+        cache_len = model.n_prefix + S
         tokens = logits[:, -1, :V].argmax(dim=-1)[:, None]
         max_new = max(r.max_new_tokens for r in reqs)
         for step in range(max_new):
@@ -134,8 +149,9 @@ def main(argv=None):
 
     cfg = (SMOKE_ARCHS if args.smoke else ARCHS)[args.arch]
     model = init_model(cfg, args.device)
-    server = Server(model, cache_len=args.prompt_len + args.new_tokens,
-                    batch=args.batch)
+    # the ring holds the VLM's patches too (the reference's does not: R8)
+    server = Server(model, cache_len=(model.n_prefix + args.prompt_len
+                                      + args.new_tokens), batch=args.batch)
     reqs = make_requests([args.prompt_len] * args.requests,
                          args.new_tokens, cfg.vocab_size)
     t0 = time.time()

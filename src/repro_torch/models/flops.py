@@ -7,7 +7,9 @@ holds the model, passes the tree's (``LanguageModel.active_param_count``:
 the config's count approximates the hybrid's RG-LRU gates).
 :func:`executed_flops` counts what the MoE's capacity arithmetic runs
 instead: every expert over all its C rows, in a forward and (3x) in a
-train step.  The MFU of a train step is
+train step; and the encoder-decoder's matmuls as they run, its encoder
+over the F frames rather than the S tokens the yardstick counts it
+over.  The MFU of a train step is
 :func:`model_flops` over its seconds against the card's bf16 dense peak
 (989 TFLOP/s on an H100 SXM).  :func:`decode_step_bytes` is what one
 decode step must move, the bound of a decode step at the card's memory
@@ -70,6 +72,8 @@ def executed_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
     step, 3x its forward's (the backward twice the forward, as 6 * N * D
     counts it; a layer recomputed under remat is not counted).  Equal to
     :func:`model_flops` for a dense model."""
+    if cfg.family == "encdec":
+        return _encdec_flops(cfg, shape)
     if cfg.family != "moe":
         return model_flops(cfg, shape)
     tokens = shape.global_batch * (1 if shape.kind == "decode"
@@ -80,6 +84,29 @@ def executed_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
     forward = (2.0 * dense * tokens + 2.0 * expert * cfg.n_experts
                * capacity(tokens, cfg) * cfg.n_layers)
     return 3.0 * forward if shape.kind == "train" else forward
+
+
+def _encdec_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """The encoder-decoder's matmul FLOPs as they run: the encoder's
+    layers over the F = max(64, S // audio_downsample) frames, the
+    decoder's over the S tokens — but the cross-attention's K / V
+    projections, which run over the F frames — and the tied LM head over
+    the positions whose logits are taken (every one in training, the
+    last in prefill); decode (one token) runs no encoder and reads the
+    cross K / V from its cache.  A train step is 3x its forward."""
+    D, Fd = cfg.d_model, cfg.d_ff
+    q_o = 2 * D * cfg.n_heads * cfg.head_dim
+    k_v = 2 * D * cfg.n_kv_heads * cfg.head_dim
+    layer = q_o + k_v + 3 * D * Fd
+    B, S = shape.global_batch, shape.seq_len
+    head = cfg.padded_vocab * D
+    if shape.kind == "decode":
+        return 2.0 * B * (cfg.n_layers * (layer + q_o) + head)
+    frames = max(64, S // cfg.audio_downsample)
+    fwd = 2.0 * B * (cfg.n_enc_layers * layer * frames
+                     + cfg.n_layers * ((layer + q_o) * S + k_v * frames)
+                     + head * (S if shape.kind == "train" else 1))
+    return 3.0 * fwd if shape.kind == "train" else fwd
 
 
 def scan_start_bytes(cfg: ModelConfig, shape: ShapeConfig) -> int:

@@ -1,8 +1,11 @@
-"""Building blocks of the dense transformer — port of
+"""Building blocks of the transformers — port of
 ``repro/models/layers.py``: RMSNorm, the logit softcap, RoPE, attention
-(training / prefill, and single-token decode over a ring KV cache), the
-ring-cache writes, the SwiGLU MLP, the embedding (with gemma's sqrt(d)
-scale) and a chunked cross-entropy through the softcapped LM head.
+(training / prefill, causal or — the encoder's — bidirectional, and
+single-token decode over a ring KV cache), the encoder-decoder's
+cross-attention (prefill writing its K/V cache once, decode reading it),
+the ring-cache writes, the SwiGLU MLP, the embedding (with gemma's
+sqrt(d) scale) and a chunked cross-entropy through the softcapped LM
+head.
 
 Weights are f32 masters cast to the compute dtype (bf16) at use, as the
 reference's ``.astype(dt)``; a serving model holds them in bf16 already.
@@ -92,6 +95,16 @@ def causal_attention(q, k, v, window: Optional[int] = None):
         d = pos[:, None] - pos[None, :]
         o = F.scaled_dot_product_attention(qt, kt, vt,
                                            attn_mask=(d >= 0) & (d < window))
+    return o.transpose(1, 2)
+
+
+def full_attention(q, k, v):
+    """Bidirectional SDPA: q (B, Sq, H, Dh) over k, v (B, Sk, KV, Dh),
+    H % KV == 0, every key visible to every query.  Returns (B, Sq, H,
+    Dh)."""
+    k, v = _repeat_kv(k, v, q.shape[2] // k.shape[2])
+    o = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2))
     return o.transpose(1, 2)
 
 
@@ -236,10 +249,13 @@ def attn_shapes(cfg, n_layers: int):
     return shapes
 
 
-def attn_apply(p, x, cfg, *, positions, window: Optional[int] = None,
-               cache=None, cache_len: Optional[int] = None,
-               q_chunk: int = 2048, kv_chunk: int = 1024):
+def attn_apply(p, x, cfg, *, positions, causal: bool = True,
+               window: Optional[int] = None, cache=None,
+               cache_len: Optional[int] = None, q_chunk: int = 2048,
+               kv_chunk: int = 1024):
     """x: (B, S, D) -> (B, S, D); ``p`` holds one layer's weights.
+    ``causal=False`` is the encoder's bidirectional self-attention (RoPE
+    still applied, the same chunk rule).
 
     ``cache`` is one layer's ``{"k", "v"}`` ring caches (B, alloc, KV, Dh)
     or None.  Decode (``cache_len`` given, S == 1) writes the token at
@@ -264,16 +280,53 @@ def attn_apply(p, x, cfg, *, positions, window: Optional[int] = None,
         o = decode_attention(q, kc.to(dt), vc.to(dt), cache_len,
                              window=window, logit_softcap=cap)
     else:
-        if cap is None:
+        if cap is None and (causal or window is None):
             check_chunks(S, S, q_chunk, kv_chunk)
-            o = causal_attention(q, k, v, window)
+            o = (causal_attention(q, k, v, window) if causal
+                 else full_attention(q, k, v))
         else:
-            o = chunked_attention(q, k, v, window=window, logit_softcap=cap,
-                                  q_chunk=q_chunk, kv_chunk=kv_chunk)
+            o = chunked_attention(q, k, v, causal=causal, window=window,
+                                  logit_softcap=cap, q_chunk=q_chunk,
+                                  kv_chunk=kv_chunk)
         if cache is not None:
             ring_write_prefill(cache["k"], k)
             ring_write_prefill(cache["v"], v)
     return o.reshape(B, S, H * Dh) @ p["wo"].to(dt)
+
+
+def cross_attn_apply(p, x, mem, cfg, *, cache=None, q_chunk: int = 2048,
+                     kv_chunk: int = 1024):
+    """Encoder-decoder cross-attention: queries from x (B, S, D), keys
+    and values from the encoder's output mem (B, Sm, D); no RoPE, no
+    qk-norm, no softcap, every key visible (the reference's
+    ``chunked_attention(causal=False)``, its chunk rule kept).  ``cache``
+    (one layer's ``{"k", "v"}`` of (B, Sm, KV, Dh)), where given, takes
+    the keys and values in place: prefill writes them once."""
+    B, S, _ = x.shape
+    Sm = mem.shape[1]
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(B, S, H, Dh)
+    k = (mem @ p["wk"].to(dt)).reshape(B, Sm, KV, Dh)
+    v = (mem @ p["wv"].to(dt)).reshape(B, Sm, KV, Dh)
+    if cache is not None:
+        cache["k"].copy_(k)
+        cache["v"].copy_(v)
+    check_chunks(S, Sm, q_chunk, kv_chunk)
+    o = full_attention(q, k, v)
+    return o.reshape(B, S, H * Dh) @ p["wo"].to(dt)
+
+
+def cross_attn_decode(p, x, cache, cfg):
+    """One token's cross-attention (x: (B, 1, D)) over the K/V cache that
+    prefill wrote (B, F, KV, Dh): the reference's ``decode_attention`` at
+    t = F - 1, under which every slot is visible."""
+    B = x.shape[0]
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+    F_ = cache["k"].shape[1]
+    o = decode_attention(q, cache["k"].to(dt), cache["v"].to(dt), F_ - 1)
+    return o.reshape(B, 1, -1) @ p["wo"].to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,23 @@
-"""Architecture registry of the port: ``--arch <id>`` -> model.  The
-dense family (paper-350m and the dense zoo: qwen3-8b, gemma2-9b,
-minitron-8b, starcoder2-3b), the MoE family (qwen3-moe-30b-a3b,
-dbrx-132b), the SSM (falcon-mamba-7b) and the RG-LRU hybrid
-(recurrentgemma-2b); the JAX package's other families (enc-dec, the VLM
-stub) come in later slices."""
+"""Architecture registry of the port: ``--arch <id>`` -> model, for every
+family of the JAX package's zoo.  The dense family (paper-350m and the
+dense zoo: qwen3-8b, gemma2-9b, minitron-8b, starcoder2-3b, and the VLM
+llava-next-mistral-7b, the dense stack behind its vision stub), the MoE
+family (qwen3-moe-30b-a3b, dbrx-132b), the SSM (falcon-mamba-7b), the
+RG-LRU hybrid (recurrentgemma-2b) and the encoder-decoder
+(seamless-m4t-medium)."""
 from __future__ import annotations
 
 from typing import Optional
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models.encdec import EncDecTransformer
 from repro_torch.models.mamba import MambaLM
 from repro_torch.models.rglru import GriffinLM
 from repro_torch.models.transformer import DenseTransformer, MoETransformer
 
 _FAMILY_CLS = {"dense": DenseTransformer, "moe": MoETransformer,
-               "ssm": MambaLM, "hybrid": GriffinLM}
+               "ssm": MambaLM, "hybrid": GriffinLM,
+               "encdec": EncDecTransformer}
 
 
 def build_model(cfg: ModelConfig, run: Optional[RunConfig] = None,

@@ -27,7 +27,7 @@ from repro_torch.models.mamba import (SCAN_CHUNK, RecurrentLM, _params,
                                       causal_depthwise_conv,
                                       chunked_linear_recurrence, gelu_tanh,
                                       sigmoid, silu, softplus)
-from repro_torch.models.transformer import _draw
+from repro_torch.models.transformer import _draw, unstack
 
 RGLRU_C = 8.0
 GROUP_KINDS = ("rec", "rec", "attn")
@@ -211,16 +211,11 @@ class GriffinLM(RecurrentLM):
         norm; ``caches`` written in place."""
         remat = self._remat()
 
-        def unstacked(blk):
-            paths, stacks = zip(*T.leaves_with_path(blk.tree()))
-            return ([T.path_str(q) for q in paths],
-                    list(zip(*(w.unbind(0) for w in stacks))))
-
         def run(kind, names, w, cache, x):
             layer = partial(self._layer, kind, names, cache, cache_len)
             return self._call(layer, remat, x, positions, *w)
 
-        slots = [unstacked(self.blocks[f"slot{i}"])
+        slots = [unstack(self.blocks[f"slot{i}"].tree())
                  for i in range(len(GROUP_KINDS))]
         for g in range(self.n_groups):
             for i, (kind, (names, per_layer)) in enumerate(
@@ -230,7 +225,7 @@ class GriffinLM(RecurrentLM):
                 x = run(kind, names, per_layer[g], cache, x)
             x = x.to(self.dtype)
         for i in range(self.tail_rec):
-            names, per_layer = unstacked(self.tail[f"slot{i}"])
+            names, per_layer = unstack(self.tail[f"slot{i}"].tree())
             cache = (None if caches is None else
                      {k: c[0] for k, c in caches[f"tail{i}"].items()})
             x = run("rec", names, per_layer[0], cache, x)

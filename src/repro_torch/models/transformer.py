@@ -1,6 +1,8 @@
 """Decoder-only transformer LMs — port of ``repro/models/transformer.py``
 as ``nn.Module``s: the dense stack (paper-350m, qwen3, minitron,
-starcoder2) and gemma2's alternating local / global layers, with
+starcoder2; llava-next-mistral-7b, whose vision stub puts ``n_patches``
+precomputed patch embeddings before the tokens) and gemma2's
+alternating local / global layers, with
 qk-norm, post-norms, logit softcaps and the sqrt(d) embedding scale where
 the config asks for them; and :class:`MoETransformer` (qwen3-moe,
 dbrx), the same stack with each layer's FFN a capacity-dispatch
@@ -34,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch import tree as T
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe
 
@@ -79,13 +81,36 @@ def _draw(p: torch.Tensor, generator: torch.Generator, std: float):
         s.copy_(L.init_normal(generator, s.shape, std, p.device))
 
 
+def unstack(tree: dict):
+    """(the leaves' paths in ``tree``, each layer's leaves): every stacked
+    (n, ...) leaf is sliced once — the backward of one unbind stacks the
+    per-layer grads in a single pass, where indexing the stack per layer
+    would fill and add a full-stack gradient per layer (quadratic in
+    depth)."""
+    paths, stacks = zip(*T.leaves_with_path(tree))
+    return ([T.path_str(q) for q in paths],
+            list(zip(*(w.unbind(0) for w in stacks))))
+
+
 class LanguageModel(nn.Module):
     """The model API the port's LMs share, around a subclass's
     ``param_tree()``, ``init_cache(B, S)`` and ``_backbone(x, positions,
     caches=None, cache_len=None)`` (the layer stack and the final norm;
     the caches written in place), and its ``embed``, ``cfg``, ``dtype``:
     ``forward`` / ``loss`` / ``logits`` for training, ``prefill`` /
-    ``decode_step`` for serving."""
+    ``decode_step`` for serving.
+
+    The model inputs are the reference's (``input_specs``): tokens, and
+    for a model behind a frontend stub its float inputs too, named in
+    ``float_inputs`` and shaped by ``frontend_shapes`` — the VLM's
+    ``patch_embs``, put as ``n_prefix`` positions before the tokens, or
+    the encoder-decoder's ``frames``.  A batch carries them under those
+    names; ``forward`` and ``prefill`` take them as keywords."""
+
+    #: positions a frontend stub puts before the tokens
+    n_prefix = 0
+    #: the float inputs a batch carries besides tokens and labels
+    float_inputs = ()
 
     def param_shapes(self) -> dict:
         return T.tree_map(lambda p: tuple(p.shape), self.param_tree())
@@ -95,16 +120,58 @@ class LanguageModel(nn.Module):
         parameters one token runs through."""
         return sum(p.numel() for p in self.parameters())
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> final hidden states (B, S, D) in the compute
-        dtype."""
+    # ---------------- inputs ----------------
+    def frontend_shapes(self, B: int, S: int) -> dict:
+        """{name: shape} of the float inputs for ``B`` sequences of ``S``
+        tokens (none for a token-only model)."""
+        return {}
+
+    def text_len(self, shape: ShapeConfig) -> int:
+        """The tokens of one sequence of ``shape`` (its positions less
+        the frontend's, but for decode)."""
+        if shape.kind == "decode":
+            return shape.seq_len
+        return shape.seq_len - self.n_prefix
+
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """The reference's model inputs for ``shape``: {name: (shape,
+        dtype)} — ``tokens`` (B, text_len) int32, ``labels`` (B,
+        seq_len) for training, the float inputs (f32) but for decode, and
+        (B, 1) tokens alone for decode."""
+        B = shape.global_batch
+        if shape.kind == "decode":
+            return {"tokens": ((B, 1), torch.int32)}
+        S = self.text_len(shape)
+        specs = {"tokens": ((B, S), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = ((B, shape.seq_len), torch.int32)
+        specs.update({k: (d, torch.float32)
+                      for k, d in self.frontend_shapes(B, S).items()})
+        return specs
+
+    def _embed(self, tokens, patch_embs=None):
+        """The token embeddings, after the patch embeddings (cast to the
+        compute dtype) where given."""
         x = L.embed_lookup(self.embed, tokens, self.cfg, self.dtype)
+        if patch_embs is not None:
+            x = torch.cat([patch_embs.to(self.dtype), x], dim=1)
+        return x
+
+    def forward(self, tokens: torch.Tensor,
+                patch_embs: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens (B, S) (after ``patch_embs`` (B, P, D) where given) ->
+        final hidden states (B, P + S, D) in the compute dtype."""
+        x = self._embed(tokens, patch_embs)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         return self._backbone(x, positions)
 
     def loss(self, batch: dict) -> torch.Tensor:
-        x = self.forward(batch["tokens"])
+        """Mean cross-entropy over every position of the batch (the
+        VLM's patch positions too, against the pipeline's label 0, as
+        the reference scores them: ROADMAP R9)."""
+        x = self.forward(batch["tokens"], **{k: batch[k] for k in
+                                             self.float_inputs if k in batch})
         return L.xent_loss_chunked(x, self.embed, batch["labels"], self.cfg)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -112,11 +179,13 @@ class LanguageModel(nn.Module):
         return L.lm_logits(x, self.embed.to(x.dtype), self.cfg)
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None):
-        """tokens (B, S) -> (the last position's logits (B, 1, V), the
-        caches (:meth:`init_cache` of ``cache_len``, default S positions)
-        holding the prompt)."""
-        x = L.embed_lookup(self.embed, tokens, self.cfg, self.dtype)
+    def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None,
+                patch_embs: Optional[torch.Tensor] = None):
+        """tokens (B, S) (after ``patch_embs`` (B, P, D) where given) ->
+        (the last position's logits (B, 1, V), the caches
+        (:meth:`init_cache` of ``cache_len``, default P + S positions)
+        holding the prompt).  Decode goes on at position P + S."""
+        x = self._embed(tokens, patch_embs)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         caches = self.init_cache(B, cache_len or S)
@@ -148,10 +217,15 @@ class DenseTransformer(LanguageModel):
         super().__init__()
         if (cfg.family != self.family
                 or cfg.layer_pattern not in _GROUP_KINDS
-                or cfg.frontend or not cfg.tie_embeddings):
+                or cfg.frontend not in (None, "vision_stub")
+                or not cfg.tie_embeddings):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense and MoE transformers without "
-                f"a modality frontend, with tied embeddings, are ported")
+                f"{cfg.name}: only the dense and MoE transformers, with "
+                f"tied embeddings and no frontend but the vision stub, "
+                f"are ported")
+        if cfg.frontend == "vision_stub":
+            self.n_prefix = cfg.n_patches
+            self.float_inputs = ("patch_embs",)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.run = run
@@ -172,6 +246,11 @@ class DenseTransformer(LanguageModel):
             device=self.device))
         self.final_norm = nn.Parameter(torch.zeros(
             (cfg.d_model,), dtype=torch.float32, device=self.device))
+
+    def frontend_shapes(self, B: int, S: int) -> dict:
+        if self.cfg.frontend != "vision_stub":
+            return {}
+        return {"patch_embs": (B, self.cfg.n_patches, self.cfg.d_model)}
 
     # ---------------- FFN hooks ----------------
     def _ffn_shapes(self, n: int) -> dict:
@@ -253,16 +332,8 @@ class DenseTransformer(LanguageModel):
         written in place."""
         remat = (self.run is not None and self.run.remat != "none"
                  and torch.is_grad_enabled())
-        slots = []
-        for i, kind in enumerate(self.group_kinds):
-            paths, stacks = zip(*T.leaves_with_path(
-                self.blocks[f"slot{i}"].tree()))
-            # slice the (n_groups, ...) stacks once: the backward of one
-            # unbind stacks the per-layer grads in a single pass, where
-            # indexing the stack per layer would fill and add a
-            # full-stack gradient per layer (quadratic in depth)
-            slots.append((kind, [T.path_str(q) for q in paths],
-                          list(zip(*(w.unbind(0) for w in stacks)))))
+        slots = [(kind, *unstack(self.blocks[f"slot{i}"].tree()))
+                 for i, kind in enumerate(self.group_kinds)]
         for g in range(self.n_groups):
             for i, (kind, names, per_layer) in enumerate(slots):
                 cache = None

@@ -403,7 +403,8 @@ def test_reference_checkpoint_restores_to_converted_state(pods):
 
 
 # ---------------------------------------------------------------------------
-# the MoE family's and the recurrent families' train states, both ways
+# the MoE family's, the recurrent families' and the frontend archs' train
+# states, both ways
 # ---------------------------------------------------------------------------
 
 
@@ -425,6 +426,19 @@ def test_recurrent_checkpoints_restore_across_packages(arch, tmp_path):
     flat = _restores_across_packages(arch, tmp_path)
     want = ("params/blocks/slot0/A_log" if arch == "falcon-mamba-7b"
             else "params/tail/slot1/mix/lam")
+    assert want in flat
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium",
+                                  "llava-next-mistral-7b"])
+def test_frontend_checkpoints_restore_across_packages(arch, tmp_path):
+    """The encoder-decoder's train state (``dec_blocks`` with their
+    cross-attention, ``enc_blocks``, ``enc_norm``) and the VLM's, stepped
+    on the pipeline's frames / patch embeddings, in the reference's
+    on-disk format, both ways (:func:`_restores_across_packages`)."""
+    flat = _restores_across_packages(arch, tmp_path)
+    want = ("params/dec_blocks/cross_attn/wk"
+            if arch == "seamless-m4t-medium" else "params/blocks/slot0/attn/wq")
     assert want in flat
 
 

@@ -1,11 +1,13 @@
 """Tests of the port that need the card: each Hopper kernel against its
 plain PyTorch version on CUDA tensors, bit for bit, the wrappers'
 launch counting, serving on the card against the CPU (the dense and
-recurrent SMOKE configs, the chunked scans, the MoE FFN, and the ring
-cache written in place), and
+recurrent SMOKE configs, the chunked scans, the MoE FFN, the ring
+cache written in place, and the encoder-decoder and the VLM with seeded
+frames / patch embeddings), and
 training the MoE family on the card (one step against the CPU's, and
-its backward reproducible under ``RunConfig.deterministic``) and the
+its backward reproducible under ``RunConfig.deterministic``), the
 recurrent families (the scans' gradients and one step against the
+CPU's) and the encoder-decoder and the VLM (one step against the
 CPU's).  They skip without a CUDA device; on the card
 run
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``."""
@@ -521,6 +523,66 @@ def test_recurrent_training_step_on_card_matches_cpu(dev, arch):
     kernels) and on the CPU (the plain versions) from the same state and
     batch: the loss within 1e-5 relative and the updated weights within
     1e-3 (chip_smoke.py phase 4's bound)."""
+    _training_step_card_vs_cpu(dev, arch, 512)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium",
+                                  "llava-next-mistral-7b"])
+def test_frontend_training_step_on_card_matches_cpu(dev, arch):
+    """One f32 grad_sync step of the encoder-decoder's and the VLM's SMOKE
+    configs at 64 positions, fed the pipeline's seeded non-zero frames /
+    patch embeddings, card against CPU (the recurrent test's bounds)."""
+    _training_step_card_vs_cpu(dev, arch, 64)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium",
+                                  "llava-next-mistral-7b"])
+def test_frontend_serving_on_card_matches_cpu(dev, arch):
+    """The encoder-decoder's and the VLM's SMOKE configs in f32, from the
+    same weights on the card and on the CPU: a prefill with seeded
+    non-zero frames / patch embeddings and 4 decode steps after it (the
+    VLM's at n_patches + t), every step's logits within 1e-4 relative,
+    and the cross K/V caches within 1e-4 too."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.launch import serve as tserve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(SMOKE_ARCHS[arch], dtype="float32")
+    host = tserve.init_model(cfg, "cpu", seed=1, dtype=torch.float32)
+    card = copy.deepcopy(host).to(dev)
+    card.device = dev
+    r = np.random.RandomState(2)
+    toks = torch.from_numpy(r.randint(0, 256, size=(2, 44)).astype(np.int32))
+    inputs = {k: torch.from_numpy((r.randn(*d) * 0.02).astype(np.float32))
+              for k, d in host.frontend_shapes(2, 40).items()}
+    outs = []
+    for model in (card, host):
+        P, logs = model.n_prefix, []
+        with torch.inference_mode():
+            logits, caches = model.prefill(
+                toks[:, :40].to(model.device), P + 44,
+                **{k: v.to(model.device) for k, v in inputs.items()})
+            logs.append(logits.float().cpu())
+            for t in range(40, 44):
+                logits, caches = model.decode_step(
+                    caches, P + t, toks[:, t:t + 1].to(model.device))
+                logs.append(logits.float().cpu())
+        outs.append((logs, {k: {n: c.float().cpu() for n, c in v.items()}
+                            for k, v in caches.items()}))
+    (lc, cc), (lh, ch) = outs
+    for a, b in zip(lc, lh):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    for part, kv in ch.items():
+        for name, b in kv.items():
+            a = cc[part][name]
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def _training_step_card_vs_cpu(dev, arch, seq):
+    """One f32 grad_sync step of ``arch``'s SMOKE config at ``seq``
+    positions, card against CPU from the same state and batch: the loss
+    within 1e-5 relative, the updated weights within 1e-3."""
     import dataclasses
     from repro_torch import convert
     from repro_torch import tree as T
@@ -530,7 +592,7 @@ def test_recurrent_training_step_on_card_matches_cpu(dev, arch):
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.models.registry import build_model
     cfg = dataclasses.replace(SMOKE_ARCHS[arch], dtype="float32")
-    run = RunConfig(model=cfg, shape=ShapeConfig("s", 512, 2, "train"),
+    run = RunConfig(model=cfg, shape=ShapeConfig("s", seq, 2, "train"),
                     lr=1e-2, warmup_steps=1)
     card = Trainer(build_model(cfg, run, device=dev), run)
     host = Trainer(build_model(cfg, run, device="cpu"), run)

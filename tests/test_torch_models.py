@@ -54,6 +54,9 @@ DENSE = ["paper-350m", "qwen3-8b", "gemma2-9b", "minitron-8b",
          "starcoder2-3b"]
 MOE = ["qwen3-moe-30b-a3b", "dbrx-132b"]
 RECURRENT = ["falcon-mamba-7b", "recurrentgemma-2b"]
+#: the archs behind a frontend stub: the encoder-decoder (frames) and the
+#: VLM (patch embeddings)
+FRONTEND = ["seamless-m4t-medium", "llava-next-mistral-7b"]
 F32_RTOL = 1e-4
 BF16_REL = 3e-2
 LOSS_RTOL = 2e-2
@@ -222,6 +225,70 @@ def test_decode_attention_matches(case):
         qb, kb, vb, jnp.int32(t), **kw))) < 1e-2
 
 
+#: (Sq, Sk, q_chunk, kv_chunk): self-attention (Sq == Sk) and
+#: cross-attention over fewer or more keys than queries
+BIDIR_CASES = [(48, 48, 2048, 1024), (40, 64, 2048, 1024),
+               (64, 16, 2048, 1024), (32, 96, 16, 32)]
+
+
+def _attn_weights(cfg, seed):
+    r = np.random.RandomState(seed)
+    return {k: (r.randn(*s[1:]) * s[-2] ** -0.5).astype(np.float32)
+            for k, s in L.attn_shapes(cfg, 1).items()}
+
+
+@pytest.mark.parametrize("case", BIDIR_CASES, ids=str)
+def test_bidirectional_and_cross_attention_match(case):
+    """``attn_apply(causal=False)`` (the encoder's self-attention, with
+    RoPE) and ``cross_attn_apply`` (queries from x, keys and values from
+    mem, no RoPE) against the reference's, in f32 within 1e-5 relative;
+    the cross K/V a cache takes are the reference's prefill ones."""
+    Sq, Sk, qc, kc = case
+    cfg = SMOKE_ARCHS["seamless-m4t-medium"]
+    p = _attn_weights(cfg, Sq * Sk)
+    r = np.random.RandomState(Sq + Sk)
+    x = r.randn(B, Sq, cfg.d_model).astype(np.float32)
+    mem = r.randn(B, Sk, cfg.d_model).astype(np.float32)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    kw = dict(q_chunk=qc, kv_chunk=kc)
+    cache = {k: torch.zeros((B, Sk, cfg.n_kv_heads, cfg.head_dim))
+             for k in ("k", "v")}
+    got = L.cross_attn_apply(tp, torch.from_numpy(x), torch.from_numpy(mem),
+                             cfg, cache=cache, **kw)
+    want = JL.cross_attn_apply(jp, jnp.asarray(x), jnp.asarray(mem), cfg,
+                               **kw)
+    close_f32(got, want, rtol=1e-5)
+    np.testing.assert_allclose(
+        cache["k"].numpy(), (mem @ p["wk"]).reshape(cache["k"].shape),
+        rtol=1e-5, atol=1e-5 * float(np.abs(mem @ p["wk"]).max()))
+    if Sq == Sk:
+        pos = np.broadcast_to(np.arange(Sq)[None], (B, Sq))
+        got = L.attn_apply(tp, torch.from_numpy(x), cfg,
+                           positions=torch.from_numpy(pos.copy()),
+                           causal=False, **kw)
+        want, _ = JL.attn_apply(jp, jnp.asarray(x), cfg,
+                                positions=jnp.asarray(pos), causal=False,
+                                **kw)
+        close_f32(got, want, rtol=1e-5)
+    # a decode token over the cross cache: every slot visible
+    q1 = torch.from_numpy(x[:, :1])
+    got = L.cross_attn_decode(tp, q1, cache, cfg)
+    want = JL.cross_attn_apply(jp, jnp.asarray(x[:, :1]), jnp.asarray(mem),
+                               cfg, **kw)
+    close_f32(got, want, rtol=1e-5)
+
+
+def test_cross_attention_keeps_the_chunk_rule():
+    """Cross-attention over a key count the reference's chunks refuse is
+    refused."""
+    cfg = SMOKE_ARCHS["seamless-m4t-medium"]
+    tp = {k: torch.from_numpy(v) for k, v in _attn_weights(cfg, 0).items()}
+    x = torch.zeros((1, 8, cfg.d_model))
+    with pytest.raises(ValueError, match="1500"):
+        L.cross_attn_apply(tp, x, torch.zeros((1, 1500, cfg.d_model)), cfg)
+
+
 @pytest.mark.parametrize("d_model", [64, 3584])
 def test_embed_lookup_matches(d_model):
     cfg = dataclasses.replace(SMOKE_ARCHS["gemma2-9b"], d_model=d_model)
@@ -321,7 +388,7 @@ def force_reference_routing(arch, dtype, monkeypatch):
           f"{log.flips} (token, layer) top-k sets at a near-tie")
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT + FRONTEND)
 def test_param_tree_matches_reference_init(arch):
     params = jbuild(J_SMOKE[arch]).init(jax.random.PRNGKey(0))
     want = [(_key(p), tuple(x.shape)) for p, x in
@@ -397,3 +464,105 @@ def test_loss_gradients_flow_through_every_leaf(arch):
         assert torch.isfinite(g).all(), path
         if path[-1].startswith("w") or path[-1] == "embed":
             assert g.abs().max() > 0, path
+
+
+# ---------------------------------------------------------------------------
+# the frontend stubs: seamless-m4t-medium's frames, llava's patches
+# ---------------------------------------------------------------------------
+
+
+def frontend_inputs(arch, n_tok, seed=2, batch=B):
+    """Seeded non-zero float inputs of ``arch``'s stub for ``batch``
+    sequences of ``n_tok`` tokens, {name: f32 numpy}, drawn as the
+    pipeline draws them (N(0, 0.02^2)): zero frames would make the
+    encoder's output exactly 0."""
+    tm = tbuild(SMOKE_ARCHS[arch], device="meta")
+    r = np.random.RandomState(seed)
+    return {k: (r.randn(*d) * 0.02).astype(np.float32)
+            for k, d in tm.frontend_shapes(batch, n_tok).items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", FRONTEND)
+def test_frontend_forward_and_loss_match_reference(arch, dtype):
+    """forward and loss with seeded non-zero frames / patch embeddings,
+    from the reference's weights; the VLM's hidden states cover its
+    patches and tokens."""
+    jm, params, tm = models(arch, dtype)
+    toks = _tokens(arch, n=40)
+    extra = frontend_inputs(arch, 40)
+    n = tm.n_prefix + 40
+    labels = np.random.RandomState(4).randint(0, 256, size=(B, n)) \
+        .astype(np.int32)
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels),
+          **{k: jnp.asarray(v) for k, v in extra.items()}}
+    tb = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels),
+          **{k: torch.from_numpy(v) for k, v in extra.items()}}
+    with torch.no_grad():
+        got_x = tm(tb["tokens"], **{k: tb[k] for k in extra})
+        got_l = tm.loss(tb)
+    want_x, want_l = jm.forward(params, jb), jm.loss(params, jb)
+    assert tuple(got_x.shape) == (B, n, tm.cfg.d_model)
+    if dtype == "float32":
+        close_f32(_np(got_x), _np(want_x))
+        close_f32(float(got_l), float(want_l))
+    else:
+        assert rel_err(_np(got_x), _np(want_x)) < BF16_REL
+        assert abs(float(got_l) - float(want_l)) <= \
+            LOSS_RTOL * abs(float(want_l))
+
+
+def test_zero_frames_give_an_encoder_output_of_exactly_zero():
+    """With the frames the serving stub feeds (zeros) the encoder's output
+    is exactly 0 (rms_norm(0) = 0 and no projection has a bias), in both
+    packages, so its cross K/V are 0 too: a check of the encoder or the
+    cross path must feed non-zero frames.  Non-zero frames give a
+    non-zero output."""
+    jm, params, tm = models("seamless-m4t-medium", "float32")
+    zero = np.zeros((B, 64, tm.cfg.d_model), np.float32)
+    with torch.no_grad():
+        mem = tm.encode(torch.from_numpy(zero))
+        _, caches = tm.prefill(torch.from_numpy(_tokens(
+            "seamless-m4t-medium", n=16)), frames=torch.from_numpy(zero))
+    assert not mem.abs().max()
+    assert not np.abs(np.asarray(jm.encode(params, jnp.asarray(zero)))).max()
+    assert not any(c.abs().max() for c in caches["cross"].values())
+    seeded = frontend_inputs("seamless-m4t-medium", 16)["frames"]
+    with torch.no_grad():
+        mem = tm.encode(torch.from_numpy(seeded))
+    close_f32(_np(mem), _np(jm.encode(params, jnp.asarray(seeded))))
+    assert float(mem.abs().min(-1).values.min()) > 0
+
+
+def test_vlm_loss_scores_the_patch_positions():
+    """R9, kept: the reference's VLM loss scores its n_patches positions
+    against the pipeline's left-padded label 0 (``mask=None``).  The
+    port's loss is the reference's on the pipeline's batch, equals the
+    mean cross-entropy over every position (the patches' label 0
+    included), and moves when only the patches' labels change."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    arch = "llava-next-mistral-7b"
+    jm, params, tm = models(arch, "float32")
+    P = tm.cfg.n_patches
+    b = TokenPipeline(tm, ShapeConfig("t", 32, B, "train"), seed=0) \
+        .host_batch(0)
+    assert b["tokens"].shape == (B, 32 - P) and b["labels"].shape == (B, 32)
+    assert not b["labels"][:, :P].any()
+    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    with torch.no_grad():
+        got = float(tm.loss(tb))
+        logits = tm.logits(tm(tb["tokens"], patch_embs=tb["patch_embs"]))
+        nll = torch.nn.functional.cross_entropy(
+            logits.float().reshape(-1, logits.shape[-1]),
+            tb["labels"].long().reshape(-1), reduction="none").reshape(B, 32)
+    close_f32(got, float(jm.loss(params, {k: jnp.asarray(v)
+                                          for k, v in b.items()})))
+    close_f32(got, float(nll.mean()))
+    tb["labels"][:, :P] = 7
+    with torch.no_grad():
+        moved = float(tm.loss(tb))
+    close_f32(moved - got, float(
+        (torch.logsumexp(logits[:, :P].float(), -1) - logits[:, :P, 7].float()
+         - nll[:, :P]).sum() / (B * 32)), rtol=1e-3)
+    assert moved != got

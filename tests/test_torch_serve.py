@@ -57,9 +57,9 @@ from repro.models.registry import build_model as jbuild
 from repro_torch.configs import SMOKE_ARCHS
 from repro_torch.launch import serve as tserve
 from repro_torch.models.registry import build_model as tbuild
-from test_torch_models import (BF16_REL, DENSE, F32_RTOL, MOE, RECURRENT,
-                               close_f32, force_reference_routing, models,
-                               rel_err, _np)
+from test_torch_models import (BF16_REL, DENSE, F32_RTOL, FRONTEND, MOE,
+                               RECURRENT, close_f32, force_reference_routing,
+                               frontend_inputs, models, rel_err, _np)
 
 ROOT = Path(__file__).resolve().parents[1]
 #: the reference test's teacher-forced tolerance
@@ -148,26 +148,33 @@ def test_sliding_window_ring_cache_consistency():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT + FRONTEND)
 def test_prefill_decode_match_reference(arch, dtype, monkeypatch):
+    """A frontend arch prefills with seeded non-zero frames / patch
+    embeddings; the VLM's caches hold its patches first, and its decode
+    positions follow them."""
     jm, params, tm = models(arch, dtype)
     r = np.random.RandomState(11)
     toks = r.randint(0, SMOKE_ARCHS[arch].vocab_size,
                      size=(2, 48)).astype(np.int32)
+    extra = frontend_inputs(arch, 40)
+    off = tm.n_prefix
     jpre = jax.jit(jm.prefill, static_argnums=2)
     jdec = jax.jit(jm.decode_step)
     with force_reference_routing(arch, dtype, monkeypatch):
         jlogits, jcache = jpre(params, {"tokens": jnp.asarray(
-            toks[:, :40])}, 48)
-        logits, cache = tm.prefill(torch.from_numpy(toks[:, :40]),
-                                   cache_len=48)
+            toks[:, :40]), **{k: jnp.asarray(v) for k, v in extra.items()}},
+            off + 48)
+        logits, cache = tm.prefill(
+            torch.from_numpy(toks[:, :40]), cache_len=off + 48,
+            **{k: torch.from_numpy(v) for k, v in extra.items()})
         assert logits.shape == tuple(jlogits.shape)
         _check(logits, jlogits, dtype)
         for t in range(40, 48):
-            jlogits, jcache = jdec(params, jcache, jnp.int32(t),
+            jlogits, jcache = jdec(params, jcache, jnp.int32(off + t),
                                    jnp.asarray(toks[:, t:t + 1]))
             logits, cache = tm.decode_step(
-                cache, t, torch.from_numpy(toks[:, t:t + 1]))
+                cache, off + t, torch.from_numpy(toks[:, t:t + 1]))
             _check(logits, jlogits, dtype)
     for slot, kv in jcache.items():
         for name, want in kv.items():
@@ -188,8 +195,12 @@ def _requests(mod, vocab):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT + FRONTEND)
 def test_server_tokens_match_reference(arch, dtype, monkeypatch):
+    """The VLM is held to the reference's model-level prefill and decode
+    at the port's positions, n_patches + t, in a ring that holds its
+    patches too: the reference ``Server`` decodes it from the wrong
+    position (R8), so its tokens are not compared."""
     jm, params, tm = models(arch, None if dtype == "bfloat16" else dtype)
     if dtype == "bfloat16":
         # the reference's main casts the weights once
@@ -197,8 +208,9 @@ def test_server_tokens_match_reference(arch, dtype, monkeypatch):
         tm.to(torch.bfloat16)
     cache_len = max(n for n, _ in REQS) + max(m for _, m in REQS)
     V = tm.cfg.vocab_size
-    want = jserve.Server(jm, cache_len, 4).serve(
-        params, _requests(jserve, V))
+    want = (None if tm.n_prefix else jserve.Server(jm, cache_len, 4).serve(
+        params, _requests(jserve, V)))
+    cache_len += tm.n_prefix
 
     # the reference teacher-forced along the port's tokens, one call
     # ahead of the port's (a MoE port in bf16 routes as it did): each
@@ -224,13 +236,15 @@ def test_server_tokens_match_reference(arch, dtype, monkeypatch):
                 ties.add(rid)
 
     def lockstep(fn, prefill):
-        def f(*a):
+        def f(*a, **inputs):
             if prefill:
                 toks, clen = a
                 ref["chunk"] += 1
                 ref["step"] = 0
                 ref["logits"], ref["cache"] = jpre(
-                    params, {"tokens": jnp.asarray(toks.numpy())}, clen)
+                    params, {"tokens": jnp.asarray(toks.numpy()),
+                             **{k: jnp.asarray(v.numpy())
+                                for k, v in inputs.items()}}, clen)
             else:
                 _, t, fed = a
                 check(fed)
@@ -238,7 +252,7 @@ def test_server_tokens_match_reference(arch, dtype, monkeypatch):
                     params, ref["cache"], jnp.int32(t),
                     jnp.asarray(fed.numpy(), jnp.int32))
                 ref["step"] += 1
-            return fn(*a)
+            return fn(*a, **inputs)
         return f
 
     with force_reference_routing(arch, dtype, monkeypatch):
@@ -251,9 +265,96 @@ def test_server_tokens_match_reference(arch, dtype, monkeypatch):
     print(f"{arch} {dtype}: smallest top-2 margin of the reference's "
           f"logits along the port's tokens {min(margins):.4g}; requests "
           f"through a bf16 tie {sorted(ties)}")
-    for r, w in zip(got, want):
+    for r, w in zip(got, want or got):
         if r.rid not in ties:
             assert r.out_tokens == w.out_tokens, r.rid
+
+
+def test_cross_cache_matches_reference():
+    """seamless-m4t-medium's prefill writes each decoder layer's cross
+    K/V of the encoder's output (seeded non-zero frames) once: f32 equal
+    to the reference's within 1e-4 relative, non-zero, and untouched by
+    the decode steps after it."""
+    jm, params, tm = models("seamless-m4t-medium", "float32")
+    toks = np.random.RandomState(12).randint(0, 256, size=(2, 24)) \
+        .astype(np.int32)
+    frames = frontend_inputs("seamless-m4t-medium", 24)["frames"]
+    _, jcache = jm.prefill(params, {"tokens": jnp.asarray(toks),
+                                    "frames": jnp.asarray(frames)}, 32)
+    _, cache = tm.prefill(torch.from_numpy(toks), 32,
+                          frames=torch.from_numpy(frames))
+    assert tuple(cache["cross"]["k"].shape) == (2, 2, 64, 4, 16)
+    before = {k: v.clone() for k, v in cache["cross"].items()}
+    for name, want in jcache["cross"].items():
+        close_f32(_np(cache["cross"][name]), _np(want))
+        assert float(cache["cross"][name].abs().min()) > 0
+    for t in range(24, 28):
+        _, cache = tm.decode_step(cache, t, torch.from_numpy(toks[:, :1]))
+    for name, c in cache["cross"].items():
+        assert torch.equal(c, before[name])
+
+
+def test_vlm_server_decodes_after_the_patches(monkeypatch):
+    """R8: the reference's ``Server`` prefills the VLM's n_patches + S
+    positions but starts decode at S, and its CLI's ring (prompt + new
+    tokens) drops the patches; the port's ``Server`` starts decode at
+    n_patches + S and its CLI sizes the ring at n_patches + prompt + new
+    tokens."""
+    jm, params, tm = models("llava-next-mistral-7b", "float32")
+    P = tm.cfg.n_patches
+    seen, jseen = [], []
+    real = tm.decode_step
+
+    def counted(caches, t, tokens):
+        seen.append(t)
+        return real(caches, t, tokens)
+
+    monkeypatch.setattr(tm, "decode_step", counted)
+    reqs = _requests(tserve, 256)[:4]
+    tserve.Server(tm, P + 46, 4).serve(reqs)
+    S = max(len(r.prompt) for r in reqs)
+    assert seen == list(range(P + S, P + S + 6))
+    jsrv = jserve.Server(jm, 46, 4)
+    jdec = jsrv._decode
+
+    def jcounted(p, caches, t, tokens):
+        jseen.append(int(t))
+        return jdec(p, caches, t, tokens)
+
+    jsrv._decode = jcounted
+    jsrv.serve(params, _requests(jserve, 256)[:4])
+    assert jseen == list(range(S, S + 6))
+    monkeypatch.setattr(tserve, "Server", _RingSize)
+    tserve.main(["--smoke", "--arch", "llava-next-mistral-7b", "--device",
+                 "cpu", "--requests", "1", "--prompt-len", "24",
+                 "--new-tokens", "2"])
+    assert _RingSize.sizes == [P + 24 + 2]
+
+
+class _RingSize(tserve.Server):
+    """The serve CLI's Server, its ring size recorded."""
+    sizes = []
+
+    def __init__(self, model, cache_len, batch):
+        _RingSize.sizes.append(cache_len)
+        super().__init__(model, cache_len, batch)
+
+
+@pytest.mark.parametrize("arch", FRONTEND)
+def test_frontend_cli_serves_on_cpu(arch):
+    """The serve CLI takes seamless-m4t-medium and llava-next-mistral-7b
+    (their SMOKE configs on the CPU): the reference's JSON keys, every
+    token."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--smoke", "--arch", arch, "--requests", "3", "--prompt-len", "40",
+         "--new-tokens", "3"], capture_output=True, text=True, env=env,
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(res) == {"requests", "tokens", "wall_s", "tok_per_s"}
+    assert res["requests"] == 3 and res["tokens"] == 9
 
 
 def bf16_ulp(x: float) -> float:

@@ -1,8 +1,10 @@
 """Training the model zoo through the port, held to the reference on the
 CPU: every SMOKE arch of the port (the dense paper-350m, qwen3-8b,
 gemma2-9b, minitron-8b and starcoder2-3b, the MoE qwen3-moe-30b-a3b and
-dbrx-132b, and the recurrent falcon-mamba-7b and recurrentgemma-2b)
-from the reference's own weights or train state.
+dbrx-132b, the recurrent falcon-mamba-7b and recurrentgemma-2b, the
+encoder-decoder seamless-m4t-medium and the VLM llava-next-mistral-7b,
+both fed the pipeline's seeded non-zero frames / patch embeddings) from
+the reference's own weights or train state.
 
 Tolerances, stated per test:
 
@@ -55,9 +57,10 @@ from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.launch.session import TrainSession
 from repro_torch.models import layers as L
 from repro_torch.models.registry import build_model as tbuild
-from test_torch_models import DENSE, MOE, RECURRENT, force_reference_routing, ref_flat
+from test_torch_models import (DENSE, FRONTEND, MOE, RECURRENT,
+                               force_reference_routing, ref_flat)
 
-ARCHS = DENSE + MOE + RECURRENT
+ARCHS = DENSE + MOE + RECURRENT + FRONTEND
 SEQ, BATCH = 32, 2
 RUN_KW = dict(lr=1e-2, warmup_steps=1, total_steps=50)
 F32_LOSS_RTOL = 1e-5
@@ -68,7 +71,8 @@ GRAD_COS = 0.999
 #: the compute dtype they run in
 STEP_ARCHS = {"qwen3-moe-30b-a3b": "float32", "dbrx-132b": "float32",
               "gemma2-9b": None, "qwen3-8b": None, "falcon-mamba-7b": None,
-              "recurrentgemma-2b": None}
+              "recurrentgemma-2b": None, "seamless-m4t-medium": None,
+              "llava-next-mistral-7b": None}
 KIND_SEQS = {
     "grad_sync": ["grad_sync"] * 3,
     "local": ["local"] * 3,
@@ -278,7 +282,7 @@ def test_session_trains_every_smoke_arch(arch, tmp_path):
     assert sess.comm_bytes > 0
 
 
-@pytest.mark.parametrize("arch", MOE + ["gemma2-9b"] + RECURRENT)
+@pytest.mark.parametrize("arch", MOE + ["gemma2-9b"] + RECURRENT + FRONTEND)
 def test_cli_trains_a_zoo_arch_on_cpu(arch, tmp_path, capsys):
     """``python -m repro_torch.launch.train --arch ... --smoke --device
     cpu``: the JSON summary of a finite run."""
@@ -290,6 +294,34 @@ def test_cli_trains_a_zoo_arch_on_cpu(arch, tmp_path, capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["steps"] == 4 and out["device"] == "cpu"
     assert np.isfinite(out["first_loss"]) and np.isfinite(out["last_loss"])
+
+
+@pytest.mark.parametrize("arch", FRONTEND)
+def test_pipeline_frontend_inputs_match_reference(arch):
+    """The pipeline's batches of a frontend arch, at P = 2: each pod's
+    tokens, labels (the VLM's left-padded with label 0 under its
+    patches) and float inputs (``frames`` / ``patch_embs``, one draw over
+    the global batch per step) equal its rows of the reference's
+    ``_host_batch``, for three steps."""
+    from repro.data.pipeline import TokenPipeline as JPipe
+    jrun, trun = _runs(arch)
+    jm = jbuild(jrun.model, jrun)
+    shape = ShapeConfig("t", SEQ, 4, "train")
+    jpipe = JPipe(jm, JShape("t", SEQ, 4, "train"), seed=3)
+    tm = tbuild(trun.model, trun, device="cpu")
+    pods = [TokenPipeline(tm, shape, seed=3, pod=p, n_pods=2)
+            for p in range(2)]
+    name = tm.float_inputs[0]
+    for step in range(3):
+        want = jpipe._host_batch(step)
+        assert set(want) == {"tokens", "labels", name}
+        for p, pipe in enumerate(pods):
+            got = pipe.host_batch(step)
+            assert set(got) == set(want)
+            for k, w in want.items():
+                assert got[k].dtype == w.dtype, k
+                np.testing.assert_array_equal(got[k], w[2 * p:2 * p + 2])
+        assert np.abs(want[name]).max() > 0
 
 
 @pytest.mark.parametrize("kind", ["grad_sync", "delta_sync"])

@@ -1,5 +1,6 @@
-"""The MoE family and the RG-LRU hybrid on P = 2 pods: the port's
-qwen3-moe-30b-a3b and recurrentgemma-2b SMOKE models, each on two gloo
+"""The MoE family, the RG-LRU hybrid and the encoder-decoder on P = 2
+pods: the port's qwen3-moe-30b-a3b, recurrentgemma-2b and
+seamless-m4t-medium SMOKE models, each on two gloo
 pod processes against the live reference on a (2, 1, 1) ("pod", "data",
 "model") CPU mesh, both from the reference's initial state under one
 plan (the groups round-robin on all 8 ladder rungs, a non-uniform
@@ -34,6 +35,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "qwen3-moe-30b-a3b"
 HYBRID = "recurrentgemma-2b"
+ENCDEC = "seamless-m4t-medium"
 P = 2
 SEQ = 32
 LR = 1e-2
@@ -175,6 +177,11 @@ def hybrid_runs(tmp_path_factory):
     return _runs(tmp_path_factory, HYBRID)
 
 
+@pytest.fixture(scope="module")
+def encdec_runs(tmp_path_factory):
+    return _runs(tmp_path_factory, ENCDEC)
+
+
 def _losses_match(ref, port):
     with_loss = [i for i, k in enumerate(KINDS) if k != "delta_sync"]
     tl = [port[0][f"step{i}"]["loss"] for i in with_loss]
@@ -237,3 +244,20 @@ def test_hybrid_pods_bit_identical_after_delta_sync(hybrid_runs):
 
 def test_hybrid_pods_gather_the_priced_bytes(hybrid_runs):
     _gather_the_priced_bytes(hybrid_runs[1])
+
+
+def test_encdec_pod_losses_match_live_reference(encdec_runs):
+    """seamless-m4t-medium, each pod fed its rows of the pipeline's
+    seeded frames."""
+    _losses_match(*encdec_runs)
+
+
+def test_encdec_pods_bit_identical_after_delta_sync(encdec_runs):
+    """The encoder-decoder's tree (``dec_blocks`` with cross-attention,
+    ``enc_blocks``, ``enc_norm``) after the ``delta_sync``: bit-identical
+    on both pods, within ``PARAM_ATOL`` of the reference's."""
+    _bit_identical_after_delta_sync(*encdec_runs)
+
+
+def test_encdec_pods_gather_the_priced_bytes(encdec_runs):
+    _gather_the_priced_bytes(encdec_runs[1])

@@ -212,17 +212,19 @@ def test_every_strategy_trains_on_cpu(tmp_path, strategy, arch):
     assert len(sess.losses) == 4 and all(np.isfinite(sess.losses))
 
 
-#: the recurrent families' SMOKE archs, which the Trainer refused until it
-#: trained them
-_RECURRENT = {"ssm": "falcon-mamba-7b", "hybrid": "recurrentgemma-2b"}
+#: the families' SMOKE archs which the Trainer refused until it trained
+#: them: the recurrent ones and the encoder-decoder
+_RECURRENT = {"ssm": "falcon-mamba-7b", "hybrid": "recurrentgemma-2b",
+              "encdec": "seamless-m4t-medium"}
 
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid", "encdec", "vlm"])
 def test_training_refuses_an_unported_family(family, tmp_path):
-    """The families whose training the port does not have (encdec, vlm)
-    are refused loudly by the registry and the Trainer.  The recurrent
-    ones (ssm, hybrid) are trained now: their real SMOKE models take a
-    ``grad_sync`` step to a finite loss and finite parameters."""
+    """A family the port does not have ("vlm" is no family of the zoo:
+    the VLM is the dense family behind a stub) is refused loudly by the
+    registry and the Trainer.  The recurrent ones (ssm, hybrid) and the
+    encoder-decoder (encdec) are trained now: their real SMOKE models
+    take a ``grad_sync`` step to a finite loss and finite parameters."""
     import dataclasses
     import types
     run_shape = ShapeConfig("t", SEQ, BATCH, "train")
