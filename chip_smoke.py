@@ -2,7 +2,9 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
 NVIDIA GPU: the quickest proof that the port builds, is right, trains
 (paper-350m and the model zoo) and serves (the dense, MoE and recurrent
-families, the encoder-decoder and the VLM).
+families, the encoder-decoder and the VLM; the dense and MoE families
+also on a ("data", "model") mesh, across four cards where there are
+four).
 
     python3 chip_smoke.py
 
@@ -92,7 +94,7 @@ Phases (any failure exits nonzero before the result lines):
    launched.  Prints the tier grids, the bytes per tier, the cross-tier
    reduction, step means and peak memory per member;
 9. the fault-tolerant train loop.  9a, restart-replay on one pod in phase
-   5's configuration (paper-350m, 24 layers, batch 8, seq 1024,
+   5's configuration cut to 12 layers (paper-350m, batch 8, seq 1024,
    ``replan_every`` 4, ``ckpt_every`` 4, ``blocking_replans``, in a
    process of its own under ``RunConfig.deterministic``, so that no
    other phase runs under deterministic algorithms and cuBLAS): run A
@@ -143,8 +145,8 @@ Phases (any failure exits nonzero before the result lines):
 11. serving the MoE family, in a process of its own:
    qwen3-moe-30b-a3b at full published width and depth (48 layers, 128
    experts top-8) and dbrx-132b at full width cut to 8 of its 40 layers
-   (16 experts top-4; 262 GB of bf16 weights at 40 layers, and the port
-   has no model parallelism within a pod yet), seeded bf16 weights drawn
+   (16 experts top-4; 262 GB of bf16 weights at 40 layers: one card
+   holds 8, phase 17 serves all 40 across four), seeded bf16 weights drawn
    slice by slice, each served twice (the first cold) on phase 10's
    workload (a).  Gates: (1) every request gets its token budget and
    every logit is finite; (2) qwen3-moe: 16 teacher-forced decode steps
@@ -271,6 +273,35 @@ Phases (any failure exits nonzero before the result lines):
    seamless at fewer than its 12 decoder layers fails.  Prints phase
    12's lines per model, and seamless's MFU also at its executed FLOPs
    (the encoder over the 128 frames, the LM head over the tokens).
+17. serving on a within-pod ("data", "model") mesh, one process per
+   rank (``launch/mesh.py``'s ``spawn_mesh``).  (a) qwen3-8b and
+   dbrx-132b at full published width cut to 2 layers, on (1, 2) and
+   (2, 2) meshes whose ranks share the card (gloo, staged through
+   pinned host memory), seeded bf16 weights drawn whole slice by slice
+   and kept shard by shard (``init_model(ctx=)``).  Gates: (1) the last
+   position's logits of a prefill of 4 x 256 seeded tokens and of 4
+   teacher-forced decode steps, gathered, against an unsharded port
+   model of the same seed on the same card (a process of its own)
+   within rtol = atol = 0.15: qwen3-8b in bf16; dbrx-132b in f32
+   compute (a bf16 near-tie, rounded apart by the mesh's and the one
+   card's sums, would swap an expert and, under capacity, the drops
+   after it) at capacity factor E / K against the unsharded model (on
+   (1, 2) only: at D = 2 every forward's FSDP gathers through gloo take
+   seconds) and at its 1.25 against ``moe_apply_blocked`` (each mesh
+   block dispatched on its own, the reference's semantics); (2) the
+   Server's tokens on 4 requests of 256 / 200 / 128 / 256 tokens + 1
+   identical on every rank; (3) each rank's weight bytes equal to its
+   shards' sizes reckoned from the specs; (4) K1-K16 launch 0 times.  Prints each
+   rank's weight bytes, prefill / decode ms, decode bound per card and
+   peak memory (the shared card's and the host's times, not a
+   deployment's).  (b) only with four cards or more: dbrx-132b on a
+   (1, 4) mesh over NCCL, gate 1 at 8 layers against the unsharded
+   8-layer model (phase 11's depth, a process of its own on card 0),
+   then at its published 40 layers served on workload (a) twice; gates
+   2-4; prints per card the weight bytes, prefill ms and its share of
+   4 x 989 TFLOP/s, the decode step's median (min-max) against the
+   bound per card ((its weights + its caches) / 3.35 TB/s), tokens/s
+   and peak memory.  On fewer cards (b) prints one line and is not run.
 
 Output: progress lines with each phase's seconds, the pod link's latency
 and rate, then the ``nvidia-smi`` line, the kernels' JSON line (each
@@ -279,7 +310,8 @@ kernel's launches in total and per main path: ``one_pod`` (phase 5),
 members), ``restart`` (phase 9a, its three runs), ``elastic`` (phase
 9b, all pods), ``zoo_<arch>`` (phases 12, 14 and 16, each model's
 process) and ``zoo_determinism`` (phase 12, both runs), each counted
-from 0 just before its run; phases 10, 11, 13 and 15 launch none; K16's ``library_ms``
+from 0 just before its run; phases 10, 11, 13, 15 and 17 launch none;
+K16's ``library_ms``
 is ``torch.mul(q, s)``'s time; ``paths`` gives each path's pods, members
 per cluster and depth; ``link`` the measured link), and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -293,6 +325,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -361,11 +394,13 @@ PATHS = {
     "hier": {"pods": 4, "edge": 2, "batch": 8, "steps": 6, "n_layers": 12,
              "min_delta": 1, "min_replans": 1},
 }
-#: phase 9a: restart-replay on one pod, phase 5's configuration: run A
-#: trains ``steps`` steps, run B ``steps - 1`` and restarts from the
-#: checkpoints of every ``ckpt_every`` steps
+#: phase 9a: restart-replay on one pod, phase 5's configuration cut in
+#: depth (at 24 layers its disk-bound checkpoint writes of 9.09 GB made it
+#: the script's longest phase, 150-161 s): run A trains ``steps`` steps,
+#: run B ``steps - 1`` and restarts from the checkpoints of every
+#: ``ckpt_every`` steps
 RESTART = {"pods": 1, "batch": 8, "steps": 10, "ckpt_every": 4,
-           "n_layers": None}
+           "n_layers": 12}
 #: phase 9b: elastic membership, P = 3 pod processes sharing the card at
 #: phase 8's depth (three full-depth pods and their checkpoint copies do
 #: not fit), pod 2 preempted at step 4 and back at step 8
@@ -1656,23 +1691,29 @@ def restart_pod_path(group, spec):
     restarted run; returns what the parent checks."""
     import gc
     import torch
-    from repro_torch.configs.base import ACESyncConfig
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ACESyncConfig, RunConfig, ShapeConfig
     from repro_torch.kernels import ops
-    from repro_torch.launch.session import TrainSession
+    from repro_torch.launch.session import TrainSession, apply_determinism
+    from repro_torch.models.registry import build_model
     from repro_torch.runtime import faults as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(ARCHS["paper-350m"], n_layers=spec["n_layers"])
 
     def session(d):
         # bit-identical replays need deterministic kernels: cuDNN
         # attention's backward is not, by default
-        return TrainSession.from_config(
-            "paper-350m", strategy="acesync", smoke=False, seq_len=1024,
-            batch=spec["batch"], steps=100, device="cuda", warmup_steps=2,
-            ckpt_dir=str(d), ckpt_every=spec["ckpt_every"],
-            blocking_replans=True, acesync=ACESyncConfig(replan_every=4),
-            deterministic=True)
+        run = RunConfig(model=cfg, shape=ShapeConfig("session", 1024,
+                                                     spec["batch"], "train"),
+                        total_steps=100, warmup_steps=2, ckpt_dir=str(d),
+                        ckpt_every=spec["ckpt_every"],
+                        acesync=ACESyncConfig(replan_every=4),
+                        deterministic=True)
+        apply_determinism(run)
+        return TrainSession(build_model(cfg, run, device="cuda"), run,
+                            strategy="acesync", blocking_replans=True)
 
     def loop_state(sess):
         lp = sess.loop
@@ -1732,8 +1773,9 @@ def restart_pod_path(group, spec):
 
 def restart_phase(torch) -> dict:
     """Phase 9a: restart-replay on one pod, paper-350m at full width and
-    24 layers (phase 5's configuration, ``ckpt_every`` 4), under
-    ``RunConfig.deterministic``, in a process of its own.  Run A trains
+    ``RESTART``'s 12 layers (phase 5's configuration cut in depth,
+    ``ckpt_every`` 4), under ``RunConfig.deterministic``, in a process of
+    its own.  Run A trains
     10 steps; run B trains 9 in a fresh directory, leaves a crashed
     writer's ``.tmp`` and
     bit-rots the newest checkpoint's largest leaf; a fresh TrainSession
@@ -2126,10 +2168,13 @@ def serve_workload(torch, np, tserve, model, spec):
 
 def serve_once(torch, np, tserve, model, spec):
     """Serve ``spec``'s requests once; returns gate 1's checks and the
-    timings."""
+    timings.  A model sharded over a mesh (``model.ctx``) is served as
+    one rank of it: its own weights, caches and peak memory, the decode
+    bound per card, the prefill's share of the mesh's cards' peak, at N
+    from the config."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models import flops
-    cfg = model.cfg
+    cfg, ctx = model.cfg, model.ctx
     B, new = spec["batch"], spec["new"]
     S = max(spec["prompts"])
     reqs = tserve.make_requests(spec["prompts"], spec["new"], cfg.vocab_size)
@@ -2163,16 +2208,19 @@ def serve_once(torch, np, tserve, model, spec):
     del cache
     prefill_ms = p0.elapsed_time(p1)
     shape = ShapeConfig("serve", P + S, B, "prefill")
-    fl = flops.model_flops(cfg, shape, n=model.active_param_count())
+    fl = flops.model_flops(cfg, shape, n=None if ctx else
+                           model.active_param_count())
+    cards = ctx.D * ctx.M if ctx else 1
     n_tok = sum(len(r.out_tokens) for r in done)
     return {
+        "tokens": [r.out_tokens for r in done], "cards": cards,
         "prefill_executed": flops.executed_flops(cfg, shape),
         "tokens_ok": [len(r.out_tokens) == r.max_new_tokens for r in done],
         "finite": bool(pre["finite"]) and bool(dec["finite"]),
         "batch": B, "prompt": S, "new": new, "n_requests": len(done),
         "weight_bytes": weight_bytes, "kv_bytes": kv_bytes,
         "prefill_ms": prefill_ms, "prefill_flops": fl,
-        "prefill_share": fl / (prefill_ms * 1e-3) / BF16_DENSE_FLOPS,
+        "prefill_share": fl / (prefill_ms * 1e-3) / BF16_DENSE_FLOPS / cards,
         "decode_ms": (dms[len(dms) // 2], dms[0], dms[-1]),
         "decode_steps": len(dms),
         "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
@@ -2452,7 +2500,7 @@ def check_smoke_and_launches(tag, res) -> None:
 
 #: phase 11's models at full published width: depth None is the published
 #: one; dbrx-132b is cut to 8 of its 40 layers (262 GB of bf16 weights at
-#: 40; the port has no model parallelism within a pod yet)
+#: 40 do not fit one card; phase 17 serves them across four)
 MOE_SERVE = {"qwen3-moe-30b-a3b": None, "dbrx-132b": 8}
 
 
@@ -3505,6 +3553,363 @@ def frontend_train_phase(torch, card) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: serving under a within-pod ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+#: 17(a): these models at full published width, cut to ``MESH_LAYERS``,
+#: on these (D, M) meshes, the D * M ranks sharing the one card (gloo,
+#: staged through pinned host memory)
+MESH_MODELS = ("qwen3-8b", "dbrx-132b")
+MESH_LAYERS = 2
+MESH_SHAPES = ((1, 2), (2, 2))
+#: gate 1: a seeded batch of 4 x 256 tokens prefilled (batch over "data"
+#: at D = 2, sequence over "model"), then 4 teacher-forced decode steps;
+#: the last position's logits of each, gathered, against an unsharded
+#: port model of the same seed on the same card within rtol = atol =
+#: TF_TOL
+MESH_TF = {"batch": 4, "prompt": 256, "steps": 4}
+#: gate 1's runs per model: qwen3-8b in its served bf16; dbrx-132b in f32
+#: compute (its bf16 weights cast at use: a bf16 near-tie between two
+#: experts, which the mesh's and the one card's roundings break apart,
+#: swaps an expert and, under capacity, the drops of the pairs after it),
+#: at capacity factor E / K (C >= T: nothing drops, held to the unsharded
+#: model) and at its own 1.25 (held to ``moe_apply_blocked``: each mesh
+#: block dispatches on its own)
+MESH_TF_RUNS = {"qwen3-8b": {"bf16": (None, False, False)},
+                "dbrx-132b": {"f32, cf E/K": ("float32", True, False),
+                              "f32, cf 1.25": ("float32", False, True)}}
+#: 17(a)'s Server workload (each rank's tokens compared), once, 1 new
+#: token (two greedy steps checked): ranks sharing one card move every
+#: collective through gloo on the host, and at D = 2 each forward
+#: all-gathers the FSDP half of the rank's weights (dbrx-132b: 1.6 GB a
+#: layer; on an H100 its decode step took 6.9-7.5 s on (2, 2) against
+#: 26-31 ms on (1, 2)).  So at D = 2 gate 1 runs only at capacity 1.25:
+#: the E / K run (nothing drops) holds the layout alone, which the 1.25
+#: run holds too, with the blocks
+MESH_A = {"prompts": (256, 200, 128, 256), "new": 1, "batch": 4}
+
+
+def mesh_runs(arch, mesh) -> dict:
+    """Gate 1's runs of ``arch`` on ``mesh``: the capacity E / K run only
+    where D = 1."""
+    return {name: run for name, run in MESH_TF_RUNS[arch].items()
+            if mesh[0] == 1 or not run[1]}
+#: 17(b), with four cards or more: dbrx-132b on a (1, 4) mesh over NCCL,
+#: gate 1 at 8 layers (phase 11's depth), then served at its published
+#: 40 layers on workload (a), twice
+MESH_B = {"arch": "dbrx-132b", "mesh": (1, 4), "gate_layers": 8}
+
+
+def mesh_gathered(ctx, logits, B):
+    """The last position's logits (B, V) whole on every rank: the
+    vocabulary parts gathered over "model", the batch over "data"."""
+    last = logits[:, -1]
+    if ctx is None:
+        return last
+    return ctx.gather_batch(ctx.all_gather(last, "model", dim=-1), B)
+
+
+def mesh_tf_logits(torch, np, model, run, blocked=None):
+    """Gate 1's run on ``model`` (sharded or not): ``run`` = (compute
+    dtype or None, capacity factor E / K?, blocked?), ``blocked`` the
+    (D, M) whose blocks ``moe_apply_blocked`` dispatches (an unsharded
+    model held for a mesh at capacity 1.25).  Returns the (steps + 1, B,
+    V) f32 logits, whole, as a numpy array (a process's result goes by
+    value); the model's config, dtype and ``moe.moe_apply`` are restored
+    after."""
+    from repro_torch.models import moe
+    dtype, ek, use_blocked = run
+    cfg, real_dtype, real_apply = model.cfg, model.dtype, moe.moe_apply
+    change = {}
+    if dtype:
+        change["dtype"] = dtype
+    if ek:
+        change["capacity_factor"] = cfg.n_experts / cfg.experts_per_token
+    model.cfg = dataclasses.replace(cfg, **change)
+    model.dtype = getattr(torch, model.cfg.dtype)
+    if use_blocked and blocked:
+        moe.moe_apply = (lambda p, x, c: moe.moe_apply_blocked(
+            p, x, c, *blocked))
+    B, S, n = MESH_TF["batch"], MESH_TF["prompt"], MESH_TF["steps"]
+    toks = torch.from_numpy(np.random.RandomState(5).randint(
+        0, cfg.vocab_size, size=(B, S + n)).astype(np.int32)).to(
+        model.device)
+    try:
+        with torch.inference_mode():
+            logits, caches = model.prefill(toks[:, :S], S + n)
+            rows = [mesh_gathered(model.ctx, logits, B)]
+            for i in range(n):
+                logits, caches = model.decode_step(caches, S + i,
+                                                   toks[:, S + i:S + i + 1])
+                rows.append(mesh_gathered(model.ctx, logits, B))
+            del caches
+            return torch.stack(rows).float().cpu().numpy()
+    finally:
+        model.cfg, model.dtype, moe.moe_apply = cfg, real_dtype, real_apply
+
+
+def mesh_reference_path(group, spec):
+    """The unsharded port models gate 1 holds the meshes to, on one card
+    (a process of its own): {"arch/run[/DxM]": logits}, a blocked run
+    once per mesh."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve as tserve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch, layers in spec["models"]:
+        cfg = dataclasses.replace(ARCHS[arch], n_layers=layers)
+        model = tserve.init_model(cfg, spec["device"], seed=0)
+        for name, run in MESH_TF_RUNS[arch].items():
+            for mesh in (spec["meshes"] if run[2] else [None]):
+                key = f"{arch}/{name}" + (f"/{mesh[0]}x{mesh[1]}"
+                                          if mesh else "")
+                out[key] = mesh_tf_logits(torch, np, model, run, mesh)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def expected_shard_bytes(model, ctx) -> int:
+    """A rank's bf16 weight bytes reckoned from the specs alone: each
+    leaf's size over the ranks each spec'd axis splits it into (where it
+    divides; "model" by whole units, one K/V head per rank where the
+    heads are fewer than M)."""
+    total = 0
+    for path, spec in model.param_shardings().items():
+        full = model.full_shapes[path]
+        n = math.prod(full)
+        for dim, ax in zip(full, spec):
+            if isinstance(ax, tuple):
+                units = ax[1]
+                n //= ctx.M if units % ctx.M == 0 else units
+            elif ax is not None and dim % ctx.sizes[ax] == 0:
+                n //= ctx.sizes[ax]
+        total += 2 * n
+    return total
+
+
+def mesh_serve_path(ctx, spec):
+    """One rank of 17(a)'s mesh: each model at full width, cut to
+    ``MESH_LAYERS``, sharded from seed 0 (``init_model(ctx=)``), gate 1's
+    runs (rank 0 keeps the logits), the Server on ``MESH_A``; the
+    kernels' launch counts over the whole phase."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops.reset_launch_counts()
+    out = {"rank": ctx.rank, "backend": ctx.world.backend, "models": {}}
+    for arch in MESH_MODELS:
+        cfg = dataclasses.replace(ARCHS[arch], n_layers=MESH_LAYERS)
+        model = tserve.init_model(cfg, ctx.device, seed=0, ctx=ctx)
+        r = {"param_bytes": sum(p.numel() * p.element_size()
+                                for p in model.parameters()),
+             "shard_bytes": expected_shard_bytes(model, ctx), "tf": {}}
+        for name, run in mesh_runs(arch, (ctx.D, ctx.M)).items():
+            got = mesh_tf_logits(torch, np, model, run)
+            if ctx.rank == 0:
+                r["tf"][name] = got
+        r["a"] = serve_once(torch, np, tserve, model, MESH_A)
+        out["models"][arch] = r
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def mesh_big_reference_path(group, spec):
+    """17(b)'s reference, on one card: dbrx-132b unsharded at
+    ``gate_layers`` from seed 0, gate 1's dbrx runs."""
+    return mesh_reference_path(group, dict(spec, models=[
+        (MESH_B["arch"], MESH_B["gate_layers"])], meshes=[MESH_B["mesh"]]))
+
+
+def mesh_big_path(ctx, spec):
+    """One rank of 17(b): dbrx-132b sharded at ``gate_layers`` for gate 1,
+    then at its published depth served on workload (a) twice."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops.reset_launch_counts()
+    arch = MESH_B["arch"]
+    r = {"tf": {}}
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=MESH_B["gate_layers"])
+    model = tserve.init_model(cfg, ctx.device, seed=0, ctx=ctx)
+    for name, run in MESH_TF_RUNS[arch].items():
+        got = mesh_tf_logits(torch, np, model, run)
+        if ctx.rank == 0:
+            r["tf"][name] = got
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = tserve.init_model(ARCHS[arch], ctx.device, seed=0, ctx=ctx)
+    torch.cuda.synchronize()
+    r.update(init_s=time.perf_counter() - t0, n_layers=model.cfg.n_layers,
+             n_params=sum(p.numel() for p in model.parameters()),
+             param_bytes=sum(p.numel() * p.element_size()
+                             for p in model.parameters()),
+             shard_bytes=expected_shard_bytes(model, ctx),
+             a=serve_workload(torch, np, tserve, model, SERVE_A))
+    return {"rank": ctx.rank, "backend": ctx.world.backend,
+            "models": {arch: r}, "launches": ops.launch_counts()}
+
+
+def check_mesh_gates(tag, ref, res, mesh, archs, card):
+    """Gates 1-4 of one mesh's ranks ``res``: the logits of rank 0
+    against ``ref``, each rank's served tokens identical, its weight
+    bytes its shards' and no ACE-Sync kernel launched."""
+    D, M = mesh
+    r0 = res[0]
+    for arch in archs:
+        for name in mesh_runs(arch, mesh):
+            key = f"{arch}/{name}"
+            want = ref.get(f"{key}/{D}x{M}", ref.get(key))
+            got = r0["models"][arch]["tf"][name]
+            diff = abs(got - want)
+            ok = bool((diff <= TF_TOL + TF_TOL * abs(want)).all())
+            blocked = f"{key}/{D}x{M}" in ref
+            log(f"{tag}: {arch} on a ({D}, {M}) mesh, {name}: the last "
+                f"position's logits of the prefill and "
+                f"{MESH_TF['steps']} teacher-forced decode steps against "
+                f"{'moe_apply_blocked on ' if blocked else ''}the "
+                f"unsharded model on one card: max |diff| "
+                f"{float(diff.max()):.4g}, argmax agrees on "
+                f"{float((got.argmax(-1) == want.argmax(-1)).mean()):.4f}"
+                f" (rtol = atol = {TF_TOL}) [{card}]")
+            if not ok or got.shape != want.shape:
+                fail(f"{tag}: {arch} on ({D}, {M}), {name}: the mesh's "
+                     f"logits differ from the reference's beyond "
+                     f"{TF_TOL}")
+    for r in res:
+        for arch, m in r["models"].items():
+            w = m["a"]
+            if (not all(w["tokens_ok"]) or not w["finite"]
+                    or w["tokens"] != r0["models"][arch]["a"]["tokens"]):
+                fail(f"{tag}: {arch} on ({D}, {M}), rank {r['rank']}: "
+                     f"tokens per request {w['tokens_ok']}, finite "
+                     f"{w['finite']}, or tokens not rank 0's")
+            if m["param_bytes"] != m["shard_bytes"]:
+                fail(f"{tag}: {arch} rank {r['rank']} holds "
+                     f"{m['param_bytes']} weight bytes, its shards "
+                     f"{m['shard_bytes']}")
+        launched = {k: n for k, n in r["launches"].items() if n}
+        if launched:
+            fail(f"{tag}: serving launched ACE-Sync kernels: {launched}")
+
+
+def log_mesh_served(tag, arch, mesh, res, card) -> None:
+    """Each rank's served line of one model on one mesh."""
+    for r in res:
+        w = r["models"][arch]["a"]
+        med, lo, hi = w["decode_ms"]
+        log(f"{tag}: {arch} on a {mesh} mesh over {r['backend']}, rank "
+            f"{r['rank']} on {card}: {w['weight_bytes']} bf16 weight "
+            f"bytes; batch {w['batch']} x prompt {w['prompt']}, {w['new']}"
+            f" new; prefill {w['prefill_ms']:.3f} ms "
+            f"({w['prefill_share']:.6g} of {w['cards']} x 989 TFLOP/s at "
+            f"2*N*tokens); decode step ms median {med:.3f} min {lo:.3f} "
+            f"max {hi:.3f}, bound per card {w['decode_bound_ms']:.6g} ms "
+            f"(its weights + {w['kv_bytes']} cache bytes at 3.35 TB/s); "
+            f"{w['tok_per_s']:.2f} tokens/s; peak "
+            f"{w['peak_alloc_gib']:.3f} GiB allocated, "
+            f"{w['peak_reserved_gib']:.3f} GiB reserved"
+            + ("" if "cold" not in w else
+               f"; cold run: prefill {w['cold']['prefill_ms']:.3f} ms, "
+               f"step median {w['cold']['decode_ms'][0]:.3f} ms"))
+
+
+def serve_mesh_phase(torch, card) -> None:
+    """Phase 17: (a) qwen3-8b and dbrx-132b at full width, 2 layers, on
+    (1, 2) and (2, 2) meshes of ranks sharing the card, held to the
+    unsharded model; (b) with four cards, dbrx-132b on (1, 4) over NCCL,
+    gated at 8 layers and served at 40."""
+    import gc
+    from repro_torch.launch.mesh import spawn_mesh, spawn_pods
+    tag = "phase 17"
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = {"device": "cuda", "meshes": list(MESH_SHAPES),
+            "models": [(a, MESH_LAYERS) for a in MESH_MODELS]}
+    # the unsharded models run beside the first mesh (together ~45 GB of
+    # the card at their peaks; the (2, 2) mesh alone needs ~40)
+    box = {}
+
+    def reference():
+        try:
+            box["ref"] = spawn_pods(mesh_reference_path, 1, "cuda",
+                                    args=(spec,), timeout=600)[0]
+        except BaseException as e:      # re-raised in the phase's thread
+            box["error"] = e
+    ref_thread = threading.Thread(target=reference)
+    ref_thread.start()
+    runs = {}
+    try:
+        runs[MESH_SHAPES[0]] = spawn_mesh(mesh_serve_path, *MESH_SHAPES[0],
+                                          "cuda", args=(spec,), timeout=600)
+    finally:
+        ref_thread.join()
+    if "error" in box:
+        raise box["error"]
+    ref = box["ref"]
+    for mesh in MESH_SHAPES:
+        res = runs.get(mesh) or spawn_mesh(mesh_serve_path, *mesh, "cuda",
+                                           args=(spec,), timeout=600)
+        check_mesh_gates(tag + " (a)", ref, res, mesh, MESH_MODELS, card)
+        for arch in MESH_MODELS:
+            log_mesh_served(tag + " (a)", arch, mesh, res, card)
+    log(f"{tag} (a): tokens identical on every rank, weight bytes the "
+        f"shards', K1-K16 launched 0 times")
+    mesh_big_phase(torch)
+
+
+def mesh_big_phase(torch) -> None:
+    """Phase 17(b): dbrx-132b on a (1, 4) mesh of four cards over NCCL;
+    one line and nothing else on fewer cards."""
+    import gc
+    from repro_torch.launch.mesh import spawn_mesh, spawn_pods
+    tag = "phase 17 (b)"
+    n = torch.cuda.device_count()
+    if n < 4:
+        log(f"{tag}: {n} card(s): dbrx-132b at 40 layers on a (1, 4) mesh "
+            f"needs four; not run")
+        return
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    cards = "; ".join(out.splitlines()[:4])
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = {"device": "cuda"}
+    (ref,) = spawn_pods(mesh_big_reference_path, 1, "cuda", args=(spec,),
+                        timeout=900)
+    res = spawn_mesh(mesh_big_path, *MESH_B["mesh"], "cuda", args=(spec,),
+                     timeout=1200)
+    arch = MESH_B["arch"]
+    check_mesh_gates(tag, ref, res, MESH_B["mesh"],
+                     [arch], cards)
+    m = res[0]["models"][arch]
+    log(f"{tag}: {arch} at {m['n_layers']} layers, {m['n_params']} "
+        f"parameters per rank, init "
+        f"{max(r['models'][arch]['init_s'] for r in res):.2f} s")
+    log_mesh_served(tag, arch, MESH_B["mesh"], res, cards)
+    log(f"{tag}: tokens identical on every rank, weight bytes the "
+        f"shards', K1-K16 launched 0 times")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3560,6 +3965,7 @@ def main() -> int:
     timed_phase("phase 15", serve_frontend_phase, torch, card)
     by_path.update(timed_phase("phase 16", frontend_train_phase, torch,
                                card))
+    timed_phase("phase 17", serve_mesh_phase, torch, card)
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     log(f"pod link (phase 7, P = 2 ping-pong): latency "
         f"{link['latency_s']:.6g} s per hop, rate "

@@ -16,7 +16,9 @@ state, in the same order), and returns the port's train state: the
 model's Parameters are loaded in place by :func:`params_from_reference`
 (they stay the ``params`` leaves; a serving model loads the reference's
 bare parameter tree through it), every other leaf becomes a tensor on
-the trainer's device.  :func:`pod_state_from_reference` takes the
+the trainer's device (:func:`shard_params` first cuts a serving model's
+parameters to its rank's shards on a ("data", "model") mesh).
+:func:`pod_state_from_reference` takes the
 reference's multi-pod state as it is, every leaf with its leading pod
 dimension, and returns pod ``pod``'s state (one per pod process).  On a
 hierarchical fleet that dimension is the reference's pod-major fleet
@@ -57,6 +59,17 @@ def params_from_reference(flat: Dict[str, np.ndarray], model) -> dict:
                                  f"{src.shape} != {tuple(p.shape)}")
             p.copy_(_tensor(src, p.device))
     return params
+
+
+def shard_params(flat: Dict[str, np.ndarray], model) -> dict:
+    """The reference's parameters (keyed by path, as
+    :func:`params_from_reference` takes them) cut to the shards ``model``
+    holds on its rank of a ("data", "model") mesh
+    (``model.shard_index``); a model without a mesh takes them whole.
+    Feed the result to :func:`params_from_reference`."""
+    if getattr(model, "ctx", None) is None:
+        return dict(flat)
+    return {k: np.asarray(a)[model.shard_index(k)] for k, a in flat.items()}
 
 
 def state_from_reference(flat: Dict[str, np.ndarray], trainer) -> dict:

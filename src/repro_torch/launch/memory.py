@@ -21,6 +21,9 @@ gradients, and each stage's transient above what it started from.  For
 a recurrent arch (``ssm``, ``hybrid``) also ``scan``, measured first on
 the empty card (:func:`scan_memory`): the scan's own memory at the
 step's shapes, an owner of its own.
+
+:func:`mesh_weight_bytes` reckons, without allocating anything, the
+weight bytes each rank of a ("data", "model") serving mesh holds.
 """
 from __future__ import annotations
 
@@ -31,6 +34,19 @@ import tempfile
 from pathlib import Path
 
 import torch
+
+
+def mesh_weight_bytes(cfg, D: int, M: int,
+                      dtype=torch.bfloat16) -> list:
+    """The weight bytes each rank (d * M + m) of a (D, M) mesh holds of
+    ``cfg``'s model in ``dtype``: its Parameters' shapes, as the model
+    shards them, built on the meta device."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.shardctx import ShardCtx
+    size = torch.empty((), dtype=dtype).element_size()
+    return [sum(p.numel() for p in build_model(
+        cfg, device="meta", ctx=ShardCtx(D, M, r // M, r % M)).parameters())
+        * size for r in range(D * M)]
 
 
 def _alloc() -> int:

@@ -58,6 +58,16 @@ The ring stages its own chunks once per exchange and forwards what it
 received from host memory as it is.
 
 :func:`spawn_pods` starts the P pod processes and gathers their results.
+
+Within a pod, the reference's ("data", "model") mesh of D x M devices is
+D * M ranks, one process each (:func:`spawn_mesh`), rank d * M + m at
+(d, m) as ``make_mesh((D, M), ("data", "model"))`` orders its devices;
+:func:`split_mesh` gives each rank its ``ShardCtx``
+(``models/shardctx.py``): the "data" and "model" sub-groups, every rank
+creating every group in one order.  The backend follows from the layout
+as for pods: NCCL with a card per rank, gloo staged through pinned host
+memory when ranks share a card or run on the CPU.  Multi-pod meshes
+(pods x data x model) are not ported.
 """
 from __future__ import annotations
 
@@ -72,6 +82,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels.ref import ftz
+from repro_torch.models.shardctx import ShardCtx
 
 #: wait for a peer this long before a collective gives up
 TIMEOUT_S = 900
@@ -261,6 +272,18 @@ class PodGroup:
         flat = x.contiguous().reshape(-1)
         got = self._collective(op, flat.view(torch.uint8))
         return got.view(x.dtype).reshape((self.size,) + tuple(x.shape))
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every pod's ``x`` (one shape and dtype on all) -> (P,
+        *x.shape), row p from pod p."""
+        return self._gather_values(x, "gather")
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (P, ...), row q for pod q -> (P, ...), row p the row pod
+        p sent here."""
+        flat = x.contiguous().reshape(-1)
+        got = self._collective("a2a", flat.view(torch.uint8), scatter=True)
+        return got.view(x.dtype).reshape(x.shape)
 
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum of a small f32 tensor over the pods, in pod order 0..P-1
@@ -550,3 +573,44 @@ def spawn_pods(fn: Callable, n_pods: int, device="cuda", args=(), *,
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+# ---------------------------------------------------------------------------
+# the within-pod ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+
+def split_mesh(group: PodGroup, D: int, M: int) -> ShardCtx:
+    """This rank's :class:`ShardCtx` on the D x M mesh of the world
+    ``group`` (rank d * M + m): its "data" group (the ranks with its m)
+    and "model" group (the ranks with its d).  Every rank creates every
+    sub-group, in one order, those it is not in too."""
+    if D < 1 or M < 1 or group.size != D * M:
+        raise ValueError(f"a ({D}, {M}) mesh needs {D * M} ranks, the "
+                         f"group has {group.size}")
+    layouts = ([("data", [d * M + m for d in range(D)]) for m in range(M)]
+               + [("model", [d * M + m for m in range(M)])
+                  for d in range(D)])
+    axes = {}
+    for axis, ranks in layouts:
+        pg = dist.new_group(ranks)
+        if group.rank in ranks:
+            axes[axis] = PodGroup(ranks.index(group.rank), len(ranks),
+                                  group.device, group.backend, tier=axis,
+                                  pg=pg, ranks=ranks, log=group.log)
+    return ShardCtx(D, M, group.rank // M, group.rank % M, data=axes["data"],
+                    model=axes["model"], world=group, device=group.device)
+
+
+def _mesh_main(group, D, M, fn, *args):
+    return fn(split_mesh(group, D, M), *args)
+
+
+def spawn_mesh(fn: Callable, D: int, M: int, device="cuda", args=(),
+               **kw) -> list:
+    """Run ``fn(ctx, *args)`` on a D x M ("data", "model") mesh: D * M
+    fresh processes (:func:`spawn_pods`, whose keywords ``kw`` takes),
+    each with its :class:`ShardCtx`; returns their results in rank
+    order."""
+    return spawn_pods(_mesh_main, D * M, device, args=(D, M, fn) + tuple(args),
+                      **kw)

@@ -12,8 +12,10 @@ over the F frames rather than the S tokens the yardstick counts it
 over.  The MFU of a train step is
 :func:`model_flops` over its seconds against the card's bf16 dense peak
 (989 TFLOP/s on an H100 SXM).  :func:`decode_step_bytes` is what one
-decode step must move, the bound of a decode step at the card's memory
-rate, from the split of :func:`cache_bytes`.  :func:`scan_start_bytes`
+decode step must move, from the split of :func:`cache_bytes`, and
+:func:`decode_bound_ms` its least time on one card at the card's memory
+rate; on a ("data", "model") mesh each card moves its own weights and
+caches, so the bound is per card.  :func:`scan_start_bytes`
 is what mamba's ``SelectiveScan`` saves for its backward besides its
 inputs.
 """
@@ -26,6 +28,8 @@ from repro_torch.models.moe import capacity
 #: the cache entries that are recurrent state (the conv carry and the
 #: scan state); every other entry is a ring KV cache
 _STATE = ("conv", "h")
+#: an H100 SXM's memory rate, bytes per second (the data sheet)
+HBM_BYTES_PER_S = 3.35e12
 
 
 def cache_bytes(caches: dict) -> tuple:
@@ -46,6 +50,13 @@ def decode_step_bytes(weight_bytes: int, caches: dict) -> int:
     ring KV cache read whole, each recurrent state read and written."""
     state, ring = cache_bytes(caches)
     return weight_bytes + 2 * state + ring
+
+
+def decode_bound_ms(weight_bytes: int, caches: dict) -> float:
+    """The least time of one decode step on one card, ms: its
+    :func:`decode_step_bytes` (on a mesh rank: that card's weights and
+    caches) at ``HBM_BYTES_PER_S``."""
+    return decode_step_bytes(weight_bytes, caches) / HBM_BYTES_PER_S * 1e3
 
 
 def model_flops(cfg: ModelConfig, shape: ShapeConfig,

@@ -16,6 +16,18 @@ softcapped layers (gemma2) run :func:`chunked_attention`, the
 reference's online softmax, and decode runs :func:`decode_attention`, the
 reference's f32 softmax over the ring.  Both packages accept the same
 sequence lengths (:func:`check_chunks`).
+
+Under a ("data", "model") mesh (``models/shardctx.py``) each rank holds
+the shards that ``attn_shardings`` / ``mlp_shardings`` name (stacked
+leaves: one leading None before each spec): attention column-parallel
+by whole heads over "model" (wq / wk / wv; wo row-parallel, its partial
+sums all-reduced), the MLP likewise (w_gate / w_up columns, w_down
+rows), and every weight's d_model dimension over "data" (FSDP, gathered
+by the model just before the layer).  The blocks read their head counts
+from the weights they are given, so they run the same code on a shard.
+:func:`embed_lookup` is vocab-parallel (a masked lookup, summed over
+"model") and :func:`lm_logits` leaves the logits vocab-sharded.  The
+residual stream is replicated over "model".
 """
 from __future__ import annotations
 
@@ -25,6 +37,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.shardctx import current_ctx, reduce_model
 
 NEG_INF = -1e30
 
@@ -249,6 +263,20 @@ def attn_shapes(cfg, n_layers: int):
     return shapes
 
 
+def attn_shardings(cfg) -> dict:
+    """One layer's attention specs: the reference's ``attn_shardings``
+    (column-parallel in, row-parallel out, FSDP over "data" on d_model),
+    the "model" splits by whole heads — K / V heads fewer than "model"
+    replicated over the ranks that share them (``axis_range``)."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    sp = {"wq": ("data", ("model", H)), "wk": ("data", ("model", KV)),
+          "wv": ("data", ("model", KV)), "wo": (("model", H), "data")}
+    if cfg.qk_norm:
+        sp["q_norm"] = (None,)
+        sp["k_norm"] = (None,)
+    return sp
+
+
 def attn_apply(p, x, cfg, *, positions, causal: bool = True,
                window: Optional[int] = None, cache=None,
                cache_len: Optional[int] = None, q_chunk: int = 2048,
@@ -261,9 +289,12 @@ def attn_apply(p, x, cfg, *, positions, causal: bool = True,
     or None.  Decode (``cache_len`` given, S == 1) writes the token at
     slot ``cache_len % alloc`` and attends over the ring; prefill
     (``cache`` without ``cache_len``) attends over the sequence and writes
-    its tail into the ring.  The caches are written in place."""
+    its tail into the ring.  The caches are written in place.  Under a
+    mesh ``p`` holds this rank's heads, and wo's partial sums are summed
+    over "model"."""
     B, S, _ = x.shape
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    H, KV = p["wq"].shape[-1] // Dh, p["wk"].shape[-1] // Dh
     dt = x.dtype
     q = (x @ p["wq"].to(dt)).reshape(B, S, H, Dh)
     k = (x @ p["wk"].to(dt)).reshape(B, S, KV, Dh)
@@ -291,7 +322,7 @@ def attn_apply(p, x, cfg, *, positions, causal: bool = True,
         if cache is not None:
             ring_write_prefill(cache["k"], k)
             ring_write_prefill(cache["v"], v)
-    return o.reshape(B, S, H * Dh) @ p["wo"].to(dt)
+    return reduce_model(o.reshape(B, S, H * Dh) @ p["wo"].to(dt))
 
 
 def cross_attn_apply(p, x, mem, cfg, *, cache=None, q_chunk: int = 2048,
@@ -340,12 +371,21 @@ def mlp_shapes(cfg, n_layers: int):
             "w_down": (n_layers, Fd, D)}
 
 
+def mlp_shardings(cfg) -> dict:
+    """One layer's MLP specs: the reference's ``mlp_shardings``, d_ff
+    split evenly over "model"."""
+    Fd = cfg.d_ff
+    return {"w_gate": ("data", ("model", Fd)), "w_up": ("data", ("model", Fd)),
+            "w_down": (("model", Fd), "data")}
+
+
 def mlp_apply(p, x, act=F.silu):
-    """SwiGLU MLP; ``p`` holds one layer's weights; ``act`` the gate's
-    activation."""
+    """SwiGLU MLP; ``p`` holds one layer's weights (under a mesh, this
+    rank's d_ff columns: the partial sums are summed over "model");
+    ``act`` the gate's activation."""
     dt = x.dtype
     h = act(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
-    return h @ p["w_down"].to(dt)
+    return reduce_model(h @ p["w_down"].to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -356,8 +396,20 @@ def mlp_apply(p, x, act=F.silu):
 def embed_lookup(emb, tokens, cfg, dtype):
     """Rows of ``emb`` in ``dtype``; gemma scales them by sqrt(d_model)
     rounded to ``dtype`` (the reference's ``jnp.asarray(sqrt(d), dtype)``:
-    59.75 for d = 3584 in bf16)."""
-    x = F.embedding(tokens.long(), emb).to(dtype)
+    59.75 for d = 3584 in bf16).  Under a mesh ``emb`` is this rank's
+    contiguous part of the vocabulary ("model"): the tokens outside it
+    look up zeros, and the parts are summed over "model" (one non-zero
+    term each: exact)."""
+    ctx = current_ctx()
+    if ctx is not None and ctx.M > 1:
+        v0 = ctx.m * emb.shape[0]
+        local = tokens.long() - v0
+        mine = (local >= 0) & (local < emb.shape[0])
+        x = F.embedding(local.clamp(0, emb.shape[0] - 1), emb).to(dtype)
+        x = ctx.all_reduce_sum(torch.where(mine[..., None], x, 0.0),
+                               "model")
+    else:
+        x = F.embedding(tokens.long(), emb).to(dtype)
     if cfg.emb_scale_by_dim:
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=dtype))
     return x
@@ -365,7 +417,8 @@ def embed_lookup(emb, tokens, cfg, dtype):
 
 def lm_logits(x, emb_dt, cfg):
     """Logits in x's dtype against the embedding ``emb_dt`` (already in
-    that dtype), then the final softcap in that dtype."""
+    that dtype), then the final softcap in that dtype; under a mesh, this
+    rank's vocabulary part of them."""
     return softcap(x @ emb_dt.T, cfg.final_logit_softcap)
 
 

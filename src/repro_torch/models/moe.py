@@ -1,6 +1,5 @@
 """Mixture-of-Experts FFN with capacity dispatch — port of
-``repro/models/moe.py``'s single-device path (the ``mesh is None`` branch
-of its ``moe_apply``).
+``repro/models/moe.py``: its single-device path and its mesh branch.
 
   router logits (f32) -> top-k experts per token -> position in expert by
   a one-hot cumsum over the (token, k) pairs -> scatter into an (E, C, D)
@@ -13,8 +12,24 @@ logits the lower expert index wins (``jax.lax.top_k``'s rule, which
 ``torch.topk`` does not promise, so :func:`route` sorts stably).  The
 expert FFN is three batched matmuls over all E experts at their full
 capacity, the reference's arithmetic: an expert no token routes to still
-runs on zero rows.  Expert parallelism and FSDP (the reference's mesh
-branch) are not ported.
+runs on zero rows.
+
+Under a ("data", "model") mesh (``models/shardctx.py``) :func:`moe_apply`
+follows the reference's ``shard_map`` step for step: the experts are
+split over "model" where M divides E (expert parallelism; else every
+rank holds them all), each expert's d_model dimension over "data" (FSDP,
+gathered by the model before the layer); the tokens are blocked as its
+``x_spec`` = fit(("data", "model", None)) blocks them — batch over
+"data", sequence over "model", each where the fit rule lets it (a
+decode step's S = 1 stays whole over "model").  Each (d, m) block
+dispatches on its own with C = capacity(its own token count) and drops
+its own pairs, so the answer differs from the unsharded one wherever a
+drop does: :func:`moe_apply_blocked` is that semantics on one device,
+the oracle of the tests.  An ``all_to_all`` over "model" turns the
+(E, C, D) buffer into this rank's experts' (E / M, M * C, D) rows, the
+expert FFN runs on them, a second ``all_to_all`` sends the outputs back,
+they are combined, and the blocks are gathered back into the residual,
+which is replicated over "model".
 """
 from __future__ import annotations
 
@@ -22,6 +37,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.shardctx import current_ctx
 
 #: std of the router's N(0, 1) init (``moe_init``); each expert weight's
 #: is 1 / sqrt(shape[-2])
@@ -34,6 +51,15 @@ def moe_shapes(cfg, n_layers: int):
             "w_gate": (n_layers, E, D, Fe),
             "w_up": (n_layers, E, D, Fe),
             "w_down": (n_layers, E, Fe, D)}
+
+
+def moe_shardings(cfg) -> dict:
+    """One layer's specs: the reference's ``moe_shardings`` — experts
+    over "model" (where M divides E), d_model over "data"."""
+    return {"router": (None, None),
+            "w_gate": ("model", "data", None),
+            "w_up": ("model", "data", None),
+            "w_down": ("model", None, "data")}
 
 
 def init_std(name: str, shape) -> float:
@@ -137,18 +163,69 @@ def combine(out, eidx, pos_c, gate_keep):
     return (picked * gate_keep[..., None]).sum(dim=1)
 
 
-def moe_apply(p, x, cfg):
-    """x (B, S, D) -> (B, S, D); ``p`` holds one layer's ``router``,
-    ``w_gate``, ``w_up``, ``w_down``.  The B * S tokens share the
-    capacity of one dispatch."""
+def _moe_block(p, x, cfg, ctx=None):
+    """One dispatch over the tokens of ``x`` (B, S, D): they share the
+    capacity C = capacity(B * S).  With ``ctx`` and ``p``'s experts a
+    part of the E (expert parallelism), the buffer goes to the experts'
+    owners and back over "model"."""
     B, S, D = x.shape
     T = B * S
     xf = x.reshape(T, D)
     logits = xf.float() @ p["router"].float()
     C = capacity(T, cfg)
     ebuf, eidx, pos_c, gk = dispatch(xf, logits, cfg, C)
+    ep = ctx is not None and p["w_gate"].shape[0] < cfg.n_experts
+    if ep:      # (E, C, D) -> (E / M, M * C, D): each expert to its owner
+        ebuf = ctx.all_to_all(ebuf, "model", split_dim=0, concat_dim=1)
     out = expert_ffn(ebuf, p["w_gate"], p["w_up"], p["w_down"])
+    if ep:
+        out = ctx.all_to_all(out, "model", split_dim=1, concat_dim=0)
     return combine(out, eidx, pos_c, gk).reshape(B, S, D)
+
+
+def _seq_blocks(S: int, M: int) -> int:
+    """How many "model" blocks the fit rule cuts S positions into."""
+    return M if S % M == 0 else 1
+
+
+def moe_apply(p, x, cfg):
+    """x (B, S, D) -> (B, S, D); ``p`` holds one layer's ``router``,
+    ``w_gate``, ``w_up``, ``w_down``.  Without a mesh the B * S tokens
+    share the capacity of one dispatch.  Under one, ``x`` is this rank's
+    "data" block of the residual (replicated over "model"), ``p`` its
+    experts with d_model whole: the rank dispatches its "model" block of
+    the sequence (or all of it, where M does not divide S), and the
+    blocks are gathered back (see the module doc)."""
+    ctx = current_ctx()
+    if ctx is None:
+        return _moe_block(p, x, cfg)
+    S = x.shape[1]
+    n = _seq_blocks(S, ctx.M)
+    if n == 1:
+        return _moe_block(p, x, cfg, ctx)
+    w = S // n
+    y = _moe_block(p, x[:, ctx.m * w:(ctx.m + 1) * w], cfg, ctx)
+    return ctx.all_gather(y, "model", dim=1)
+
+
+def moe_apply_blocked(p, x, cfg, D: int, M: int):
+    """The mesh semantics of :func:`moe_apply` on one device, for the
+    whole ``x`` (B, S, D) and all of ``p``: each (d, m) token block of a
+    (D, M) mesh — batch over D where D divides B, sequence over M where M
+    divides S — dispatched on its own, with its own capacity.  The
+    oracle of the tests and of the card's gates; the main path does not
+    run it."""
+    B, S, _ = x.shape
+    nb = D if B % D == 0 else 1
+    ns = _seq_blocks(S, M)
+    bw, sw = B // nb, S // ns
+    out = torch.empty_like(x)
+    for i in range(nb):
+        for j in range(ns):
+            rows, cols = slice(i * bw, (i + 1) * bw), slice(j * sw,
+                                                            (j + 1) * sw)
+            out[rows, cols] = _moe_block(p, x[rows, cols], cfg)
+    return out
 
 
 def load_balance_loss(logits_f32, eidx, cfg):

@@ -4,7 +4,8 @@ dense zoo: qwen3-8b, gemma2-9b, minitron-8b, starcoder2-3b, and the VLM
 llava-next-mistral-7b, the dense stack behind its vision stub), the MoE
 family (qwen3-moe-30b-a3b, dbrx-132b), the SSM (falcon-mamba-7b), the
 RG-LRU hybrid (recurrentgemma-2b) and the encoder-decoder
-(seamless-m4t-medium)."""
+(seamless-m4t-medium).  The dense and MoE families (but the VLM) also
+build sharded over a within-pod ("data", "model") mesh."""
 from __future__ import annotations
 
 from typing import Optional
@@ -13,6 +14,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models.encdec import EncDecTransformer
 from repro_torch.models.mamba import MambaLM
 from repro_torch.models.rglru import GriffinLM
+from repro_torch.models.shardctx import ShardCtx
 from repro_torch.models.transformer import DenseTransformer, MoETransformer
 
 _FAMILY_CLS = {"dense": DenseTransformer, "moe": MoETransformer,
@@ -21,10 +23,21 @@ _FAMILY_CLS = {"dense": DenseTransformer, "moe": MoETransformer,
 
 
 def build_model(cfg: ModelConfig, run: Optional[RunConfig] = None,
-                device="cuda"):
+                device="cuda", ctx: Optional[ShardCtx] = None):
+    """``cfg``'s model; ``ctx`` shards it over a ("data", "model") mesh
+    (the dense and MoE families without a frontend stub: any other
+    raises)."""
     try:
         cls = _FAMILY_CLS[cfg.family]
     except KeyError:
         raise NotImplementedError(f"model family {cfg.family!r} is not "
                                   f"ported yet") from None
-    return cls(cfg, run, device=device)
+    if ctx is None:
+        return cls(cfg, run, device=device)
+    if cfg.family not in ("dense", "moe") or cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family"
+            f"{' behind its ' + cfg.frontend if cfg.frontend else ''} "
+            f"under a ('data', 'model') mesh is not ported yet (ROADMAP "
+            f"Queue 1, item 2)")
+    return cls(cfg, run, device=device, ctx=ctx)

@@ -24,6 +24,16 @@ Serving: :meth:`DenseTransformer.prefill` fills ring KV caches
 stack per slot and k / v, a local slot's S capped at the sliding window)
 and :meth:`~DenseTransformer.decode_step` writes one token into them in
 place.
+
+Under a ("data", "model") mesh (``ctx``, a ``ShardCtx``; serving only)
+each Parameter holds this rank's shard of its stacked leaf, as
+:meth:`DenseTransformer.param_shardings` names it (the layers' specs
+behind a leading None; the embedding vocab-parallel over "model"): the
+model takes the global batch and keeps its "data" block (all of it where
+D does not divide B), gathers each FSDP-sharded weight over "data" just
+before its layer (freed after), and returns vocab-sharded logits of its
+batch block.  The ring caches hold the block's sequences and this rank's
+K/V heads.  Training under a mesh raises.
 """
 from __future__ import annotations
 
@@ -39,10 +49,17 @@ from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe
+from repro_torch.models.shardctx import ShardCtx, use_shard_ctx
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 _GROUP_KINDS = {"global": ("global",), "local_global": ("local", "global")}
+
+
+def _norm_names(cfg: ModelConfig) -> tuple:
+    """A slot's norms: the pre-norms, and gemma2's post-norms."""
+    return ("ln1", "ln2") + (("ln1_post", "ln2_post") if cfg.post_norms
+                             else ())
 
 
 class _Slot(nn.Module):
@@ -50,7 +67,8 @@ class _Slot(nn.Module):
     config asks) and FFN weights (``ffn_shapes``) plus the pre-norms (and
     gemma2's post-norms), each with a leading (n_groups, ...) axis."""
 
-    def __init__(self, cfg: ModelConfig, n: int, device, ffn_shapes: dict):
+    def __init__(self, cfg: ModelConfig, n: int, device, attn_shapes: dict,
+                 ffn_shapes: dict):
         super().__init__()
 
         def par(shape):
@@ -58,13 +76,11 @@ class _Slot(nn.Module):
                                             device=device))
 
         self.attn = nn.ParameterDict(
-            {k: par(s) for k, s in L.attn_shapes(cfg, n).items()})
+            {k: par(s) for k, s in attn_shapes.items()})
         self.ffn = nn.ParameterDict(
             {k: par(s) for k, s in ffn_shapes.items()})
-        norms = ("ln1", "ln2") + (("ln1_post", "ln2_post")
-                                  if cfg.post_norms else ())
-        self.norms = tuple(norms)
-        for k in norms:
+        self.norms = _norm_names(cfg)
+        for k in self.norms:
             setattr(self, k, par((n, cfg.d_model)))
 
     def tree(self) -> dict:
@@ -73,12 +89,18 @@ class _Slot(nn.Module):
         return out
 
 
-def _draw(p: torch.Tensor, generator: torch.Generator, std: float):
+def _draw(p: torch.Tensor, generator: torch.Generator, std: float,
+          shard=None):
     """Fill the stacked leaf ``p`` (n_groups, ...) with N(0, std^2) one
     slice of its leading axis at a time, each drawn in f32 and copied in
-    in ``p``'s dtype: no f32 temporary is larger than one slice."""
+    in ``p``'s dtype: no f32 temporary is larger than one slice.
+    ``shard`` = (the leaf's full shape, the index of ``p`` in it) for a
+    rank's shard: each slice is drawn whole, from the stream the
+    unsharded leaf draws, and the shard's part of it kept."""
+    shape, index = (p.shape, ()) if shard is None else (shard[0],
+                                                        shard[1][1:])
     for s in p:
-        s.copy_(L.init_normal(generator, s.shape, std, p.device))
+        s.copy_(L.init_normal(generator, shape[1:], std, p.device)[index])
 
 
 def unstack(tree: dict):
@@ -109,6 +131,9 @@ class LanguageModel(nn.Module):
 
     #: positions a frontend stub puts before the tokens
     n_prefix = 0
+    #: the ("data", "model") mesh the Parameters are sharded over (None:
+    #: each holds its whole leaf)
+    ctx: Optional[ShardCtx] = None
     #: the float inputs a batch carries besides tokens and labels
     float_inputs = ()
 
@@ -161,10 +186,15 @@ class LanguageModel(nn.Module):
                 patch_embs: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens (B, S) (after ``patch_embs`` (B, P, D) where given) ->
         final hidden states (B, P + S, D) in the compute dtype."""
-        x = self._embed(tokens, patch_embs)
-        B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        return self._backbone(x, positions)
+        if self.ctx is not None and torch.is_grad_enabled():
+            raise NotImplementedError(
+                f"{self.cfg.name}: training under a ('data', 'model') mesh "
+                f"is not ported yet (ROADMAP Queue 1, item 1)")
+        with use_shard_ctx(self.ctx):
+            x = self._embed(self._local_batch(tokens), patch_embs)
+            B, S, _ = x.shape
+            positions = torch.arange(S, device=x.device)[None].expand(B, S)
+            return self._backbone(x, positions)
 
     def loss(self, batch: dict) -> torch.Tensor:
         """Mean cross-entropy over every position of the batch (the
@@ -174,8 +204,15 @@ class LanguageModel(nn.Module):
                                              self.float_inputs if k in batch})
         return L.xent_loss_chunked(x, self.embed, batch["labels"], self.cfg)
 
+    def _local_batch(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's "data" block of a global batch (all of it without
+        a mesh)."""
+        return t if self.ctx is None else t[self.ctx.batch_slice(
+            t.shape[0])]
+
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """LM-head logits (final softcap included) of hidden states."""
+        """LM-head logits (final softcap included) of hidden states
+        (under a mesh, this rank's vocabulary part)."""
         return L.lm_logits(x, self.embed.to(x.dtype), self.cfg)
 
     @torch.no_grad()
@@ -184,25 +221,30 @@ class LanguageModel(nn.Module):
         """tokens (B, S) (after ``patch_embs`` (B, P, D) where given) ->
         (the last position's logits (B, 1, V), the caches
         (:meth:`init_cache` of ``cache_len``, default P + S positions)
-        holding the prompt).  Decode goes on at position P + S."""
-        x = self._embed(tokens, patch_embs)
-        B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        caches = self.init_cache(B, cache_len or S)
-        x = self._backbone(x, positions, caches=caches)
-        return self.logits(x[:, -1:]), caches
+        holding the prompt).  Decode goes on at position P + S.  Under a
+        mesh, the logits and caches of this rank's batch block, the
+        logits its vocabulary part."""
+        with use_shard_ctx(self.ctx):
+            x = self._embed(self._local_batch(tokens), patch_embs)
+            B, S, _ = x.shape
+            positions = torch.arange(S, device=x.device)[None].expand(B, S)
+            caches = self.init_cache(tokens.shape[0], cache_len or S)
+            x = self._backbone(x, positions, caches=caches)
+            return self.logits(x[:, -1:]), caches
 
     @torch.no_grad()
     def decode_step(self, caches: dict, cache_len: int,
                     tokens: torch.Tensor):
         """tokens (B, 1) at position ``cache_len`` (the count of positions
         already in the caches) -> (logits (B, 1, V), the caches, written
-        in place)."""
+        in place); under a mesh, as :meth:`prefill`."""
         t = int(cache_len)
-        x = L.embed_lookup(self.embed, tokens, self.cfg, self.dtype)
-        positions = torch.full((x.shape[0], 1), t, device=x.device)
-        x = self._backbone(x, positions, caches=caches, cache_len=t)
-        return self.logits(x), caches
+        with use_shard_ctx(self.ctx):
+            x = L.embed_lookup(self.embed, self._local_batch(tokens),
+                               self.cfg, self.dtype)
+            positions = torch.full((x.shape[0], 1), t, device=x.device)
+            x = self._backbone(x, positions, caches=caches, cache_len=t)
+            return self.logits(x), caches
 
 
 class DenseTransformer(LanguageModel):
@@ -213,7 +255,7 @@ class DenseTransformer(LanguageModel):
     family = "dense"
 
     def __init__(self, cfg: ModelConfig, run: Optional[RunConfig] = None,
-                 device="cuda"):
+                 device="cuda", ctx: Optional[ShardCtx] = None):
         super().__init__()
         if (cfg.family != self.family
                 or cfg.layer_pattern not in _GROUP_KINDS
@@ -237,15 +279,89 @@ class DenseTransformer(LanguageModel):
         self.n_groups = cfg.n_layers // len(self.group_kinds)
         self.q_chunk = run.q_chunk if run else 2048
         self.kv_chunk = run.kv_chunk if run else 1024
+        self.ctx = ctx
+        if ctx is not None:
+            self._check_mesh(ctx)
+        n = self.n_groups
+        #: each leaf's full (stacked) shape, by path
+        self.full_shapes = {"embed": (cfg.padded_vocab, cfg.d_model),
+                            "final_norm": (cfg.d_model,)}
+        self._specs = specs = self.param_shardings()
+        local = {}
+        for i in range(len(self.group_kinds)):
+            for part, shapes in (("attn", L.attn_shapes(cfg, n)),
+                                 ("ffn", self._ffn_shapes(n))):
+                pre = f"blocks/slot{i}/{part}/"
+                self.full_shapes.update({pre + k: v
+                                         for k, v in shapes.items()})
+                local[i, part] = {k: self._local_shape(pre + k)
+                                  for k in shapes}
+            self.full_shapes.update({f"blocks/slot{i}/{k}": (n, cfg.d_model)
+                                     for k in _norm_names(cfg)})
         self.blocks = nn.ModuleDict(
-            {f"slot{i}": _Slot(cfg, self.n_groups, self.device,
-                               self._ffn_shapes(self.n_groups))
+            {f"slot{i}": _Slot(cfg, n, self.device, local[i, "attn"],
+                               local[i, "ffn"])
              for i in range(len(self.group_kinds))})
         self.embed = nn.Parameter(torch.zeros(
-            (cfg.padded_vocab, cfg.d_model), dtype=torch.float32,
+            self._local_shape("embed"), dtype=torch.float32,
             device=self.device))
         self.final_norm = nn.Parameter(torch.zeros(
             (cfg.d_model,), dtype=torch.float32, device=self.device))
+        #: the stacked leaves FSDP-sharded over "data", by path: the
+        #: dimension of one layer's slice to gather
+        self._fsdp = {}
+        if ctx is not None and ctx.D > 1:
+            for path, spec in specs.items():
+                dims = [j for j, ax in enumerate(spec) if ax == "data"
+                        and self.full_shapes[path][j] % ctx.D == 0]
+                if dims and path.startswith("blocks/"):
+                    self._fsdp[path] = dims[0] - 1
+
+    def _check_mesh(self, ctx: ShardCtx) -> None:
+        """The mesh splits heads, d_ff (dense) and the vocabulary evenly
+        over "model": anything else raises (no fall back)."""
+        cfg = self.cfg
+        need = {"heads": cfg.n_heads, "padded vocab": cfg.padded_vocab}
+        if self.family == "dense":
+            need["d_ff"] = cfg.d_ff
+        bad = {k: v for k, v in need.items() if v % ctx.M}
+        if bad:
+            raise ValueError(f"{cfg.name}: model = {ctx.M} does not divide "
+                             f"its {bad}")
+
+    def param_shardings(self) -> dict:
+        """Each leaf's spec, by path: the layers' (``attn_shardings``,
+        the FFN's) behind a leading None for the stacked axis, the norms
+        replicated, the embedding vocab-parallel over "model" (the
+        reference's ``P("model", None)``)."""
+        cfg = self.cfg
+        out = {"embed": (("model", cfg.padded_vocab), None),
+               "final_norm": (None,)}
+        for i in range(len(self.group_kinds)):
+            for part, sp in (("attn", L.attn_shardings(cfg)),
+                             ("ffn", self._ffn_shardings())):
+                out.update({f"blocks/slot{i}/{part}/{k}": (None,) + v
+                            for k, v in sp.items()})
+            out.update({f"blocks/slot{i}/{k}": (None, None)
+                        for k in _norm_names(cfg)})
+        return out
+
+    def _local_shape(self, path: str) -> tuple:
+        full = self.full_shapes[path]
+        return full if self.ctx is None else self.ctx.local_shape(
+            self._specs[path], full)
+
+    def shard_index(self, path: str) -> tuple:
+        """The index of this rank's Parameter ``path`` in the full leaf
+        (whole slices without a mesh)."""
+        full = self.full_shapes[path]
+        if self.ctx is None:
+            return tuple(slice(None) for _ in full)
+        return self.ctx.local_index(self._specs[path], full)
+
+    def _draw_leaf(self, path: str, p, generator, std: float) -> None:
+        _draw(p, generator, std, (self.full_shapes[path],
+                                  self.shard_index(path)))
 
     def frontend_shapes(self, B: int, S: int) -> dict:
         if self.cfg.frontend != "vision_stub":
@@ -256,10 +372,14 @@ class DenseTransformer(LanguageModel):
     def _ffn_shapes(self, n: int) -> dict:
         return L.mlp_shapes(self.cfg, n)
 
-    def _ffn_init(self, ffn: nn.ParameterDict,
+    def _ffn_shardings(self) -> dict:
+        return L.mlp_shardings(self.cfg)
+
+    def _ffn_init(self, pre: str, ffn: nn.ParameterDict,
                   generator: torch.Generator) -> None:
-        for p in ffn.values():
-            _draw(p, generator, p.shape[-2] ** -0.5)
+        for k, p in ffn.items():
+            self._draw_leaf(pre + k, p, generator,
+                            self.full_shapes[pre + k][-2] ** -0.5)
 
     def _ffn_apply(self, p: dict, x: torch.Tensor) -> torch.Tensor:
         return L.mlp_apply(p, x)
@@ -270,18 +390,25 @@ class DenseTransformer(LanguageModel):
         """Random init with the reference's distributions (its RNG stream
         differs: parity runs load the reference's weights instead).  Each
         stacked leaf is drawn slice by slice along its leading axis, in
-        f32, and copied into its Parameter in the Parameter's dtype."""
-        for slot in self.blocks.values():
+        f32, and copied into its Parameter in the Parameter's dtype.
+        Under a mesh every slice is drawn whole, in the unsharded model's
+        order, and this rank's shard kept: a sharded model equals the
+        unsharded model of the same generator, shard for shard."""
+        for name, slot in self.blocks.items():
+            pre = f"blocks/{name}/"
             for k, p in slot.attn.items():
                 if k.startswith("w"):
-                    _draw(p, generator, p.shape[-2] ** -0.5)
+                    full = self.full_shapes[pre + "attn/" + k]
+                    self._draw_leaf(pre + "attn/" + k, p, generator,
+                                    full[-2] ** -0.5)
                 else:
                     p.zero_()
-            self._ffn_init(slot.ffn, generator)
+            self._ffn_init(pre + "ffn/", slot.ffn, generator)
             for k in slot.norms:
                 getattr(slot, k).zero_()
-        self.embed.copy_(L.init_normal(generator, self.embed.shape, 0.02,
-                                       self.device))
+        self.embed.copy_(L.init_normal(
+            generator, self.full_shapes["embed"], 0.02,
+            self.device)[self.shard_index("embed")])
         self.final_norm.zero_()
 
     def param_tree(self) -> dict:
@@ -295,22 +422,30 @@ class DenseTransformer(LanguageModel):
         cfg = self.cfg
         if kind == "local" and cfg.sliding_window:
             S = min(S, cfg.sliding_window)
-        return (self.n_groups, B, S, cfg.n_kv_heads, cfg.head_dim)
+        kv = self.blocks["slot0"].attn["wk"].shape[-1] // cfg.head_dim
+        if self.ctx is not None:
+            B = len(range(B)[self.ctx.batch_slice(B)])
+        return (self.n_groups, B, S, kv, cfg.head_dim)
 
     def init_cache(self, B: int, S: int) -> dict:
         """Zeroed ring KV caches for ``B`` sequences of up to ``S``
-        positions, in the compute dtype."""
+        positions, in the compute dtype (under a mesh: this rank's batch
+        block and K/V heads)."""
         return {f"slot{i}": {
             kv: torch.zeros(self._slot_cache_shape(kind, B, S),
                             dtype=self.dtype, device=self.device)
             for kv in ("k", "v")} for i, kind in enumerate(self.group_kinds)}
 
     # ---------------- forward ----------------
-    def _layer(self, kind, names, cache, cache_len, x, positions, *w):
+    def _layer(self, kind, names, fsdp, cache, cache_len, x, positions,
+               *w):
         """One layer of slot flavour ``kind``; ``w`` are its weights
         sliced out of the stacks, ``names`` their paths in the slot's
-        tree."""
+        tree, ``fsdp`` the dimension to gather over "data" of each (None:
+        whole)."""
         cfg = self.cfg
+        w = [t if dim is None else self.ctx.all_gather(t, "data", dim)
+             for t, dim in zip(w, fsdp)]
         p = T.from_flat_dict(dict(zip(names, w)))
         h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
         h = L.attn_apply(
@@ -332,14 +467,18 @@ class DenseTransformer(LanguageModel):
         written in place."""
         remat = (self.run is not None and self.run.remat != "none"
                  and torch.is_grad_enabled())
-        slots = [(kind, *unstack(self.blocks[f"slot{i}"].tree()))
-                 for i, kind in enumerate(self.group_kinds)]
+        slots = []
+        for i, kind in enumerate(self.group_kinds):
+            names, per_layer = unstack(self.blocks[f"slot{i}"].tree())
+            fsdp = [self._fsdp.get(f"blocks/slot{i}/{k}") for k in names]
+            slots.append((kind, names, fsdp, per_layer))
         for g in range(self.n_groups):
-            for i, (kind, names, per_layer) in enumerate(slots):
+            for i, (kind, names, fsdp, per_layer) in enumerate(slots):
                 cache = None
                 if caches is not None:
                     cache = {kv: c[g] for kv, c in caches[f"slot{i}"].items()}
-                layer = partial(self._layer, kind, names, cache, cache_len)
+                layer = partial(self._layer, kind, names, fsdp, cache,
+                                cache_len)
                 if remat:
                     x = checkpoint(layer, x, positions, *per_layer[g],
                                    use_reentrant=False)
@@ -359,10 +498,14 @@ class MoETransformer(DenseTransformer):
     def _ffn_shapes(self, n: int) -> dict:
         return moe.moe_shapes(self.cfg, n)
 
-    def _ffn_init(self, ffn: nn.ParameterDict,
+    def _ffn_shardings(self) -> dict:
+        return moe.moe_shardings(self.cfg)
+
+    def _ffn_init(self, pre: str, ffn: nn.ParameterDict,
                   generator: torch.Generator) -> None:
         for k, p in ffn.items():
-            _draw(p, generator, moe.init_std(k, p.shape))
+            self._draw_leaf(pre + k, p, generator,
+                            moe.init_std(k, self.full_shapes[pre + k]))
 
     def _ffn_apply(self, p: dict, x: torch.Tensor) -> torch.Tensor:
         return moe.moe_apply(p, x, self.cfg)

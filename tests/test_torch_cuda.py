@@ -8,7 +8,10 @@ training the MoE family on the card (one step against the CPU's, and
 its backward reproducible under ``RunConfig.deterministic``), the
 recurrent families (the scans' gradients and one step against the
 CPU's) and the encoder-decoder and the VLM (one step against the
-CPU's).  They skip without a CUDA device; on the card
+CPU's), and serving the dense and MoE SMOKE configs on ("data",
+"model") meshes — ranks sharing one card over gloo, and a card per rank
+over NCCL — against the unsharded model on the CPU.  They skip without a
+CUDA device; on the card
 run
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
@@ -739,3 +742,112 @@ def test_moe_backward_bit_reproducible_under_deterministic(dev):
                          timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "SAME True" in res.stdout, res.stdout
+
+
+# ---------------------------------------------------------------------------
+# serving on a ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+#: the mesh cases' teacher-forced run: batch, prompt, decode steps
+MESH_B, MESH_S, MESH_STEPS = 4, 16, 4
+
+
+def _mesh_tokens():
+    return torch.from_numpy(np.random.RandomState(3).randint(
+        0, 256, size=(MESH_B, MESH_S + MESH_STEPS)).astype(np.int32))
+
+
+def _mesh_logits(model, ctx, toks):
+    """Prefill and teacher-forced decode steps of ``model`` (sharded over
+    ``ctx`` or whole): each step's last-position logits, whole, f32 on
+    the host."""
+    def whole(lg):
+        lg = lg[:, -1]
+        if ctx is not None:
+            lg = ctx.gather_batch(ctx.all_gather(lg, "model", -1), MESH_B)
+        return lg.float().cpu()
+    toks = toks.to(model.device)
+    with torch.inference_mode():
+        lg, caches = model.prefill(toks[:, :MESH_S], MESH_S + MESH_STEPS)
+        out = [whole(lg)]
+        for i in range(MESH_STEPS):
+            lg, caches = model.decode_step(
+                caches, MESH_S + i, toks[:, MESH_S + i:MESH_S + i + 1])
+            out.append(whole(lg))
+    return torch.stack(out).numpy()
+
+
+def _mesh_rank(ctx, arch):
+    """One rank: ``arch``'s SMOKE config in f32 from seed 1 (CPU stream),
+    sharded, on the rank's card; the whole logits and the Server's
+    tokens, and the backend."""
+    import dataclasses
+    from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.launch import serve as tserve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(SMOKE_ARCHS[arch], dtype="float32")
+    # drawn on the CPU (the card's generator is another stream), moved
+    model = tserve.init_model(cfg, "cpu", seed=1, dtype=torch.float32,
+                              ctx=ctx).to(ctx.device)
+    model.device = ctx.device
+    reqs = tserve.make_requests((16, 12, 9, 16), 6, 256, seed=2)
+    done = tserve.Server(model, 22, MESH_B, ctx=ctx).serve(reqs)
+    return (_mesh_logits(model, ctx, _mesh_tokens()),
+            [r.out_tokens for r in done], ctx.world.backend)
+
+
+def _mesh_want(arch, D, M):
+    """The unsharded SMOKE model on the CPU (the MoE's blocks as the mesh
+    dispatches them: ``moe_apply_blocked``)."""
+    import dataclasses
+    from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(SMOKE_ARCHS[arch], dtype="float32")
+    model = tserve.init_model(cfg, "cpu", seed=1, dtype=torch.float32)
+    real = moe.moe_apply
+    moe.moe_apply = lambda p, x, c: moe.moe_apply_blocked(p, x, c, D, M)
+    try:
+        reqs = tserve.make_requests((16, 12, 9, 16), 6, 256, seed=2)
+        done = tserve.Server(model, 22, MESH_B).serve(reqs)
+        return (_mesh_logits(model, None, _mesh_tokens()),
+                [r.out_tokens for r in done])
+    finally:
+        moe.moe_apply = real
+
+
+def _check_mesh(res, want, D, M, backend):
+    logits, tokens = want
+    for got, toks, be in res:
+        assert be == backend
+        assert toks == tokens
+        np.testing.assert_allclose(got, logits, rtol=1e-4,
+                                   atol=1e-4 * np.abs(logits).max())
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2)])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "dbrx-132b"])
+def test_mesh_serving_on_one_card_matches_cpu(dev, arch, mesh):
+    """D x M ranks sharing one card (gloo, staged through pinned host
+    memory): the SMOKE config's logits, whole, within 1e-4 relative of
+    the unsharded model's on the CPU (the MoE at capacity 1.25, each mesh
+    block dispatched on its own), and every rank's Server tokens
+    equal to it."""
+    from repro_torch.launch.mesh import spawn_mesh
+    res = spawn_mesh(_mesh_rank, *mesh, "cuda", args=(arch,), timeout=600)
+    backend = "nccl" if mesh[0] * mesh[1] <= torch.cuda.device_count() \
+        else "gloo"
+    _check_mesh(res, _mesh_want(arch, *mesh), *mesh, backend)
+
+
+def test_nccl_mesh_serving_matches_cpu(dev):
+    """A card per rank (NCCL), dbrx-132b SMOKE on a (1, M) mesh of up to
+    four cards: as the one-card test."""
+    from repro_torch.launch.mesh import spawn_mesh
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs a card per rank (two or more CUDA devices)")
+    M = min(n, 4)
+    res = spawn_mesh(_mesh_rank, 1, M, "cuda", args=("dbrx-132b",),
+                     timeout=600)
+    _check_mesh(res, _mesh_want("dbrx-132b", 1, M), 1, M, "nccl")
