@@ -94,7 +94,7 @@ Phases (any failure exits nonzero before the result lines):
    launched.  Prints the tier grids, the bytes per tier, the cross-tier
    reduction, step means and peak memory per member;
 9. the fault-tolerant train loop.  9a, restart-replay on one pod in phase
-   5's configuration cut to 12 layers (paper-350m, batch 8, seq 1024,
+   5's configuration cut to 6 layers (paper-350m, batch 8, seq 1024,
    ``replan_every`` 4, ``ckpt_every`` 4, ``blocking_replans``, in a
    process of its own under ``RunConfig.deterministic``, so that no
    other phase runs under deterministic algorithms and cuBLAS): run A
@@ -106,7 +106,7 @@ Phases (any failure exits nonzero before the result lines):
    counters bit-identical to run A's.  Prints the bytes per checkpoint,
    save()'s foreground seconds, the background write's seconds and
    rate, and the restore's seconds.  9b, elastic membership: three pod
-   processes sharing the card at 12 layers, global batch 6, the default
+   processes sharing the card at 6 layers, global batch 6, the default
    ``ACESyncConfig`` with ``replan_every`` 4, ``ckpt_every`` 5, 12
    steps, pod 2 preempted at step 4 and back at step 8: the membership
    events [2, 3] at steps 4 and 8, the global batch 6 -> 4 -> 6, right
@@ -275,7 +275,7 @@ Phases (any failure exits nonzero before the result lines):
    (the encoder over the 128 frames, the LM head over the tokens).
 17. serving on a within-pod ("data", "model") mesh, one process per
    rank (``launch/mesh.py``'s ``spawn_mesh``).  (a) qwen3-8b and
-   dbrx-132b at full published width cut to 2 layers, on (1, 2) and
+   dbrx-132b at full published width cut to 1 layer, on (1, 2) and
    (2, 2) meshes whose ranks share the card (gloo, staged through
    pinned host memory), seeded bf16 weights drawn whole slice by slice
    and kept shard by shard (``init_model(ctx=)``).  Gates: (1) the last
@@ -301,7 +301,29 @@ Phases (any failure exits nonzero before the result lines):
    2-4; prints per card the weight bytes, prefill ms and its share of
    4 x 989 TFLOP/s, the decode step's median (min-max) against the
    bound per card ((its weights + its caches) / 3.35 TB/s), tokens/s
-   and peak memory.  On fewer cards (b) prints one line and is not run.
+   and peak memory.  On fewer cards (b) prints one line and is not run;
+18. training on a within-pod ("data", "model") mesh, one process per
+   rank (``launch/mesh.py``'s ``spawn_mesh``), full width, cut in depth
+   at ``MESH_BYTES_PER_PARAM`` per parameter of each rank with 8 GiB of
+   each card to spare.  (a) the ranks share the one card over gloo:
+   qwen3-8b at 2 layers on (1, 2), qwen3-moe-30b-a3b at 1 layer on
+   (1, 2) and (2, 2), batch 4 x 512, seeded weights; the unsharded
+   models of the same seed first, in a process of their own, save their
+   f32 gradients.  Each rank trains through TrainSession (the loop's
+   steps, a device replan on (1, 2); then a grad_sync under the loop's
+   plan and an all-rungs one).  Gates: (1) f32 loss and each leaf's
+   gradient, gathered, within 1e-3 of the unsharded model's (the MoE at
+   capacity E / K, and at 1.25 against ``moe_apply_blocked``; at D = 2
+   the 1.25 run only); (2) every sync round bit-identical to the one-pod
+   ``sync_tree`` of the step's plan on the rank's own grads, errors and
+   local layout; (3) losses, grad norms, plan, step and importance state
+   identical on every rank; (4) K1-K4 launched on every rank.  Prints
+   step ms per kind (median, min-max), tokens/s, MFU over D * M x 989
+   TFLOP/s, peak memory per rank (the host's times: a shared card).  (b)
+   only with four cards: dbrx-132b on (1, 4) and qwen3-8b on (2, 2) over
+   NCCL, at ``launch.memory.mesh_train_depth``'s depths, batch 8 x 1024,
+   gates 2-4, and ``launch.memory.step_memory``'s bytes per parameter by
+   owner per card.  On fewer cards (b) prints one line and is not run.
 
 Output: progress lines with each phase's seconds, the pod link's latency
 and rate, then the ``nvidia-smi`` line, the kernels' JSON line (each
@@ -309,8 +331,9 @@ kernel's launches in total and per main path: ``one_pod`` (phase 5),
 ``p2`` and ``p3`` (phase 7, all pods), ``hier`` (phase 8, all
 members), ``restart`` (phase 9a, its three runs), ``elastic`` (phase
 9b, all pods), ``zoo_<arch>`` (phases 12, 14 and 16, each model's
-process) and ``zoo_determinism`` (phase 12, both runs), each counted
-from 0 just before its run; phases 10, 11, 13, 15 and 17 launch none;
+process), ``zoo_determinism`` (phase 12, both runs) and
+``mesh_<arch>_<D>x<M>`` (phase 18 (a), all ranks; ``mesh_b_...`` for
+(b)), each counted from 0 just before its run; phases 10, 11, 13, 15 and 17 launch none;
 K16's ``library_ms``
 is ``torch.mul(q, s)``'s time; ``paths`` gives each path's pods, members
 per cluster and depth; ``link`` the measured link), and as the last line
@@ -396,16 +419,18 @@ PATHS = {
 }
 #: phase 9a: restart-replay on one pod, phase 5's configuration cut in
 #: depth (at 24 layers its disk-bound checkpoint writes of 9.09 GB made it
-#: the script's longest phase, 150-161 s): run A trains ``steps`` steps,
-#: run B ``steps - 1`` and restarts from the checkpoints of every
-#: ``ckpt_every`` steps
+#: the script's longest phase, 150-161 s; at 12, 79-92 s; 6 since phase
+#: 18 joined the script): run A trains ``steps`` steps, run B
+#: ``steps - 1`` and restarts from the checkpoints of every ``ckpt_every``
+#: steps
 RESTART = {"pods": 1, "batch": 8, "steps": 10, "ckpt_every": 4,
-           "n_layers": 12}
-#: phase 9b: elastic membership, P = 3 pod processes sharing the card at
-#: phase 8's depth (three full-depth pods and their checkpoint copies do
-#: not fit), pod 2 preempted at step 4 and back at step 8
+           "n_layers": 6}
+#: phase 9b: elastic membership, P = 3 pod processes sharing the card
+#: (three full-depth pods and their checkpoint copies do not fit; 12
+#: layers, 85 s, until phase 18 joined the script: 6), pod 2 preempted at
+#: step 4 and back at step 8
 ELASTIC = {"pods": 3, "batch": 6, "steps": 12, "ckpt_every": 5,
-           "n_layers": 12, "kill": 4, "rejoin": 8, "killed": 2}
+           "n_layers": 6, "kill": 4, "rejoin": 8, "killed": 2}
 
 
 def fail(msg: str):
@@ -966,11 +991,24 @@ def main_path(torch, ops) -> dict:
     return launches
 
 
+#: elements of a tensor that ``bits_hash`` hashes at a time: its int64
+#: temporaries stay ~0.5 GiB, where a whole 311M-entry embedding shard's
+#: took ~10 GB
+HASH_CHUNK = 1 << 24
+
+
 def bits_hash(torch, t):
-    """A position-sensitive hash of a tensor's bits (int64, on device)."""
-    b = t.detach().contiguous().view(torch.int32).reshape(-1).to(torch.int64)
-    w = torch.arange(b.numel(), device=b.device, dtype=torch.int64)
-    return (b * (w % 65521 + 1)).sum()
+    """A position-sensitive hash of a tensor's bits (int64, on device):
+    the sum, wrapping in int64, of each 32-bit word times (its index mod
+    65521) + 1, taken a chunk at a time."""
+    flat = t.detach().contiguous().view(torch.int32).reshape(-1)
+    out = torch.zeros((), dtype=torch.int64, device=flat.device)
+    for i in range(0, flat.numel(), HASH_CHUNK):
+        b = flat[i:i + HASH_CHUNK].to(torch.int64)
+        w = torch.arange(i, i + b.numel(), device=b.device,
+                         dtype=torch.int64)
+        out += (b * (w % 65521 + 1)).sum()
+    return out
 
 
 def log_heartbeats(tag, pods, who="pod"):
@@ -1773,7 +1811,7 @@ def restart_pod_path(group, spec):
 
 def restart_phase(torch) -> dict:
     """Phase 9a: restart-replay on one pod, paper-350m at full width and
-    ``RESTART``'s 12 layers (phase 5's configuration cut in depth,
+    ``RESTART``'s 6 layers (phase 5's configuration cut in depth,
     ``ckpt_every`` 4), under ``RunConfig.deterministic``, in a process of
     its own.  Run A trains
     10 steps; run B trains 9 in a fresh directory, leaves a crashed
@@ -3557,11 +3595,13 @@ def frontend_train_phase(torch, card) -> dict:
 # phase 17: serving under a within-pod ("data", "model") mesh
 # ---------------------------------------------------------------------------
 
-#: 17(a): these models at full published width, cut to ``MESH_LAYERS``,
-#: on these (D, M) meshes, the D * M ranks sharing the one card (gloo,
-#: staged through pinned host memory)
+#: 17(a): these models at full published width, cut to ``MESH_LAYERS``
+#: (2 until phase 18 joined the script: dbrx's (2, 2) decode step 8.3 s
+#: there, its FSDP gathers through gloo), on these (D, M) meshes, the
+#: D * M ranks sharing the one card (gloo, staged through pinned host
+#: memory)
 MESH_MODELS = ("qwen3-8b", "dbrx-132b")
-MESH_LAYERS = 2
+MESH_LAYERS = 1
 MESH_SHAPES = ((1, 2), (2, 2))
 #: gate 1: a seeded batch of 4 x 256 tokens prefilled (batch over "data"
 #: at D = 2, sequence over "model"), then 4 teacher-forced decode steps;
@@ -3833,7 +3873,7 @@ def log_mesh_served(tag, arch, mesh, res, card) -> None:
 
 
 def serve_mesh_phase(torch, card) -> None:
-    """Phase 17: (a) qwen3-8b and dbrx-132b at full width, 2 layers, on
+    """Phase 17: (a) qwen3-8b and dbrx-132b at full width, 1 layer, on
     (1, 2) and (2, 2) meshes of ranks sharing the card, held to the
     unsharded model; (b) with four cards, dbrx-132b on (1, 4) over NCCL,
     gated at 8 layers and served at 40."""
@@ -3910,6 +3950,531 @@ def mesh_big_phase(torch) -> None:
         f"shards', K1-K16 launched 0 times")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training on a within-pod ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+#: the largest step peak per parameter of a mesh rank that phase 18
+#: measured (qwen3-8b, 2 layers on (1, 2), whose embedding half is 62% of
+#: a rank's parameters: 51.34 B on an H100 80GB HBM3 at 700 W), rounded up
+MESH_BYTES_PER_PARAM = 52.0
+#: 18(a): the D * M ranks share the one card (gloo, staged through pinned
+#: host memory; the times are the host's).  Full width, cut in depth: the
+#: ranks' summed peak, reckoned at ``MESH_BYTES_PER_PARAM`` per parameter
+#: of each rank, leaves ``ZOO_FREE_GIB`` of the card.  qwen3-8b does not
+#: fit four ranks on one card even at 1 layer (each holds half its
+#: 622M-entry embedding: 74.6 GB reckoned; it ran out of memory), so
+#: (2, 2) runs qwen3-moe-30b-a3b (half of a 311M-entry embedding a rank),
+#: and qwen3-8b trains on (2, 2) in (b)
+#: and qwen3-8b trains on (2, 2) in (b).  At D = 2 every step gathers the
+#: FSDP halves through gloo on the host (qwen3-moe's local step 6.6 s on
+#: (2, 2) against 0.68 s on (1, 2)): there the sync interval H is 2 (one
+#: local step, a delta_sync) and gate 1 runs at capacity 1.25 only (the
+#: E / K run holds the layout alone, which the 1.25 run holds too)
+MESH_TRAIN_A = ({"arch": "qwen3-8b", "n_layers": 2, "mesh": (1, 2)},
+                {"arch": "qwen3-moe-30b-a3b", "n_layers": 1, "mesh": (1, 2)},
+                {"arch": "qwen3-moe-30b-a3b", "n_layers": 1, "mesh": (2, 2),
+                 "steps": 2, "H": 2})
+#: 18(a)'s batch (global) x sequence
+MESH_TRAIN_A_SHAPE = (4, 512)
+#: 18(b), with four cards or more, over NCCL: depth by
+#: ``launch.memory.mesh_train_depth`` at ``MESH_BYTES_PER_PARAM``, leaving
+#: ``ZOO_FREE_GIB`` of each card
+MESH_TRAIN_B = ({"arch": "dbrx-132b", "mesh": (1, 4)},
+                {"arch": "qwen3-8b", "mesh": (2, 2)})
+MESH_TRAIN_B_SHAPE = (8, 1024)
+#: the loop's steps (replan every 4: local x 3, delta_sync, the replan,
+#: local; a mesh's "steps" and "H" where it gives them), then a grad_sync
+#: under the loop's plan and an all-rungs one
+MESH_TRAIN_STEPS = 5
+#: gate 1, f32 compute: each leaf's gathered gradient within this much of
+#: its norm, the loss within this much of its value
+MESH_GATE1_RTOL = 1e-3
+#: gate 1's runs: (name, capacity factor E / K?, against
+#: ``moe_apply_blocked``?)
+MESH_GATE1_RUNS = {"dense": (("f32", False, False),),
+                   "moe": (("f32, cf E/K", True, False),
+                           ("f32, cf 1.25", False, True))}
+
+
+def mesh_train_config(arch, n_layers, batch, seq, H=None):
+    """(the config cut to ``n_layers``, its RunConfig as phase 12's, the
+    sync interval ``H`` where given)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import (ACESyncConfig, RunConfig,
+                                          ShapeConfig)
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=n_layers)
+    ace = ACESyncConfig(replan_every=4)
+    if H:
+        ace = dataclasses.replace(ace, sync_interval_init=H)
+    run = RunConfig(model=cfg, shape=ShapeConfig("session", seq, batch,
+                                                 "train"),
+                    total_steps=100, warmup_steps=2, ckpt_every=0,
+                    ckpt_dir=str(CKPT_ROOT / "mesh_train"), acesync=ace)
+    return cfg, run
+
+
+def gate1_runs(family, mesh) -> tuple:
+    """Gate 1's runs of a ``family`` model on ``mesh``: at D = 2 only
+    those against ``moe_apply_blocked``, where the family has them."""
+    runs = MESH_GATE1_RUNS[family]
+    return tuple(r for r in runs if mesh[0] == 1 or r[2]) or runs
+
+
+def gate1_model(torch, model, run_spec, blocked=None):
+    """Switch ``model`` to gate 1's run ``run_spec`` (f32 compute, the
+    capacity factor, ``moe_apply_blocked`` over the ``blocked`` (D, M)
+    for an unsharded model); returns the undo."""
+    from repro_torch.models import moe
+    _, ek, use_blocked = run_spec
+    cfg, dtype, apply = model.cfg, model.dtype, moe.moe_apply
+    change = {"dtype": "float32"}
+    if ek:
+        change["capacity_factor"] = cfg.n_experts / cfg.experts_per_token
+    model.cfg = dataclasses.replace(cfg, **change)
+    model.dtype = torch.float32
+    if use_blocked and blocked:
+        moe.moe_apply = (lambda p, x, c: moe.moe_apply_blocked(
+            p, x, c, *blocked))
+
+    def undo():
+        model.cfg, model.dtype, moe.moe_apply = cfg, dtype, apply
+    return undo
+
+
+def gate1_key(arch, n_layers, run_spec, mesh) -> str:
+    """The name of gate 1's reference run: the model, its depth, the run
+    and, for a blocked run, the mesh whose blocks it dispatches."""
+    key = f"{arch}@{n_layers}/{run_spec[0]}"
+    return key + (f"/{mesh[0]}x{mesh[1]}" if run_spec[2] and mesh else "")
+
+
+def loss_and_grads(torch, model, batch):
+    """The loss and the leaves' gradients (on a mesh rank: reduced to the
+    rank's shards of the global gradient)."""
+    from repro_torch import tree as T
+    leaves = T.leaves(model.param_tree())
+    with torch.enable_grad():
+        loss = model.loss(batch)
+        grads = torch.autograd.grad(loss, leaves)
+    if model.ctx is not None:
+        grads = model.reduce_grads(grads)
+    return float(loss.detach()), grads
+
+
+def mesh_train_ref_path(group, spec):
+    """Gate 1's unsharded models on one card (a process of its own, before
+    the meshes): each (arch, depth) from seed 0 as the Trainer draws it,
+    each run's loss and gradients on the meshes' first batch; the
+    gradients go to ``spec["dir"]/<arch>/<run>[/DxM]/<leaf>.npy``."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.registry import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch, n_layers, meshes in spec["models"]:
+        cfg, run = mesh_train_config(arch, n_layers, *MESH_TRAIN_A_SHAPE)
+        model = build_model(cfg, run, device="cuda")
+        model.init_params(torch.Generator(device="cuda").manual_seed(0))
+        batch = next(TokenPipeline(model, run.shape, seed=0))
+        paths = [T.path_str(q) for q, _ in
+                 T.leaves_with_path(model.param_tree())]
+        for rs in MESH_GATE1_RUNS[cfg.family]:
+            for mesh in [m for m in meshes if rs in gate1_runs(
+                    cfg.family, m)][:None if rs[2] else 1]:
+                key = gate1_key(arch, n_layers, rs, mesh)
+                undo = gate1_model(torch, model, rs, mesh)
+                try:
+                    loss, grads = loss_and_grads(torch, model, batch)
+                finally:
+                    undo()
+                d = Path(spec["dir"]) / "".join(
+                    ch if ch.isalnum() else "_" for ch in key)
+                d.mkdir(parents=True, exist_ok=True)
+                for q, g in zip(paths, grads):
+                    np.save(d / (q.replace("/", ".") + ".npy"),
+                            g.cpu().numpy())
+                out[key] = {"loss": loss, "dir": str(d)}
+                del grads
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_gate1(torch, np, sess, ctx, ref):
+    """Gate 1 on a rank: each of the model's runs' loss and the rank's
+    reduced gradient shards against the unsharded model's (``ref``:
+    {key: {"loss", "dir"}}); per leaf the norms of the difference and of
+    the reference summed over the world, each shard once.  Returns
+    {run: (loss, reference loss, {leaf: relative error})}."""
+    from repro_torch import tree as T
+    model, tr = sess.model, sess.trainer
+    batch = {k: torch.from_numpy(v).to(ctx.device)
+             for k, v in sess.pipeline.host_batch(0).items()}
+    paths = [T.path_str(q) for q, _ in T.leaves_with_path(model.param_tree())]
+    out = {}
+    for rs in gate1_runs(model.cfg.family, (ctx.D, ctx.M)):
+        key = gate1_key(model.cfg.name, model.cfg.n_layers, rs,
+                        (ctx.D, ctx.M))
+        undo = gate1_model(torch, model, rs)
+        try:
+            loss, grads = loss_and_grads(torch, model, batch)
+        finally:
+            undo()
+        rows = []
+        for q, g in zip(paths, grads):
+            w = np.load(Path(ref[key]["dir"]) / (q.replace("/", ".")
+                                                 + ".npy"), mmap_mode="r")
+            w = torch.from_numpy(np.ascontiguousarray(
+                w[model.shard_index(q)])).to(ctx.device)
+            rows.append(torch.stack([((g.float() - w) ** 2).sum(),
+                                     (w ** 2).sum()]))
+            del w
+        sums = tr._mesh_sum(torch.stack(rows))
+        rel = (sums[:, 0].sqrt() / sums[:, 1].sqrt().clamp_min(1e-30)).cpu()
+        out[rs[0]] = (loss, ref[key]["loss"],
+                      dict(zip(paths, rel.tolist())))
+        del grads
+    return out
+
+
+def checked_sync(torch, T, S, current, record):
+    """``sync_tree`` wrapped for gate 2: before the trainer's round, the
+    one-pod ``sync_tree`` of the step's host plan on this rank's own
+    grads, errors and local layout (no apply; the apply function, which
+    is elementwise, run on its whole leaves after) — each output leaf's
+    bit hash — then the trainer's round, whose output leaves must hash
+    alike.  The reference round's buffers are freed before the trainer's
+    starts."""
+    real = S.sync_tree
+
+    def leaf_hashes(ts):
+        return torch.stack([bits_hash(torch, t) for t in ts]).tolist()
+
+    def sync_tree(tree, errors, plan, *, gamma, block, apply_fn=None,
+                  apply_aux=(), apply_scalars=(), **kw):
+        agg, err = real(tree, errors, current["plan"], gamma=gamma,
+                        block=block)
+        want = leaf_hashes(T.leaves(err))
+        if apply_fn is None:
+            want += leaf_hashes(T.leaves(agg))
+        else:
+            aux = [T.leaves(a) for a in apply_aux]
+            outs = [[] for _ in aux]
+            for i, g in enumerate(T.leaves(agg)):
+                rows = apply_fn(g.reshape(1, -1),
+                                tuple(a[i].float().reshape(1, -1)
+                                      for a in aux), apply_scalars)
+                for j, r in enumerate(rows):
+                    outs[j].append(bits_hash(torch, r.to(aux[j][i].dtype)))
+            want += [int(h) for o in outs for h in o]
+        del agg, err
+        out, new_err = real(tree, errors, plan, gamma=gamma, block=block,
+                            apply_fn=apply_fn, apply_aux=apply_aux,
+                            apply_scalars=apply_scalars, **kw)
+        got = leaf_hashes(T.leaves(new_err))
+        got += (leaf_hashes(T.leaves(out)) if apply_fn is None else
+                [h for o in out for h in leaf_hashes(T.leaves(o))])
+        record.append({"kind": current["kind"], "leaves": len(got),
+                       "differ": sum(a != b for a, b in zip(got, want))})
+        return out, new_err
+    return sync_tree
+
+
+def mesh_train_path(ctx, spec):
+    """One rank of phase 18: ``spec["arch"]`` at full width and
+    ``spec["n_layers"]``, sharded on the mesh, trained from seed 0
+    through TrainSession: gate 1 (a) on the first batch, then
+    ``MESH_TRAIN_STEPS`` steps of the loop, a grad_sync under its plan
+    and an all-rungs one, each on CUDA events, the sync rounds checked
+    (gate 2), the kernels' launches counted from 0 before the loop; with
+    ``spec["memory"]``, ``launch.memory.step_memory`` after."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.core import sync as S
+    from repro_torch.kernels import ops
+    from repro_torch.launch.memory import state_bytes, step_memory
+    from repro_torch.launch.session import TrainSession
+    from repro_torch.models import flops
+    from repro_torch.models.registry import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, run = mesh_train_config(spec["arch"], spec["n_layers"],
+                                 *spec["shape"], H=spec.get("H"))
+    t0 = time.perf_counter()
+    sess = TrainSession(build_model(cfg, run, device=ctx.device, ctx=ctx),
+                        run, strategy="acesync")
+    sess.init()
+    torch.cuda.synchronize()
+    out = {"rank": ctx.rank, "backend": ctx.world.backend,
+           "init_s": time.perf_counter() - t0,
+           "state_bytes": state_bytes(sess.state),
+           "n_params": sum(p.numel() for p in sess.model.parameters())}
+    if spec.get("ref"):
+        out["gate1"] = mesh_gate1(torch, np, sess, ctx, spec["ref"])
+    tr = sess.trainer
+    current, record, times, step = {}, [], [], tr.step
+
+    def timed(state, batch, plan, kind="grad_sync"):
+        current.update(plan=plan, kind=kind)
+        before = sum(ops.launch_counts().get(k, 0) for k in KERNELS)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = step(state, batch, plan, kind)
+        e1.record()
+        times.append((kind, e0, e1, sum(ops.launch_counts().get(k, 0)
+                                        for k in KERNELS) - before))
+        return res
+
+    tr.step = timed
+    S.sync_tree = checked_sync(torch, T, S, current, record)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    sess.run(spec.get("steps", MESH_TRAIN_STEPS), log_every=0)
+    state = sess.take_state()
+    state, m1 = tr.step(state, next(sess.pipeline), sess.loop.plan,
+                        "grad_sync")
+    rr = tr.scheduler.plan_from_levels(
+        [i % 8 for i in range(len(tr.sizes))], (1.0,))
+    state, m2 = tr.step(state, next(sess.pipeline), rr, "grad_sync")
+    torch.cuda.synchronize()
+    out["launches"] = ops.launch_counts()
+    out["peak_alloc"] = torch.cuda.max_memory_allocated()
+    out["card_bytes"] = torch.cuda.get_device_properties(
+        ctx.device).total_memory
+    out["losses"] = sess.losses + [float(m1["loss"]), float(m2["loss"])]
+    out["grad_norms"] = [h["grad_norm"] for h in sess.history
+                         if "grad_norm" in h] + [float(m1["grad_norm"]),
+                                                 float(m2["grad_norm"])]
+    out["kinds"] = [k for h in sess.history for k in h["kinds"]] + [
+        "grad_sync", "grad_sync_all_rungs"]
+    out["plan"] = list(sess.loop.plan.level_idx)
+    out["replans"] = sess.loop.device_replans
+    out["step"] = int(state["step"])
+    out["importance"] = [int(bits_hash(torch, x)) for x in T.leaves(
+        dict(zip(state["ace"].importance._fields, state["ace"].importance)))]
+    out["finite"] = all(bool(torch.isfinite(p).all())
+                        for p in T.leaves(state["params"]))
+    out["sync"] = record
+    out["ms"], out["sync_launches"] = {}, []
+    for i, (kind, e0, e1, n) in enumerate(times):
+        kind = "grad_sync_all_rungs" if i == len(times) - 1 else kind
+        out["ms"].setdefault(kind, []).append(e0.elapsed_time(e1))
+        if kind != "local":
+            out["sync_launches"].append((kind, n))
+    shape = run.shape
+    out["model_flops"] = flops.model_flops(cfg, shape)
+    out["tokens"] = shape.global_batch * shape.seq_len
+    if spec.get("memory"):
+        # the state is handed over, as TrainSession.run hands it to the
+        # loop: each step kind frees the state it replaces
+        del m1, m2
+        sess.state, state = state, None
+        mem = step_memory(tr, sess.take_state(), next(sess.pipeline), rr,
+                          sess.loop.plan)
+        out["memory"] = {k: mem[k] for k in ("n_params", "per_param",
+                                             "peak")}
+    return out
+
+
+def check_mesh_train(tag, card, spec, res, cards=1) -> dict:
+    """Gates 1-4 of one mesh's ranks and their lines; returns the
+    kernels' launches summed over the ranks."""
+    from repro_torch.models import flops
+    arch, (D, M) = spec["arch"], spec["mesh"]
+    name = f"{arch} on ({D}, {M})"
+    r0 = res[0]
+    for r in res:
+        if not r["finite"] or not all(math.isfinite(x)
+                                      for x in r["losses"]):
+            fail(f"{tag}: {name} rank {r['rank']}: non-finite losses "
+                 f"{r['losses']} or parameters")
+        # gate 3: the same trajectory on every rank
+        for key in ("losses", "grad_norms", "plan", "step", "importance",
+                    "kinds"):
+            if r[key] != r0[key]:
+                fail(f"{tag}: {name}: rank {r['rank']}'s {key} "
+                     f"{r[key]} differ from rank 0's {r0[key]}")
+        # gate 2: every sync round bit-identical to the one-pod round
+        bad = [x for x in r["sync"] if x["differ"]]
+        if bad or not r["sync"]:
+            fail(f"{tag}: {name} rank {r['rank']}: sync rounds not the "
+                 f"one-pod round on the rank's shards: {bad or 'none run'}")
+        # gate 4: K1-K4 on every rank
+        missing = [k for k in KERNELS if r["launches"].get(k, 0) < 1]
+        if missing:
+            fail(f"{tag}: {name} rank {r['rank']}: kernels never "
+                 f"launched: {missing}")
+        free = (r["card_bytes"] - r["peak_alloc"] * (D * M if cards == 1
+                                                     else 1)) / 2**30
+        if free < 0:
+            fail(f"{tag}: {name}: peak {r['peak_alloc']} B a rank "
+                 f"overflows the card")
+        if "gate1" in r:
+            for run, (loss, want, rel) in r["gate1"].items():
+                worst = max(rel, key=rel.get)
+                ok = (abs(loss - want) <= MESH_GATE1_RTOL * abs(want)
+                      and rel[worst] <= MESH_GATE1_RTOL)
+                if r["rank"] == 0:
+                    log(f"{tag}: {name}, gate 1 ({run}): loss {loss:.7g} "
+                        f"against the unsharded model's {want:.7g}; the "
+                        f"gathered gradients' largest |diff| / |ref| "
+                        f"{rel[worst]:.4g} ({worst}), within "
+                        f"{MESH_GATE1_RTOL} [{card}]")
+                if not ok:
+                    fail(f"{tag}: {name} rank {r['rank']}, gate 1 ({run}): "
+                         f"loss {loss} vs {want}, {worst} at {rel[worst]}")
+    log(f"{tag}: {name}: steps {r0['kinds']}, losses "
+        f"{[round(x, 4) for x in r0['losses']]}, grad norms "
+        f"{[round(x, 4) for x in r0['grad_norms']]}, plan {r0['plan']} "
+        f"({r0['replans']} device replan(s)) identical on all {D * M} "
+        f"ranks; {sum(len(r['sync']) for r in res)} sync rounds "
+        f"bit-identical to the one-pod round on each rank's shards; K1-K4 "
+        f"launches per rank {[[r['launches'].get(k, 0) for k in KERNELS] for r in res]}; "
+        f"K1-K4 launches of each sync step (rank 0) {r0['sync_launches']}")
+    for r in res:
+        ms = dict(r["ms"])
+        line = []
+        for kind, xs in ms.items():
+            med, lo, hi = _spread(xs)
+            line.append(f"{kind} {med:.3f} ({lo:.3f}-{hi:.3f})")
+        med = _spread(ms["local"])[0]
+        mfu = flops.mfu(r["model_flops"], med * 1e-3, cards=D * M)
+        extra = ""
+        if "memory" in r:
+            pp = r["memory"]["per_param"]
+            extra = ("; bytes per parameter " + ", ".join(
+                f"{k} {v:.2f}" for k, v in sorted(pp.items())))
+        log(f"{tag}: {name} over {r['backend']}, rank {r['rank']} on "
+            f"{card}: {r['n_params']:,} parameters, train state "
+            f"{r['state_bytes']:,} B, init {r['init_s']:.2f} s; step ms "
+            f"median (min-max): {'; '.join(line)}; local "
+            f"{r['tokens'] / (med * 1e-3):.1f} tokens/s, MFU {mfu:.6g} at "
+            f"6 * N_active * tokens ({r['model_flops']:.4g} FLOPs) of "
+            f"{D * M} x 989 TFLOP/s; peak {r['peak_alloc'] / 2**30:.3f} "
+            f"GiB allocated ({r['peak_alloc'] / r['n_params']:.2f} B per "
+            f"parameter){extra}")
+    return {k: sum(r["launches"].get(k, 0) for r in res)
+            for k in r0["launches"]}
+
+
+def mesh_train_reckoning(tag, cfgs, card_bytes, shared) -> None:
+    """Each mesh's reckoned peak per card (``MESH_BYTES_PER_PARAM`` per
+    parameter of each rank; the ranks' sum where they share the card)
+    must leave ``ZOO_FREE_GIB`` of it."""
+    from repro_torch.launch.memory import mesh_train_bytes
+    for cfg, (D, M) in cfgs:
+        per = mesh_train_bytes(cfg, D, M, MESH_BYTES_PER_PARAM)
+        peak = sum(per) if shared else max(per)
+        free = (card_bytes - peak) / 2**30
+        log(f"{tag}: {cfg.name} at {cfg.n_layers} layers on ({D}, {M}): "
+            f"{peak / 2**30:.2f} GiB reckoned per card "
+            f"({MESH_BYTES_PER_PARAM} B x each rank's parameters"
+            f"{', the ranks summed' if shared else ''}), {free:.2f} GiB "
+            f"of {card_bytes / 2**30:.2f} free")
+        if free < ZOO_FREE_GIB:
+            fail(f"{tag}: {cfg.name} at {cfg.n_layers} layers on ({D}, {M}) "
+                 f"does not fit with {ZOO_FREE_GIB} GiB to spare")
+
+
+def mesh_train_phase(torch, card) -> dict:
+    """Phase 18: (a) training on meshes of ranks sharing the card, gates
+    1-4; (b) with four cards, dbrx-132b on (1, 4) and qwen3-8b on (2, 2)
+    over NCCL, gates 2-4.  Returns the kernels' launches per path."""
+    import gc
+    from repro_torch.launch.mesh import spawn_mesh, spawn_pods
+    tag = "phase 18 (a)"
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    B, S = MESH_TRAIN_A_SHAPE
+    mesh_train_reckoning(tag, [(mesh_train_config(
+        c["arch"], c["n_layers"], B, S)[0], c["mesh"])
+        for c in MESH_TRAIN_A], card_bytes, shared=True)
+    models = {}
+    for c in MESH_TRAIN_A:
+        models.setdefault((c["arch"], c["n_layers"]), []).append(c["mesh"])
+    gdir = CKPT_ROOT / "mesh_train_grads"
+    t0 = time.perf_counter()
+    (ref,) = spawn_pods(mesh_train_ref_path, 1, "cuda", args=(
+        {"dir": str(gdir), "models": [(a, n, m) for (a, n), m in
+                                      models.items()]},), timeout=600)
+    log(f"{tag}: gate 1's unsharded models and their saved gradients "
+        f"{time.perf_counter() - t0:.2f} s")
+    launches = {}
+    for c in MESH_TRAIN_A:
+        spec = dict(c, shape=MESH_TRAIN_A_SHAPE, ref=ref)
+        res = spawn_mesh(mesh_train_path, *c["mesh"], "cuda", args=(spec,),
+                         timeout=600)
+        D, M = c["mesh"]
+        launches[f"mesh_{c['arch']}_{D}x{M}"] = check_mesh_train(
+            tag, card, c, res)
+        log(f"{tag}: {time.perf_counter() - t0:.2f} s so far")
+    shutil.rmtree(gdir, ignore_errors=True)
+    launches.update(mesh_train_big_phase(torch))
+    return launches
+
+
+def mesh_train_big_phase(torch) -> dict:
+    """Phase 18(b): dbrx-132b on (1, 4) and qwen3-8b on (2, 2), a card a
+    rank, over NCCL, at the depths the reckoning gives; one line and
+    nothing else on fewer cards."""
+    import gc
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.memory import mesh_train_depth
+    from repro_torch.launch.mesh import spawn_mesh
+    tag = "phase 18 (b)"
+    n = torch.cuda.device_count()
+    if n < 4:
+        log(f"{tag}: {n} card(s): dbrx-132b on a (1, 4) mesh and qwen3-8b "
+            f"on (2, 2) train on four; not run")
+        return {}
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    cards = "; ".join(out.splitlines()[:4])
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    limit = card_bytes - ZOO_FREE_GIB * 2**30
+    launches = {}
+    for c in MESH_TRAIN_B:
+        gc.collect()
+        torch.cuda.empty_cache()
+        layers = mesh_train_depth(ARCHS[c["arch"]], *c["mesh"], limit,
+                                  MESH_BYTES_PER_PARAM)
+        if layers < 1:
+            fail(f"{tag}: {c['arch']} on {c['mesh']}: not one layer fits")
+        B, S = MESH_TRAIN_B_SHAPE
+        cfg, _ = mesh_train_config(c["arch"], layers, B, S)
+        mesh_train_reckoning(tag, [(cfg, c["mesh"])], card_bytes,
+                             shared=False)
+        spec = dict(c, n_layers=layers, shape=MESH_TRAIN_B_SHAPE,
+                    memory=True)
+        # the ranks' allocator grows its segments in place: with fixed
+        # segments qwen3-8b's 24-layer ranks left 17.8-28.6 GiB reserved
+        # but unallocated and could not place the sync round's 5.47 GiB
+        # buffer
+        saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            res = spawn_mesh(mesh_train_path, *c["mesh"], "cuda",
+                             args=(spec,), timeout=900)
+        finally:
+            if saved is None:
+                os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+        D, M = c["mesh"]
+        launches[f"mesh_b_{c['arch']}_{D}x{M}"] = check_mesh_train(
+            tag, cards, dict(c, n_layers=layers), res, cards=4)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3966,6 +4531,7 @@ def main() -> int:
     by_path.update(timed_phase("phase 16", frontend_train_phase, torch,
                                card))
     timed_phase("phase 17", serve_mesh_phase, torch, card)
+    by_path.update(timed_phase("phase 18", mesh_train_phase, torch, card))
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     log(f"pod link (phase 7, P = 2 ping-pong): latency "
         f"{link['latency_s']:.6g} s per hop, rate "
@@ -4007,6 +4573,14 @@ def main() -> int:
                                          **TRAIN_FRONTEND).items()})
     paths["zoo_determinism"] = dict(paths[f"zoo_{ZOO_DET['arch']}"],
                                     runs=2, steps=ZOO_DET["steps"])
+    paths.update({f"mesh_{c['arch']}_{c['mesh'][0]}x{c['mesh'][1]}": {
+        "arch": c["arch"], "layers": c["n_layers"], "mesh": c["mesh"],
+        "batch": MESH_TRAIN_A_SHAPE[0], "seq": MESH_TRAIN_A_SHAPE[1]}
+        for c in MESH_TRAIN_A})
+    paths.update({p: {"arch": p.split("_")[2], "mesh": p.split("_")[3],
+                      "cards": 4, "batch": MESH_TRAIN_B_SHAPE[0],
+                      "seq": MESH_TRAIN_B_SHAPE[1]}
+                  for p in by_path if p.startswith("mesh_b_")})
     print(json.dumps({"kernels": kernels, "paths": paths,
                       "link": {k: link[k] for k in ("latency_s",
                                                     "rate_bytes_per_s")}}),

@@ -17,7 +17,10 @@ model's Parameters are loaded in place by :func:`params_from_reference`
 (they stay the ``params`` leaves; a serving model loads the reference's
 bare parameter tree through it), every other leaf becomes a tensor on
 the trainer's device (:func:`shard_params` first cuts a serving model's
-parameters to its rank's shards on a ("data", "model") mesh).
+parameters to its rank's shards on a ("data", "model") mesh).  On a mesh
+rank every parameter-shaped tree — params, m, v, the error buffers and
+the anchor — is cut to the rank's shards (``model.shard_index``), the
+rest (step, importance state) taken whole.
 :func:`pod_state_from_reference` takes the
 reference's multi-pod state as it is, every leaf with its leading pod
 dimension, and returns pod ``pod``'s state (one per pod process).  On a
@@ -75,6 +78,12 @@ def shard_params(flat: Dict[str, np.ndarray], model) -> dict:
 def state_from_reference(flat: Dict[str, np.ndarray], trainer) -> dict:
     """The port's train state from the reference's (see module doc)."""
     dev = trainer.device
+    model = trainer.model
+    if getattr(model, "ctx", None) is not None:
+        trees = ("params/", "m/", "v/", "ace/errors/", "anchor/")
+        flat = {k: next((np.asarray(a)[model.shard_index(k[len(t):])]
+                         for t in trees if k.startswith(t)), a)
+                for k, a in flat.items()}
     tree = T.from_flat_dict(flat)
     params = params_from_reference(
         {k[len("params/"):]: a for k, a in flat.items()

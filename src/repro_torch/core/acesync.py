@@ -8,7 +8,10 @@ importance-estimator update (eqs 3-4).
 
 With a pod group the per-group gradient stats are averaged across the
 pods before they feed the estimator, so the importance state (and the
-device replan it drives) is the same on every pod.
+device replan it drives) is the same on every pod.  On a ("data",
+"model") mesh rank the stats are the whole leaves' (``stats_reduce`` and
+``sizes``, see ``sync.grad_group_stats``): the same on every rank, while
+the sync round runs on the rank's shards.
 """
 from __future__ import annotations
 
@@ -51,12 +54,13 @@ def init_state(generator: torch.Generator, params, metas,
 
 def sync_gradients(grads, state: ACEState, plan: Union[SyncPlan, ExecPlan],
                    *, cfg: ACESyncConfig, pods=None, apply_fn=None,
-                   apply_aux=(), apply_scalars=()
+                   apply_aux=(), apply_scalars=(), stats_reduce=None,
+                   sizes=None
                    ) -> Tuple[dict, ACEState, Dict[str, torch.Tensor]]:
     """The ACE-Sync round over the pods of ``pods`` (None: one pod).
     Returns (aggregated grads — or, with ``apply_fn``, the tuple of updated
     ``apply_aux`` trees — the new state, metrics)."""
-    mean_abs, var, nrm = S.grad_group_stats(grads)
+    mean_abs, var, nrm = S.grad_group_stats(grads, stats_reduce, sizes)
     if pods is not None and pods.size > 1:
         # one collective for the three (G,) stat vectors, stacked
         mean_abs, var, nrm = pods.pmean(torch.stack([mean_abs, var, nrm]))

@@ -41,6 +41,10 @@ Memory: the residuals are written over the packed errors, and on one pod
 each rung runs in row chunks of :data:`SYNC_ROWS` — every codec encodes
 a row on its own, so either gives the same bits as the whole bucket.
 
+On a ("data", "model") mesh rank (one pod) the round runs on the rank's
+shards: the leaves are the rank's local shards, laid out from their own
+sizes, the one-pod round of the reference's nested manual region.
+
 Backward segments: a segmented plan runs one pack + exchange per leaf
 range, walked in reverse leaf order as the reference does.  In this slice
 the segments run after the backward pass; interleaving them with it is
@@ -314,9 +318,13 @@ def sync_tree(tree, errors, plan: Union[SyncPlan, ExecPlan], *,
     return T.unflatten(treedef, list(outs)), news_tree
 
 
-def grad_group_stats(tree):
+def grad_group_stats(tree, reduce=None, sizes=None):
     """Per-group scalars feeding the importance estimator: (mean|g|, var,
-    norm), each (G,)."""
+    norm), each (G,).  On a mesh rank the leaves are shards: ``reduce``
+    maps the (G, 3) per-leaf partial sums of |g|, g^2 and g to the whole
+    mesh's (one collective, each element counted once) and ``sizes`` are
+    the leaves' global element counts, so the statistics are the whole
+    leaves', as the reference computes them."""
     rows, ns = [], []
     for g in T.leaves(tree):
         g32 = g.float().reshape(-1)
@@ -324,6 +332,10 @@ def grad_group_stats(tree):
                                  g32.sum()]))
         ns.append(max(g32.shape[0], 1))
     table = torch.stack(rows)                         # (G, 3)
+    if reduce is not None:
+        table = reduce(table)
+    if sizes is not None:
+        ns = [max(int(n), 1) for n in sizes]
     n = torch.tensor(ns, dtype=torch.float32, device=table.device)
     mean_abs = table[:, 0] / n
     mean = table[:, 2] / n

@@ -28,6 +28,20 @@ Parameters, updated in place; the other entries are replaced each step.
 PyTorch runs eagerly, so there is no compiled-step cache: a plan is
 lowered to an :class:`ExecPlan` (perms on the device) once per distinct
 assignment.
+
+On a within-pod ("data", "model") mesh (the model's ``ctx``; one pod,
+one process per rank) the state is the rank's shards: params, m, v, the
+error buffers and the anchor, each leaf as the model shards it.  The
+loss, the gradient norm and the importance statistics are global — the
+model's loss is the global-batch mean, the gradients are reduced to
+each rank's shard of the global gradient (``model.reduce_grads``), and
+the per-leaf sums of the norm and the stats are summed over the world
+with each element counted once (the first rank holding a shard counts
+it).  The ``Scheduler`` prices the plan on the global sizes; the sync
+round is the one-pod round on the rank's shards, laid out from the
+local sizes (``local_sizes``), the reference's nested manual region.  A
+mesh on which a rank's shard is not the reference's local shard is
+refused (``ValueError`` naming the leaf).
 """
 from __future__ import annotations
 
@@ -72,6 +86,14 @@ class Trainer:
             raise NotImplementedError(
                 f"{model.cfg.name}: training the {model.cfg.family!r} "
                 f"family is not ported yet")
+        #: the model's ("data", "model") mesh (None: one card)
+        self.ctx = getattr(model, "ctx", None)
+        if self.ctx is not None:
+            if pods is not None and pods.size > 1:
+                raise NotImplementedError(
+                    f"{model.cfg.name}: pods x ('data', 'model') meshes "
+                    f"are not ported yet (ROADMAP Queue 1, item 3)")
+            model.check_reference_shards()
         self.model = model
         self.run = run
         self.device = model.device
@@ -80,14 +102,22 @@ class Trainer:
         self.pods = pods
         self.n_pods = 1 if pods is None else pods.size
         self.n_edge = 1 if pods is None else pods.n_edge
-        self.param_shapes = model.param_shapes()
+        self.param_shapes = model.global_param_shapes()
         self.metas = S.group_metas(self.param_shapes)
+        #: the leaves' global sizes (what the scheduler prices) and this
+        #: rank's shards' (what the sync round lays out)
         self.sizes = [m.size for m in self.metas]
+        self.local_sizes = [p.numel() for p in T.leaves(model.param_tree())]
         self.scheduler = Scheduler(run.acesync, self.sizes, self.n_pods,
                                    n_edge=self.n_edge, device=self.device)
-        self.leaf_layout = planexec.leaf_layout(self.sizes,
+        self.leaf_layout = planexec.leaf_layout(self.local_sizes,
                                                 run.acesync.topk_block)
         self._exec_cache: Dict = {}
+        self._owned = None
+        if self.ctx is not None:
+            self._owned = torch.tensor(model.owned_leaves(),
+                                       dtype=torch.float32,
+                                       device=self.device)
 
     # ------------------------------------------------------------------
     # state
@@ -123,18 +153,36 @@ class Trainer:
         both = self.pods.pmean(torch.stack([loss.float(), gnorm.float()]))
         return {"loss": both[0], "grad_norm": both[1]}
 
+    def _mesh_sum(self, per_leaf: torch.Tensor) -> torch.Tensor:
+        """Per-leaf partial sums (G, ...) of this rank's shards -> the whole
+        mesh's, each shard counted by the first rank that holds it."""
+        owned = self._owned.reshape((-1,) + (1,) * (per_leaf.dim() - 1))
+        return self.ctx.all_reduce_sum(per_leaf * owned, "world")
+
     def _grad_step(self, params, batch):
         leaves, treedef = T.flatten(params)
         with torch.enable_grad():
             loss = self.model.loss(batch)
             grads = torch.autograd.grad(loss, leaves)
+        reduce = None
+        if self.ctx is not None:
+            grads = self.model.reduce_grads(grads)
+            reduce = self._mesh_sum
         grads = T.unflatten(treedef, list(grads))
         if self.run.grad_clip > 0:
-            grads, gnorm = adamw.clip_by_global_norm(grads,
-                                                     self.run.grad_clip)
+            grads, gnorm = adamw.clip_by_global_norm(
+                grads, self.run.grad_clip, reduce)
         else:
-            gnorm = adamw.global_norm(grads)
+            gnorm = adamw.global_norm(grads, reduce)
         return loss.detach(), grads, gnorm
+
+    def _sync_kw(self) -> dict:
+        """The sync round's keywords: the pod group, and on a mesh the
+        global statistics' reduction and sizes."""
+        kw = dict(cfg=self.run.acesync, pods=self.pods)
+        if self.ctx is not None:
+            kw.update(stats_reduce=self._mesh_sum, sizes=self.sizes)
+        return kw
 
     def _lr(self, step):
         run = self.run
@@ -164,14 +212,14 @@ class Trainer:
                     weight_decay=run.weight_decay)
 
             out, new_ace, metrics = acesync.sync_gradients(
-                grads, st["ace"], plan, cfg=run.acesync, pods=self.pods,
+                grads, st["ace"], plan, **self._sync_kw(),
                 apply_fn=apply_rows,
                 apply_aux=(st["params"], st["m"], st["v"]),
                 apply_scalars=(self._lr(st["step"]), bc1, bc2))
             new_params, new_m, new_v = out
         else:
             agg, new_ace, metrics = acesync.sync_gradients(
-                grads, st["ace"], plan, cfg=run.acesync, pods=self.pods)
+                grads, st["ace"], plan, **self._sync_kw())
             new_params, opt = self._optimize(st["params"], agg, st["m"],
                                              st["v"], st["step"])
             new_m, new_v = opt["m"], opt["v"]
@@ -201,12 +249,12 @@ class Trainer:
                 return (a_rows + d_rows,)
 
             out, new_ace, metrics = acesync.sync_gradients(
-                delta, st["ace"], plan, cfg=cfg, pods=self.pods,
+                delta, st["ace"], plan, **self._sync_kw(),
                 apply_fn=apply_anchor, apply_aux=(st["anchor"],))
             (new_params,) = out
         else:
             agg, new_ace, metrics = acesync.sync_gradients(
-                delta, st["ace"], plan, cfg=cfg, pods=self.pods)
+                delta, st["ace"], plan, **self._sync_kw())
             new_params = T.tree_map(lambda a, d: (a + d).to(a.dtype),
                                     st["anchor"], agg)
         new_ace = new_ace._replace(

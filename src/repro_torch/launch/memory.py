@@ -13,8 +13,9 @@ backward, the global-norm clip, AdamW; each is run once from the fresh
 state with the peak statistics reset before it, and what it leaves
 allocated and the peak above that are read with
 ``torch.cuda.max_memory_allocated``.  Then each step kind (``local``,
-``delta_sync`` and an all-rungs ``grad_sync``) runs once through
-``Trainer.step`` with its own peak.  Prints one JSON object (and writes
+``delta_sync``, ``grad_sync`` under the loop's own plan and an
+all-rungs ``grad_sync``) runs once through ``Trainer.step`` with its own
+peak; ``peak`` is the largest, from which the depth rules reckon.  Prints one JSON object (and writes
 it to ``--out`` where given): bytes and bytes per parameter by owner —
 the train state, the model's activations kept for the backward, the
 gradients, and each stage's transient above what it started from.  For
@@ -23,7 +24,12 @@ the empty card (:func:`scan_memory`): the scan's own memory at the
 step's shapes, an owner of its own.
 
 :func:`mesh_weight_bytes` reckons, without allocating anything, the
-weight bytes each rank of a ("data", "model") serving mesh holds.
+weight bytes each rank of a ("data", "model") serving mesh holds;
+:func:`mesh_train_bytes` a train step's bytes per card on a training
+mesh (each rank's parameters at a measured bytes per parameter), and
+:func:`mesh_train_depth` the most layers whose largest card stays under
+a limit.  :func:`step_memory` runs on a mesh rank too: the rank's shards,
+its gradients reduced as the trainer reduces them.
 """
 from __future__ import annotations
 
@@ -41,12 +47,40 @@ def mesh_weight_bytes(cfg, D: int, M: int,
     """The weight bytes each rank (d * M + m) of a (D, M) mesh holds of
     ``cfg``'s model in ``dtype``: its Parameters' shapes, as the model
     shards them, built on the meta device."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return [n * size for n in mesh_param_counts(cfg, D, M)]
+
+
+def mesh_param_counts(cfg, D: int, M: int) -> list:
+    """The parameters each rank (d * M + m) of a (D, M) mesh holds of
+    ``cfg``'s model (1, 1: the whole model), from the meta device."""
     from repro_torch.models.registry import build_model
     from repro_torch.models.shardctx import ShardCtx
-    size = torch.empty((), dtype=dtype).element_size()
     return [sum(p.numel() for p in build_model(
         cfg, device="meta", ctx=ShardCtx(D, M, r // M, r % M)).parameters())
-        * size for r in range(D * M)]
+        for r in range(D * M)]
+
+
+def mesh_train_bytes(cfg, D: int, M: int, bytes_per_param: float) -> list:
+    """A train step's peak bytes on each card of a (D, M) training mesh,
+    reckoned at ``bytes_per_param`` (a measured step's peak over its
+    parameters) times the rank's parameters."""
+    return [n * bytes_per_param for n in mesh_param_counts(cfg, D, M)]
+
+
+def mesh_train_depth(cfg, D: int, M: int, limit_bytes: float,
+                     bytes_per_param: float) -> int:
+    """The most layers (in steps of the config's layer group) at which
+    every card's :func:`mesh_train_bytes` stays within ``limit_bytes``
+    (0: not even one group)."""
+    group = 2 if cfg.layer_pattern == "local_global" else 1
+    best = 0
+    for n in range(group, cfg.n_layers + 1, group):
+        c = dataclasses.replace(cfg, n_layers=n)
+        if max(mesh_train_bytes(c, D, M, bytes_per_param)) > limit_bytes:
+            break
+        best = n
+    return best
 
 
 def _alloc() -> int:
@@ -192,13 +226,17 @@ def step_memory(trainer, state, batch, all_rungs_plan, plan) -> dict:
     peak = _peak_from(base)
     grads = torch.autograd.grad(loss, leaves)
     del loss
+    reduce = None
+    if trainer.ctx is not None:
+        grads = trainer.model.reduce_grads(grads)
+        reduce = trainer._mesh_sum
     out["gradients"] = _alloc() - base
     out["backward_peak"] = peak()
     held = base + out["gradients"]
     grads = T.unflatten(treedef, list(grads))
     peak = _peak_from(held)
     with torch.no_grad():
-        grads, _ = adamw.clip_by_global_norm(grads, run.grad_clip)
+        grads, _ = adamw.clip_by_global_norm(grads, run.grad_clip, reduce)
         out["clip_peak"] = peak()
         peak = _peak_from(held)
         new = trainer._optimize(params, grads, state["m"], state["v"],
@@ -209,6 +247,7 @@ def step_memory(trainer, state, batch, all_rungs_plan, plan) -> dict:
 
     kinds = {}
     for kind, p in (("local", plan), ("delta_sync", plan),
+                    ("grad_sync", plan),
                     ("grad_sync_all_rungs", all_rungs_plan)):
         start = _alloc()
         peak = _peak_from(start)

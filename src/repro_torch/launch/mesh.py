@@ -12,6 +12,10 @@ collective a :class:`PodGroup`:
   * ``all_reduce_sum`` / ``pmean`` of small f32 tensors (grad stats,
     divergence projections, the parameter average), summed in pod order
     so that every pod gets the same bits;
+  * ``reduce_scatter`` — each member's row for every member summed over
+    the members, each keeping its own (NCCL's reduce-scatter; under gloo
+    an ``all_to_all`` and the sum in f32 in rank order, the bits of
+    ``all_reduce_sum``'s row): the backward of an FSDP gather;
   * ``full_exchange`` — FULL's cross-pod sum of bf16 contributions as a
     reduce-scatter and an all-gather: each pod sums, in f32 and in pod
     order, the shard of the vector it owns, rounds it to bf16 once, and
@@ -286,15 +290,49 @@ class PodGroup:
         return got.view(x.dtype).reshape(x.shape)
 
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum of a small f32 tensor over the pods, in pod order 0..P-1
-        (the same bits on every pod)."""
-        if x.dtype != torch.float32:
-            raise ValueError(f"all_reduce_sum takes float32, got {x.dtype}")
+        """Sum of a small f32 (or f64) tensor over the pods, in pod order
+        0..P-1 (the same bits on every pod)."""
+        if x.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"all_reduce_sum takes float32 or float64, "
+                             f"got {x.dtype}")
         parts = self._gather_values(x, "reduce")
         out = parts[0]
         for p in range(1, self.size):
             out = ftz(out + parts[p])
         return out
+
+    def reduce_scatter(self, parts: torch.Tensor) -> torch.Tensor:
+        """``parts`` (P, ...), row q for member q -> the sum over the
+        members of the rows they hold for this one (...), in ``parts``'s
+        dtype.  NCCL reduces in that dtype; gloo moves the rows with one
+        ``all_to_all`` and sums them in f32 (f64 for f64) in rank order
+        0..P-1, the bits of :meth:`all_reduce_sum`'s row.  Logged as op
+        "reduce_scatter", (P - 1) rows received."""
+        P = self.size
+        if parts.shape[0] != P:
+            raise ValueError(f"reduce_scatter takes one row per member "
+                             f"({P}), got {tuple(parts.shape)}")
+        if self.backend == "nccl":
+            t0 = time.perf_counter()
+            out = torch.empty(parts.shape[1:], dtype=parts.dtype,
+                              device=parts.device)
+            dist.reduce_scatter_tensor(out, parts.contiguous(),
+                                       group=self.pg)
+            self.log.append({"op": "reduce_scatter", "tier": self.tier,
+                             "bytes": (P - 1) * out.numel()
+                             * out.element_size(),
+                             "seconds": time.perf_counter() - t0,
+                             "sync_seconds": 0.0})
+            return out
+        flat = parts.contiguous().reshape(-1)
+        got = self._collective("reduce_scatter", flat.view(torch.uint8),
+                               scatter=True)
+        rows = got.view(parts.dtype).reshape(parts.shape)
+        acc = torch.promote_types(parts.dtype, torch.float32)
+        out = rows[0].to(acc)
+        for p in range(1, P):
+            out = ftz(out + rows[p].to(acc))
+        return out.to(parts.dtype)
 
     def pmean(self, x: torch.Tensor) -> torch.Tensor:
         """Mean over the pods: the pod-order sum times 1/P in f32 (XLA

@@ -13,7 +13,12 @@ One session is one pod: with a pod group (``pods=``, see
 :func:`repro_torch.launch.mesh.spawn_pods`) it runs on the group's device
 and trains on its pod's rows of every global batch.  A hierarchical pod
 group (``spawn_pods(..., n_edge=E)``) carries the fleet's cluster size
-(``n_edge``) into the trainer, its scheduler and the clustering.
+(``n_edge``) into the trainer, its scheduler and the clustering.  With a
+``mesh`` (a rank's ``ShardCtx``, see
+:func:`repro_torch.launch.mesh.spawn_mesh`) the session is one rank of a
+within-pod ("data", "model") mesh: the model is built sharded on the
+rank's device and every rank reads the whole global batch (the model
+keeps its block); checkpoints are off (``ckpt_every=0``).
 
 :meth:`TrainSession.init` resumes from the newest checkpoint in the run's
 ``ckpt_dir`` that verifies (a fresh state when there is none);
@@ -76,20 +81,26 @@ class TrainSession:
                     strategy: Union[str, SyncStrategy] = "acesync", *,
                     smoke: bool = True, seq_len: int = 256, batch: int = 8,
                     steps: int = 100, n_edge_devices: int = 8,
-                    seed: int = 0, device="cuda", pods=None,
+                    seed: int = 0, device="cuda", pods=None, mesh=None,
                     fault_schedule=None, blocking_replans: bool = False,
                     **run_kw) -> "TrainSession":
         """Build a session from an architecture name + strategy spec.
         ``batch`` is the global batch (split over the pods of ``pods``,
-        whose device replaces ``device``)."""
+        whose device replaces ``device``; on a ``mesh`` rank, the rank's
+        device)."""
         cfg = (SMOKE_ARCHS if smoke else ARCHS)[arch]
         shape = ShapeConfig("session", seq_len, batch, "train")
         run_kw.setdefault("warmup_steps", max(2, steps // 10))
+        if mesh is not None:
+            run_kw.setdefault("ckpt_every", 0)
         run = RunConfig(model=cfg, shape=shape, total_steps=steps, **run_kw)
         apply_determinism(run)
         if pods is not None:
             device = pods.device
-        model = build_model(cfg, run, device=device)
+        kw = {}
+        if mesh is not None:
+            device, kw = mesh.device, {"ctx": mesh}
+        model = build_model(cfg, run, device=device, **kw)
         return cls(model, run, strategy=strategy,
                    n_edge_devices=n_edge_devices, seed=seed, pods=pods,
                    fault_schedule=fault_schedule,

@@ -69,9 +69,18 @@ Surviving the fleet, as the reference does:
     is eager: it swaps at the event step, the reference's
     ``blocking_replans`` behaviour.
 
+On a within-pod ("data", "model") mesh (the model's ``ctx``; one
+process per rank) every rank runs this loop on the global batch (the
+model keeps its block) with the same seeded inputs and replicated
+metrics; replans apply at the step that launches them and the new plan's
+levels are checked identical on every rank (``ShardCtx.check_replicated``).
+Checkpoints under a mesh are not ported: ``ckpt_every`` must be 0, and
+nothing is restored.
+
 CLI::
 
     python -m repro_torch.launch.train --steps 8 [--smoke] [--device cuda]
+    python -m repro_torch.launch.train --data 2 --model 2 ...  # D*M ranks
     python -m repro_torch.launch.train --pods 2 --steps 8 ...  # P processes
     python -m repro_torch.launch.train --pods 4 --edge 2 \
         --strategy acesync_hier ...          # 2 clusters x 2 members
@@ -147,6 +156,14 @@ class TrainLoop:
                  blocking_replans: bool = False):
         self.model = model
         self.run = run
+        #: the ("data", "model") mesh the model is sharded over (None: one
+        #: card)
+        self.mesh = getattr(model, "ctx", None)
+        if self.mesh is not None and run.ckpt_every:
+            raise NotImplementedError(
+                f"checkpoints under a ('data', 'model') mesh are not ported "
+                f"yet (ROADMAP Queue 1, item 1): pass ckpt_every=0, not "
+                f"{run.ckpt_every}")
         self.trainer = Trainer(model, run, strategy=strategy, pods=pods)
         self.strategy = self.trainer.strategy
         #: the whole fleet's group, and the group of the current members
@@ -173,9 +190,11 @@ class TrainLoop:
         self.planner = (ElasticPlanner(MeshPlan(n_pods=n, data=1, model=1))
                         if self.elastic else None)
         self.faults = fault_schedule
-        #: apply replans and H at the step that launches them (all pods
-        #: must switch plans on the same step; one pod: replays exactly)
-        self.blocking_replans = bool(blocking_replans) or n > 1
+        #: apply replans and H at the step that launches them (all pods,
+        #: and all ranks of a mesh, must switch plans on the same step; one
+        #: pod: replays exactly)
+        self.blocking_replans = (bool(blocking_replans) or n > 1
+                                 or self.mesh is not None)
         self.history = []
         self.comm_bytes = 0.0
         self._plan = None
@@ -274,7 +293,11 @@ class TrainLoop:
         fetch, omega = self._pending_replan
         if not block and not fetch.ready():
             return False
-        idx = fetch.get().tolist()
+        got = fetch.get()
+        if self.mesh is not None:
+            self.mesh.check_replicated(got.to(self.mesh.device),
+                                       "the replanned level assignments")
+        idx = got.tolist()
         self._pending_replan = None
         self._plan = self.trainer.scheduler.plan_from_levels(
             idx, omega, adaptive=True)
@@ -346,8 +369,9 @@ class TrainLoop:
 
     def restore_or_init(self, seed: int, pipeline):
         """The newest checkpoint in ``ckpt_dir`` that verifies (with its
-        host state), else a fresh state from ``seed``."""
-        if self.ckpt.latest_step() is None:
+        host state), else a fresh state from ``seed`` (always, on a
+        mesh)."""
+        if self.mesh is not None or self.ckpt.latest_step() is None:
             return self.trainer.init_state(seed)
         state, extras = self.ckpt.restore(self.trainer.init_state(seed))
         self._restore_extras(extras, pipeline)
@@ -686,6 +710,16 @@ def _pod_run(group, arch, kw, steps):
                 intra_bytes=group.bytes_logged(payload, "intra"))
 
 
+def _mesh_run(ctx, arch, kw, steps):
+    """One rank's CLI run on a ("data", "model") mesh (spawned by
+    ``--data`` / ``--model``): its summary; rank 0 logs."""
+    from repro_torch.launch.session import TrainSession
+    sess = TrainSession.from_config(arch, mesh=ctx, **kw)
+    sess.run(steps, log_every=10 if ctx.rank == 0 else 0)
+    sess.finish()
+    return dict(_summary(sess), rank=ctx.rank)
+
+
 def main(argv=None):
     from repro_torch.launch.session import TrainSession
 
@@ -705,6 +739,13 @@ def main(argv=None):
     ap.add_argument("--edge", type=int, default=1,
                     help="members per cluster: --pods P --edge E runs a "
                          "two-tier fleet of P/E clusters")
+    ap.add_argument("--data", type=int, default=1,
+                    help="ranks of the within-pod mesh's 'data' axis "
+                         "(FSDP, batch blocks)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="ranks of its 'model' axis (tensor and expert "
+                         "parallelism); --data D --model M runs D*M "
+                         "processes, rank 0 printing the JSON")
     ap.add_argument("--ckpt-dir", default=default_ckpt_dir(),
                     help="checkpoint directory (default: repro_ckpt in "
                          "$TMPDIR or /tmp); a run resumes from the newest "
@@ -721,6 +762,20 @@ def main(argv=None):
                  f"--edge {args.edge}")
 
     kw = _session_kwargs(args)
+    if args.data * args.model > 1:
+        if args.pods > 1:
+            ap.error("--pods with --data / --model (pods x data x model) is "
+                     "not ported yet (ROADMAP Queue 1, item 3)")
+        if args.ckpt_every:
+            raise NotImplementedError(
+                "--ckpt-every under a ('data', 'model') mesh: checkpoints "
+                "of a mesh's shards are not ported yet (ROADMAP Queue 1, "
+                "item 1)")
+        from repro_torch.launch.mesh import spawn_mesh
+        outs = spawn_mesh(_mesh_run, args.data, args.model, args.device,
+                          args=(args.arch, kw, args.steps))
+        print(json.dumps(dict(outs[0], data=args.data, model=args.model)))
+        return
     if args.pods > 1:
         from repro_torch.launch.mesh import spawn_pods
         outs = spawn_pods(_pod_run, args.pods, args.device,

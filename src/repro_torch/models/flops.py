@@ -11,7 +11,8 @@ train step; and the encoder-decoder's matmuls as they run, its encoder
 over the F frames rather than the S tokens the yardstick counts it
 over.  The MFU of a train step is
 :func:`model_flops` over its seconds against the card's bf16 dense peak
-(989 TFLOP/s on an H100 SXM).  :func:`decode_step_bytes` is what one
+(989 TFLOP/s on an H100 SXM), on a ("data", "model") mesh against the
+D·M cards' (:func:`mfu`).  :func:`decode_step_bytes` is what one
 decode step must move, from the split of :func:`cache_bytes`, and
 :func:`decode_bound_ms` its least time on one card at the card's memory
 rate; on a ("data", "model") mesh each card moves its own weights and
@@ -30,6 +31,14 @@ from repro_torch.models.moe import capacity
 _STATE = ("conv", "h")
 #: an H100 SXM's memory rate, bytes per second (the data sheet)
 HBM_BYTES_PER_S = 3.35e12
+#: an H100 SXM's dense bf16 peak, FLOP/s (the data sheet)
+BF16_DENSE_FLOPS = 989e12
+
+
+def mfu(flops: float, seconds: float, cards: int = 1) -> float:
+    """Model FLOPs utilisation: ``flops`` in ``seconds`` over ``cards``
+    cards' bf16 dense peak (a D x M mesh: D·M cards)."""
+    return flops / seconds / (cards * BF16_DENSE_FLOPS)
 
 
 def cache_bytes(caches: dict) -> tuple:

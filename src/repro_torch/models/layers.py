@@ -27,7 +27,13 @@ by the model just before the layer).  The blocks read their head counts
 from the weights they are given, so they run the same code on a shard.
 :func:`embed_lookup` is vocab-parallel (a masked lookup, summed over
 "model") and :func:`lm_logits` leaves the logits vocab-sharded.  The
-residual stream is replicated over "model".
+residual stream is replicated over "model".  In training the blocks'
+inputs enter the rank's heads, d_ff columns and vocabulary part through
+``copy_to_model`` (its gradient summed over "model"), the row-parallel
+sums leave through ``reduce_model``, and :func:`xent_loss_chunked` is
+vocab-parallel: the max and the sum of exponentials all-reduced over
+"model", the gold logit taken from the rank that owns it (see
+``models/shardctx.py``).
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.shardctx import current_ctx, reduce_model
+from repro_torch.models.shardctx import (copy_to_model, current_ctx,
+                                        reduce_model, use_shard_ctx)
 
 NEG_INF = -1e30
 
@@ -296,6 +303,7 @@ def attn_apply(p, x, cfg, *, positions, causal: bool = True,
     Dh = cfg.head_dim
     H, KV = p["wq"].shape[-1] // Dh, p["wk"].shape[-1] // Dh
     dt = x.dtype
+    x = copy_to_model(x)
     q = (x @ p["wq"].to(dt)).reshape(B, S, H, Dh)
     k = (x @ p["wk"].to(dt)).reshape(B, S, KV, Dh)
     v = (x @ p["wv"].to(dt)).reshape(B, S, KV, Dh)
@@ -384,6 +392,7 @@ def mlp_apply(p, x, act=F.silu):
     rank's d_ff columns: the partial sums are summed over "model");
     ``act`` the gate's activation."""
     dt = x.dtype
+    x = copy_to_model(x)
     h = act(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
     return reduce_model(h @ p["w_down"].to(dt))
 
@@ -406,8 +415,7 @@ def embed_lookup(emb, tokens, cfg, dtype):
         local = tokens.long() - v0
         mine = (local >= 0) & (local < emb.shape[0])
         x = F.embedding(local.clamp(0, emb.shape[0] - 1), emb).to(dtype)
-        x = ctx.all_reduce_sum(torch.where(mine[..., None], x, 0.0),
-                               "model")
+        x = reduce_model(torch.where(mine[..., None], x, 0.0), ctx)
     else:
         x = F.embedding(tokens.long(), emb).to(dtype)
     if cfg.emb_scale_by_dim:
@@ -425,16 +433,19 @@ def lm_logits(x, emb_dt, cfg):
 def xent_loss_chunked(x, emb, labels, cfg, *, seq_chunk: int = 512):
     """Mean token cross-entropy over sequence chunks (full-vocab logits
     only ever exist for one chunk at a time, in the backward too); the
-    logits go through :func:`lm_logits`, final softcap included."""
+    logits go through :func:`lm_logits`, final softcap included.  Under a
+    mesh ``emb`` is this rank's vocabulary part and the chunks' sums are
+    vocab-parallel (:func:`_chunk_nll`)."""
     B, S, _ = x.shape
     seq_chunk = min(seq_chunk, S)
     if S % seq_chunk:
         raise ValueError(f"seq {S} not a multiple of chunk {seq_chunk}")
     emb_dt = emb.to(x.dtype)
     tot = x.new_zeros((), dtype=torch.float32)
+    ctx = current_ctx()
     for c0 in range(0, S, seq_chunk):
         args = (x[:, c0:c0 + seq_chunk], emb_dt,
-                labels[:, c0:c0 + seq_chunk].long(), cfg)
+                labels[:, c0:c0 + seq_chunk].long(), cfg, ctx)
         if torch.is_grad_enabled():
             # the chunk's logits are recomputed in the backward, the same
             # arithmetic, rather than kept: only one chunk's full-vocab
@@ -446,9 +457,28 @@ def xent_loss_chunked(x, emb, labels, cfg, *, seq_chunk: int = 512):
     return tot / float(B * S)
 
 
-def _chunk_nll(x, emb_dt, labels, cfg):
-    """Summed token cross-entropy of one sequence chunk."""
-    logits = lm_logits(x, emb_dt, cfg).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    return torch.sum(lse - gold)
+def _chunk_nll(x, emb_dt, labels, cfg, ctx=None):
+    """Summed token cross-entropy of one sequence chunk.  Under ``ctx``
+    (passed, not read from the installed context: the backward recomputes
+    this where none is installed) with M > 1 the rank's logits are its
+    vocabulary part: the row max all-reduced over "model" (a constant of
+    the softmax: no gradient), then the sum of exponentials and the gold
+    logit (each label's owner contributes it, the others 0) summed over
+    "model" in one all-reduce."""
+    if ctx is None or ctx.M == 1:
+        logits = lm_logits(x, emb_dt, cfg).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return torch.sum(lse - gold)
+    with use_shard_ctx(ctx):
+        logits = lm_logits(copy_to_model(x), emb_dt, cfg).float()
+        Vl = emb_dt.shape[0]
+        m = ctx.all_reduce_max(logits.detach().amax(dim=-1), "model")
+        local = labels - ctx.m * Vl
+        mine = (local >= 0) & (local < Vl)
+        gold = torch.gather(logits, -1,
+                            local.clamp(0, Vl - 1)[..., None])[..., 0]
+        sums = reduce_model(torch.stack([
+            torch.exp(logits - m[..., None]).sum(dim=-1),
+            torch.where(mine, gold, 0.0)]))
+        return torch.sum(torch.log(sums[0]) + m - sums[1])

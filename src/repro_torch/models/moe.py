@@ -30,6 +30,17 @@ the oracle of the tests.  An ``all_to_all`` over "model" turns the
 expert FFN runs on them, a second ``all_to_all`` sends the outputs back,
 they are combined, and the blocks are gathered back into the residual,
 which is replicated over "model".
+
+In training each collective takes its adjoint (``models/shardctx.py``):
+the sequence block is cut by ``split_model`` (its gradient gathered over
+"model" backward) and gathered back by ``gather_model`` (backward: the
+rank's own block of the replicated gradient), the ``all_to_all``s run
+in reverse.  Where M does not divide S every "model" rank dispatches the
+whole sequence alike: the block enters through ``copy_to_model`` and its
+output counts 1 / M of the gradient on each rank (``scale_grad``), so
+that the experts, which receive each token from all M ranks, sum to the
+gradient once.  The router is replicated over "model" and each rank
+computes its gradient in part; the model sums it after the backward.
 """
 from __future__ import annotations
 
@@ -38,7 +49,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.shardctx import current_ctx
+from repro_torch.models.shardctx import (all_to_all, copy_to_model,
+                                        current_ctx, gather_model,
+                                        scale_grad, split_model)
 
 #: std of the router's N(0, 1) init (``moe_init``); each expert weight's
 #: is 1 / sqrt(shape[-2])
@@ -176,10 +189,10 @@ def _moe_block(p, x, cfg, ctx=None):
     ebuf, eidx, pos_c, gk = dispatch(xf, logits, cfg, C)
     ep = ctx is not None and p["w_gate"].shape[0] < cfg.n_experts
     if ep:      # (E, C, D) -> (E / M, M * C, D): each expert to its owner
-        ebuf = ctx.all_to_all(ebuf, "model", split_dim=0, concat_dim=1)
+        ebuf = all_to_all(ebuf, "model", 0, 1, ctx)
     out = expert_ffn(ebuf, p["w_gate"], p["w_up"], p["w_down"])
     if ep:
-        out = ctx.all_to_all(out, "model", split_dim=1, concat_dim=0)
+        out = all_to_all(out, "model", 1, 0, ctx)
     return combine(out, eidx, pos_c, gk).reshape(B, S, D)
 
 
@@ -199,13 +212,11 @@ def moe_apply(p, x, cfg):
     ctx = current_ctx()
     if ctx is None:
         return _moe_block(p, x, cfg)
-    S = x.shape[1]
-    n = _seq_blocks(S, ctx.M)
-    if n == 1:
-        return _moe_block(p, x, cfg, ctx)
-    w = S // n
-    y = _moe_block(p, x[:, ctx.m * w:(ctx.m + 1) * w], cfg, ctx)
-    return ctx.all_gather(y, "model", dim=1)
+    if _seq_blocks(x.shape[1], ctx.M) == 1:
+        y = _moe_block(p, copy_to_model(x, ctx), cfg, ctx)
+        return scale_grad(y, 1.0 / ctx.M)
+    y = _moe_block(p, split_model(x, 1, ctx), cfg, ctx)
+    return gather_model(y, 1, ctx)
 
 
 def moe_apply_blocked(p, x, cfg, D: int, M: int):

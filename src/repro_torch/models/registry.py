@@ -15,7 +15,8 @@ from repro_torch.models.encdec import EncDecTransformer
 from repro_torch.models.mamba import MambaLM
 from repro_torch.models.rglru import GriffinLM
 from repro_torch.models.shardctx import ShardCtx
-from repro_torch.models.transformer import DenseTransformer, MoETransformer
+from repro_torch.models.transformer import (MESH_FAMILIES, DenseTransformer,
+                                           MoETransformer)
 
 _FAMILY_CLS = {"dense": DenseTransformer, "moe": MoETransformer,
                "ssm": MambaLM, "hybrid": GriffinLM,
@@ -34,7 +35,7 @@ def build_model(cfg: ModelConfig, run: Optional[RunConfig] = None,
                                   f"ported yet") from None
     if ctx is None:
         return cls(cfg, run, device=device)
-    if cfg.family not in ("dense", "moe") or cfg.frontend is not None:
+    if cfg.family not in MESH_FAMILIES or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family"
             f"{' behind its ' + cfg.frontend if cfg.frontend else ''} "

@@ -10,7 +10,8 @@ reference's ``make_mesh((D, M), ("data", "model"))``), its "data" and
 "model" sub-groups (``launch/mesh.py``'s ``PodGroup``s) and the world
 group, and the collectives the model code needs over one axis:
 
-  * :meth:`ShardCtx.all_reduce_sum` — in f32, the same bits on every rank
+  * :meth:`ShardCtx.all_reduce_sum` — in f32 (f64 for f64 tensors), the
+    same bits on every rank
     (NCCL's all-reduce gives that; the gloo branch gathers and sums in
     rank order, as ``PodGroup.all_reduce_sum`` does), rounded once to
     the tensor's dtype;
@@ -18,10 +19,48 @@ group, and the collectives the model code needs over one axis:
   * :meth:`ShardCtx.all_to_all` — ``jax.lax.all_to_all(tiled=True)``:
     split one dimension into the axis' ranks, concatenate what arrives
     along another, in source-rank order;
+  * :meth:`ShardCtx.all_reduce_max` — the elementwise max over an axis;
+  * :meth:`ShardCtx.reduce_scatter` — the sum over the axis of each
+    rank's part of a dimension, each rank keeping its own part (the
+    ``PodGroup``'s, in rank order under gloo);
   * :meth:`ShardCtx.check_replicated` — a tensor that every rank must
     hold alike, compared across the world; all ranks raise together.
 
-An axis of size 1 makes each of them the identity.  The model code finds
+An axis of size 1 makes each of them the identity; the axis "world"
+names every rank of the mesh.
+
+Training differentiates through the collectives.  A tensor is either
+*replicated* over an axis (every rank holds it alike and computes the
+same function of it) or *partial* (each rank holds its own part, or its
+own term of a sum).  The adjoints that keep one shared loss counted once
+are the ``torch.autograd.Function``s below, installed where the model
+code crosses from one to the other:
+
+  * :func:`reduce_model` — partial sums over "model" -> replicated: an
+    all-reduce forward, the identity backward (every rank holds the whole
+    gradient of the replicated sum already);
+  * :func:`copy_to_model` — replicated -> the input of a rank's own
+    computation (a column-parallel product, its vocabulary part of the
+    LM head): the identity forward, an all-reduce over "model" backward;
+  * :func:`gather_data` — FSDP: a weight's "data" shards gathered
+    forward, the gradient reduce-scattered backward (the sum over the
+    data ranks' batch blocks, each rank keeping its shard's);
+  * :func:`split_model` / :func:`gather_model` — the MoE's sequence
+    blocks: a replicated sequence cut to this rank's "model" block
+    (backward: the blocks' gradients gathered) and the blocks gathered
+    back into the replicated residual (backward: this rank's block of the
+    replicated gradient);
+  * :func:`all_to_all` — expert parallelism: the reverse ``all_to_all``
+    backward;
+  * :func:`scale_grad` — the identity forward, the gradient scaled
+    backward (a computation that every "model" rank repeats alike counts
+    1 / M on each).
+
+Parameters replicated over an axis whose gradient each rank computes only
+in part (every weight but the FSDP-sharded ones over "data", whose batch
+block is the rank's own; the qk-norms and the router over "model") are
+summed after the backward by the model
+(:meth:`~repro_torch.models.transformer.DenseTransformer.reduce_grads`).  The model code finds
 the context through :func:`current_ctx`, installed by
 :func:`use_shard_ctx` as the reference's ``use_shard_ctx(mesh)``.
 
@@ -180,8 +219,10 @@ class ShardCtx:
         return {"data": self.d, "model": self.m}[axis]
 
     def _group(self, axis: str):
-        """The axis' group, or None where the axis has one rank."""
-        if self.sizes[axis] == 1:
+        """The axis' group ("world": every rank), or None where the axis
+        has one rank."""
+        n = self.D * self.M if axis == "world" else self.sizes[axis]
+        if n == 1:
             return None
         g = getattr(self, axis)
         if g is None:
@@ -217,18 +258,43 @@ class ShardCtx:
 
     # ---- collectives over one axis ----------------------------------------
     def all_reduce_sum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """Sum over the axis in f32, the same bits on every rank, rounded
-        once to ``x``'s dtype."""
+        """Sum over the axis in f32 (f64 for f64), the same bits on every
+        rank, rounded once to ``x``'s dtype."""
         g = self._group(axis)
         if g is None:
             return x
-        x32 = x.float()
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         if g.backend == "nccl":
             x32 = x32.clone() if x32 is x else x32
             dist.all_reduce(x32, group=g.pg)
         else:
             x32 = g.all_reduce_sum(x32)
         return x32.to(x.dtype)
+
+    def all_reduce_max(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The elementwise max over the axis (exact: the same bits on
+        every rank)."""
+        g = self._group(axis)
+        if g is None:
+            return x
+        if g.backend == "nccl":
+            x = x.clone()
+            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=g.pg)
+            return x
+        return g.all_gather(x).amax(0)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str,
+                       dim: int) -> torch.Tensor:
+        """Sum ``x`` over the axis, rank q keeping part q of ``dim`` (cut
+        into one equal part per rank): the adjoint of :meth:`all_gather`
+        along ``dim``."""
+        g = self._group(axis)
+        if g is None:
+            return x
+        parts = x.movedim(dim, 0)
+        parts = parts.reshape((g.size, parts.shape[0] // g.size)
+                              + tuple(parts.shape[1:]))
+        return g.reduce_scatter(parts).movedim(0, dim)
 
     def all_gather(self, x: torch.Tensor, axis: str,
                    dim: int) -> torch.Tensor:
@@ -272,8 +338,153 @@ class ShardCtx:
                                f"ranks {bad} against rank 0")
 
 
-def reduce_model(y: torch.Tensor) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# the collectives' adjoints (see the module doc)
+# ---------------------------------------------------------------------------
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, sctx, axis):
+        return sctx.all_reduce_sum(x, axis)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, sctx, axis):
+        fctx.sctx, fctx.axis = sctx, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.sctx.all_reduce_sum(g, fctx.axis), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, sctx, axis, dim):
+        fctx.sctx, fctx.axis, fctx.dim = sctx, axis, dim
+        return sctx.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return (fctx.sctx.reduce_scatter(g.contiguous(), fctx.axis,
+                                         fctx.dim), None, None, None)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, sctx, axis, dim):
+        fctx.sctx, fctx.axis, fctx.dim = sctx, axis, dim
+        fctx.n = x.shape[dim]
+        return sctx.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        i = fctx.sctx.index(fctx.axis)
+        return (g.narrow(fctx.dim, i * fctx.n, fctx.n), None, None, None)
+
+
+class _SplitBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, sctx, axis, dim):
+        fctx.sctx, fctx.axis, fctx.dim = sctx, axis, dim
+        n = x.shape[dim] // sctx.sizes[axis]
+        return x.narrow(dim, sctx.index(axis) * n, n)
+
+    @staticmethod
+    def backward(fctx, g):
+        return (fctx.sctx.all_gather(g.contiguous(), fctx.axis, fctx.dim),
+                None, None, None)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, sctx, axis, split_dim, concat_dim):
+        fctx.args = (sctx, axis, split_dim, concat_dim)
+        return sctx.all_to_all(x, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        sctx, axis, split_dim, concat_dim = fctx.args
+        return (sctx.all_to_all(g.contiguous(), axis, concat_dim,
+                                split_dim), None, None, None, None)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, scale):
+        fctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g * fctx.scale, None
+
+
+def _live(ctx, axis: str) -> bool:
+    return ctx is not None and ctx._group(axis) is not None
+
+
+def reduce_model(y: torch.Tensor, ctx: Optional[ShardCtx] = None
+                 ) -> torch.Tensor:
     """A row-parallel product's partial sums, summed over "model" under
-    the installed context (``y`` itself without one)."""
-    ctx = current_ctx()
-    return y if ctx is None else ctx.all_reduce_sum(y, "model")
+    ``ctx`` (default: the installed context; ``y`` itself without one):
+    the identity backward."""
+    ctx = ctx or current_ctx()
+    return _Reduce.apply(y, ctx, "model") if _live(ctx, "model") else y
+
+
+def copy_to_model(x: torch.Tensor, ctx: Optional[ShardCtx] = None
+                  ) -> torch.Tensor:
+    """A replicated tensor entering this rank's own part of a computation
+    over "model": the identity forward, the gradient all-reduced over
+    "model" backward."""
+    ctx = ctx or current_ctx()
+    return _Copy.apply(x, ctx, "model") if _live(ctx, "model") else x
+
+
+def gather_data(w: torch.Tensor, dim: int,
+                ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    """An FSDP weight's "data" shards gathered along ``dim``; the
+    gradient reduce-scattered over "data" backward."""
+    ctx = ctx or current_ctx()
+    return _Gather.apply(w, ctx, "data", dim) if _live(ctx, "data") else w
+
+
+def split_model(x: torch.Tensor, dim: int,
+                ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    """This rank's "model" block of ``dim`` of a replicated tensor (M
+    equal blocks); backward, the blocks' gradients gathered."""
+    ctx = ctx or current_ctx()
+    if not _live(ctx, "model"):
+        return x
+    return _SplitBlocks.apply(x, ctx, "model", dim)
+
+
+def gather_model(x: torch.Tensor, dim: int,
+                 ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    """The "model" ranks' blocks gathered along ``dim`` into a replicated
+    tensor; backward, this rank's block of its gradient."""
+    ctx = ctx or current_ctx()
+    if not _live(ctx, "model"):
+        return x
+    return _GatherBlocks.apply(x, ctx, "model", dim)
+
+
+def all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int,
+               ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    """:meth:`ShardCtx.all_to_all`, its backward the reverse one."""
+    ctx = ctx or current_ctx()
+    if not _live(ctx, axis):
+        return x
+    return _AllToAll.apply(x, ctx, axis, split_dim, concat_dim)
+
+
+def scale_grad(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """``x``, its gradient times ``scale``."""
+    return x if scale == 1.0 else _ScaleGrad.apply(x, scale)

@@ -25,15 +25,25 @@ stack per slot and k / v, a local slot's S capped at the sliding window)
 and :meth:`~DenseTransformer.decode_step` writes one token into them in
 place.
 
-Under a ("data", "model") mesh (``ctx``, a ``ShardCtx``; serving only)
-each Parameter holds this rank's shard of its stacked leaf, as
+Under a ("data", "model") mesh (``ctx``, a ``ShardCtx``) each Parameter
+holds this rank's shard of its stacked leaf, as
 :meth:`DenseTransformer.param_shardings` names it (the layers' specs
 behind a leading None; the embedding vocab-parallel over "model"): the
 model takes the global batch and keeps its "data" block (all of it where
 D does not divide B), gathers each FSDP-sharded weight over "data" just
 before its layer (freed after), and returns vocab-sharded logits of its
 batch block.  The ring caches hold the block's sequences and this rank's
-K/V heads.  Training under a mesh raises.
+K/V heads.
+
+Training under a mesh differentiates through those collectives
+(``models/shardctx.py``): the FSDP gather's gradient is reduce-scattered
+over "data", a remat layer re-issues its forward collectives in the
+backward (every rank recomputes the same layers in the same order, the
+context re-installed around each), and :meth:`LanguageModel.loss` is the
+mean over the global batch, each rank's gradient its batch block's part
+of it.  :meth:`DenseTransformer.reduce_grads` then sums the gradients of
+the leaves that a rank computes only in part: over "data" every leaf that
+is not FSDP-sharded, over "model" the qk-norms and the router.
 """
 from __future__ import annotations
 
@@ -42,14 +52,15 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch import resolve_device
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe
-from repro_torch.models.shardctx import ShardCtx, use_shard_ctx
+from repro_torch.models.shardctx import (ShardCtx, gather_data,
+                                        use_shard_ctx)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -140,6 +151,11 @@ class LanguageModel(nn.Module):
     def param_shapes(self) -> dict:
         return T.tree_map(lambda p: tuple(p.shape), self.param_tree())
 
+    def global_param_shapes(self) -> dict:
+        """Each leaf's whole shape (under a mesh, not this rank's
+        shard's)."""
+        return self.param_shapes()
+
     def active_param_count(self) -> int:
         """N of ``flops.model_flops``, counted from the tree: the
         parameters one token runs through."""
@@ -186,10 +202,14 @@ class LanguageModel(nn.Module):
                 patch_embs: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens (B, S) (after ``patch_embs`` (B, P, D) where given) ->
         final hidden states (B, P + S, D) in the compute dtype."""
-        if self.ctx is not None and torch.is_grad_enabled():
+        if (self.ctx is not None and torch.is_grad_enabled()
+                and (self.cfg.family not in MESH_FAMILIES
+                     or self.cfg.frontend is not None)):
             raise NotImplementedError(
-                f"{self.cfg.name}: training under a ('data', 'model') mesh "
-                f"is not ported yet (ROADMAP Queue 1, item 1)")
+                f"{self.cfg.name}: training the {self.cfg.family} family"
+                f"{' behind its ' + self.cfg.frontend if self.cfg.frontend else ''}"
+                f" under a ('data', 'model') mesh is not ported yet "
+                f"(ROADMAP Queue 1, item 2)")
         with use_shard_ctx(self.ctx):
             x = self._embed(self._local_batch(tokens), patch_embs)
             B, S, _ = x.shape
@@ -199,10 +219,27 @@ class LanguageModel(nn.Module):
     def loss(self, batch: dict) -> torch.Tensor:
         """Mean cross-entropy over every position of the batch (the
         VLM's patch positions too, against the pipeline's label 0, as
-        the reference scores them: ROADMAP R9)."""
+        the reference scores them: ROADMAP R9).  Under a mesh: the mean
+        over the global batch, the same value on every rank, whose
+        gradient on each rank is its batch block's part — 1 / D of its
+        block's mean (where D does not divide the batch, each data rank's
+        block is the whole batch, and the data ranks' gradients, summed
+        by the FSDP reduce-scatter and :meth:`reduce_grads`, average)."""
         x = self.forward(batch["tokens"], **{k: batch[k] for k in
                                              self.float_inputs if k in batch})
-        return L.xent_loss_chunked(x, self.embed, batch["labels"], self.cfg)
+        with use_shard_ctx(self.ctx):
+            local = L.xent_loss_chunked(x, self.embed,
+                                        self._local_batch(batch["labels"]),
+                                        self.cfg)
+        ctx = self.ctx
+        if ctx is None or ctx.D == 1:
+            return local
+        split = ctx.batch_slice(batch["labels"].shape[0]) != slice(
+            0, batch["labels"].shape[0])
+        with torch.no_grad():
+            value = (ctx.all_reduce_sum(local * (1.0 / ctx.D), "data")
+                     if split else local.clone())
+        return _GlobalLoss.apply(local, value, 1.0 / ctx.D)
 
     def _local_batch(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's "data" block of a global batch (all of it without
@@ -245,6 +282,25 @@ class LanguageModel(nn.Module):
             positions = torch.full((x.shape[0], 1), t, device=x.device)
             x = self._backbone(x, positions, caches=caches, cache_len=t)
             return self.logits(x), caches
+
+
+class _GlobalLoss(torch.autograd.Function):
+    """``value`` (the global loss, the same on every rank) forward; the
+    gradient of ``local`` (this rank's block's loss) times ``scale``
+    backward."""
+
+    @staticmethod
+    def forward(fctx, local, value, scale):
+        fctx.scale = scale
+        return value.clone()
+
+    @staticmethod
+    def backward(fctx, g):
+        return g * fctx.scale, None, None
+
+
+#: the families whose models build (and train) under a mesh
+MESH_FAMILIES = ("dense", "moe")
 
 
 class DenseTransformer(LanguageModel):
@@ -444,7 +500,7 @@ class DenseTransformer(LanguageModel):
         tree, ``fsdp`` the dimension to gather over "data" of each (None:
         whole)."""
         cfg = self.cfg
-        w = [t if dim is None else self.ctx.all_gather(t, "data", dim)
+        w = [t if dim is None else gather_data(t, dim, self.ctx)
              for t, dim in zip(w, fsdp)]
         p = T.from_flat_dict(dict(zip(names, w)))
         h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
@@ -477,14 +533,111 @@ class DenseTransformer(LanguageModel):
                 cache = None
                 if caches is not None:
                     cache = {kv: c[g] for kv, c in caches[f"slot{i}"].items()}
-                layer = partial(self._layer, kind, names, fsdp, cache,
-                                cache_len)
+                layer = partial(self._layer_in_ctx, kind, names, fsdp,
+                                cache, cache_len)
                 if remat:
-                    x = checkpoint(layer, x, positions, *per_layer[g],
-                                   use_reentrant=False)
+                    # under a mesh every rank recomputes each layer whole,
+                    # its collectives included, in the same order
+                    with set_checkpoint_early_stop(self.ctx is None):
+                        x = checkpoint(layer, x, positions, *per_layer[g],
+                                       use_reentrant=False)
                 else:
                     x = layer(x, positions, *per_layer[g])
         return L.rms_norm(x, self.final_norm, self.cfg.rms_eps)
+
+    def _layer_in_ctx(self, *args):
+        """:meth:`_layer` under the model's context: a remat layer's
+        recompute runs in the backward, where none is installed."""
+        with use_shard_ctx(self.ctx):
+            return self._layer(*args)
+
+    # ---------------- training under a mesh ----------------
+    def global_param_shapes(self) -> dict:
+        return T.from_flat_dict({T.path_str(q): self.full_shapes[
+            T.path_str(q)] for q, _ in T.leaves_with_path(self.param_tree())})
+
+    def check_reference_shards(self) -> None:
+        """Raise ``ValueError`` naming the first leaf whose shard on this
+        rank is not the reference's local shard on the same mesh (its
+        nested manual region divides each spec'd dimension by its axis'
+        size): the sync round runs on the shards, so a different layout
+        would be a different sync.  K/V heads fewer than M, which the
+        port replicates and the reference splits, are the case."""
+        ctx = self.ctx
+        if ctx is None:
+            return
+        for path, spec in self._specs.items():
+            full = self.full_shapes[path]
+            want = tuple(n // ctx.sizes[ax[0] if isinstance(ax, tuple)
+                                        else ax] if ax else n
+                         for n, ax in zip(full, spec))
+            got = ctx.local_shape(spec, full)
+            if got != want:
+                raise ValueError(
+                    f"{self.cfg.name}: leaf {path}: this rank's shard "
+                    f"{got} of {full} is not the reference's local shard "
+                    f"{want} on a ({ctx.D}, {ctx.M}) mesh; training "
+                    f"refuses a sync layout other than the reference's")
+
+    def _replicas(self, path: str) -> list:
+        """The ranks that hold the same shard of leaf ``path`` as this
+        one, in rank order."""
+        ctx = self.ctx
+        full, spec = self.full_shapes[path], self._specs[path]
+        mine = ctx.local_index(spec, full)
+        return [r for r in range(ctx.D * ctx.M)
+                if ShardCtx(ctx.D, ctx.M, r // ctx.M, r % ctx.M)
+                .local_index(spec, full) == mine]
+
+    def owned_leaves(self) -> list:
+        """Per leaf (sorted-key order): whether this rank is the first of
+        the ranks holding its shard — the one that counts it in a sum
+        over the whole mesh (a global norm, the grad stats)."""
+        paths = [T.path_str(q) for q, _ in
+                 T.leaves_with_path(self.param_tree())]
+        if self.ctx is None:
+            return [True] * len(paths)
+        return [self._replicas(q)[0] == self.ctx.rank for q in paths]
+
+    def grad_reduce_axes(self, path: str) -> tuple:
+        """The axes over which the gradient of leaf ``path`` is summed
+        after the backward: "data" where it is not FSDP-sharded (each data
+        rank saw its own batch block), "model" for the leaves every model
+        rank holds but computes its gradient of in part (the qk-norms
+        over its heads, the router over its tokens).  Experts every model
+        rank holds (M not dividing E) would be such leaves too; the
+        reference splits them, so that mesh does not train
+        (:meth:`check_reference_shards`)."""
+        ctx = self.ctx
+        if ctx is None:
+            return ()
+        axes = []
+        if ctx.D > 1 and path not in self._fsdp:
+            axes.append("data")
+        if ctx.M > 1 and path.rsplit("/", 1)[-1] in ("q_norm", "k_norm",
+                                                     "router"):
+            axes.append("model")
+        return tuple(axes)
+
+    def reduce_grads(self, grads: list) -> list:
+        """The gradients of the leaves (sorted-key order) summed over the
+        axes :meth:`grad_reduce_axes` names: each rank's becomes its shard
+        of the gradient of the global loss."""
+        if self.ctx is None:
+            return list(grads)
+        # a head replicated over the ranks that share it would need its
+        # gradient summed over them too: such a mesh does not train
+        self.check_reference_shards()
+        paths = [T.path_str(q) for q, _ in
+                 T.leaves_with_path(self.param_tree())]
+        out = []
+        for path, g in zip(paths, grads):
+            axes = self.grad_reduce_axes(path)
+            if axes:
+                g = self.ctx.all_reduce_sum(
+                    g, "world" if len(axes) == 2 else axes[0])
+            out.append(g)
+        return out
 
 
 class MoETransformer(DenseTransformer):

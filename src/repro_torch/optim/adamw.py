@@ -14,13 +14,19 @@ def init_opt_state(params):
             "v": T.tree_map(torch.zeros_like, params)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    sq = [torch.sum(x.float() ** 2) for x in T.leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+def global_norm(tree, reduce=None) -> torch.Tensor:
+    """The 2-norm of every leaf of ``tree`` together.  On a mesh rank the
+    leaves are shards: ``reduce`` maps the (G,) per-leaf sums of squares
+    to the whole mesh's, each element counted once (the trainer's
+    owner-masked sum over the world)."""
+    sq = torch.stack([torch.sum(x.float() ** 2) for x in T.leaves(tree)])
+    if reduce is not None:
+        sq = reduce(sq)
+    return torch.sqrt(torch.sum(sq))
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    norm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, reduce=None):
+    norm = global_norm(tree, reduce)
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-12), 1.0)
     return T.tree_map(lambda g: g * scale.to(g.dtype), tree), norm
 

@@ -10,7 +10,8 @@ recurrent families (the scans' gradients and one step against the
 CPU's) and the encoder-decoder and the VLM (one step against the
 CPU's), and serving the dense and MoE SMOKE configs on ("data",
 "model") meshes — ranks sharing one card over gloo, and a card per rank
-over NCCL — against the unsharded model on the CPU.  They skip without a
+over NCCL — against the unsharded model on the CPU, and the loss and
+gradient shards of one training step on such meshes against the CPU's.  They skip without a
 CUDA device; on the card
 run
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``."""
@@ -851,3 +852,41 @@ def test_nccl_mesh_serving_matches_cpu(dev):
     res = spawn_mesh(_mesh_rank, 1, M, "cuda", args=("dbrx-132b",),
                      timeout=600)
     _check_mesh(res, _mesh_want("dbrx-132b", 1, M), 1, M, "nccl")
+
+
+# ---------------------------------------------------------------------------
+# training on a ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+
+def _mesh_train_rank(ctx, case):
+    from torch_mesh_train_ranks import model_grads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return model_grads(ctx, *case), ctx.world.backend
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2)])
+@pytest.mark.parametrize("case", [("qwen3-8b", 32, 4, None),
+                                  ("dbrx-132b", 32, 4, 2.0)],
+                         ids=["qwen3-8b", "dbrx-132b"])
+def test_mesh_training_step_on_card_matches_cpu(dev, case, mesh):
+    """One training step's loss and reduced gradient shards of a SMOKE
+    config (f32; dbrx at capacity E / K) on D x M ranks sharing the card
+    (or a card each) against the unsharded model on the CPU, within 1e-4
+    of each leaf's largest entry."""
+    from repro_torch import tree as T
+    from repro_torch.launch.mesh import spawn_mesh
+    from torch_mesh_train_ranks import model_case
+    model, batch = model_case(*case)
+    loss = model.loss(batch)
+    grads = torch.autograd.grad(loss, T.leaves(model.param_tree()))
+    want = dict(zip((T.path_str(q) for q, _ in
+                     T.leaves_with_path(model.param_tree())), grads))
+    res = spawn_mesh(_mesh_train_rank, *mesh, "cuda", args=(case,),
+                     timeout=600)
+    for (got_loss, got), _ in res:
+        assert abs(got_loss - float(loss)) <= 1e-4 * abs(float(loss))
+        for path, (g, idx) in got.items():
+            w = want[path].numpy()[idx]
+            assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max() + 1e-12, \
+                path
