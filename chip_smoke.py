@@ -4,9 +4,13 @@ NVIDIA GPU: the quickest proof that the port builds, is right, trains
 (paper-350m and the model zoo) and serves (the dense, MoE and recurrent
 families, the encoder-decoder and the VLM; the dense and MoE families
 also on a ("data", "model") mesh, across four cards where there are
-four).
+four, and checkpoints and resumes on a mesh).
 
     python3 chip_smoke.py
+
+The processes it starts (pods, mesh ranks, one process per model) read
+the bytecode of torch and the port from ``build/pycache``, which the
+first of them writes.
 
 Phases (any failure exits nonzero before the result lines):
 
@@ -53,10 +57,10 @@ Phases (any failure exits nonzero before the result lines):
    full width under ``acesync`` with the default ``ACESyncConfig`` (the
    chunked ring on every rung the roofline grid of
    ``repro_torch.core.planexec`` rings, the one-shot exchange elsewhere)
-   and ``replan_every=4``: P = 2 with global batch 8 for 8 steps at full
-   depth, P = 3 with global batch 6 for 4 steps at 16 layers (three
-   full-depth pods do not fit the card; a P = 3 run that does not fit
-   fails), each then one all-rungs ``grad_sync`` whose payload rungs ring
+   and ``replan_every=4``: P = 2 with global batch 8 for 8 steps at 12
+   layers, P = 3 with global batch 6 for 4 steps at 8 layers (24 and 16
+   until phase 19 joined the script; a run that does not fit fails),
+   each then one all-rungs ``grad_sync`` whose payload rungs ring
    in 2 chunks and, in the same pod processes, one all-rungs
    ``sync_tree`` round on the same gradients
    under three exec plans: one-shot, the ring forced to 2 chunks, and the
@@ -76,9 +80,10 @@ Phases (any failure exits nonzero before the result lines):
    not a deployment's step times;
 8. the two-tier path: a fleet of C = 2 clusters x E = 2 members, four
    pod processes sharing the card (``spawn_pods(..., n_edge=2)``: the
-   ``intra`` and ``cross`` sub-groups), paper-350m at full width pinned
-   at 12 layers (``PATHS["hier"]``; four deeper members do not fit, and a
-   run that does not fit fails), global batch 8, under ``acesync_hier``
+   ``intra`` and ``cross`` sub-groups), paper-350m at full width at 6
+   layers (``PATHS["hier"]``; 12 until phase 19 joined the script, four
+   members at 16 do not fit, and a run that does not fit fails), global
+   batch 8, under ``acesync_hier``
    with ``replan_every=4``: 6 steps (one ``delta_sync``, one device
    replan), one all-rungs ``grad_sync`` with the bf16 intra stage and one
    with the INT8 intra stage and the cross tier forced to a 2-chunk ring,
@@ -94,7 +99,7 @@ Phases (any failure exits nonzero before the result lines):
    launched.  Prints the tier grids, the bytes per tier, the cross-tier
    reduction, step means and peak memory per member;
 9. the fault-tolerant train loop.  9a, restart-replay on one pod in phase
-   5's configuration cut to 6 layers (paper-350m, batch 8, seq 1024,
+   5's configuration cut to 4 layers (paper-350m, batch 8, seq 1024,
    ``replan_every`` 4, ``ckpt_every`` 4, ``blocking_replans``, in a
    process of its own under ``RunConfig.deterministic``, so that no
    other phase runs under deterministic algorithms and cuBLAS): run A
@@ -106,7 +111,8 @@ Phases (any failure exits nonzero before the result lines):
    counters bit-identical to run A's.  Prints the bytes per checkpoint,
    save()'s foreground seconds, the background write's seconds and
    rate, and the restore's seconds.  9b, elastic membership: three pod
-   processes sharing the card at 6 layers, global batch 6, the default
+   processes sharing the card at 4 layers (6 until phase 19 joined the
+   script), global batch 6, the default
    ``ACESyncConfig`` with ``replan_every`` 4, ``ckpt_every`` 5, 12
    steps, pod 2 preempted at step 4 and back at step 8: the membership
    events [2, 3] at steps 4 and 8, the global batch 6 -> 4 -> 6, right
@@ -222,8 +228,9 @@ Phases (any failure exits nonzero before the result lines):
    bytes at the same length.
 14. training the recurrent families, one process per model:
    falcon-mamba-7b and recurrentgemma-2b at their full published widths,
-   cut in depth by phase 12's rule at each model's own measured bytes per
-   parameter (``TRAIN_RECURRENT``; recurrentgemma at n_layers = 2 mod 3,
+   at 6 and 5 layers (phase 12's rule at each model's own measured bytes
+   per parameter gives 12 and 8, the depths until phase 19 joined the
+   script; ``TRAIN_RECURRENT``; recurrentgemma at n_layers = 2 mod 3,
    so that its unrolled tail trains), seeded weights, seq 1024 (four scan
    chunks), batch 8, trained as phase 12 trains its models (8 steps
    under ``acesync`` with ``replan_every=4``, then an all-rungs
@@ -303,7 +310,8 @@ Phases (any failure exits nonzero before the result lines):
    bound per card ((its weights + its caches) / 3.35 TB/s), tokens/s
    and peak memory.  On fewer cards (b) prints one line and is not run;
 18. training on a within-pod ("data", "model") mesh, one process per
-   rank (``launch/mesh.py``'s ``spawn_mesh``), full width, cut in depth
+   rank (``launch/mesh.py``'s ``spawn_mesh``; one spawn per mesh shape,
+   its models in turn), full width, cut in depth
    at ``MESH_BYTES_PER_PARAM`` per parameter of each rank with 8 GiB of
    each card to spare.  (a) the ranks share the one card over gloo:
    qwen3-8b at 2 layers on (1, 2), qwen3-moe-30b-a3b at 1 layer on
@@ -323,7 +331,36 @@ Phases (any failure exits nonzero before the result lines):
    only with four cards: dbrx-132b on (1, 4) and qwen3-8b on (2, 2) over
    NCCL, at ``launch.memory.mesh_train_depth``'s depths, batch 8 x 1024,
    gates 2-4, and ``launch.memory.step_memory``'s bytes per parameter by
-   owner per card.  On fewer cards (b) prints one line and is not run.
+   owner per card.  On fewer cards (b) prints one line and is not run;
+19. checkpoints on a within-pod ("data", "model") mesh, every run through
+   TrainSession under ``RunConfig.deterministic`` (phase 9a's switch).
+   (a) one fleet of four processes sharing the card over gloo (one
+   spawn), meshes of its ranks made by ``launch.mesh.sub_mesh``:
+   paper-350m at full width and phase 9a's 4 layers, batch 8 x 1024,
+   ``acesync``, ``replan_every`` 4, ``ckpt_every`` 2: 6 uninterrupted
+   steps on (1, 2) (fleet ranks 0-1) and one all-rungs ``grad_sync``;
+   ranks 2-3, fresh processes in a (1, 2) group of their own, resumed
+   from a copy of the step-4 checkpoint to step 6 and the same all-rungs
+   step; the step-6 checkpoint restored on (2, 2) (all four), on (2, 1)
+   (ranks 0-1) and, rank 0, on one card without a mesh; then one leaf of
+   the uninterrupted run's step 6 bit-rotted and that directory restored
+   on (1, 2).  Gates: (1) every state leaf's hash, the plan, H and the
+   losses of the resumed run equal the uninterrupted run's on every rank
+   at step 6 and after the all-rungs step, and its step-6 leaf files
+   equal byte for byte; (2) every cross-shape restore, its ranks' shards
+   assembled (``convert.reference_from_shards``), has the one-card
+   restore's CRC-32 per leaf; (3) after the corruption every rank
+   restores step 4 and records step 6 as corrupt; (4) K1-K4 launched on
+   the training path; and the ranks' written bytes sum to the
+   checkpoint's (each entry written once).  Prints the bytes (the
+   checkpoint's and each rank's), ``copy_s`` per rank, ``write_s``,
+   rank 0's CRC read-back ``crc_s``, the restore seconds per rank and
+   target shape, beside phase 9a's one-card save of the same model, and
+   the seconds from the spawn to the end of each stage.
+   (b) only with four cards: paper-350m at full depth on (2, 2) over
+   NCCL, 4 steps with ``ckpt_every`` 2, the step-4 checkpoint restored
+   on (1, 4) and on one card, assembling to one state, the same prints.
+   On fewer cards (b) prints one line and is not run.
 
 Output: progress lines with each phase's seconds, the pod link's latency
 and rate, then the ``nvidia-smi`` line, the kernels' JSON line (each
@@ -333,7 +370,8 @@ members), ``restart`` (phase 9a, its three runs), ``elastic`` (phase
 9b, all pods), ``zoo_<arch>`` (phases 12, 14 and 16, each model's
 process), ``zoo_determinism`` (phase 12, both runs) and
 ``mesh_<arch>_<D>x<M>`` (phase 18 (a), all ranks; ``mesh_b_...`` for
-(b)), each counted from 0 just before its run; phases 10, 11, 13, 15 and 17 launch none;
+(b)) and ``mesh_ckpt`` (phase 19 (a), both runs, all ranks;
+``mesh_ckpt_b`` for (b)), each counted from 0 just before its run; phases 10, 11, 13, 15 and 17 launch none;
 K16's ``library_ms``
 is ``torch.mul(q, s)``'s time; ``paths`` gives each path's pods, members
 per cluster and depth; ``link`` the measured link), and as the last line
@@ -405,32 +443,35 @@ FLAT = {
 FP_CASES = ((16, 1.0), (30, 50.0))
 #: phase 7's paths: pods, global batch, TrainSession steps, depth (None:
 #: the architecture's 24 layers), and the least delta_sync rounds and
-#: device replans those steps must hold
+#: device replans those steps must hold.  Cut in depth to keep the script
+#: inside its time limit: P = 2 at 12 layers (24 until phase 19 joined the
+#: script), P = 3 at 8 (16)
 PATHS = {
-    "p2": {"pods": 2, "batch": 8, "steps": 8, "n_layers": None,
+    "p2": {"pods": 2, "batch": 8, "steps": 8, "n_layers": 12,
            "min_delta": 2, "min_replans": 1},
-    "p3": {"pods": 3, "batch": 6, "steps": 4, "n_layers": 16,
+    "p3": {"pods": 3, "batch": 6, "steps": 4, "n_layers": 8,
            "min_delta": 1, "min_replans": 0},
     # phase 8: C = 2 clusters x E = 2 members (``edge``); four pods at 16
     # layers would need ~76 of the card's 80 GB (phase 7's ~1.2 GiB a
-    # layer), so 12, and a run that does not fit fails
-    "hier": {"pods": 4, "edge": 2, "batch": 8, "steps": 6, "n_layers": 12,
+    # layer); 6 layers (12 until phase 19 joined the script)
+    "hier": {"pods": 4, "edge": 2, "batch": 8, "steps": 6, "n_layers": 6,
              "min_delta": 1, "min_replans": 1},
 }
 #: phase 9a: restart-replay on one pod, phase 5's configuration cut in
 #: depth (at 24 layers its disk-bound checkpoint writes of 9.09 GB made it
 #: the script's longest phase, 150-161 s; at 12, 79-92 s; 6 since phase
-#: 18 joined the script): run A trains ``steps`` steps, run B
+#: 18 joined the script; 4 since phase 19, which trains at this depth,
+#: did): run A trains ``steps`` steps, run B
 #: ``steps - 1`` and restarts from the checkpoints of every ``ckpt_every``
 #: steps
 RESTART = {"pods": 1, "batch": 8, "steps": 10, "ckpt_every": 4,
-           "n_layers": 6}
+           "n_layers": 4}
 #: phase 9b: elastic membership, P = 3 pod processes sharing the card
 #: (three full-depth pods and their checkpoint copies do not fit; 12
-#: layers, 85 s, until phase 18 joined the script: 6), pod 2 preempted at
-#: step 4 and back at step 8
+#: layers, 85 s, until phase 18 joined the script: 6; 4 since phase 19
+#: joined it), pod 2 preempted at step 4 and back at step 8
 ELASTIC = {"pods": 3, "batch": 6, "steps": 12, "ckpt_every": 5,
-           "n_layers": 6, "kill": 4, "rejoin": 8, "killed": 2}
+           "n_layers": 4, "kill": 4, "rejoin": 8, "killed": 2}
 
 
 def fail(msg: str):
@@ -1363,8 +1404,8 @@ def multipod_run(spec) -> dict:
 def multipod_phase(torch) -> dict:
     """Phase 7: the multi-pod main paths under the default ACESyncConfig
     (the chunked ring on the rungs the roofline rings), pods as processes
-    sharing the card: P = 2 (global batch 8, 8 steps) and P = 3 (global
-    batch 6, 4 steps, 16 layers), each with its all-rungs step and
+    sharing the card: P = 2 (global batch 8, 8 steps, 12 layers) and
+    P = 3 (global batch 6, 4 steps, 8 layers), each with its all-rungs step and
     sync_tree round.  Returns each path's launch counts (all pods) and the
     pod link's measurement."""
     import gc
@@ -1809,9 +1850,9 @@ def restart_pod_path(group, spec):
     return out
 
 
-def restart_phase(torch) -> dict:
+def restart_phase(torch) -> tuple:
     """Phase 9a: restart-replay on one pod, paper-350m at full width and
-    ``RESTART``'s 6 layers (phase 5's configuration cut in depth,
+    ``RESTART``'s 4 layers (phase 5's configuration cut in depth,
     ``ckpt_every`` 4), under ``RunConfig.deterministic``, in a process of
     its own.  Run A trains
     10 steps; run B trains 9 in a fresh directory, leaves a crashed
@@ -1819,7 +1860,7 @@ def restart_phase(torch) -> dict:
     bit-rots the newest checkpoint's largest leaf; a fresh TrainSession
     must restore step 4, record 8 as corrupt and train to step 10,
     bit-identical to run A.  Returns the launch counts of the three
-    runs."""
+    runs and run A's last save (bytes and seconds)."""
     import gc
     from repro_torch.launch.mesh import spawn_pods
     spec = dict(RESTART, dir=str(CKPT_ROOT / "restart"))
@@ -1862,7 +1903,8 @@ def restart_phase(torch) -> dict:
     log(f"{tag}: {res['n_params']} parameters, {save['bytes']} bytes per "
         f"checkpoint; save() of step {save['step']} {save['copy_s']:.3f} s "
         f"in the foreground (device -> host copy), background write "
-        f"{save['write_s']:.3f} s ({gbs:.3f} GB/s to disk, fsync'd); "
+        f"{save['write_s']:.3f} s ({gbs:.3f} GB/s to disk, fsync'd; of it "
+        f"the CRC read-back {save['crc_s']:.3f} s); "
         f"restore {res['restore_s']:.3f} s (step {last} rejected by its "
         f"CRC, step {restored} verified and loaded)")
     log(f"{tag}: restored step {restored}, corrupt {corrupt}; params, m, "
@@ -1870,7 +1912,7 @@ def restart_phase(torch) -> dict:
         f"run at step {spec['steps']}, plan {list(res['got_loop'][0])}, H "
         f"{res['got_loop'][2]}; losses {[round(x, 4) for x in losses_a]}; "
         f"launches {launches}; wall {res['wall']:.1f} s")
-    return launches
+    return launches, save
 
 
 def elastic_pod_path(group, spec):
@@ -3323,14 +3365,15 @@ def serve_recurrent_phase(torch, card) -> None:
 #: largest peak of a train step kind (the all-rungs ``grad_sync``) that
 #: ``python -m repro_torch.launch.memory`` measured for it at 8 layers,
 #: batch 8 x 1024, on an H100 80GB HBM3 at 700 W (48.046 and 49.245),
-#: rounded up.  falcon-mamba-7b 12 of 64 layers (13 would need 73.26 GiB
-#: of the card's 79.18); recurrentgemma-2b 8 of 26 (its depth keeps
+#: rounded up.  falcon-mamba-7b 12 of 64 layers fit (13 would need 73.26
+#: GiB of the card's 79.18); recurrentgemma-2b 8 of 26 (its depth keeps
 #: n_layers = 2 mod 3, so that its unrolled ``tail`` of two RG-LRU
-#: layers trains; 11 would need 73.91)
+#: layers trains; 11 would need 73.91).  Run at 6 and 5 layers since
+#: phase 19 joined the script, to keep it inside its time limit
 TRAIN_RECURRENT = {
-    "falcon-mamba-7b": {"n_layers": 12, "batch": 8,
+    "falcon-mamba-7b": {"n_layers": 6, "batch": 8,
                         "bytes_per_param": 48.1},
-    "recurrentgemma-2b": {"n_layers": 8, "batch": 8,
+    "recurrentgemma-2b": {"n_layers": 5, "batch": 8,
                           "bytes_per_param": 49.3}}
 #: gate 4: falcon-mamba's scan transient during the backward (the peak
 #: of ``SelectiveScan``'s backward above the allocation just before it,
@@ -4283,6 +4326,25 @@ def mesh_train_path(ctx, spec):
     return out
 
 
+def mesh_train_paths(ctx, specs):
+    """Phase 18 (a), one rank: :func:`mesh_train_path` for each model of
+    ``specs`` on this mesh in turn, the memory of one freed before the
+    next (each resets the peak it reports)."""
+    import gc
+    import torch
+    from repro_torch.core import sync as S
+    out = []
+    for spec in specs:
+        plain = S.sync_tree
+        try:
+            out.append(mesh_train_path(ctx, spec))
+        finally:
+            S.sync_tree = plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_mesh_train(tag, card, spec, res, cards=1) -> dict:
     """Gates 1-4 of one mesh's ranks and their lines; returns the
     kernels' launches summed over the ranks."""
@@ -4407,14 +4469,18 @@ def mesh_train_phase(torch, card) -> dict:
                                       models.items()]},), timeout=600)
     log(f"{tag}: gate 1's unsharded models and their saved gradients "
         f"{time.perf_counter() - t0:.2f} s")
-    launches = {}
+    launches, meshes = {}, {}
     for c in MESH_TRAIN_A:
-        spec = dict(c, shape=MESH_TRAIN_A_SHAPE, ref=ref)
-        res = spawn_mesh(mesh_train_path, *c["mesh"], "cuda", args=(spec,),
+        meshes.setdefault(c["mesh"], []).append(c)
+    for mesh, cs in meshes.items():
+        # the mesh's models in turn in one spawn (a fresh process costs
+        # seconds before its first step)
+        specs = [dict(c, shape=MESH_TRAIN_A_SHAPE, ref=ref) for c in cs]
+        res = spawn_mesh(mesh_train_paths, *mesh, "cuda", args=(specs,),
                          timeout=600)
-        D, M = c["mesh"]
-        launches[f"mesh_{c['arch']}_{D}x{M}"] = check_mesh_train(
-            tag, card, c, res)
+        for i, c in enumerate(cs):
+            launches[f"mesh_{c['arch']}_{mesh[0]}x{mesh[1]}"] = \
+                check_mesh_train(tag, card, c, [r[i] for r in res])
         log(f"{tag}: {time.perf_counter() - t0:.2f} s so far")
     shutil.rmtree(gdir, ignore_errors=True)
     launches.update(mesh_train_big_phase(torch))
@@ -4475,6 +4541,450 @@ def mesh_train_big_phase(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: checkpoints on a within-pod ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+#: 19(a): paper-350m at full width and phase 9a's depth, batch 8 x 1024,
+#: deterministic, in one fleet of four processes sharing the card over
+#: gloo (one spawn: a fresh process costs seconds before its first step).
+#: Fleet ranks 0-1 run ``steps`` uninterrupted steps on ``mesh``
+#: checkpointing every ``ckpt_every``; ranks 2-3, fresh processes in a
+#: group of their own that never trained, resume on ``mesh`` from step
+#: ``resume`` to ``steps``; the last checkpoint is restored on every
+#: shape of ``restore_on`` (the fleet's first ranks; None: one card
+#: without a mesh, rank 0), and on ``mesh`` after rank 0 corrupts a leaf
+MESH_CKPT_A = {"n_layers": RESTART["n_layers"], "batch": 8, "seq": 1024,
+               "steps": 6, "ckpt_every": 2, "resume": 4, "mesh": (1, 2),
+               "restore_on": ((2, 2), (2, 1), None)}
+#: 19(b), with four cards, over NCCL: paper-350m at full depth on (2, 2),
+#: ``steps`` steps checkpointing every ``ckpt_every``; the last
+#: checkpoint restored on (1, 4) and on one card
+MESH_CKPT_B = {"n_layers": None, "batch": 8, "seq": 1024, "steps": 4,
+               "ckpt_every": 2, "mesh": (2, 2), "restore_on": ((1, 4), None)}
+
+
+def mesh_ckpt_session(torch, spec, ctx, ckpt_dir):
+    """A TrainSession of paper-350m at full width and ``spec``'s depth
+    on ``ctx``'s mesh (None: one card), deterministic, checkpointing to
+    ``ckpt_dir`` every ``spec["ckpt_every"]`` steps."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ACESyncConfig, RunConfig, ShapeConfig
+    from repro_torch.launch.session import TrainSession, apply_determinism
+    from repro_torch.models.registry import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ARCHS["paper-350m"]
+    if spec["n_layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    run = RunConfig(model=cfg, shape=ShapeConfig("session", spec["seq"],
+                                                 spec["batch"], "train"),
+                    total_steps=100, warmup_steps=2, ckpt_dir=str(ckpt_dir),
+                    ckpt_every=spec["ckpt_every"],
+                    acesync=ACESyncConfig(replan_every=4),
+                    deterministic=True)
+    apply_determinism(run)
+    dev = "cuda" if ctx is None else ctx.device
+    return TrainSession(build_model(cfg, run, device=dev, ctx=ctx), run,
+                        strategy="acesync", blocking_replans=True)
+
+
+def mesh_ckpt_timed_init(torch, sess) -> float:
+    """Restore (or initialise) the session's state; its seconds."""
+    t0 = time.perf_counter()
+    sess.init()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def mesh_ckpt_bits(torch, sess) -> dict:
+    """The rank's state hashes per leaf (reference order), the loop's
+    host state and the losses."""
+    from repro_torch import tree as T
+    lp = sess.loop
+    return {"hashes": [int(bits_hash(torch, x)) for _, x in
+                       T.reference_leaves_with_path(sess.state)],
+            "host": (list(lp.plan.level_idx), lp.plan.sync_interval, lp._H,
+                     lp._steps_since_sync,
+                     sess.trainer.scheduler.sync_interval,
+                     int(sess.state["step"])),
+            "losses": sess.losses}
+
+
+def same_bytes(a: Path, b: Path) -> bool:
+    """Two files hold the same bytes."""
+    import numpy as np
+    return (a.stat().st_size == b.stat().st_size
+            and np.array_equal(np.fromfile(a, np.uint8),
+                               np.fromfile(b, np.uint8)))
+
+
+def mesh_ckpt_train_path(ctx, spec):
+    """Phase 19, one rank of a training run: ``spec["dir"]``'s run of
+    ``spec["steps"]`` steps (resuming from the checkpoint there, if any)
+    and one all-rungs ``grad_sync`` after it, the kernels' launches
+    counted from 0 before the run."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.kernels import ops
+    sess = mesh_ckpt_session(torch, spec, ctx, spec["dir"])
+    out = {"rank": ctx.rank, "backend": ctx.world.backend}
+    ops.reset_launch_counts()
+    out["init_s"] = mesh_ckpt_timed_init(torch, sess)
+    out["start"] = int(sess.state["step"])
+    t0 = time.perf_counter()
+    sess.run(spec["steps"] - out["start"], log_every=0)
+    sess.finish()
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    out["step_s"] = [round(h["dt"], 3) for h in sess.history]
+    out["save"] = dict(sess.loop.ckpt.last_save)
+    out.update(mesh_ckpt_bits(torch, sess))
+    tr = sess.trainer
+    rr = tr.scheduler.plan_from_levels(
+        [i % 8 for i in range(len(tr.sizes))], (1.0,))
+    state, _ = tr.step(sess.take_state(), next(sess.pipeline), rr,
+                       "grad_sync")
+    out["all_rungs"] = [int(bits_hash(torch, x)) for _, x in
+                        T.reference_leaves_with_path(state)]
+    torch.cuda.synchronize()
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def mesh_ckpt_fleet_path(world, spec):
+    """Phase 19 (a), one process of the fleet of four (``MESH_CKPT_A``):
+    its part in the uninterrupted run (``A``), the resumed run (``B``),
+    the restores of A's last checkpoint and, after rank 0 compared A's and
+    B's last files and bit-rotted one of A's, the fallback; each stage
+    ends at a barrier of the fleet.  ``stamps``: the wall clock at this
+    process's entry and at the end of each stage."""
+    import gc
+    import torch
+    from repro_torch.launch.mesh import sub_mesh
+    from repro_torch.runtime import faults as F
+    stamps = {"entry": time.time()}
+    D, M = spec["mesh"]
+    n = D * M
+    runs = [sub_mesh(world, range(n), D, M),
+            sub_mesh(world, range(n, 2 * n), D, M)]
+    shapes = {s: sub_mesh(world, range(s[0] * s[1]), *s)
+              for s in spec["restore_on"] if s is not None}
+    dA, dB = Path(spec["dir"]) / "A", Path(spec["dir"]) / "B"
+    out = {"rank": world.rank, "stamps": stamps, "restores": {}}
+
+    def stage(name):
+        gc.collect()
+        torch.cuda.empty_cache()
+        world.barrier()
+        stamps[name] = time.time()
+
+    if runs[0] is not None:
+        out["a"] = mesh_ckpt_train_path(runs[0], dict(spec, dir=str(dA)))
+    stage("a")
+    if world.rank == 0:
+        # B's copy of A's resume checkpoint: hard links (a save writes new
+        # files into a directory of its own, and nothing writes into them)
+        resumed = f"step_{spec['resume']:08d}"
+        shutil.copytree(dA / resumed, dB / resumed, copy_function=os.link)
+    world.barrier()
+    if runs[1] is not None:
+        out["b"] = mesh_ckpt_train_path(runs[1], dict(spec, dir=str(dB)))
+    stage("b")
+    for shape in spec["restore_on"]:
+        name = "one card" if shape is None else f"({shape[0]}, {shape[1]})"
+        ctx = None if shape is None else shapes[shape]
+        if ctx is not None or (shape is None and world.rank == 0):
+            t0 = time.perf_counter()
+            out["restores"][name] = mesh_ckpt_restore_path(
+                ctx, dict(spec, dir=str(dA)))
+            out["restores"][name]["wall_s"] = time.perf_counter() - t0
+        stage(name)
+    if world.rank == 0:
+        a, b = (d / f"step_{spec['steps']:08d}" for d in (dA, dB))
+        names = sorted(x for x in os.listdir(a) if x.startswith("leaf_"))
+        out["files_equal"] = (
+            names == sorted(x for x in os.listdir(b)
+                            if x.startswith("leaf_"))
+            and all(same_bytes(a / x, b / x) for x in names))
+        biggest = max(names, key=lambda x: (a / x).stat().st_size)
+        out["corrupted"] = F.corrupt_checkpoint_leaf(
+            str(dA), int(biggest.split("_")[1].split(".")[0]),
+            step=spec["steps"])
+    world.barrier()
+    if runs[0] is not None:
+        sess = mesh_ckpt_session(torch, spec, runs[0], dA)
+        sess.init()
+        out["fallback"] = (int(sess.state["step"]),
+                           list(sess.loop.ckpt.corrupt_steps))
+        del sess
+    stage("fallback")
+    return out
+
+
+def mesh_ckpt_restore_path(ctx, spec):
+    """Phase 19, one rank (``ctx`` None: one card without a mesh) of a
+    restore of the checkpoint in ``spec["dir"]``: its seconds, and on
+    rank 0 the CRCs of the state the ranks' shards assemble to
+    (:func:`mesh_ckpt_assembled`; the shards go to rank 0 over the
+    world's host group, :func:`gather_shards`, not through the result
+    queue's pipe)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import convert
+    sess = mesh_ckpt_session(torch, spec, ctx, spec["dir"])
+    out = {"rank": 0 if ctx is None else ctx.rank,
+           "restore_s": mesh_ckpt_timed_init(torch, sess)}
+    out["step"] = int(sess.state["step"])
+    shards = convert.rank_shards(sess.state, sess.trainer)
+    del sess
+    t0 = time.perf_counter()
+    every = ([shards] if ctx is None or ctx.world.size == 1
+             else gather_shards(torch, dist, ctx.world, shards))
+    del shards
+    if out["rank"] == 0:
+        out["crcs"] = mesh_ckpt_assembled(every)
+    out["assemble_s"] = time.perf_counter() - t0
+    return out
+
+
+def gather_shards(torch, dist, group, mine):
+    """Every rank's ``convert.rank_shards`` (``mine`` on this rank), on
+    rank 0 in rank order (None on the others): each leaf's index and
+    shapes as objects, its shard as a tensor over the group's host
+    group."""
+    import numpy as np
+    meta = {k: (index, shape, part.shape, part.dtype.str)
+            for k, (part, index, shape) in mine.items()}
+    metas = [None] * group.size if group.rank == 0 else None
+    dist.gather_object(meta, metas, dst=group.ranks[0],
+                       group=group.host_pg)
+    if group.rank != 0:
+        for part, _, _ in mine.values():
+            dist.send(torch.from_numpy(np.ascontiguousarray(part)),
+                      dst=group.ranks[0], group=group.host_pg)
+        return None
+    every = [mine]
+    for r in range(1, group.size):
+        got = {}
+        for k, (index, shape, pshape, dt) in metas[r].items():
+            buf = torch.from_numpy(np.empty(pshape, np.dtype(dt)))
+            dist.recv(buf, src=group.ranks[r], group=group.host_pg)
+            got[k] = (buf.numpy(), index, shape)
+        every.append(got)
+    return every
+
+
+def _one_card_restore(group, spec):
+    return mesh_ckpt_restore_path(None, spec)
+
+
+def mesh_ckpt_assembled(shards) -> list:
+    """The CRC-32 of each leaf of the state the ranks' shards
+    (``convert.rank_shards`` of each) assemble to
+    (``convert.reference_from_shards``)."""
+    import zlib
+    from repro_torch import convert
+    whole = convert.reference_from_shards(shards)
+    return [zlib.crc32(memoryview(whole[k]).cast("B")) for k in sorted(whole)]
+
+
+def log_mesh_ckpt_restore(tag, card, spec, name, res, wall) -> list:
+    """Check and print the restore of one shape (its ranks' results and
+    the processes' wall seconds); returns rank 0's CRCs of the assembled
+    state."""
+    steps = {r["step"] for r in res}
+    if steps != {spec["steps"]}:
+        fail(f"{tag}: restored on {name} at steps {steps}, not "
+             f"{spec['steps']}")
+    log(f"{tag}: step {spec['steps']} restored on {name}: seconds per rank "
+        f"{[round(r['restore_s'], 3) for r in res]}, shards gathered and "
+        f"assembled on rank 0 in {res[0]['assemble_s']:.2f} s; wall "
+        f"{wall:.2f} s [{card}]")
+    return res[0]["crcs"]
+
+
+def mesh_ckpt_restores(tag, card, spec, ckpt_dir, shapes) -> dict:
+    """Restore ``ckpt_dir``'s newest checkpoint on every shape of
+    ``shapes`` (None: one card without a mesh), each in processes of its
+    own; their lines, and the assembled state's CRCs per shape."""
+    from repro_torch.launch.mesh import spawn_mesh, spawn_pods
+    rspec = dict(spec, dir=str(ckpt_dir))
+    out = {}
+    for shape in shapes:
+        t0 = time.perf_counter()
+        if shape is None:
+            res = spawn_pods(_one_card_restore, 1, "cuda", args=(rspec,),
+                             timeout=600)
+        else:
+            res = spawn_mesh(mesh_ckpt_restore_path, *shape, "cuda",
+                             args=(rspec,), timeout=600)
+        name = "one card" if shape is None else f"({shape[0]}, {shape[1]})"
+        out[name] = log_mesh_ckpt_restore(tag, card, spec, name, res,
+                                          time.perf_counter() - t0)
+    return out
+
+
+def log_mesh_ckpt_save(tag, card, name, res) -> None:
+    """The last save's bytes and seconds, per rank."""
+    s0 = res[0]["save"]
+    log(f"{tag}: {name} save of step {s0['step']}: {s0['bytes']:,} B a "
+        f"checkpoint; per rank: bytes written "
+        f"{[r['save']['rank_bytes'] for r in res]}, copy_s "
+        f"{[round(r['save']['copy_s'], 3) for r in res]}, write_s "
+        f"{[round(r['save']['write_s'], 3) for r in res]}; rank 0's CRC "
+        f"read-back crc_s {s0['crc_s']:.3f} ({s0['bytes'] / s0['write_s'] / 1e9:.3f} "
+        f"GB/s written, fsync'd) [{card}]")
+    if sum(r["save"]["rank_bytes"] for r in res) != s0["bytes"]:
+        fail(f"{tag}: {name}: the ranks wrote "
+             f"{sum(r['save']['rank_bytes'] for r in res)} B of a "
+             f"{s0['bytes']} B checkpoint (each entry once)")
+
+
+def mesh_ckpt_phase(torch, card, restart_save) -> dict:
+    """Phase 19 (a), one fleet of four processes sharing the card
+    (:func:`mesh_ckpt_fleet_path`): paper-350m at phase 9a's depth trains
+    on (1, 2) with checkpoints, two fresh processes resume from step 4
+    and must replay it bit for bit (gate 1); the last checkpoint restores
+    on (2, 2), (2, 1) and one card, each assembling to one state (gate
+    2); a corrupt leaf makes every (1, 2) rank fall back to the same step
+    (gate 3); K1-K4 launch on the training path (gate 4).  (b) on four
+    cards.  Returns the kernels' launches per path."""
+    import gc
+    from repro_torch.launch.mesh import spawn_pods
+    tag = "phase 19 (a)"
+    spec = MESH_CKPT_A
+    gc.collect()
+    torch.cuda.empty_cache()
+    # A's three checkpoints, B's two and the copy in B
+    _disk_check(tag, spec["n_layers"], 6)
+    root = CKPT_ROOT / "mesh_ckpt"
+    n = spec["mesh"][0] * spec["mesh"][1]
+    t0, w0 = time.perf_counter(), time.time()
+    try:
+        res = spawn_pods(mesh_ckpt_fleet_path, 2 * n, "cuda",
+                         args=(dict(spec, dir=str(root)),), timeout=600)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    a = [r["a"] for r in res[:n]]
+    b = [r["b"] for r in res[n:]]
+    st = [r["stamps"] for r in res]
+    since = [round(max(x[k] for x in st) - w0, 2)
+             for k in ["entry", "a", "b"] + [
+                 f"({s[0]}, {s[1]})" if s else "one card"
+                 for s in spec["restore_on"]] + ["fallback"]]
+    log(f"{tag}: one fleet of {2 * n} processes over {a[0]['backend']}, "
+        f"{wall:.2f} s; seconds from the spawn to every process in, then "
+        f"to the end of the uninterrupted run, the resumed run, each "
+        f"restore and the fallback: {since}")
+    log(f"{tag}: {spec['steps']} uninterrupted steps on {spec['mesh']} "
+        f"(fleet ranks 0-{n - 1}): {a[0]['run_s']:.2f} s (seconds a step "
+        f"{a[0]['step_s']}), losses {[round(x, 4) for x in a[0]['losses']]}")
+    log_mesh_ckpt_save(tag, card, f"{spec['mesh']}", a)
+    # gate 1: the resumed run replays the uninterrupted one on every rank
+    for ra, rb in zip(a, b):
+        if rb["start"] != spec["resume"]:
+            fail(f"{tag}: rank {rb['rank']} resumed at step {rb['start']}")
+        if rb["hashes"] != ra["hashes"] or rb["host"] != ra["host"] \
+                or rb["all_rungs"] != ra["all_rungs"] \
+                or rb["losses"] != ra["losses"][spec["resume"]:]:
+            bad = [i for i, (x, y) in enumerate(zip(ra["hashes"],
+                                                    rb["hashes"])) if x != y]
+            fail(f"{tag}: rank {rb['rank']}: the resumed run differs from "
+                 f"the uninterrupted one (leaves {bad}, host {rb['host']} "
+                 f"vs {ra['host']}, losses {rb['losses']} vs "
+                 f"{ra['losses'][spec['resume']:]})")
+    if not res[0]["files_equal"]:
+        fail(f"{tag}: the resumed run's step-{spec['steps']} files differ "
+             f"from the uninterrupted run's")
+    log(f"{tag}: resumed from step {spec['resume']} by fleet ranks "
+        f"{n}-{2 * n - 1}, a group of their own (restore seconds per rank "
+        f"{[round(r['init_s'], 3) for r in b]}, then {b[0]['run_s']:.2f} s "
+        f"to step {spec['steps']}, a step {b[0]['step_s']}): every state leaf's hash, the plan, H "
+        f"and the losses bit-identical on every rank to the uninterrupted "
+        f"run's at step {spec['steps']} and after an all-rungs grad_sync, "
+        f"its step-{spec['steps']} leaf files byte for byte [{card}]")
+    log_mesh_ckpt_save(tag, card, f"{spec['mesh']} resumed", b)
+    # gate 2: every restore assembles to the one-card restore's state
+    crcs = {}
+    for shape in spec["restore_on"]:
+        name = "one card" if shape is None else f"({shape[0]}, {shape[1]})"
+        got = [r["restores"][name] for r in res if name in r["restores"]]
+        crcs[name] = log_mesh_ckpt_restore(
+            tag, card, spec, name, got, max(g["wall_s"] for g in got))
+    want = crcs["one card"]
+    bad = [name for name, c in crcs.items() if c != want]
+    if bad:
+        fail(f"{tag}: restores on {bad} do not assemble to the one-card "
+             f"restore's state")
+    log(f"{tag}: the restores on {sorted(crcs)} assemble to one state "
+        f"({len(want)} leaves, CRC-32 each)")
+    # gate 3: the corruption, the same fallback on every rank
+    want_fall = (spec["steps"] - spec["ckpt_every"], [spec["steps"]])
+    falls = [r["fallback"] for r in res[:n]]
+    if not res[0]["corrupted"] or any(f != want_fall for f in falls):
+        fail(f"{tag}: after corrupting {res[0].get('corrupted')}: "
+             f"fallbacks {falls}, expected {want_fall}")
+    log(f"{tag}: {res[0]['corrupted']} bit-rotted: every rank of "
+        f"{spec['mesh']} restored step {want_fall[0]} and recorded "
+        f"{want_fall[1]} as corrupt")
+    # gate 4: K1-K4 on the training path
+    launches = {k: sum(r["launches"].get(k, 0) for r in a + b)
+                for k in a[0]["launches"]}
+    missing = [k for k in KERNELS if launches.get(k, 0) < 1]
+    if missing:
+        fail(f"{tag}: kernels never launched on the training path: "
+             f"{missing}")
+    if restart_save:
+        s = restart_save
+        log(f"{tag}: beside phase 9a's one-card save of the same model: "
+            f"{s['bytes']:,} B, copy_s {s['copy_s']:.3f}, write_s "
+            f"{s['write_s']:.3f}, crc_s {s.get('crc_s', float('nan')):.3f} "
+            f"[{card}]")
+    log(f"{tag}: launches on the training path {launches}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    return {"mesh_ckpt": launches, **mesh_ckpt_big_phase(torch)}
+
+
+def mesh_ckpt_big_phase(torch) -> dict:
+    """Phase 19(b): paper-350m at full depth on (2, 2) over NCCL, a card
+    a rank, with checkpoints; the last restored on (1, 4) and one card,
+    assembling to one state.  One line and nothing else on fewer cards.
+    Returns the kernels' launches on its training path."""
+    from repro_torch.launch.mesh import spawn_mesh
+    tag = "phase 19 (b)"
+    n = torch.cuda.device_count()
+    spec = MESH_CKPT_B
+    if n < 4:
+        log(f"{tag}: {n} card(s): paper-350m's mesh checkpoints at full "
+            f"depth run on four; not run")
+        return {}
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    cards = "; ".join(out.splitlines()[:4])
+    _disk_check(tag, spec["n_layers"], 2)
+    d = CKPT_ROOT / "mesh_ckpt_big"
+    t0 = time.perf_counter()
+    try:
+        a = spawn_mesh(mesh_ckpt_train_path, *spec["mesh"], "cuda",
+                       args=(dict(spec, dir=str(d)),), timeout=900)
+        log(f"{tag}: {spec['steps']} steps on {spec['mesh']} over "
+            f"{a[0]['backend']}: {a[0]['run_s']:.2f} s")
+        log_mesh_ckpt_save(tag, cards, f"{spec['mesh']}", a)
+        crcs = mesh_ckpt_restores(tag, cards, spec, d, spec["restore_on"])
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if len({tuple(c) for c in crcs.values()}) != 1:
+        fail(f"{tag}: the restores on {sorted(crcs)} do not assemble to "
+             f"one state")
+    log(f"{tag}: the restores on {sorted(crcs)} assemble to one state; "
+        f"{time.perf_counter() - t0:.2f} s")
+    return {"mesh_ckpt_b": {k: sum(r["launches"].get(k, 0) for r in a)
+                            for k in a[0]["launches"]}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4482,6 +4992,15 @@ def main() -> int:
              "an NVIDIA GPU")
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not next to this script ({SRC})")
+    # every process the script starts imports torch and the port afresh:
+    # their bytecode is cached under build/ (where PYTHONDONTWRITEBYTECODE
+    # is set, each process would compile every module again, seconds a
+    # process)
+    cache = str(ROOT / "build" / "pycache")
+    sys.pycache_prefix = cache
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = cache
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     sys.path.insert(0, str(SRC))
     import numpy as np
 
@@ -4519,7 +5038,8 @@ def main() -> int:
     runs, link = timed_phase("phase 7", multipod_phase, torch)
     by_path.update(runs)
     by_path["hier"] = timed_phase("phase 8", hier_phase, torch)
-    by_path["restart"] = timed_phase("phase 9a", restart_phase, torch)
+    by_path["restart"], restart_save = timed_phase("phase 9a",
+                                                   restart_phase, torch)
     by_path["elastic"] = timed_phase("phase 9b", elastic_phase, torch)
     timed_phase("phase 10", serve_phase, torch, card)
     timed_phase("phase 11", serve_moe_phase, torch, card)
@@ -4532,6 +5052,8 @@ def main() -> int:
                                card))
     timed_phase("phase 17", serve_mesh_phase, torch, card)
     by_path.update(timed_phase("phase 18", mesh_train_phase, torch, card))
+    by_path.update(timed_phase("phase 19", mesh_ckpt_phase, torch, card,
+                               restart_save))
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     log(f"pod link (phase 7, P = 2 ping-pong): latency "
         f"{link['latency_s']:.6g} s per hop, rate "
@@ -4550,7 +5072,7 @@ def main() -> int:
             # phase 8 (every member of the 2 x 2 fleet) + phase 9 (the
             # restart runs on one pod, every pod of the elastic run) +
             # phases 12, 14 and 16 (each trained model's process, phase
-            # 12's determinism runs)
+            # 12's determinism runs) + phases 18 and 19 (every mesh rank)
             "launches": sum(n.get(name, 0) for n in by_path.values()),
             "launches_by_path": {path: n.get(name, 0)
                                  for path, n in by_path.items()},
@@ -4581,6 +5103,12 @@ def main() -> int:
                       "cards": 4, "batch": MESH_TRAIN_B_SHAPE[0],
                       "seq": MESH_TRAIN_B_SHAPE[1]}
                   for p in by_path if p.startswith("mesh_b_")})
+    paths.update({p: {"arch": "paper-350m", "layers": s["n_layers"] or 24,
+                      "mesh": s["mesh"], "batch": s["batch"],
+                      "seq": s["seq"], "cards": 1 if p == "mesh_ckpt" else 4}
+                  for p, s in (("mesh_ckpt", MESH_CKPT_A),
+                               ("mesh_ckpt_b", MESH_CKPT_B))
+                  if p in by_path})
     print(json.dumps({"kernels": kernels, "paths": paths,
                       "link": {k: link[k] for k in ("latency_s",
                                                     "rate_bytes_per_s")}}),

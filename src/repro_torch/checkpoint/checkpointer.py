@@ -6,7 +6,7 @@ Layout:  <dir>/step_<N>/
             manifest.json        step, n_leaves, per-leaf shape / dtype /
                                  crc32, extras, leaf_paths
             leaf_<k>.npy         one .npy per leaf, (P, ...) with the
-                                 leading pod dimension
+                                 leading pod dimension, the leaf whole
          <dir>/LATEST            atomic pointer file
 
 The leaves are numbered in the reference's flatten order
@@ -35,26 +35,45 @@ The reference's properties, kept here:
     reference's cut (P_saved > P) and tile (P_saved < P) of the pod
     dimension; a leaf of another shape raises, never loads.
 
-With a pod group (``pods``, one process per pod) no pod's state crosses
-the pod link: rank 0 creates each ``leaf_<k>.npy`` with its (P, ...)
-header, every pod writes its own row (one contiguous byte range in C
-order), and rank 0 checksums the files and publishes.  The background
-thread coordinates these stages over the group's ``ckpt_pg`` (a gloo
-group used by no other thread) of the group that was current when the
-save began, so the loop may change its membership while a write is in
-flight; a failure on any pod fails the stage on every pod.  On restore
-rank 0 picks the newest step that verifies and sends it to the others
-over ``host_pg``, so that every pod falls back to the same step.
+Every process writes and reads its own region of each leaf file, and
+one rule, :meth:`Checkpointer._regions`, places it.  One process, or pod
+p of a pod group (``pods``, one process per pod): row p of every leaf,
+whole.  A rank of a within-pod ("data", "model") mesh (``mesh``, a
+:class:`MeshLayout`: the group of the mesh's ranks and the function
+giving one :class:`LeafShard` per state leaf): its shard of row 0 (the
+reference's state on a mesh has one row, the global leaves), written by
+the first of the ranks holding that shard.  So a mesh checkpoint is the
+one-card checkpoint of the same state, byte for byte, and a restore onto
+any mesh shape, or onto one card, reads slices of the same files.  Pods
+x mesh is not ported (the reference aborts there).
+
+No process's state crosses a link: rank 0 of the group creates each
+``leaf_<k>.npy`` at its global (P, ...) size, every process ``pwrite``s
+each contiguous C-order run of its regions (one run for a row or a shard
+along the first dimension, strided runs for a shard along an inner one)
+and fsyncs, so a full disk or any other failed write raises ``OSError``
+on the writing thread; rank 0 reads every file back for its CRC
+(interleaved shards cannot combine theirs) and publishes.  The background thread coordinates these stages over the
+group's ``ckpt_pg`` (a gloo group used by no other thread) of the group
+that was current when the save began, so the loop may change its
+membership while a write is in flight; a failure on any process fails
+the stage on every process.  On restore rank 0 picks the newest step
+that verifies and sends it to the others over ``host_pg``, so that every
+process falls back to the same step; every process then checks each
+file's global shape against its layout (a leaf of another shape raises
+``ValueError`` naming it before any leaf is loaded) and reads its
+regions.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import threading
 import time
 import zlib
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -63,8 +82,61 @@ import torch.distributed as dist
 from repro_torch import tree as T
 
 
-def _leaf_crc(arr: np.ndarray, crc: int = 0) -> int:
-    return zlib.crc32(np.ascontiguousarray(arr), crc) & 0xFFFFFFFF
+class LeafShard(NamedTuple):
+    """Where one state leaf of this process lies in the checkpoint's
+    leaf: the leaf's global shape (no pod dimension), this process's
+    index into it (a slice per dimension) and whether it writes it."""
+    shape: tuple
+    index: tuple
+    writes: bool
+
+
+def whole_leaves(state) -> List[LeafShard]:
+    """The layout without a mesh: every leaf whole, written by this
+    process."""
+    return [LeafShard(tuple(x.shape), tuple(slice(None) for _ in x.shape),
+                      True) for _, x in T.reference_leaves_with_path(state)]
+
+
+class MeshLayout(NamedTuple):
+    """A within-pod mesh's side of a checkpoint: ``group``, the group of
+    the mesh's ranks (its ``ckpt_pg`` and ``host_pg`` coordinate the
+    ranks), and ``layout``, a function of this rank's state giving one
+    :class:`LeafShard` per leaf (``Trainer.state_layout``)."""
+    group: Any
+    layout: Callable[[Any], List[LeafShard]]
+
+
+def _runs(shape: tuple, index: tuple) -> tuple:
+    """The contiguous C-order runs of the region ``index`` (a slice of
+    step 1 per dimension) of an array of ``shape``: (each run's element
+    offset from the array's start, in C order, and the run's length).
+    The region's elements in C order are its runs one after another."""
+    lo, ext = [], []
+    for sl, n in zip(index, shape):
+        a, b, step = sl.indices(n)
+        if step != 1:
+            raise ValueError(f"a region's slices have step 1, not {sl}")
+        lo.append(a)
+        ext.append(max(b - a, 0))
+    if 0 in ext:
+        return np.zeros(0, np.int64), 0
+    k = len(shape)
+    while k > 0 and ext[k - 1] == shape[k - 1]:
+        k -= 1                  # whole inner dimensions join the run
+    inner = math.prod(shape[k:])
+    if k == 0:
+        return np.zeros(1, np.int64), inner
+    stride = [math.prod(shape[d + 1:]) for d in range(k)]
+    offs = np.array([lo[k - 1] * inner], np.int64)
+    for d in reversed(range(k - 1)):
+        offs = ((lo[d] + np.arange(ext[d], dtype=np.int64))[:, None]
+                * stride[d] + offs[None, :]).ravel()
+    return offs, ext[k - 1] * inner
+
+
+def _leaf_crc(arr: np.ndarray) -> int:
+    return zlib.crc32(np.ascontiguousarray(arr)) & 0xFFFFFFFF
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -88,29 +160,59 @@ class Checkpointer:
     #: base backoff between attempts (doubles each retry)
     BACKOFF_S = 0.05
 
-    def __init__(self, directory: str, pods=None):
+    def __init__(self, directory: str, pods=None,
+                 mesh: Optional[MeshLayout] = None):
+        if pods is not None and mesh is not None:
+            raise ValueError("checkpoints of pods x a (data, model) mesh "
+                             "are not ported (ROADMAP Queue 1 item 3)")
         self.dir = directory
         os.makedirs(directory, exist_ok=True)
         #: the pod group of the next save and of restores (None: one
         #: pod); the loop replaces it when the membership changes
         self.pods = pods
-        #: the pod group writing the save in flight
-        self._writers = pods
+        #: a within-pod mesh's group and layout (None: no mesh)
+        self.mesh = mesh
+        #: the group writing the save in flight
+        self._writers = self._group()
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         #: steps whose directories failed verification this process
         self.corrupt_steps: List[int] = []
-        #: the last save's bytes (all pods) and seconds: ``copy_s`` in
-        #: the foreground, ``write_s`` on the background thread
+        #: the last save's bytes (``bytes`` the checkpoint's, ``rank_bytes``
+        #: the leaves this process wrote) and seconds: ``copy_s`` in the
+        #: foreground, ``write_s`` on the background thread, ``crc_s`` of
+        #: it rank 0's read-back for the CRCs
         self.last_save: Dict[str, float] = {}
 
-    @staticmethod
-    def _rank(pods) -> int:
-        return 0 if pods is None else pods.rank
+    def _group(self):
+        """The group whose processes write and read one checkpoint."""
+        return self.mesh.group if self.mesh is not None else self.pods
+
+    def _rows(self) -> int:
+        """The rows of a checkpoint this process saves: one per pod, one
+        on a mesh."""
+        return 1 if self.mesh is not None else self._size(self.pods)
+
+    def _regions(self, state, rows: int) -> List[LeafShard]:
+        """Where each leaf of ``state`` lies in a checkpoint of ``rows``
+        rows: its global shape (no pod dimension), this process's region
+        of the (rows, ...) file (the row, then a slice per dimension) and
+        whether this process writes it.  Pod p takes row p mod rows,
+        whole; a mesh rank its layout's shard of row 0."""
+        if self.mesh is None:
+            row = self._rank(self.pods) % rows
+            return [LeafShard(sh.shape, (slice(row, row + 1),) + sh.index,
+                              True) for sh in whole_leaves(state)]
+        return [LeafShard(sh.shape, (slice(0, 1),) + sh.index, sh.writes)
+                for sh in self.mesh.layout(state)]
 
     @staticmethod
-    def _size(pods) -> int:
-        return 1 if pods is None else pods.size
+    def _rank(group) -> int:
+        return 0 if group is None else group.rank
+
+    @staticmethod
+    def _size(group) -> int:
+        return 1 if group is None else group.size
 
     def _path(self, step: int, *name: str) -> str:
         return os.path.join(self.dir, f"step_{step:08d}", *name)
@@ -127,27 +229,35 @@ class Checkpointer:
 
     def save(self, step: int, state, extras: Optional[Dict[str, Any]] = None,
              blocking: bool = False):
-        """Snapshot ``state`` (this pod's tree of tensors) at ``step``.
-        With a pod group every pod of the group calls this at the same
+        """Snapshot ``state`` (this process's tree of tensors) at
+        ``step``.  Every process of the group calls this at the same
         step."""
         self.wait()             # also re-raises a prior failed write
         t0 = time.perf_counter()
         pairs = T.reference_leaves_with_path(state)
-        host = [_host(leaf) for _, leaf in pairs]
-        self._writers = self.pods
-        P = self._size(self._writers)
+        self._writers = self._group()
+        P = self._rows()
+        layout = self._regions(state, P)
+        # (leaf number, region, host copy) of each leaf this process writes
+        host = [(i, sh.index, _host(leaf))
+                for i, ((_, leaf), sh) in enumerate(zip(pairs, layout))
+                if sh.writes]
+        dtypes = [_np_dtype(leaf) for _, leaf in pairs]
         payload = {
             "step": step,
             "treedef_repr": None,
-            "n_leaves": len(host),
-            "leaves": [{"shape": [P] + list(h.shape), "dtype": str(h.dtype),
-                        "crc32": None} for h in host],
+            "n_leaves": len(pairs),
+            "leaves": [{"shape": [P] + list(sh.shape), "dtype": str(dt),
+                        "crc32": None} for sh, dt in zip(layout, dtypes)],
             "extras": extras or {},
             "leaf_paths": [T.path_str(p) for p, _ in pairs],
         }
-        self.last_save = {"step": step,
-                          "bytes": P * sum(h.nbytes for h in host),
-                          "copy_s": time.perf_counter() - t0}
+        self.last_save = {
+            "step": step,
+            "bytes": P * sum(math.prod(sh.shape) * dt.itemsize
+                             for sh, dt in zip(layout, dtypes)),
+            "rank_bytes": sum(h.nbytes for _, _, h in host),
+            "copy_s": time.perf_counter() - t0}
         self._thread = threading.Thread(
             target=self._write_guarded, args=(step, host, payload),
             daemon=True)
@@ -159,8 +269,8 @@ class Checkpointer:
         """Background entry point: retry transient failures with backoff,
         capture the terminal one for the next save()/wait().  Every
         attempt writes into ``.tmp`` first, so the previous valid
-        checkpoint is never touched by a failed snapshot.  The pods of a
-        group fail each stage together, so they retry together."""
+        checkpoint is never touched by a failed snapshot.  The processes
+        of a group fail each stage together, so they retry together."""
         t0 = time.perf_counter()
         delay = self.BACKOFF_S
         for attempt in range(self.RETRIES):
@@ -177,22 +287,22 @@ class Checkpointer:
 
     def _stage(self, fn) -> None:
         """Run one write stage (``fn`` may be None: nothing to do on this
-        pod), then agree with the other pods: a stage that failed on any
-        pod raises on every pod."""
+        process), then agree with the others: a stage that failed on any
+        process raises on every process."""
         err = None
         if fn is not None:
             try:
                 fn()
             except BaseException as e:  # noqa: BLE001 - raised below
                 err = e
-        pods = self._writers
-        if self._size(pods) > 1:
-            got = [None] * pods.size
+        group = self._writers
+        if self._size(group) > 1:
+            got = [None] * group.size
             dist.all_gather_object(got, None if err is None else repr(err),
-                                   group=pods.ckpt_pg)
+                                   group=group.ckpt_pg)
             bad = [(p, m) for p, m in enumerate(got) if m is not None]
             if bad and err is None:
-                raise RuntimeError(f"checkpoint write failed on pod "
+                raise RuntimeError(f"checkpoint write failed on rank "
                                    f"{bad[0][0]}: {bad[0][1]}")
         if err is not None:
             raise err
@@ -202,13 +312,13 @@ class Checkpointer:
         tmp = final + ".tmp"
         lead = self._rank(self._writers) == 0
         self._stage((lambda: self._prepare(tmp, payload)) if lead else None)
-        self._stage(lambda: self._write_rows(tmp, host))
-        self._stage((lambda: self._publish(final, tmp, host, payload))
+        self._stage(lambda: self._write_shards(tmp, host))
+        self._stage((lambda: self._publish(final, tmp, payload))
                     if lead else None)
 
     def _prepare(self, tmp: str, payload):
         """Rank 0: a fresh ``.tmp`` directory holding every leaf file at
-        its full (P, ...) size, header written."""
+        its global (P, ...) size, header written."""
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         for i, meta in enumerate(payload["leaves"]):
@@ -217,31 +327,37 @@ class Checkpointer:
                 dtype=np.dtype(meta["dtype"]), shape=tuple(meta["shape"]))
             del mm
 
-    def _write_rows(self, tmp: str, host):
-        """Every pod: its own row of every leaf, fsync'd."""
-        for i, h in enumerate(host):
+    def _write_shards(self, tmp: str, host):
+        """Every process: its region of each leaf it writes, one
+        ``pwrite`` per contiguous run (:func:`_runs`), fsync'd.  A failed
+        write (a full disk among them) raises ``OSError``."""
+        for i, region, h in host:
             path = os.path.join(tmp, f"leaf_{i}.npy")
-            offset = np.load(path, mmap_mode="r").offset
+            head = np.load(path, mmap_mode="r")
+            offset, shape = head.offset, head.shape
+            del head
+            offs, n = _runs(shape, region)
+            size = n * h.itemsize
+            data = memoryview(np.ascontiguousarray(h).reshape(-1)
+                              .view(np.uint8))
             fd = os.open(path, os.O_WRONLY)
             try:
-                _pwrite_all(fd, memoryview(np.ascontiguousarray(h)).cast("B"),
-                            offset + self._rank(self._writers) * h.nbytes)
+                for j, off in enumerate(offs.tolist()):
+                    _pwrite_all(fd, data[j * size:(j + 1) * size],
+                                offset + off * h.itemsize)
                 os.fsync(fd)
             finally:
                 os.close(fd)
 
-    def _publish(self, final: str, tmp: str, host, payload):
-        """Rank 0: the CRC of every leaf (its own row from memory, the
-        other pods' from the file), the manifest, the rename, LATEST."""
-        for i, (h, meta) in enumerate(zip(host, payload["leaves"])):
-            crc = _leaf_crc(h)
-            if self._size(self._writers) > 1:
-                mm = np.load(os.path.join(tmp, f"leaf_{i}.npy"),
-                             mmap_mode="r")
-                for r in range(1, self._size(self._writers)):
-                    crc = _leaf_crc(mm[r], crc)
-                del mm
-            meta["crc32"] = crc
+    def _publish(self, final: str, tmp: str, payload):
+        """Rank 0: the CRC of every leaf file read back whole, the
+        manifest, the rename, LATEST."""
+        t0 = time.perf_counter()
+        for i, meta in enumerate(payload["leaves"]):
+            mm = np.load(os.path.join(tmp, f"leaf_{i}.npy"), mmap_mode="r")
+            meta["crc32"] = _leaf_crc(mm)
+            del mm
+        self.last_save["crc_s"] = time.perf_counter() - t0
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(payload, f)
             f.flush()
@@ -383,18 +499,19 @@ class Checkpointer:
 
     def _agreed_step(self, step: Optional[int], n_expected: int) -> int:
         """:meth:`_verified_step` on rank 0, the same answer (or error)
-        on every pod."""
-        if self._size(self.pods) == 1:
+        on every process of the group."""
+        group = self._group()
+        if self._size(group) == 1:
             return self._verified_step(step, n_expected)
         msg = [None]
-        if self.pods.rank == 0:
+        if group.rank == 0:
             try:
                 msg[0] = ("ok", self._verified_step(step, n_expected),
                           self.corrupt_steps)
             except (FileNotFoundError, CheckpointCorruptError) as e:
                 msg[0] = (type(e).__name__, str(e), self.corrupt_steps)
-        dist.broadcast_object_list(msg, src=self.pods.ranks[0],
-                                   group=self.pods.host_pg)
+        dist.broadcast_object_list(msg, src=group.ranks[0],
+                                   group=group.host_pg)
         kind, val, corrupt = msg[0]
         self.corrupt_steps = list(corrupt)
         if kind == "FileNotFoundError":
@@ -404,13 +521,14 @@ class Checkpointer:
         return val
 
     def restore(self, template, step: Optional[int] = None):
-        """Load a checkpoint into the tensors of ``template`` (this pod's
-        tree of tensors, filled in place) and return ``(template,
-        extras)``.
+        """Load a checkpoint into the tensors of ``template`` (this
+        process's tree of tensors, filled in place) and return
+        ``(template, extras)``.
 
         With ``step=None`` the newest checkpoint that verifies is used
         (fallback past corrupt ones); an explicit ``step`` raises on
-        corruption.  Pod p of P reads row p mod P_saved of each leaf."""
+        corruption.  Pod p of P reads row p mod P_saved of each leaf; a
+        mesh rank its layout's region of row 0 (:meth:`_regions`)."""
         pairs = T.reference_leaves_with_path(template)
         s = self._agreed_step(step, len(pairs))
         payload = self._manifest(s)
@@ -424,25 +542,29 @@ class Checkpointer:
                 f"different tree structure: leaf {diff} is {have[diff]!r} "
                 f"there, {want[diff]!r} in the template (restoring would "
                 f"silently permute state leaves)")
+        arrs = [np.load(self._path(s, f"leaf_{i}.npy"), mmap_mode="r")
+                for i in range(len(pairs))]
+        layout = self._regions(template, arrs[0].shape[0] if arrs else 1)
+        for i, ((path, leaf), sh, arr) in enumerate(zip(pairs, layout,
+                                                         arrs)):
+            if (tuple(arr.shape[1:]) != tuple(sh.shape)
+                    or arr.dtype != _np_dtype(leaf)):
+                raise ValueError(
+                    f"leaf {i} ({T.path_str(path)}): checkpoint holds "
+                    f"{arr.dtype}{tuple(arr.shape)}, the state "
+                    f"{_np_dtype(leaf)}{tuple(sh.shape)} per pod")
         with torch.no_grad():
-            for i, (path, leaf) in enumerate(pairs):
-                arr = np.load(self._path(s, f"leaf_{i}.npy"), mmap_mode="r")
-                if (tuple(arr.shape[1:]) != tuple(leaf.shape)
-                        or arr.dtype != _np_dtype(leaf)):
-                    raise ValueError(
-                        f"leaf {i} ({T.path_str(path)}): checkpoint holds "
-                        f"{arr.dtype}{tuple(arr.shape)}, the state "
-                        f"{_np_dtype(leaf)}{tuple(leaf.shape)} per pod")
-                row = np.array(arr[self._rank(self.pods) % arr.shape[0]])
-                leaf.copy_(torch.from_numpy(row).reshape(leaf.shape))
+            for (_, leaf), sh, arr in zip(pairs, layout, arrs):
+                part = np.array(arr[sh.index])
+                leaf.copy_(torch.from_numpy(part).reshape(leaf.shape))
         return template, payload["extras"]
 
     def prune(self, keep: int = 3):
         """Keep only the newest ``keep`` checkpoints — but never remove
         the step LATEST points to (restore's anchor), and clean leftover
         ``.tmp`` directories from crashed writers.  Rank 0 prunes for a
-        pod group."""
-        if self._rank(self.pods) != 0:
+        group."""
+        if self._rank(self._group()) != 0:
             return
         for n in os.listdir(self.dir):
             if n.startswith("step_") and n.endswith(".tmp"):

@@ -20,7 +20,10 @@ the trainer's device (:func:`shard_params` first cuts a serving model's
 parameters to its rank's shards on a ("data", "model") mesh).  On a mesh
 rank every parameter-shaped tree — params, m, v, the error buffers and
 the anchor — is cut to the rank's shards (``model.shard_index``), the
-rest (step, importance state) taken whole.
+rest (step, importance state) taken whole.  The inverse,
+:func:`reference_from_shards`, assembles every rank's shards
+(:func:`rank_shards`, host copies that cross a process boundary) back
+into the reference's whole leaves.
 :func:`pod_state_from_reference` takes the
 reference's multi-pod state as it is, every leaf with its leading pod
 dimension, and returns pod ``pod``'s state (one per pod process).  On a
@@ -29,7 +32,7 @@ hierarchical fleet that dimension is the reference's pod-major fleet
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -37,6 +40,7 @@ import torch
 from repro_torch import tree as T
 from repro_torch.core.acesync import ACEState
 from repro_torch.core.importance import ImportanceState
+from repro_torch.core.trainer import param_path
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -80,9 +84,8 @@ def state_from_reference(flat: Dict[str, np.ndarray], trainer) -> dict:
     dev = trainer.device
     model = trainer.model
     if getattr(model, "ctx", None) is not None:
-        trees = ("params/", "m/", "v/", "ace/errors/", "anchor/")
-        flat = {k: next((np.asarray(a)[model.shard_index(k[len(t):])]
-                         for t in trees if k.startswith(t)), a)
+        flat = {k: a if param_path(k) is None
+                else np.asarray(a)[model.shard_index(param_path(k))]
                 for k, a in flat.items()}
     tree = T.from_flat_dict(flat)
     params = params_from_reference(
@@ -113,6 +116,53 @@ def state_from_reference(flat: Dict[str, np.ndarray], trainer) -> dict:
     if "anchor" in tree:
         state["anchor"] = tensors(tree["anchor"])
     return state
+
+
+def rank_shards(state, trainer) -> Dict[str, tuple]:
+    """This rank's train state for :func:`reference_from_shards`: {path
+    (as :func:`state_from_reference` takes it): (host copy of the leaf,
+    its index into the global leaf, the global shape)}, as the trainer's
+    checkpoint layout places it (``Trainer.state_layout``)."""
+    return {T.path_str(p): (x.detach().to("cpu", copy=True).numpy(),
+                            sh.index, sh.shape)
+            for (p, x), sh in zip(T.reference_leaves_with_path(state),
+                                  trainer.state_layout(state))}
+
+
+def reference_from_shards(ranks: Sequence[Dict[str, tuple]]
+                          ) -> Dict[str, np.ndarray]:
+    """The reference's whole train state, keyed by path with no pod
+    dimension (as :func:`state_from_reference` takes it), assembled from
+    every rank's :func:`rank_shards`.  Every entry of a leaf must be held
+    by some rank, and ranks holding the same entry must hold the same
+    bits: ``ValueError`` naming the leaf otherwise."""
+    out = {}
+    for key, (first, _, shape) in ranks[0].items():
+        whole = np.empty(shape, first.dtype)
+        held = np.zeros(shape, bool)
+        bits = f"u{first.dtype.itemsize}"
+        regions = {}
+        for r in ranks:
+            part, index, _ = r[key]
+            # what an earlier rank holds of this region (where it holds
+            # some of it), this rank's entries elsewhere
+            prev = regions.get(repr(index))
+            seen = np.asarray(held[index])
+            if prev is None and seen.any():
+                prev = np.where(seen, np.asarray(whole[index]), part)
+            if prev is not None and not np.array_equal(
+                    np.asarray(prev).view(bits), part.view(bits)):
+                raise ValueError(f"{key}: ranks hold different bits of one "
+                                 f"shard")
+            if repr(index) not in regions:
+                whole[index] = part
+                held[index] = True
+                regions[repr(index)] = part
+        if not held.all():
+            raise ValueError(f"{key}: no rank holds {int((~held).sum())} "
+                             f"of its {held.size} entries")
+        out[key] = whole
+    return out
 
 
 def pod_state_from_reference(flat: Dict[str, np.ndarray], trainer,

@@ -41,15 +41,19 @@ it).  The ``Scheduler`` prices the plan on the global sizes; the sync
 round is the one-pod round on the rank's shards, laid out from the
 local sizes (``local_sizes``), the reference's nested manual region.  A
 mesh on which a rank's shard is not the reference's local shard is
-refused (``ValueError`` naming the leaf).
+refused (``ValueError`` naming the leaf).  :meth:`Trainer.state_layout`
+places each state leaf of a rank in the checkpoint's global leaf: the
+parameter-shaped trees (``PARAM_TREES``) as the parameters, the rest
+whole — the reference's ``state_shardings``.
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, List, Optional, Union
 
 import torch
 
 from repro_torch import tree as T
+from repro_torch.checkpoint.checkpointer import LeafShard, whole_leaves
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import acesync
 from repro_torch.core import divergence as D
@@ -67,6 +71,19 @@ def _assign(dst_tree, src_tree) -> None:
     """Copy ``src_tree`` into the tensors of ``dst_tree`` in place."""
     for d, s in zip(T.leaves(dst_tree), T.leaves(src_tree)):
         d.copy_(s)
+
+
+#: the train state's parameter-shaped trees: on a mesh each of their leaves
+#: is sharded as its parameter (the reference's ``state_shardings``), every
+#: other leaf is whole on every rank
+PARAM_TREES = ("params/", "m/", "v/", "ace/errors/", "anchor/")
+
+
+def param_path(key: str) -> Optional[str]:
+    """The parameter a state leaf of a parameter-shaped tree follows
+    (``m/blocks/slot0/attn/wq`` -> ``blocks/slot0/attn/wq``), else None."""
+    tree = next((t for t in PARAM_TREES if key.startswith(t)), None)
+    return None if tree is None else key[len(tree):]
 
 
 #: the model families whose training is ported: every family of the zoo —
@@ -137,6 +154,26 @@ class Trainer:
                  "ace": ace}
         state.update(self.strategy.extra_state(params))
         return state
+
+    def state_layout(self, state) -> List[LeafShard]:
+        """Where each leaf of ``state`` (this rank's, in the reference's
+        order) lies in the checkpoint's global leaf: on a mesh a leaf of a
+        parameter-shaped tree is its parameter's shard, written by the
+        first rank holding that shard (``model.shard_of``), and every
+        other leaf is whole, written by rank 0; without a mesh every leaf
+        is whole and written by this process."""
+        if self.ctx is None:
+            return whole_leaves(state)
+        out = []
+        for path, leaf in T.reference_leaves_with_path(state):
+            p = param_path(T.path_str(path))
+            if p is None:
+                out.append(LeafShard(tuple(leaf.shape),
+                                     tuple(slice(None) for _ in leaf.shape),
+                                     self.ctx.rank == 0))
+            else:
+                out.append(LeafShard(*self.model.shard_of(p)))
+        return out
 
     # ------------------------------------------------------------------
     # the step bodies

@@ -618,26 +618,51 @@ def spawn_pods(fn: Callable, n_pods: int, device="cuda", args=(), *,
 # ---------------------------------------------------------------------------
 
 
+def _mesh_axes(D: int, M: int) -> list:
+    """(axis, mesh ranks) of every "data" group (the ranks with one m)
+    and "model" group (the ranks with one d) of a D x M mesh, in the
+    order every rank creates them."""
+    return ([("data", [d * M + m for d in range(D)]) for m in range(M)]
+            + [("model", [d * M + m for m in range(M)]) for d in range(D)])
+
+
 def split_mesh(group: PodGroup, D: int, M: int) -> ShardCtx:
-    """This rank's :class:`ShardCtx` on the D x M mesh of the world
-    ``group`` (rank d * M + m): its "data" group (the ranks with its m)
-    and "model" group (the ranks with its d).  Every rank creates every
-    sub-group, in one order, those it is not in too."""
+    """This rank's :class:`ShardCtx` on the D x M mesh of ``group``'s
+    ranks (its rank d * M + m): its "data" group and "model" group.
+    Every rank creates every sub-group, in one order, those it is not in
+    too; where ``group`` is not the world (:func:`sub_mesh`) the
+    processes outside it create them as well."""
     if D < 1 or M < 1 or group.size != D * M:
         raise ValueError(f"a ({D}, {M}) mesh needs {D * M} ranks, the "
                          f"group has {group.size}")
-    layouts = ([("data", [d * M + m for d in range(D)]) for m in range(M)]
-               + [("model", [d * M + m for m in range(M)])
-                  for d in range(D)])
     axes = {}
-    for axis, ranks in layouts:
-        pg = dist.new_group(ranks)
+    for axis, ranks in _mesh_axes(D, M):
+        members = [group.ranks[r] for r in ranks]
+        pg = dist.new_group(members)
         if group.rank in ranks:
             axes[axis] = PodGroup(ranks.index(group.rank), len(ranks),
                                   group.device, group.backend, tier=axis,
-                                  pg=pg, ranks=ranks, log=group.log)
+                                  pg=pg, ranks=members, log=group.log)
     return ShardCtx(D, M, group.rank // M, group.rank % M, data=axes["data"],
                     model=axes["model"], world=group, device=group.device)
+
+
+def sub_mesh(fleet: PodGroup, members: Sequence[int], D: int,
+             M: int) -> Optional[ShardCtx]:
+    """The :class:`ShardCtx` of a D x M mesh of the fleet's ranks
+    ``members`` (mesh rank i the i-th of them, sorted), None where this
+    process is not a member.  Every process of the fleet calls this, in
+    one order (the groups are created by every process)."""
+    sub = fleet.regroup(members)
+    if sub is not None:
+        return split_mesh(sub, D, M)
+    ranks = sorted(int(m) for m in members)
+    if len(ranks) != D * M:
+        raise ValueError(f"a ({D}, {M}) mesh needs {D * M} ranks, not "
+                         f"{len(ranks)}")
+    for _, mesh_ranks in _mesh_axes(D, M):
+        dist.new_group([ranks[r] for r in mesh_ranks])
+    return None
 
 
 def _mesh_main(group, D, M, fn, *args):

@@ -18,7 +18,9 @@ group (``spawn_pods(..., n_edge=E)``) carries the fleet's cluster size
 :func:`repro_torch.launch.mesh.spawn_mesh`) the session is one rank of a
 within-pod ("data", "model") mesh: the model is built sharded on the
 rank's device and every rank reads the whole global batch (the model
-keeps its block); checkpoints are off (``ckpt_every=0``).
+keeps its block); every rank checkpoints and restores its shards (see
+:mod:`repro_torch.launch.train`), so :meth:`TrainSession.save_now` and
+:meth:`TrainSession.finish` are called on every rank.
 
 :meth:`TrainSession.init` resumes from the newest checkpoint in the run's
 ``ckpt_dir`` that verifies (a fresh state when there is none);
@@ -91,8 +93,6 @@ class TrainSession:
         cfg = (SMOKE_ARCHS if smoke else ARCHS)[arch]
         shape = ShapeConfig("session", seq_len, batch, "train")
         run_kw.setdefault("warmup_steps", max(2, steps // 10))
-        if mesh is not None:
-            run_kw.setdefault("ckpt_every", 0)
         run = RunConfig(model=cfg, shape=shape, total_steps=steps, **run_kw)
         apply_determinism(run)
         if pods is not None:

@@ -74,8 +74,15 @@ process per rank) every rank runs this loop on the global batch (the
 model keeps its block) with the same seeded inputs and replicated
 metrics; replans apply at the step that launches them and the new plan's
 levels are checked identical on every rank (``ShardCtx.check_replicated``).
-Checkpoints under a mesh are not ported: ``ckpt_every`` must be 0, and
-nothing is restored.
+Every rank checkpoints its shards into the reference's whole-leaf files
+(the checkpointer over the mesh's world group, each leaf placed by
+``Trainer.state_layout``): the files are those of the same state on one
+card, so a restore reads its shards of any checkpoint of the model — one
+written on another mesh shape, on one card, or by the reference — and
+every rank takes the same host state from the manifest.  Rank 0 of the
+mesh alone logs and injects checkpoint corruption.  Pods x mesh is not
+ported (ROADMAP Queue 1, item 3), so nor is elastic membership of mesh
+ranks.
 
 CLI::
 
@@ -100,7 +107,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import torch
 
 from repro_torch import tree as T
-from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.checkpoint.checkpointer import Checkpointer, MeshLayout
 from repro_torch.configs.base import RunConfig, default_ckpt_dir
 from repro_torch.core import acesync
 from repro_torch.core.trainer import Trainer
@@ -159,18 +166,16 @@ class TrainLoop:
         #: the ("data", "model") mesh the model is sharded over (None: one
         #: card)
         self.mesh = getattr(model, "ctx", None)
-        if self.mesh is not None and run.ckpt_every:
-            raise NotImplementedError(
-                f"checkpoints under a ('data', 'model') mesh are not ported "
-                f"yet (ROADMAP Queue 1, item 1): pass ckpt_every=0, not "
-                f"{run.ckpt_every}")
         self.trainer = Trainer(model, run, strategy=strategy, pods=pods)
         self.strategy = self.trainer.strategy
         #: the whole fleet's group, and the group of the current members
         #: (None while this pod is preempted)
         self.fleet = pods
         self.pods = pods
-        self.ckpt = Checkpointer(run.ckpt_dir, pods=pods)
+        self.ckpt = Checkpointer(
+            run.ckpt_dir, pods=pods,
+            mesh=None if self.mesh is None else MeshLayout(
+                self.mesh.world, self.trainer.state_layout))
         self.profiles = make_profiles(n_edge_devices, seed)
         sched = self.trainer.scheduler
         # one cluster per cross-tier slot on a hierarchical fleet, the
@@ -238,8 +243,13 @@ class TrainLoop:
     def plan(self):
         return self._plan
 
+    def _lead(self) -> bool:
+        """This process is rank 0 of its pod group and of its mesh."""
+        return ((self.pods is None or self.pods.rank == 0)
+                and (self.mesh is None or self.mesh.rank == 0))
+
     def _log(self, msg: str) -> None:
-        if not self.idle and (self.pods is None or self.pods.rank == 0):
+        if not self.idle and self._lead():
             print(msg, flush=True)
 
     # ---- policy refresh ---------------------------------------------------
@@ -369,9 +379,8 @@ class TrainLoop:
 
     def restore_or_init(self, seed: int, pipeline):
         """The newest checkpoint in ``ckpt_dir`` that verifies (with its
-        host state), else a fresh state from ``seed`` (always, on a
-        mesh)."""
-        if self.mesh is not None or self.ckpt.latest_step() is None:
+        host state), else a fresh state from ``seed``."""
+        if self.ckpt.latest_step() is None:
             return self.trainer.init_state(seed)
         state, extras = self.ckpt.restore(self.trainer.init_state(seed))
         self._restore_extras(extras, pipeline)
@@ -395,7 +404,7 @@ class TrainLoop:
                 if self.idle:
                     continue
                 self.ckpt.wait()
-                if self.pods is None or self.pods.rank == 0:
+                if self._lead():
                     path = F.corrupt_checkpoint_leaf(
                         self.ckpt.dir, ev.target, seed=ev.step)
                     if path:
@@ -766,11 +775,6 @@ def main(argv=None):
         if args.pods > 1:
             ap.error("--pods with --data / --model (pods x data x model) is "
                      "not ported yet (ROADMAP Queue 1, item 3)")
-        if args.ckpt_every:
-            raise NotImplementedError(
-                "--ckpt-every under a ('data', 'model') mesh: checkpoints "
-                "of a mesh's shards are not ported yet (ROADMAP Queue 1, "
-                "item 1)")
         from repro_torch.launch.mesh import spawn_mesh
         outs = spawn_mesh(_mesh_run, args.data, args.model, args.device,
                           args=(args.arch, kw, args.steps))

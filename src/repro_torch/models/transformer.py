@@ -589,15 +589,20 @@ class DenseTransformer(LanguageModel):
                 if ShardCtx(ctx.D, ctx.M, r // ctx.M, r % ctx.M)
                 .local_index(spec, full) == mine]
 
+    def shard_of(self, path: str) -> tuple:
+        """(leaf ``path``'s full shape, this rank's index into it, whether
+        this rank is the first of the ranks holding that shard: the one
+        that counts it in a sum over the whole mesh and writes it to a
+        checkpoint)."""
+        first = self.ctx is None or self._replicas(path)[0] == self.ctx.rank
+        return self.full_shapes[path], self.shard_index(path), first
+
     def owned_leaves(self) -> list:
         """Per leaf (sorted-key order): whether this rank is the first of
-        the ranks holding its shard — the one that counts it in a sum
-        over the whole mesh (a global norm, the grad stats)."""
-        paths = [T.path_str(q) for q, _ in
-                 T.leaves_with_path(self.param_tree())]
-        if self.ctx is None:
-            return [True] * len(paths)
-        return [self._replicas(q)[0] == self.ctx.rank for q in paths]
+        the ranks holding its shard (:meth:`shard_of`) — the one that
+        counts it in a global norm and the grad stats."""
+        return [self.shard_of(T.path_str(q))[2] for q, _ in
+                T.leaves_with_path(self.param_tree())]
 
     def grad_reduce_axes(self, path: str) -> tuple:
         """The axes over which the gradient of leaf ``path`` is summed

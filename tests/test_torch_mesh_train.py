@@ -26,6 +26,8 @@ reference: tests/test_torch_mesh_train_ref_<D>x<M>.py.
 * The MoE at its capacity factor 1.25 with tokens skewed so that blocks
   drop pairs: output and gradients against ``moe_apply_blocked``'s
   autograd on one process within ``F32_RTOL``.
+* The refusal of pods x mesh, and the train CLI on a (1, 2) mesh, which
+  checkpoints and, run again over the same directory, resumes.
 """
 import dataclasses
 import json
@@ -327,7 +329,9 @@ def test_a_mesh_whose_shards_are_not_the_references_is_refused():
         Trainer(model, run)
 
 
-def test_pods_times_a_mesh_and_mesh_checkpoints_are_refused(tmp_path):
+def test_pods_times_a_mesh_is_refused_and_a_mesh_loop_checkpoints(tmp_path):
+    """Pods x mesh raises, naming ROADMAP Queue 1 item 3; a loop on a mesh
+    takes ``ckpt_every`` and checkpoints through its trainer's layout."""
     from repro_torch.launch.train import TrainLoop
     run = run_config("qwen3-8b")
     model = build_model(run.model, run, device="cpu",
@@ -336,8 +340,8 @@ def test_pods_times_a_mesh_and_mesh_checkpoints_are_refused(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
         Trainer(model, run, pods=pods)
     run = dataclasses.replace(run, ckpt_every=5, ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 1"):
-        TrainLoop(model, run)
+    loop = TrainLoop(model, run)
+    assert loop.ckpt.mesh.layout == loop.trainer.state_layout
 
 
 def test_mesh_train_reckoning():
@@ -370,22 +374,27 @@ def test_mesh_train_reckoning():
     assert flops.mfu(989e12, 1.0, cards=4) == 0.25
 
 
-def test_training_cli_on_a_mesh():
-    """``--smoke --data 1 --model 2 --device cpu --steps 3`` (at a short
-    sequence): two rank processes, rank 0's JSON line; ``--ckpt-every``
-    under a mesh raises."""
+def test_training_cli_on_a_mesh(tmp_path):
+    """``--smoke --data 1 --model 2 --device cpu --steps 3 --ckpt-every
+    1`` (at a short sequence): two rank processes, rank 0's JSON line; the
+    same command again resumes from the step-3 checkpoint."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    base = [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
-            "--data", "1", "--model", "2", "--device", "cpu",
-            "--seq-len", "32", "--batch", "4"]
-    out = subprocess.run(base + ["--steps", "3"], capture_output=True,
-                         text=True, env=env, timeout=300, cwd=ROOT)
-    assert out.returncode == 0, out.stderr[-3000:]
-    res = json.loads(out.stdout.strip().splitlines()[-1])
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+           "--data", "1", "--model", "2", "--device", "cpu",
+           "--seq-len", "32", "--batch", "4", "--steps", "3",
+           "--ckpt-every", "1", "--ckpt-dir", str(tmp_path / "ck")]
+    outs = []
+    for _ in range(2):
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             timeout=300, cwd=ROOT)
+        assert out.returncode == 0, out.stderr[-3000:]
+        outs.append((out.stdout,
+                     json.loads(out.stdout.strip().splitlines()[-1])))
+    (so1, res), (so2, res2) = outs
     assert res["steps"] == 3 and res["device"] == "cpu"
     assert (res["data"], res["model"], res["rank"]) == (1, 2, 0)
     assert np.isfinite(res["first_loss"]) and np.isfinite(res["last_loss"])
-    out = subprocess.run(base + ["--steps", "1", "--ckpt-every", "1"],
-                         capture_output=True, text=True, env=env,
-                         timeout=300, cwd=ROOT)
-    assert out.returncode != 0 and "Queue 1, item 1" in out.stderr
+    assert res["start_step"] == 0 and "restored checkpoint" not in so1
+    assert res2["start_step"] == 3 and res2["steps"] == 3
+    assert so2.count("restored checkpoint @ step 3") == 1
+    assert (tmp_path / "ck" / "step_00000006").is_dir()
