@@ -2,15 +2,17 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
 NVIDIA GPU: the quickest proof that the port builds, is right, trains
 (paper-350m and the model zoo) and serves (the dense, MoE and recurrent
-families, the encoder-decoder and the VLM; the dense and MoE families
-also on a ("data", "model") mesh, across four cards where there are
-four, and checkpoints and resumes on a mesh).
+families, the encoder-decoder and the VLM; the dense, MoE and recurrent
+families also on a ("data", "model") mesh, across four cards where there
+are four, and checkpoints and resumes on a mesh).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 17b,18b,19b,20b   # four cards' parts
 
-The processes it starts (pods, mesh ranks, one process per model) read
-the bytecode of torch and the port from ``build/pycache``, which the
-first of them writes.
+The processes it starts (pods, mesh ranks, one process per model) fork
+from ``launch/mesh.py``'s start server, which imports torch and the port
+once; the server reads their bytecode from ``build/pycache``, which the
+first run writes.
 
 Phases (any failure exits nonzero before the result lines):
 
@@ -360,7 +362,40 @@ Phases (any failure exits nonzero before the result lines):
    (b) only with four cards: paper-350m at full depth on (2, 2) over
    NCCL, 4 steps with ``ckpt_every`` 2, the step-4 checkpoint restored
    on (1, 4) and on one card, assembling to one state, the same prints.
-   On fewer cards (b) prints one line and is not run.
+   On fewer cards (b) prints one line and is not run;
+20. the recurrent families on a within-pod ("data", "model") mesh.
+   (a) one fleet of four processes sharing the card over gloo (one
+   spawn; meshes of its ranks by ``launch.mesh.sub_mesh``), full width,
+   seeded weights.  Serving on (1, 2) (fleet ranks 0-1):
+   falcon-mamba-7b at 2 layers and recurrentgemma-2b at 3 (one rec, rec,
+   attn group); gate 1: rank 0's gathered logits of a 4 x 256 prefill
+   and 16 teacher-forced decode steps against the unsharded model of the
+   same seed (fleet rank 0, one card) within rtol = atol = 0.15 in bf16
+   and 1e-3 in f32 compute; then the Server on phase 17's workload, tokens
+   identical on every rank, weight bytes the shards'.  Training, f32
+   compute, batch 4 x 512, 4 loop steps (three ``local``, a
+   ``delta_sync``) and an all-rungs ``grad_sync``: falcon-mamba-7b at 1
+   layer on (2, 2) and on (1, 2), which checkpoints at step 4, and
+   recurrentgemma-2b at 3 layers on (1, 2), each held to a one-card run
+   of the same seed and batches by fleet rank 0 (one per model).  Gates:
+   (1) above; (2) each loop step's loss and grad norm within 1e-3 of the
+   one-card run's, every params / m / v shard after the local steps
+   within 1e-3 of its leaf's norm (a sync round blocks the rank's
+   shards, the reference's nested layout, where one card blocks whole
+   leaves: there the check is phase 18's, every round bit-identical to
+   the one-pod ``sync_tree`` on the rank's shards), and losses, grad
+   norms, plan and steps identical on every rank; (3) K1-K4 launched on
+   every training rank and none in serving; (4) the step-4 checkpoint
+   restored as one card by fleet rank 2 (a process of its own) equals
+   the (1, 2) ranks' shards bit for bit.  Prints serving and step times,
+   MFU over D * M x 989 TFLOP/s and peaks (the host's times: a shared
+   card) and the seconds from the spawn to the end of each stage.
+   (b) only with four cards, over NCCL: falcon-mamba-7b served at all 64
+   layers on (1, 4) (workload (a) twice) and trained there at
+   ``launch.memory.mesh_train_depth``'s layers (its scan over the rank's
+   channels counted), recurrentgemma-2b trained at all 26 layers on
+   (2, 2), batch 8 x 1024, phase 18 (b)'s gates and lines.  On fewer
+   cards (b) prints one line and is not run.
 
 Output: progress lines with each phase's seconds, the pod link's latency
 and rate, then the ``nvidia-smi`` line, the kernels' JSON line (each
@@ -371,11 +406,16 @@ members), ``restart`` (phase 9a, its three runs), ``elastic`` (phase
 process), ``zoo_determinism`` (phase 12, both runs) and
 ``mesh_<arch>_<D>x<M>`` (phase 18 (a), all ranks; ``mesh_b_...`` for
 (b)) and ``mesh_ckpt`` (phase 19 (a), both runs, all ranks;
-``mesh_ckpt_b`` for (b)), each counted from 0 just before its run; phases 10, 11, 13, 15 and 17 launch none;
+``mesh_ckpt_b`` for (b)), ``mesh_rec_<arch>_<D>x<M>`` (phase 20 (a)'s
+training runs, all ranks; ``mesh_rec_b_...`` for (b)) and
+``mesh_rec_serve`` (phase 20 (a)'s serving, none), each counted from 0
+just before its run; phases 10, 11, 13, 15 and 17 launch none;
 K16's ``library_ms``
 is ``torch.mul(q, s)``'s time; ``paths`` gives each path's pods, members
 per cluster and depth; ``link`` the measured link), and as the last line
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  With ``--phases``, only phases 1-2
+and the four-card parts named (of 17b, 18b, 19b, 20b) run, and the last
+line is ``{"phases": {name: seconds}, "launches": {path: {kernel: n}}}``.
 """
 from __future__ import annotations
 
@@ -491,6 +531,14 @@ def card_line() -> str:
     if out.returncode != 0 or not out.stdout.strip():
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def four_cards() -> str:
+    """The first four cards' ``nvidia-smi`` name and power limit lines."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    return "; ".join(out.splitlines()[:4])
 
 
 def _fns(ops, ref, name, k=TOPK_K):
@@ -3970,10 +4018,7 @@ def mesh_big_phase(torch) -> None:
         log(f"{tag}: {n} card(s): dbrx-132b at 40 layers on a (1, 4) mesh "
             f"needs four; not run")
         return
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    cards = "; ".join(out.splitlines()[:4])
+    cards = four_cards()
     gc.collect()
     torch.cuda.empty_cache()
     spec = {"device": "cuda"}
@@ -4228,14 +4273,17 @@ def checked_sync(torch, T, S, current, record):
     return sync_tree
 
 
-def mesh_train_path(ctx, spec):
+def mesh_train_path(ctx, spec, session=None, stops=()):
     """One rank of phase 18: ``spec["arch"]`` at full width and
     ``spec["n_layers"]``, sharded on the mesh, trained from seed 0
-    through TrainSession: gate 1 (a) on the first batch, then
-    ``MESH_TRAIN_STEPS`` steps of the loop, a grad_sync under its plan
-    and an all-rungs one, each on CUDA events, the sync rounds checked
-    (gate 2), the kernels' launches counted from 0 before the loop; with
-    ``spec["memory"]``, ``launch.memory.step_memory`` after."""
+    through TrainSession (``session()`` builds it where given, phase
+    18's config otherwise): gate 1 (a) on the first batch, then
+    ``spec["steps"]`` (``MESH_TRAIN_STEPS``) steps of the loop, a
+    grad_sync under its plan and an all-rungs one, each on CUDA events,
+    the sync rounds checked (gate 2), the kernels' launches counted from
+    0 before the loop; ``stops``: (n, fn) pairs, ``fn(sess, out)`` called
+    after the loop's first n steps; with ``spec["memory"]``,
+    ``launch.memory.step_memory`` after."""
     import numpy as np
     import torch
     from repro_torch import tree as T
@@ -4247,11 +4295,14 @@ def mesh_train_path(ctx, spec):
     from repro_torch.models.registry import build_model
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, run = mesh_train_config(spec["arch"], spec["n_layers"],
-                                 *spec["shape"], H=spec.get("H"))
     t0 = time.perf_counter()
-    sess = TrainSession(build_model(cfg, run, device=ctx.device, ctx=ctx),
-                        run, strategy="acesync")
+    if session is None:
+        cfg, run = mesh_train_config(spec["arch"], spec["n_layers"],
+                                     *spec["shape"], H=spec.get("H"))
+        sess = TrainSession(build_model(cfg, run, device=ctx.device,
+                                        ctx=ctx), run, strategy="acesync")
+    else:
+        sess = session()
     sess.init()
     torch.cuda.synchronize()
     out = {"rank": ctx.rank, "backend": ctx.world.backend,
@@ -4279,7 +4330,15 @@ def mesh_train_path(ctx, spec):
     S.sync_tree = checked_sync(torch, T, S, current, record)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    sess.run(spec.get("steps", MESH_TRAIN_STEPS), log_every=0)
+    done = 0
+    for n, fn in sorted(stops, key=lambda x: x[0]) + [
+            (spec.get("steps", MESH_TRAIN_STEPS), None)]:
+        if n > done:
+            sess.run(n - done, log_every=0)
+            done = n
+        if fn:
+            fn(sess, out)
+    sess.finish()
     state = sess.take_state()
     state, m1 = tr.step(state, next(sess.pipeline), sess.loop.plan,
                         "grad_sync")
@@ -4311,8 +4370,9 @@ def mesh_train_path(ctx, spec):
         out["ms"].setdefault(kind, []).append(e0.elapsed_time(e1))
         if kind != "local":
             out["sync_launches"].append((kind, n))
-    shape = run.shape
-    out["model_flops"] = flops.model_flops(cfg, shape)
+    shape = sess.run_config.shape
+    out["model_flops"] = flops.model_flops(sess.model.cfg, shape,
+                                           sess.model.active_param_count())
     out["tokens"] = shape.global_batch * shape.seq_len
     if spec.get("memory"):
         # the state is handed over, as TrainSession.run hands it to the
@@ -4426,18 +4486,21 @@ def check_mesh_train(tag, card, spec, res, cards=1) -> dict:
             for k in r0["launches"]}
 
 
-def mesh_train_reckoning(tag, cfgs, card_bytes, shared) -> None:
+def mesh_train_reckoning(tag, cfgs, card_bytes, shared, batch,
+                         seq) -> None:
     """Each mesh's reckoned peak per card (``MESH_BYTES_PER_PARAM`` per
-    parameter of each rank; the ranks' sum where they share the card)
-    must leave ``ZOO_FREE_GIB`` of it."""
+    parameter of each rank, plus a rank's scan bytes at the step's
+    ``batch`` x ``seq``: ``launch.memory.mesh_train_bytes``; the ranks'
+    sum where they share the card) must leave ``ZOO_FREE_GIB`` of it."""
     from repro_torch.launch.memory import mesh_train_bytes
     for cfg, (D, M) in cfgs:
-        per = mesh_train_bytes(cfg, D, M, MESH_BYTES_PER_PARAM)
+        per = mesh_train_bytes(cfg, D, M, MESH_BYTES_PER_PARAM, batch, seq)
         peak = sum(per) if shared else max(per)
         free = (card_bytes - peak) / 2**30
         log(f"{tag}: {cfg.name} at {cfg.n_layers} layers on ({D}, {M}): "
             f"{peak / 2**30:.2f} GiB reckoned per card "
-            f"({MESH_BYTES_PER_PARAM} B x each rank's parameters"
+            f"({MESH_BYTES_PER_PARAM} B x each rank's parameters, its "
+            f"scan at {batch} x {seq}"
             f"{', the ranks summed' if shared else ''}), {free:.2f} GiB "
             f"of {card_bytes / 2**30:.2f} free")
         if free < ZOO_FREE_GIB:
@@ -4458,7 +4521,7 @@ def mesh_train_phase(torch, card) -> dict:
     B, S = MESH_TRAIN_A_SHAPE
     mesh_train_reckoning(tag, [(mesh_train_config(
         c["arch"], c["n_layers"], B, S)[0], c["mesh"])
-        for c in MESH_TRAIN_A], card_bytes, shared=True)
+        for c in MESH_TRAIN_A], card_bytes, True, B, S)
     models = {}
     for c in MESH_TRAIN_A:
         models.setdefault((c["arch"], c["n_layers"]), []).append(c["mesh"])
@@ -4491,34 +4554,41 @@ def mesh_train_big_phase(torch) -> dict:
     """Phase 18(b): dbrx-132b on (1, 4) and qwen3-8b on (2, 2), a card a
     rank, over NCCL, at the depths the reckoning gives; one line and
     nothing else on fewer cards."""
-    import gc
-    from repro_torch.configs import ARCHS
-    from repro_torch.launch.memory import mesh_train_depth
-    from repro_torch.launch.mesh import spawn_mesh
     tag = "phase 18 (b)"
     n = torch.cuda.device_count()
     if n < 4:
         log(f"{tag}: {n} card(s): dbrx-132b on a (1, 4) mesh and qwen3-8b "
             f"on (2, 2) train on four; not run")
         return {}
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    cards = "; ".join(out.splitlines()[:4])
+    return mesh_train_big(torch, tag, MESH_TRAIN_B, four_cards(), "mesh_b_")
+
+
+def mesh_train_big(torch, tag, cases, cards, prefix) -> dict:
+    """Each of ``cases`` trained a card a rank over NCCL at batch
+    ``MESH_TRAIN_B_SHAPE``, at its ``n_layers`` or the most layers
+    ``launch.memory.mesh_train_depth`` fits in each card less
+    ``ZOO_FREE_GIB`` (its scan counted), phase 18's gates 2-4 and
+    lines.  Returns the kernels' launches per path ``prefix`` +
+    ``<arch>_<D>x<M>``."""
+    import gc
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.memory import mesh_train_depth
+    from repro_torch.launch.mesh import spawn_mesh
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     limit = card_bytes - ZOO_FREE_GIB * 2**30
+    B, S = MESH_TRAIN_B_SHAPE
     launches = {}
-    for c in MESH_TRAIN_B:
+    for c in cases:
         gc.collect()
         torch.cuda.empty_cache()
-        layers = mesh_train_depth(ARCHS[c["arch"]], *c["mesh"], limit,
-                                  MESH_BYTES_PER_PARAM)
+        layers = c.get("n_layers") or mesh_train_depth(
+            ARCHS[c["arch"]], *c["mesh"], limit, MESH_BYTES_PER_PARAM,
+            batch=B, seq=S)
         if layers < 1:
             fail(f"{tag}: {c['arch']} on {c['mesh']}: not one layer fits")
-        B, S = MESH_TRAIN_B_SHAPE
         cfg, _ = mesh_train_config(c["arch"], layers, B, S)
-        mesh_train_reckoning(tag, [(cfg, c["mesh"])], card_bytes,
-                             shared=False)
+        mesh_train_reckoning(tag, [(cfg, c["mesh"])], card_bytes, False, B,
+                             S)
         spec = dict(c, n_layers=layers, shape=MESH_TRAIN_B_SHAPE,
                     memory=True)
         # the ranks' allocator grows its segments in place: with fixed
@@ -4536,7 +4606,7 @@ def mesh_train_big_phase(torch) -> dict:
             else:
                 os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
         D, M = c["mesh"]
-        launches[f"mesh_b_{c['arch']}_{D}x{M}"] = check_mesh_train(
+        launches[f"{prefix}{c['arch']}_{D}x{M}"] = check_mesh_train(
             tag, cards, dict(c, n_layers=layers), res, cards=4)
     return launches
 
@@ -4960,10 +5030,7 @@ def mesh_ckpt_big_phase(torch) -> dict:
         log(f"{tag}: {n} card(s): paper-350m's mesh checkpoints at full "
             f"depth run on four; not run")
         return {}
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    cards = "; ".join(out.splitlines()[:4])
+    cards = four_cards()
     _disk_check(tag, spec["n_layers"], 2)
     d = CKPT_ROOT / "mesh_ckpt_big"
     t0 = time.perf_counter()
@@ -4985,8 +5052,564 @@ def mesh_ckpt_big_phase(torch) -> dict:
                             for k in a[0]["launches"]}}
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 20: the recurrent families on a within-pod ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+#: 20(a) serving: each model at full width cut to these layers (mamba 2,
+#: the hybrid one (rec, rec, attn) group), sharded from seed 0 on (1, 2);
+#: gate 1 holds rank 0's gathered logits (a 4 x 256 prefill, then 16
+#: teacher-forced decode steps) to the unsharded model of the same seed
+#: (rank 0, one card, ``ctx`` None) within rtol = atol = the run's bound:
+#: phase 17's ``TF_TOL`` in the served bf16, phase 18's gate-1 bound in
+#: f32 compute; then the Server on phase 17's ``MESH_A`` once, tokens
+#: identical on every rank
+MESH_REC_SERVE = {"falcon-mamba-7b": 2, "recurrentgemma-2b": 3}
+MESH_REC_TF = {"batch": 4, "prompt": 256, "steps": 16}
+#: gate 1's runs: (compute dtype, None: the served bf16; rtol = atol)
+MESH_REC_TF_RUNS = {"bf16": (None, TF_TOL), "f32": ("float32",
+                                                     MESH_GATE1_RTOL)}
+#: 20(a) training, f32 compute, batch 4 x 512 (phase 18 (a)'s), ranks
+#: sharing the card: falcon-mamba-7b at 1 layer on (2, 2) and on (1, 2)
+#: (which checkpoints at its last loop step; one one-card run holds both),
+#: recurrentgemma-2b at one group on (1, 2).  ``MESH_REC_STEPS`` loop
+#: steps (H = 4: three ``local``, then a ``delta_sync``; no replan), then
+#: an all-rungs ``grad_sync``
+MESH_REC_TRAIN = ({"arch": "falcon-mamba-7b", "n_layers": 1, "mesh": (2, 2)},
+                  {"arch": "falcon-mamba-7b", "n_layers": 1, "mesh": (1, 2),
+                   "ckpt": True},
+                  {"arch": "recurrentgemma-2b", "n_layers": 3,
+                   "mesh": (1, 2)})
+MESH_REC_SHAPE = (4, 512)
+MESH_REC_STEPS = 4
+#: the local steps before the first sync: the state is held to the
+#: one-card run's there (a sync round blocks the rank's shards, the
+#: reference's nested layout, where one card blocks whole leaves)
+MESH_REC_LOCAL = 3
+#: gate 2's bound, f32: a step's loss and grad norm relative to the
+#: one-card run's, a state leaf's difference relative to its norm (phase
+#: 18's gate 1)
+MESH_REC_RTOL = MESH_GATE1_RTOL
+#: the state trees the local steps change (the anchor and the residuals
+#: are their initial values until the first sync)
+MESH_REC_TREES = ("params/", "m/", "v/")
+#: 20(b), with four cards, over NCCL: falcon-mamba-7b served at all 64
+#: layers on (1, 4) (workload (a) twice) and trained there at
+#: ``mesh_train_depth``'s layers; recurrentgemma-2b trained at all 26
+#: layers on (2, 2); batch 8 x 1024, phase 18 (b)'s gates and lines
+MESH_REC_B_SERVE = {"arch": "falcon-mamba-7b", "mesh": (1, 4)}
+MESH_REC_B_TRAIN = ({"arch": "falcon-mamba-7b", "mesh": (1, 4)},
+                    {"arch": "recurrentgemma-2b", "mesh": (2, 2),
+                     "n_layers": 26})
+
+
+def mesh_rec_tf_logits(torch, np, model, dtype):
+    """Gate 1's run on ``model`` (sharded or not), in ``dtype`` compute
+    (None: the served bf16): the last position's logits of a seeded 4 x
+    256 prefill and of each teacher-forced decode step, whole on every
+    rank, (steps + 1, B, V) f32 on the card."""
+    B, S, n = (MESH_REC_TF[k] for k in ("batch", "prompt", "steps"))
+    cfg, real = model.cfg, model.dtype
+    if dtype:
+        model.cfg = dataclasses.replace(cfg, dtype=dtype)
+        model.dtype = getattr(torch, dtype)
+    toks = torch.from_numpy(np.random.RandomState(5).randint(
+        0, cfg.vocab_size, size=(B, S + n)).astype(np.int32)).to(
+        model.device)
+    try:
+        with torch.inference_mode():
+            logits, caches = model.prefill(toks[:, :S], S + n)
+            rows = [mesh_gathered(model.ctx, logits, B)]
+            for i in range(n):
+                logits, caches = model.decode_step(caches, S + i,
+                                                   toks[:, S + i:S + i + 1])
+                rows.append(mesh_gathered(model.ctx, logits, B))
+            return torch.stack(rows).float()
+    finally:
+        model.cfg, model.dtype = cfg, real
+
+
+def mesh_rec_serve_path(ctx, world):
+    """20(a)'s serving on ``ctx``'s (1, 2) mesh (None: this process is not
+    on it) and, on fleet rank 0, the unsharded models gate 1 holds it
+    to: per model the rank's weight bytes against its shards', its
+    Server lines and gate 1's readings; the kernels' launches over the
+    serving (which must be none)."""
+    import gc
+    import numpy as np
     import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops.reset_launch_counts()
+    out = {}
+    for arch, layers in MESH_REC_SERVE.items():
+        cfg = dataclasses.replace(ARCHS[arch], n_layers=layers)
+        r = {}
+        tf = {}
+        if ctx is not None:
+            model = tserve.init_model(cfg, ctx.device, seed=0, ctx=ctx)
+            r = {"param_bytes": sum(p.numel() * p.element_size()
+                                    for p in model.parameters()),
+                 "shard_bytes": expected_shard_bytes(model, ctx),
+                 "backend": ctx.world.backend}
+            for name, (dtype, _) in MESH_REC_TF_RUNS.items():
+                tf[name] = mesh_rec_tf_logits(torch, np, model, dtype)
+            r["a"] = serve_once(torch, np, tserve, model, MESH_A)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        world.barrier()
+        if world.rank == 0:
+            model = tserve.init_model(cfg, "cuda", seed=0)
+            r["tf"] = {}
+            for name, (dtype, tol) in MESH_REC_TF_RUNS.items():
+                want = mesh_rec_tf_logits(torch, np, model, dtype)
+                diff = (tf[name] - want).abs()
+                r["tf"][name] = {
+                    "max_diff": float(diff.max()),
+                    "ok": bool((diff <= tol + tol * want.abs()).all()),
+                    "argmax": float((tf[name].argmax(-1) == want.argmax(-1))
+                                    .float().mean())}
+            del model, want, diff
+            gc.collect()
+            torch.cuda.empty_cache()
+        del tf
+        out[arch] = r
+        world.barrier()
+    out_launches = ops.launch_counts()
+    return {"models": out, "launches": out_launches}
+
+
+def mesh_rec_session(torch, spec, ctx, ckpt_dir=None):
+    """A TrainSession of ``spec``'s arch at full width and its depth, f32
+    compute, batch ``MESH_REC_SHAPE``, on ``ctx``'s mesh (None: one
+    card), from seed 0, checkpointing every ``MESH_REC_STEPS`` steps to
+    ``ckpt_dir`` where given."""
+    from repro_torch.configs.base import ACESyncConfig
+    from repro_torch.launch.session import TrainSession
+    from repro_torch.models.registry import build_model
+    cfg, run = mesh_train_config(spec["arch"], spec["n_layers"],
+                                 *MESH_REC_SHAPE)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    run = dataclasses.replace(
+        run, model=cfg, acesync=ACESyncConfig(replan_every=100),
+        ckpt_every=MESH_REC_STEPS if ckpt_dir else 0,
+        ckpt_dir=str(ckpt_dir or run.ckpt_dir))
+    dev = "cuda" if ctx is None else ctx.device
+    return TrainSession(build_model(cfg, run, device=dev, ctx=ctx), run,
+                        strategy="acesync")
+
+
+def _tree_leaves(torch, state, layout):
+    """{path: (tensor, its index in the global leaf, whether this process
+    counts it)} of the state leaves of ``MESH_REC_TREES`` (``layout``: the
+    trainer's ``state_layout``; None: whole leaves)."""
+    from repro_torch import tree as T
+    leaves = T.reference_leaves_with_path(state)
+    shards = layout(state) if layout else [None] * len(leaves)
+    return {T.path_str(p): (x, None if sh is None else sh.index,
+                            sh is None or sh.writes)
+            for (p, x), sh in zip(leaves, shards)
+            if T.path_str(p).startswith(MESH_REC_TREES)}
+
+
+def mesh_rec_reference(torch, spec):
+    """The one-card run gate 2 holds a mesh to (fleet rank 0, alone on
+    the card): the metrics of the loop's steps, and the host copy of its
+    ``MESH_REC_TREES`` leaves after the ``MESH_REC_LOCAL`` local steps."""
+    import gc
+    sess = mesh_rec_session(torch, spec, None)
+    sess.init()
+    sess.run(MESH_REC_LOCAL, log_every=0)
+    snap = {k: x.detach().to("cpu", copy=True)
+            for k, (x, _, _) in _tree_leaves(torch, sess.state,
+                                              None).items()}
+    sess.run(MESH_REC_STEPS - MESH_REC_LOCAL, log_every=0)
+    out = {"losses": sess.losses,
+           "grad_norms": [h["grad_norm"] for h in sess.history
+                          if "grad_norm" in h],
+           "kinds": [k for h in sess.history for k in h["kinds"]],
+           "plan": list(sess.loop.plan.level_idx), "snap": snap}
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rec_compare(torch, dist, world, ctx, mine, snap):
+    """Gate 2's state comparison after the local steps: every mesh rank's
+    ``MESH_REC_TREES`` shards (``mine``: :func:`_tree_leaves`) against
+    fleet rank 0's one-card snapshot ``snap`` (host tensors).  Rank 0
+    sends each rank the reference's slices over the fleet's host group;
+    each rank sums (diff^2, ref^2) per leaf over its shards on its card;
+    rank 0 adds up the ranks' (each shard once: the rank that writes it)
+    into each leaf's |diff| / |ref|.  Returns {path: relative error} on
+    fleet rank 0 (None elsewhere)."""
+    import numpy as np
+    meta = None
+    if mine is not None:
+        meta = {k: tuple((s.start, s.stop) for s in idx)
+                for k, (_, idx, _) in mine.items()}
+    metas = [None] * world.size if world.rank == 0 else None
+    dist.gather_object(meta, metas, dst=world.ranks[0], group=world.host_pg)
+    if world.rank == 0:
+        for r in range(1, world.size):
+            for k, idx in (metas[r] or {}).items():
+                part = snap[k][tuple(slice(a, b) for a, b in idx)]
+                dist.send(part.contiguous(), dst=world.ranks[r],
+                          group=world.host_pg)
+    sums = None
+    if mine is not None:
+        sums = {}
+        for k, (x, idx, counts) in mine.items():
+            if world.rank == 0:
+                ref = snap[k][idx].to(x.device)
+            else:
+                buf = torch.empty(tuple(x.shape), dtype=x.dtype)
+                dist.recv(buf, src=world.ranks[0], group=world.host_pg)
+                ref = buf.to(x.device)
+            d = x.detach().float() - ref.float()
+            sums[k] = (float((d * d).sum()), float((ref.float() ** 2).sum()),
+                       counts)
+            del ref, d
+    every = [None] * world.size if world.rank == 0 else None
+    dist.gather_object(sums, every, dst=world.ranks[0], group=world.host_pg)
+    if world.rank != 0:
+        return None
+    total = {}
+    for s in every:
+        for k, (dd, rr, counts) in (s or {}).items():
+            if counts:
+                a, b = total.get(k, (0.0, 0.0))
+                total[k] = (a + dd, b + rr)
+    return {k: float(np.sqrt(a) / max(np.sqrt(b), 1e-30))
+            for k, (a, b) in total.items()}
+
+
+def mesh_rec_train(torch, world, ctx, spec, ref, out, stage):
+    """One 20(a) training run on ``ctx``'s mesh (None: this process is
+    not on it), fleet rank 0 holding the one-card run ``ref``: phase
+    18's rank (:func:`mesh_train_path`) on :func:`mesh_rec_session`'s
+    session for ``MESH_REC_STEPS`` loop steps, stopping after the
+    ``MESH_REC_LOCAL`` local steps for gate 2's state comparison (every
+    process of the fleet takes part) and, where ``spec["ckpt"]``, after
+    the loop for the checkpointed shards' hashes."""
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    from repro_torch.core import sync as S
+    name = f"{spec['arch']}_{spec['mesh'][0]}x{spec['mesh'][1]}"
+    snap = ref["snap"] if world.rank == 0 else None
+    res = {}
+    if ctx is None:
+        mesh_rec_compare(torch, dist, world, None, None, snap)
+    else:
+        ckpt = (CKPT_ROOT / "mesh_rec" / name) if spec.get("ckpt") else None
+
+        def compare(sess, r):
+            mine = _tree_leaves(torch, sess.state, sess.trainer.state_layout)
+            r["state_rel"] = mesh_rec_compare(torch, dist, world, ctx, mine,
+                                              snap)
+
+        def hashes(sess, r):
+            sess.finish()
+            r["save"] = dict(sess.loop.ckpt.last_save)
+            r["ckpt_hashes"] = [
+                (T.path_str(q), tuple((s.start, s.stop) for s in sh.index),
+                 int(bits_hash(torch, x)))
+                for (q, x), sh in zip(T.reference_leaves_with_path(
+                    sess.state), sess.trainer.state_layout(sess.state))]
+
+        stops = [(MESH_REC_LOCAL, compare)]
+        if ckpt:
+            stops.append((MESH_REC_STEPS, hashes))
+        plain = S.sync_tree
+        try:
+            res = mesh_train_path(
+                ctx, dict(spec, steps=MESH_REC_STEPS),
+                session=lambda: mesh_rec_session(torch, spec, ctx, ckpt),
+                stops=stops)
+        finally:
+            S.sync_tree = plain
+    stage(name)
+    out[name] = res
+
+
+def mesh_rec_restore(torch, spec, lists):
+    """Gate 4 in a process of its own (fleet rank 2): the (1, 2) run's
+    checkpoint restored as one card; for each rank's list of (leaf,
+    index, hash) at the checkpointed step, the restored leaf's hash at
+    that index.  Returns the restore's step and seconds and the leaves
+    whose hashes differ."""
+    from repro_torch import tree as T
+    name = f"{spec['arch']}_{spec['mesh'][0]}x{spec['mesh'][1]}"
+    sess = mesh_rec_session(torch, spec, None, CKPT_ROOT / "mesh_rec" / name)
+    t0 = time.perf_counter()
+    sess.init()
+    torch.cuda.synchronize()
+    out = {"restore_s": time.perf_counter() - t0,
+           "step": int(sess.state["step"]), "bad": [], "n": 0}
+    whole = {T.path_str(p): x
+             for p, x in T.reference_leaves_with_path(sess.state)}
+    for r, got in enumerate(lists):
+        for path, idx, h in got or ():
+            part = whole[path][tuple(slice(a, b) for a, b in idx)]
+            out["n"] += 1
+            if int(bits_hash(torch, part)) != h:
+                out["bad"].append((r, path))
+    del sess, whole
+    return out
+
+
+def mesh_rec_fleet_path(world, spec):
+    """Phase 20 (a), one process of a fleet of four sharing the card
+    (meshes of its ranks by ``launch.mesh.sub_mesh``): the serving on
+    (1, 2) (ranks 0-1) held to fleet rank 0's unsharded models; then per
+    training run of ``MESH_REC_TRAIN`` fleet rank 0's one-card run (once
+    per model), the mesh's run held to it; the (1, 2) checkpoint
+    restored by fleet rank 2 as one card.  ``stamps``: the wall clock at
+    this process's entry and at the end of each stage."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import sub_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stamps = {"entry": time.time()}
+    meshes = {(1, 2): sub_mesh(world, range(2), 1, 2),
+              (2, 2): sub_mesh(world, range(4), 2, 2)}
+    out = {"rank": world.rank, "stamps": stamps, "train": {},
+           "ref": {}}
+
+    def stage(name):
+        gc.collect()
+        torch.cuda.empty_cache()
+        world.barrier()
+        stamps[name] = time.time()
+
+    out["serve"] = mesh_rec_serve_path(meshes[(1, 2)], world)
+    stage("serve")
+    refs = {}
+    for t in MESH_REC_TRAIN:
+        key = (t["arch"], t["n_layers"])
+        if key not in refs:
+            refs.clear()
+            refs[key] = (mesh_rec_reference(torch, t) if world.rank == 0
+                         else None)
+            if world.rank == 0:
+                out["ref"][t["arch"]] = {k: v for k, v in refs[key].items()
+                                         if k != "snap"}
+            stage(f"one card {t['arch']}")
+        mesh_rec_train(torch, world, meshes[t["mesh"]], t, refs[key],
+                       out["train"], stage)
+        if t.get("ckpt"):
+            name = f"{t['arch']}_{t['mesh'][0]}x{t['mesh'][1]}"
+            mine = out["train"][name].get("ckpt_hashes")
+            lists = [None] * world.size if world.rank == 2 else None
+            dist.gather_object(mine, lists, dst=world.ranks[2],
+                               group=world.host_pg)
+            if world.rank == 2:
+                out["restore"] = mesh_rec_restore(torch, t, lists)
+            for r in out["train"].values():
+                r.pop("ckpt_hashes", None)
+            stage("restore")
+    refs.clear()
+    return out
+
+
+def log_mesh_rec_train(tag, card, t, res, ref) -> dict:
+    """Gates 2 and 3 of one training run: phase 18's checks and lines
+    (:func:`check_mesh_train`), then its loop steps and fleet rank 0's
+    ``state_rel`` against the one-card run ``ref``; returns the kernels'
+    launches summed over its ranks."""
+    arch, (D, M) = t["arch"], t["mesh"]
+    name = f"{arch} on ({D}, {M})"
+    launches = check_mesh_train(tag, f"{card}; f32 compute", t, res)
+    r0 = res[0]
+    n = len(ref["kinds"])
+    if r0["kinds"][:n] != ref["kinds"] or r0["plan"] != ref["plan"]:
+        fail(f"{tag}: {name}: steps {r0['kinds'][:n]} / plan {r0['plan']} "
+             f"not the one-card run's {ref['kinds']} / {ref['plan']}")
+    worst = 0.0
+    for key in ("losses", "grad_norms"):
+        for got, want in zip(r0[key], ref[key]):
+            rel = abs(got - want) / max(abs(want), 1e-30)
+            worst = max(worst, rel)
+            if rel > MESH_REC_RTOL:
+                fail(f"{tag}: {name}: {key} {r0[key]} against the one-card "
+                     f"run's {ref[key]}")
+    rel = r0["state_rel"]
+    leaf = max(rel, key=rel.get)
+    if rel[leaf] > MESH_REC_RTOL:
+        fail(f"{tag}: {name}: after {MESH_REC_LOCAL} local steps, state "
+             f"leaf {leaf} differs from the one-card run's by {rel[leaf]} "
+             f"of its norm")
+    log(f"{tag}: {name}, gate 2: the {n} loop steps ({ref['kinds']}) — "
+        f"losses {[round(x, 5) for x in r0['losses'][:n]]}, grad norms "
+        f"within {worst:.3g} of the one-card run's; after the "
+        f"{MESH_REC_LOCAL} local steps every params / m / v shard within "
+        f"{rel[leaf]:.3g} of its leaf's norm ({leaf}; bound "
+        f"{MESH_REC_RTOL}, f32 compute) [{card}]")
+    return launches
+
+
+def mesh_rec_phase(torch, card) -> dict:
+    """Phase 20: (a) the recurrent families on meshes of ranks sharing the
+    card — one fleet of four processes (:func:`mesh_rec_fleet_path`):
+    serving gated against the unsharded models (gate 1) with no kernel
+    launched (gate 3), training held to a one-card run and every sync
+    round to the one-pod round (gate 2), K1-K4 on every training rank
+    (gate 3), the (1, 2) checkpoint restored bit for bit on one card
+    (gate 4); (b) with four cards, over NCCL.  Returns the kernels'
+    launches per path."""
+    import gc
+    from repro_torch.launch.mesh import spawn_pods
+    tag = "phase 20 (a)"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0, w0 = time.perf_counter(), time.time()
+    try:
+        res = spawn_pods(mesh_rec_fleet_path, 4, "cuda", args=({},),
+                         timeout=900)
+    finally:
+        shutil.rmtree(CKPT_ROOT / "mesh_rec", ignore_errors=True)
+    wall = time.perf_counter() - t0
+    st = [r["stamps"] for r in res]
+    since = {k: round(max(x[k] for x in st) - w0, 2) for k in st[0]}
+    log(f"{tag}: one fleet of 4 processes, {wall:.2f} s; seconds from the "
+        f"spawn to every process in and to the end of each stage: {since}")
+    launches = {}
+    # serving
+    for arch, layers in MESH_REC_SERVE.items():
+        ranks = [dict(r["serve"]["models"][arch], rank=r["rank"],
+                      models={arch: r["serve"]["models"][arch]})
+                 for r in res[:2]]
+        for name, tf in res[0]["serve"]["models"][arch]["tf"].items():
+            tol = MESH_REC_TF_RUNS[name][1]
+            log(f"{tag}: {arch} ({layers} layers) on (1, 2), gate 1, "
+                f"{name}: the last position's logits of a "
+                f"{MESH_REC_TF['batch']} x {MESH_REC_TF['prompt']} prefill "
+                f"and {MESH_REC_TF['steps']} teacher-forced decode steps "
+                f"against the unsharded model on one card: max |diff| "
+                f"{tf['max_diff']:.4g}, argmax agrees on "
+                f"{tf['argmax']:.4f} (rtol = atol = {tol}) [{card}]")
+            if not tf["ok"]:
+                fail(f"{tag}: {arch} on (1, 2), {name}: the mesh's logits "
+                     f"differ from the unsharded model's beyond {tol}")
+        for r in ranks:
+            w = r["a"]
+            if (not all(w["tokens_ok"]) or not w["finite"]
+                    or w["tokens"] != ranks[0]["a"]["tokens"]):
+                fail(f"{tag}: {arch} rank {r['rank']}: tokens per request "
+                     f"{w['tokens_ok']}, finite {w['finite']}, or tokens "
+                     f"not rank 0's")
+            if r["param_bytes"] != r["shard_bytes"]:
+                fail(f"{tag}: {arch} rank {r['rank']} holds "
+                     f"{r['param_bytes']} weight bytes, its shards "
+                     f"{r['shard_bytes']}")
+        log_mesh_served(tag, arch, (1, 2), ranks, card)
+    serve_launch = {k: sum(r["serve"]["launches"].get(k, 0) for r in res)
+                    for k in res[0]["serve"]["launches"]}
+    if any(serve_launch.values()):
+        fail(f"{tag}: serving launched ACE-Sync kernels: {serve_launch}")
+    launches["mesh_rec_serve"] = serve_launch
+    # training
+    for t in MESH_REC_TRAIN:
+        name = f"{t['arch']}_{t['mesh'][0]}x{t['mesh'][1]}"
+        n = t["mesh"][0] * t["mesh"][1]
+        got = [r["train"][name] for r in res[:n]]
+        launches[f"mesh_rec_{name}"] = log_mesh_rec_train(
+            tag, card, t, got, res[0]["ref"][t["arch"]])
+        if t.get("ckpt"):
+            rs = res[2]["restore"]
+            log_mesh_ckpt_save(tag, card, f"{t['arch']} on {t['mesh']}",
+                               got)
+            if rs["step"] != MESH_REC_STEPS or rs["bad"] or not rs["n"]:
+                fail(f"{tag}: {t['arch']} on {t['mesh']}: the checkpoint "
+                     f"restored as one card at step {rs['step']}, shards "
+                     f"differing {rs['bad']}")
+            log(f"{tag}: {t['arch']} on {t['mesh']}, gate 4: the step-"
+                f"{MESH_REC_STEPS} checkpoint restored as one card by "
+                f"fleet rank 2 (a process of its own) in "
+                f"{rs['restore_s']:.2f} s: all {rs['n']} shards of the "
+                f"ranks' state bit for bit [{card}]")
+    log(f"{tag}: launches by path {launches}; {wall:.2f} s")
+    launches.update(mesh_rec_big_phase(torch))
+    return launches
+
+
+def mesh_rec_big_serve_path(ctx, spec):
+    """20(b)'s serving on one rank: falcon-mamba-7b at its published
+    depth, sharded from seed 0, workload (a) twice."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops.reset_launch_counts()
+    arch = spec["arch"]
+    t0 = time.perf_counter()
+    model = tserve.init_model(ARCHS[arch], ctx.device, seed=0, ctx=ctx)
+    torch.cuda.synchronize()
+    r = {"init_s": time.perf_counter() - t0,
+         "n_layers": model.cfg.n_layers,
+         "param_bytes": sum(p.numel() * p.element_size()
+                            for p in model.parameters()),
+         "shard_bytes": expected_shard_bytes(model, ctx),
+         "a": serve_workload(torch, np, tserve, model, SERVE_A)}
+    return {"rank": ctx.rank, "backend": ctx.world.backend,
+            "models": {arch: r}, "launches": ops.launch_counts()}
+
+
+def mesh_rec_big_phase(torch) -> dict:
+    """Phase 20 (b): with four cards, over NCCL — falcon-mamba-7b served
+    at 64 layers on (1, 4) and trained there at ``mesh_train_depth``'s
+    layers, recurrentgemma-2b trained at 26 on (2, 2) (phase 18 (b)'s
+    gates 2-4 and lines); one line and nothing else on fewer cards."""
+    from repro_torch.launch.mesh import spawn_mesh
+    tag = "phase 20 (b)"
+    n = torch.cuda.device_count()
+    if n < 4:
+        log(f"{tag}: {n} card(s): falcon-mamba-7b on a (1, 4) mesh and "
+            f"recurrentgemma-2b on (2, 2) serve and train on four; not run")
+        return {}
+    cards = four_cards()
+    spec = MESH_REC_B_SERVE
+    res = spawn_mesh(mesh_rec_big_serve_path, *spec["mesh"], "cuda",
+                     args=(spec,), timeout=900)
+    for r in res:
+        m = r["models"][spec["arch"]]
+        w = m["a"]
+        if (not all(w["tokens_ok"]) or not w["finite"] or w["tokens"]
+                != res[0]["models"][spec["arch"]]["a"]["tokens"]
+                or m["param_bytes"] != m["shard_bytes"]
+                or any(r["launches"].values())):
+            fail(f"{tag}: {spec['arch']} on {spec['mesh']} rank "
+                 f"{r['rank']}: tokens, finiteness, weight bytes or kernel "
+                 f"launches wrong")
+    log_mesh_served(tag, spec["arch"], spec["mesh"], res, cards)
+    return mesh_train_big(torch, tag, MESH_REC_B_TRAIN, cards, "mesh_rec_b_")
+
+
+#: the parts ``--phases`` can run alone (each needs four cards)
+FOUR_CARD_PHASES = {"17b": "mesh_big_phase", "18b": "mesh_train_big_phase",
+                    "19b": "mesh_ckpt_big_phase",
+                    "20b": "mesh_rec_big_phase"}
+
+
+def main(argv=None) -> int:
+    import argparse
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default="",
+                    help="run only these four-card parts, comma-separated "
+                         f"(of {', '.join(FOUR_CARD_PHASES)})")
+    only = [x for x in ap.parse_args(argv).phases.split(",") if x]
+    bad = [x for x in only if x not in FOUR_CARD_PHASES]
+    if bad:
+        ap.error(f"unknown phases {bad}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs "
              "an NVIDIA GPU")
@@ -5029,6 +5652,19 @@ def main() -> int:
         log(f"{name}: {phase_s[name]} s")
         return res
 
+    if only:
+        by_path = {}
+        for name in only:
+            by_path.update(timed_phase(
+                f"phase {name}", globals()[FOUR_CARD_PHASES[name]], torch)
+                or {})
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+        from repro_torch.launch.mesh import stop_start_server
+        stop_start_server()
+        print(card, flush=True)
+        print(json.dumps({"phases": phase_s, "launches": by_path}),
+              flush=True)
+        return 0
     results = timed_phase("phase 3", kernel_phase, np, torch, ops, ref, dev)
     timed_phase("phase 4", small_agreement, torch)
     by_path = {"one_pod": timed_phase("phase 5", main_path, torch, ops)}
@@ -5054,7 +5690,12 @@ def main() -> int:
     by_path.update(timed_phase("phase 18", mesh_train_phase, torch, card))
     by_path.update(timed_phase("phase 19", mesh_ckpt_phase, torch, card,
                                restart_save))
+    by_path.update(timed_phase("phase 20", mesh_rec_phase, torch, card))
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    # the processes' start server and its resource tracker end with this
+    # process; stop them before the result lines instead
+    from repro_torch.launch.mesh import stop_start_server
+    stop_start_server()
     log(f"pod link (phase 7, P = 2 ping-pong): latency "
         f"{link['latency_s']:.6g} s per hop, rate "
         f"{link['rate_bytes_per_s']:.6g} B/s; phase seconds {phase_s}")
@@ -5072,7 +5713,8 @@ def main() -> int:
             # phase 8 (every member of the 2 x 2 fleet) + phase 9 (the
             # restart runs on one pod, every pod of the elastic run) +
             # phases 12, 14 and 16 (each trained model's process, phase
-            # 12's determinism runs) + phases 18 and 19 (every mesh rank)
+            # 12's determinism runs) + phases 18, 19 and 20 (every mesh
+            # rank)
             "launches": sum(n.get(name, 0) for n in by_path.values()),
             "launches_by_path": {path: n.get(name, 0)
                                  for path, n in by_path.items()},
@@ -5109,6 +5751,16 @@ def main() -> int:
                   for p, s in (("mesh_ckpt", MESH_CKPT_A),
                                ("mesh_ckpt_b", MESH_CKPT_B))
                   if p in by_path})
+    paths.update({f"mesh_rec_{t['arch']}_{t['mesh'][0]}x{t['mesh'][1]}": {
+        "arch": t["arch"], "layers": t["n_layers"], "mesh": t["mesh"],
+        "batch": MESH_REC_SHAPE[0], "seq": MESH_REC_SHAPE[1],
+        "compute": "float32"} for t in MESH_REC_TRAIN})
+    paths["mesh_rec_serve"] = {"archs": MESH_REC_SERVE, "mesh": (1, 2),
+                               "launches": "none"}
+    paths.update({p: {"arch": p.split("_")[3], "mesh": p.split("_")[4],
+                      "cards": 4, "batch": MESH_TRAIN_B_SHAPE[0],
+                      "seq": MESH_TRAIN_B_SHAPE[1]}
+                  for p in by_path if p.startswith("mesh_rec_b_")})
     print(json.dumps({"kernels": kernels, "paths": paths,
                       "link": {k: link[k] for k in ("latency_s",
                                                     "rate_bytes_per_s")}}),

@@ -26,7 +26,8 @@ step's shapes, an owner of its own.
 :func:`mesh_weight_bytes` reckons, without allocating anything, the
 weight bytes each rank of a ("data", "model") serving mesh holds;
 :func:`mesh_train_bytes` a train step's bytes per card on a training
-mesh (each rank's parameters at a measured bytes per parameter), and
+mesh (each rank's parameters at a measured bytes per parameter, and
+mamba's scan over the rank's channels, :func:`mesh_scan_bytes`), and
 :func:`mesh_train_depth` the most layers whose largest card stays under
 a limit.  :func:`step_memory` runs on a mesh rank too: the rank's shards,
 its gradients reduced as the trainer reduces them.
@@ -61,15 +62,45 @@ def mesh_param_counts(cfg, D: int, M: int) -> list:
         for r in range(D * M)]
 
 
-def mesh_train_bytes(cfg, D: int, M: int, bytes_per_param: float) -> list:
+#: the one-chunk (B, Q, d_inner, N) f32 tensors mamba's
+#: ``SelectiveScan`` backward holds at its peak, at most (its doc)
+SCAN_BWD_CHUNK_TENSORS = 7
+
+
+def mesh_scan_bytes(cfg, D: int, M: int, batch: int, seq: int) -> int:
+    """What mamba's scan adds on a rank of a (D, M) training mesh beside
+    its parameters' bytes: the chunk-start states it saves and its
+    backward's peak of ``SCAN_BWD_CHUNK_TENSORS`` one-chunk tensors, over
+    the rank's batch block and its d_inner / M channels (one layer at a
+    time under remat); 0 for a model without that scan."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.flops import scan_start_bytes
+    from repro_torch.models.mamba import SCAN_CHUNK
+    from repro_torch.models.shardctx import ShardCtx
+    if cfg.family != "ssm":
+        return 0
+    B = len(range(batch)[ShardCtx(D, 1).batch_slice(batch)])
+    Di = cfg.d_inner // M
+    chunk = B * min(SCAN_CHUNK, seq) * Di * cfg.ssm_state * 4
+    starts = scan_start_bytes(cfg, ShapeConfig("t", seq, B, "train")) // M
+    return starts + SCAN_BWD_CHUNK_TENSORS * chunk
+
+
+def mesh_train_bytes(cfg, D: int, M: int, bytes_per_param: float,
+                     batch: int = 0, seq: int = 0) -> list:
     """A train step's peak bytes on each card of a (D, M) training mesh,
     reckoned at ``bytes_per_param`` (a measured step's peak over its
-    parameters) times the rank's parameters."""
-    return [n * bytes_per_param for n in mesh_param_counts(cfg, D, M)]
+    parameters) times the rank's parameters, plus, where the step's
+    ``batch`` and ``seq`` are given, the rank's scan bytes
+    (:func:`mesh_scan_bytes`)."""
+    scan = mesh_scan_bytes(cfg, D, M, batch, seq) if batch else 0
+    return [n * bytes_per_param + scan
+            for n in mesh_param_counts(cfg, D, M)]
 
 
 def mesh_train_depth(cfg, D: int, M: int, limit_bytes: float,
-                     bytes_per_param: float) -> int:
+                     bytes_per_param: float, batch: int = 0,
+                     seq: int = 0) -> int:
     """The most layers (in steps of the config's layer group) at which
     every card's :func:`mesh_train_bytes` stays within ``limit_bytes``
     (0: not even one group)."""
@@ -77,7 +108,8 @@ def mesh_train_depth(cfg, D: int, M: int, limit_bytes: float,
     best = 0
     for n in range(group, cfg.n_layers + 1, group):
         c = dataclasses.replace(cfg, n_layers=n)
-        if max(mesh_train_bytes(c, D, M, bytes_per_param)) > limit_bytes:
+        if max(mesh_train_bytes(c, D, M, bytes_per_param, batch,
+                                seq)) > limit_bytes:
             break
         best = n
     return best

@@ -62,6 +62,11 @@ The ring stages its own chunks once per exchange and forwards what it
 received from host memory as it is.
 
 :func:`spawn_pods` starts the P pod processes and gathers their results.
+They fork from a ``forkserver`` that has imported torch and the port's
+modules once (``PRELOAD``) and never touches the card: a process starts
+in a fraction of a second instead of importing everything again, and
+initialises CUDA itself.  The environment of the call is handed to each
+process explicitly (the server's is the one it was started with).
 
 Within a pod, the reference's ("data", "model") mesh of D x M devices is
 D * M ranks, one process each (:func:`spawn_mesh`), rank d * M + m at
@@ -90,6 +95,13 @@ from repro_torch.models.shardctx import ShardCtx
 
 #: wait for a peer this long before a collective gives up
 TIMEOUT_S = 900
+#: what the processes' start server imports once, for every process it
+#: forks: torch and the port's modules a pod or a mesh rank runs (none
+#: of them touches the card on import)
+PRELOAD = ("numpy", "torch", "torch.distributed", "repro_torch.convert",
+           "repro_torch.checkpoint.checkpointer", "repro_torch.core.trainer",
+           "repro_torch.launch.serve", "repro_torch.launch.session",
+           "repro_torch.launch.train", "repro_torch.models.registry")
 
 
 def backend_for(n_pods: int, device_type: str) -> str:
@@ -516,9 +528,12 @@ def free_tcp_address() -> str:
 
 
 def _pod_main(rank, n_pods, n_edge, device_type, init_method, threads, fn,
-              args, results):
-    """Body of one pod process: join the group, run ``fn``, report."""
+              args, results, env):
+    """Body of one pod process: take the caller's environment ``env``,
+    join the group, run ``fn``, report."""
     try:
+        os.environ.clear()
+        os.environ.update(env)
         if threads:
             torch.set_num_threads(threads)
         dev = pod_device(rank, n_pods, device_type)
@@ -550,9 +565,11 @@ def spawn_pods(fn: Callable, n_pods: int, device="cuda", args=(), *,
     pods a hierarchical fleet of ``n_pods / n_edge`` clusters (the
     group's ``intra`` / ``cross`` sub-groups, :meth:`PodGroup.split_tiers`).  ``fn`` and its arguments and
     results must pickle (``fn`` by import path).  Rendezvous is
-    ``init_method`` (default: a free ``tcp://localhost`` port).  Raises if
-    a pod fails or the run outlasts ``timeout`` seconds; every process is
-    stopped before this returns."""
+    ``init_method`` (default: a free ``tcp://localhost`` port).  The
+    processes fork from the ``forkserver`` (``PRELOAD``) with this
+    process's environment as it is now (``threads``: ``OMP_NUM_THREADS``
+    too).  Raises if a pod fails or the run outlasts ``timeout`` seconds;
+    every process is stopped before this returns."""
     import multiprocessing as mp
     import queue as queue_mod
 
@@ -560,18 +577,20 @@ def spawn_pods(fn: Callable, n_pods: int, device="cuda", args=(), *,
     if n_edge < 1 or n_pods % n_edge:
         raise ValueError(f"{n_pods} pods do not split into clusters of "
                          f"{n_edge}")
-    ctx = mp.get_context("spawn")
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(list(PRELOAD))
     results = ctx.Queue()
     init_method = init_method or free_tcp_address()
-    env = {"OMP_NUM_THREADS": str(threads)} if threads else {}
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
+    env = dict(os.environ)
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
     procs = []
     try:
         for r in range(n_pods):
             p = ctx.Process(target=_pod_main,
                             args=(r, n_pods, n_edge, device_type,
-                                  init_method, threads, fn, args, results))
+                                  init_method, threads, fn, args, results,
+                                  env))
             p.start()
             procs.append(p)
         out, errors = {}, []
@@ -606,11 +625,17 @@ def spawn_pods(fn: Callable, n_pods: int, device="cuda", args=(), *,
             if p.is_alive():
                 p.terminate()
                 p.join(timeout=30)
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+
+
+def stop_start_server() -> None:
+    """Stop the ``forkserver`` and the resource tracker that
+    :func:`spawn_pods` started in this process (they end with it
+    otherwise, a moment after it exits); a later spawn starts them
+    again.  multiprocessing has no public call for this: the private
+    ``_stop`` of each is the one its own tests use."""
+    from multiprocessing import forkserver, resource_tracker
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
 
 
 # ---------------------------------------------------------------------------

@@ -32,11 +32,14 @@ caller asks for the CPU::
 prints ``{"requests", "tokens", "wall_s", "tok_per_s"}``.  The weights
 come from a seed (no checkpoint is read) and are served in bf16.
 
-The dense and MoE families also serve on a within-pod ("data", "model")
-mesh of D x M ranks, one process each (``launch/mesh.py``'s
-``spawn_mesh``; NCCL with a card per rank, gloo where ranks share one)::
+The dense, MoE and recurrent families also serve on a within-pod
+("data", "model") mesh of D x M ranks, one process each
+(``launch/mesh.py``'s ``spawn_mesh``; NCCL with a card per rank, gloo
+where ranks share one)::
 
     python -m repro_torch.launch.serve --arch dbrx-132b --data 1 --model 4
+    python -m repro_torch.launch.serve --arch falcon-mamba-7b --data 1 \
+        --model 4
 
 Each rank holds its shards of the weights (``init_model(ctx=)``) and its
 part of the caches; the ``Server`` gathers the last position's logits
@@ -188,7 +191,8 @@ def main(argv=None):
     ap.add_argument("--data", type=int, default=1,
                     help="D: ranks the batch is split over")
     ap.add_argument("--model", type=int, default=1,
-                    help="M: ranks heads, d_ff, experts and vocab split over")
+                    help="M: ranks heads, d_ff, experts, d_inner / the "
+                         "RG-LRU's width and vocab split over")
     args = ap.parse_args(argv)
     resolve_device(args.device)
     if args.data * args.model == 1:
@@ -220,8 +224,10 @@ def _serve(ctx: Optional[ShardCtx], args: dict) -> None:
                 f"allocated" if dev.type == "cuda" else "not measured "
                 "(CPU)")
         weights = sum(p.numel() * p.element_size() for p in model.parameters())
+        # one write with its newline: the ranks print at once, and an
+        # unbuffered stream writes a print's end apart
         print(f"rank {ctx.rank} ({ctx.d}, {ctx.m}): {weights} weight bytes; "
-              f"peak {peak}", flush=True)
+              f"peak {peak}\n", end="", flush=True)
         ctx.world.barrier()
         if ctx.rank:
             return

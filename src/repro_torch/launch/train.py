@@ -88,6 +88,8 @@ CLI::
 
     python -m repro_torch.launch.train --steps 8 [--smoke] [--device cuda]
     python -m repro_torch.launch.train --data 2 --model 2 ...  # D*M ranks
+    python -m repro_torch.launch.train --arch recurrentgemma-2b \
+        --data 2 --model 2 ...               # the recurrent families too
     python -m repro_torch.launch.train --pods 2 --steps 8 ...  # P processes
     python -m repro_torch.launch.train --pods 4 --edge 2 \
         --strategy acesync_hier ...          # 2 clusters x 2 members

@@ -4,7 +4,8 @@
 2*N*D for inference (forward only).  Attention's quadratic term is not
 included.  N is the config's (active) count unless the caller, which
 holds the model, passes the tree's (``LanguageModel.active_param_count``:
-the config's count approximates the hybrid's RG-LRU gates).
+the config's count approximates the hybrid's RG-LRU gates; on a mesh
+rank it counts the whole model's leaves, not the rank's shards).
 :func:`executed_flops` counts what the MoE's capacity arithmetic runs
 instead: every expert over all its C rows, in a forward and (3x) in a
 train step; and the encoder-decoder's matmuls as they run, its encoder

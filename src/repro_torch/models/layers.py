@@ -21,7 +21,9 @@ Under a ("data", "model") mesh (``models/shardctx.py``) each rank holds
 the shards that ``attn_shardings`` / ``mlp_shardings`` name (stacked
 leaves: one leading None before each spec): attention column-parallel
 by whole heads over "model" (wq / wk / wv; wo row-parallel, its partial
-sums all-reduced), the MLP likewise (w_gate / w_up columns, w_down
+sums all-reduced; K/V heads fewer than "model" split by columns as the
+reference splits them, each rank gathering its head whole at use), the
+MLP likewise (w_gate / w_up columns, w_down
 rows), and every weight's d_model dimension over "data" (FSDP, gathered
 by the model just before the layer).  The blocks read their head counts
 from the weights they are given, so they run the same code on a shard.
@@ -45,7 +47,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.shardctx import (copy_to_model, current_ctx,
-                                        reduce_model, use_shard_ctx)
+                                        gather_model_cols, reduce_model,
+                                        use_shard_ctx)
 
 NEG_INF = -1e30
 
@@ -273,15 +276,44 @@ def attn_shapes(cfg, n_layers: int):
 def attn_shardings(cfg) -> dict:
     """One layer's attention specs: the reference's ``attn_shardings``
     (column-parallel in, row-parallel out, FSDP over "data" on d_model),
-    the "model" splits by whole heads — K / V heads fewer than "model"
-    replicated over the ranks that share them (``axis_range``)."""
-    H, KV = cfg.n_heads, cfg.n_kv_heads
-    sp = {"wq": ("data", ("model", H)), "wk": ("data", ("model", KV)),
-          "wv": ("data", ("model", KV)), "wo": (("model", H), "data")}
+    the "model" splits of wq / wo by whole heads; wk / wv split their
+    columns evenly, as the reference does — whole heads where "model"
+    divides the K/V heads, else a part of one head, which
+    :func:`attn_apply` gathers whole (:func:`kv_heads_local`)."""
+    H = cfg.n_heads
+    sp = {"wq": ("data", ("model", H)), "wk": ("data", "model"),
+          "wv": ("data", "model"), "wo": (("model", H), "data")}
     if cfg.qk_norm:
         sp["q_norm"] = (None,)
         sp["k_norm"] = (None,)
     return sp
+
+
+def kv_heads_local(cfg, ctx) -> int:
+    """The K/V heads a rank of ``ctx``'s mesh attends with (and caches):
+    its part of them where "model" divides the K/V heads, else the one
+    head its query heads share (the heads must divide "model")."""
+    KV = cfg.n_kv_heads
+    if ctx is None or KV % ctx.M == 0:
+        return KV // (1 if ctx is None else ctx.M)
+    if ctx.M % KV:
+        raise ValueError(f"{cfg.name}: {KV} K/V heads do not split over "
+                         f"model = {ctx.M}, nor model over them")
+    return 1
+
+
+def _kv_weights(p, cfg, ctx):
+    """wk / wv of the rank's K/V heads: its own shard where "model"
+    divides the heads, else its query heads' one head, gathered from the
+    ranks that hold a part of it (its gradient reduce-scattered back to
+    the parts)."""
+    wk, wv = p["wk"], p["wv"]
+    if ctx is None or ctx.M == 1 or cfg.n_kv_heads % ctx.M == 0:
+        return wk, wv
+    Dh = cfg.head_dim
+    u = ctx.m // (ctx.M // cfg.n_kv_heads)
+    return tuple(gather_model_cols(w, -1, ctx).narrow(-1, u * Dh, Dh)
+                 for w in (wk, wv))
 
 
 def attn_apply(p, x, cfg, *, positions, causal: bool = True,
@@ -297,16 +329,18 @@ def attn_apply(p, x, cfg, *, positions, causal: bool = True,
     slot ``cache_len % alloc`` and attends over the ring; prefill
     (``cache`` without ``cache_len``) attends over the sequence and writes
     its tail into the ring.  The caches are written in place.  Under a
-    mesh ``p`` holds this rank's heads, and wo's partial sums are summed
+    mesh ``p`` holds this rank's heads (K/V heads fewer than "model":
+    parts of one, gathered whole here), and wo's partial sums are summed
     over "model"."""
     B, S, _ = x.shape
     Dh = cfg.head_dim
-    H, KV = p["wq"].shape[-1] // Dh, p["wk"].shape[-1] // Dh
+    wk, wv = _kv_weights(p, cfg, current_ctx())
+    H, KV = p["wq"].shape[-1] // Dh, wk.shape[-1] // Dh
     dt = x.dtype
     x = copy_to_model(x)
     q = (x @ p["wq"].to(dt)).reshape(B, S, H, Dh)
-    k = (x @ p["wk"].to(dt)).reshape(B, S, KV, Dh)
-    v = (x @ p["wv"].to(dt)).reshape(B, S, KV, Dh)
+    k = (x @ wk.to(dt)).reshape(B, S, KV, Dh)
+    v = (x @ wv.to(dt)).reshape(B, S, KV, Dh)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.rms_eps)
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)

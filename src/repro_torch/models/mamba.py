@@ -17,6 +17,22 @@ and the gates run in the compute dtype, as in the reference.
 API of ``transformer.LanguageModel`` (``forward``, ``loss``, ``logits``,
 ``prefill``, ``decode_step``).  Caches (the conv carry and the scan
 state, per layer) are written in place, as the dense ring caches are.
+
+Under a ("data", "model") mesh (``ctx``) each Parameter holds this
+rank's shard of the reference's ``_ssm_layer_shardings``
+(:func:`ssm_layer_shardings`): d_inner split over "model" — the conv,
+``dt_proj``'s columns, ``A_log``, ``D``, ``dt_bias``, the rows of
+``x_proj`` and ``out_proj`` — and ``in_proj`` / ``out_proj`` FSDP over
+"data".  ``in_proj``'s shard is the reference's contiguous part of the
+fused (D, 2 * d_inner) [u | z] columns (at model = 2, rank 0 holds all
+of u): :func:`mamba_mix` moves the columns to this rank's channels of
+both halves over "model" (``shardctx.uz_exchange`` on the projection's
+output), so the parameter, the
+sync round and the checkpoints keep the reference's shard.  ``x_proj``
+is row-parallel (its (B, S, R + 2N) output summed over "model"),
+``dt_proj`` column-parallel from that sum, the conv and the scan run on
+the rank's channels alone, and ``out_proj``'s partial sums are summed
+over "model".  The caches hold the rank's batch block and channels.
 """
 from __future__ import annotations
 
@@ -27,12 +43,15 @@ from typing import Optional
 import torch
 from torch import nn
 from torch.profiler import record_function
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _DTYPES, LanguageModel, _draw
+from repro_torch.models.shardctx import (ShardCtx, copy_to_model,
+                                        current_ctx, reduce_model,
+                                        use_shard_ctx, uz_exchange)
+from repro_torch.models.transformer import _DTYPES, LanguageModel, unstack
 
 SCAN_CHUNK = 256
 #: the profiler ranges of :class:`SelectiveScan`'s forward and backward
@@ -46,6 +65,17 @@ def ssm_layer_shapes(cfg) -> dict:
     return {"in_proj": (D, 2 * Di), "conv_w": (W, Di), "conv_b": (Di,),
             "x_proj": (Di, R + 2 * N), "dt_proj": (R, Di), "dt_bias": (Di,),
             "A_log": (Di, N), "D": (Di,), "out_proj": (Di, D), "norm": (D,)}
+
+
+def ssm_layer_shardings() -> dict:
+    """One mamba layer's specs: the reference's ``_ssm_layer_shardings``
+    (d_inner over "model", ``in_proj`` / ``out_proj`` FSDP over "data"
+    on d_model)."""
+    return {"in_proj": ("data", "model"), "conv_w": (None, "model"),
+            "conv_b": ("model",), "x_proj": ("model", None),
+            "dt_proj": (None, "model"), "dt_bias": ("model",),
+            "A_log": ("model", None), "D": ("model",),
+            "out_proj": ("model", "data"), "norm": (None,)}
 
 
 # ---------------------------------------------------------------------------
@@ -298,21 +328,40 @@ class SelectiveScan(torch.autograd.Function):
                 dBc.to(Bc.dtype), dCc.to(Cc.dtype), g.to(ctx.h0_dtype))
 
 
+def _in_proj(x, w, ctx):
+    """x @ ``in_proj``, its columns [u | z] of this rank's channels:
+    under a mesh ``w`` holds the reference's shard, and the product's
+    columns are exchanged over "model"."""
+    dt_ = x.dtype
+    if ctx is None or ctx.M == 1:
+        return x @ w.to(dt_)
+    return uz_exchange(copy_to_model(x, ctx) @ w.to(dt_), ctx)
+
+
 def mamba_mix(p, x, cfg, cache=None):
     """One mamba mixer.  x: (B, S, D) -> (B, S, D); ``p`` holds one
     layer's weights.  ``cache``: {"conv": (B, W-1, Di) in the compute
-    dtype, "h": (B, Di, N) f32} or None; written in place."""
+    dtype, "h": (B, Di, N) f32} or None; written in place.  Under a
+    mesh (the installed context) ``p`` holds this rank's shards, Di its
+    channels (the module doc)."""
     B, S, _ = x.shape
-    Di, N, R = cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank
+    N, R = cfg.ssm_state, cfg.ssm_dt_rank
+    Di = p["conv_b"].shape[-1]
+    ctx = current_ctx()
     dt_ = x.dtype
-    u, z = (x @ p["in_proj"].to(dt_)).split(Di, dim=-1)
+    u, z = _in_proj(x, p["in_proj"], ctx).split(Di, dim=-1)
     u, new_conv = causal_depthwise_conv(
         u, p["conv_w"].to(dt_), p["conv_b"],
         cache["conv"] if cache is not None else None)
     # the skip term reads u as f32, unrounded (see the activations above)
     u32 = silu(u, f32=True)
     u = u32.to(dt_)
-    dtr, Bc, Cc = (u @ p["x_proj"].to(dt_)).split([R, N, N], dim=-1)
+    proj = u @ p["x_proj"].to(dt_)
+    if ctx is not None and ctx.M > 1:
+        # row-parallel: the partial sums over "model", then every rank's
+        # channels read all of it (their gradients summed back)
+        proj = copy_to_model(reduce_model(proj, ctx), ctx)
+    dtr, Bc, Cc = proj.split([R, N, N], dim=-1)
     dt = softplus(dtr @ p["dt_proj"].to(dt_) + p["dt_bias"].to(dt_))
     A = -torch.exp(p["A_log"].float())
     h0 = (cache["h"] if cache is not None
@@ -323,7 +372,7 @@ def mamba_mix(p, x, cfg, cache=None):
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["h"].copy_(hT)
-    return y @ p["out_proj"].to(dt_)
+    return reduce_model(y @ p["out_proj"].to(dt_), ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -339,14 +388,18 @@ def _params(shapes: dict, device) -> nn.ParameterDict:
 
 class RecurrentLM(LanguageModel):
     """The embedding and the final norm of the recurrent LMs, and the
-    model API (``transformer.LanguageModel``); a subclass builds its
-    layers and runs them in :meth:`_backbone`."""
+    model API (``transformer.LanguageModel``); a subclass names its
+    layers' leaves (``_block_shapes``, ``param_shardings``), builds them
+    from :meth:`_local_params` and runs them in :meth:`_backbone`.
+    Under a mesh (``ctx``) the embedding is vocab-parallel over "model"
+    and each layer leaf this rank's shard, its layout the shared one of
+    ``LanguageModel``."""
 
     #: the config family a subclass builds
     family = ""
 
     def __init__(self, cfg: ModelConfig, run: Optional[RunConfig] = None,
-                 device="cuda"):
+                 device="cuda", ctx: Optional[ShardCtx] = None):
         super().__init__()
         if (cfg.family != self.family or cfg.frontend
                 or not cfg.tie_embeddings):
@@ -358,15 +411,48 @@ class RecurrentLM(LanguageModel):
         self.cfg = cfg
         self.run = run
         self.dtype = _DTYPES[cfg.dtype]
+        self.ctx = ctx
+        if ctx is not None:
+            self._check_mesh(ctx)
+        #: each leaf's full (stacked) shape, by path
+        self.full_shapes = {"embed": (cfg.padded_vocab, cfg.d_model),
+                            "final_norm": (cfg.d_model,)}
+        self.full_shapes.update(self._block_shapes())
+        self._mesh_layout()
         self.embed = nn.Parameter(torch.zeros(
-            (cfg.padded_vocab, cfg.d_model), dtype=torch.float32,
+            self._local_shape("embed"), dtype=torch.float32,
             device=self.device))
         self.final_norm = nn.Parameter(torch.zeros(
             (cfg.d_model,), dtype=torch.float32, device=self.device))
 
+    def _block_shapes(self) -> dict:
+        """{path: full stacked shape} of every layer leaf."""
+        raise NotImplementedError
+
+    def _local_params(self, prefix: str, names) -> nn.ParameterDict:
+        """The Parameters ``prefix + name`` of ``names``, each this
+        rank's shard."""
+        return _params({k: self._local_shape(prefix + k) for k in names},
+                       self.device)
+
+    def _layer_specs(self, prefix: str, specs: dict) -> dict:
+        """One layer's specs behind a leading None (the stacked axis),
+        by path under ``prefix``."""
+        return {prefix + k: (None,) + v for k, v in specs.items()}
+
+    def param_shardings(self) -> dict:
+        """Each leaf's spec, by path: the embedding vocab-parallel over
+        "model" (the reference's ``P("model", None)``), the final norm
+        replicated, the layers' (``_layers_shardings``)."""
+        out = {"embed": (("model", self.cfg.padded_vocab), None),
+               "final_norm": (None,)}
+        out.update(self._layers_shardings())
+        return out
+
     def _init_shared(self, generator: torch.Generator) -> None:
-        self.embed.copy_(L.init_normal(generator, self.embed.shape, 0.02,
-                                       self.device))
+        self.embed.copy_(L.init_normal(
+            generator, self.full_shapes["embed"], 0.02,
+            self.device)[self.shard_index("embed")])
         self.final_norm.zero_()
 
     def _remat(self) -> bool:
@@ -374,10 +460,16 @@ class RecurrentLM(LanguageModel):
                 and torch.is_grad_enabled())
 
     def _call(self, layer, remat: bool, x, *args):
-        """``layer(x, *args)``, recomputed in the backward under remat."""
+        """``layer(x, *args)`` under the model's context, recomputed in
+        the backward under remat (every rank recomputes each layer whole,
+        its collectives included, in the same order)."""
+        def run(*a):
+            with use_shard_ctx(self.ctx):
+                return layer(*a)
         if remat:
-            return checkpoint(layer, x, *args, use_reentrant=False)
-        return layer(x, *args)
+            with set_checkpoint_early_stop(self.ctx is None):
+                return checkpoint(run, x, *args, use_reentrant=False)
+        return run(x, *args)
 
 
 class MambaLM(RecurrentLM):
@@ -388,21 +480,35 @@ class MambaLM(RecurrentLM):
     family = "ssm"
 
     def __init__(self, cfg: ModelConfig, run: Optional[RunConfig] = None,
-                 device="cuda"):
-        super().__init__(cfg, run, device)
+                 device="cuda", ctx: Optional[ShardCtx] = None):
+        super().__init__(cfg, run, device, ctx)
         self.n_groups = cfg.n_layers
-        self.blocks = nn.ModuleDict({"slot0": _params(
-            {k: (self.n_groups,) + s
-             for k, s in ssm_layer_shapes(cfg).items()}, self.device)})
+        self.blocks = nn.ModuleDict({"slot0": self._local_params(
+            "blocks/slot0/", ssm_layer_shapes(cfg))})
+
+    def _check_mesh(self, ctx: ShardCtx) -> None:
+        """The mesh splits d_inner and the vocabulary evenly over
+        "model": anything else raises (no fall back)."""
+        self._check_divides(ctx, {"d_inner": self.cfg.d_inner,
+                                  "padded vocab": self.cfg.padded_vocab})
+
+    def _block_shapes(self) -> dict:
+        return {f"blocks/slot0/{k}": (self.cfg.n_layers,) + s
+                for k, s in ssm_layer_shapes(self.cfg).items()}
+
+    def _layers_shardings(self) -> dict:
+        return self._layer_specs("blocks/slot0/", ssm_layer_shardings())
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
         """The reference's distributions: ``A_log`` rows log(1..N), ``D``
         ones, ``conv_b`` / ``dt_bias`` / ``norm`` zeros, every other leaf
         N(0, 1) / sqrt(shape[0]) of its per-layer shape, drawn one layer
-        at a time."""
+        at a time (under a mesh each slice whole, this rank's shard
+        kept: the shards equal the unsharded model's of the generator)."""
         N = self.cfg.ssm_state
         for k, p in self.blocks["slot0"].items():
+            path = "blocks/slot0/" + k
             if k == "A_log":
                 p.copy_(torch.log(torch.arange(
                     1, N + 1, dtype=torch.float32, device=p.device))
@@ -412,7 +518,8 @@ class MambaLM(RecurrentLM):
             elif k in ("conv_b", "dt_bias", "norm"):
                 p.zero_()
             else:
-                _draw(p, generator, p.shape[1] ** -0.5)
+                self._draw_leaf(path, p, generator,
+                                self.full_shapes[path][1] ** -0.5)
         self._init_shared(generator)
 
     def param_tree(self) -> dict:
@@ -422,25 +529,28 @@ class MambaLM(RecurrentLM):
     def init_cache(self, B: int, S: int) -> dict:
         """Zeroed per-layer caches for ``B`` sequences (their size does not
         depend on ``S``): the conv carry in the compute dtype, the scan
-        state in f32."""
+        state in f32 (under a mesh: this rank's batch block and
+        channels)."""
         cfg, n = self.cfg, self.n_groups
+        B, Di = self._cache_batch(B), self.blocks["slot0"]["conv_b"].shape[-1]
         return {"slot0": {
-            "conv": torch.zeros((n, B, cfg.ssm_conv - 1, cfg.d_inner),
+            "conv": torch.zeros((n, B, cfg.ssm_conv - 1, Di),
                                 dtype=self.dtype, device=self.device),
-            "h": torch.zeros((n, B, cfg.d_inner, cfg.ssm_state),
+            "h": torch.zeros((n, B, Di, cfg.ssm_state),
                              dtype=torch.float32, device=self.device)}}
 
-    def _layer(self, names, cache, x, *w):
-        p = dict(zip(names, w))
+    def _layer(self, names, fsdp, cache, x, *w):
+        p = dict(zip(names, self._gathered(w, fsdp)))
         h = L.rms_norm(x, p["norm"], self.cfg.rms_eps)
         return x + mamba_mix(p, h, self.cfg, cache)
 
     def _backbone(self, x, positions, caches=None, cache_len=None):
         remat = self._remat()
-        names, stacks = zip(*self.blocks["slot0"].items())
-        per_layer = list(zip(*(w.unbind(0) for w in stacks)))
+        names, per_layer = unstack(dict(self.blocks["slot0"]))
+        fsdp = self._fsdp_dims("blocks/slot0/", names)
         for i, w in enumerate(per_layer):
             cache = (None if caches is None else
                      {k: c[i] for k, c in caches["slot0"].items()})
-            x = self._call(partial(self._layer, names, cache), remat, x, *w)
+            x = self._call(partial(self._layer, names, fsdp, cache), remat,
+                           x, *w)
         return L.rms_norm(x, self.final_norm, self.cfg.rms_eps)

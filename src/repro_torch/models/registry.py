@@ -4,8 +4,8 @@ dense zoo: qwen3-8b, gemma2-9b, minitron-8b, starcoder2-3b, and the VLM
 llava-next-mistral-7b, the dense stack behind its vision stub), the MoE
 family (qwen3-moe-30b-a3b, dbrx-132b), the SSM (falcon-mamba-7b), the
 RG-LRU hybrid (recurrentgemma-2b) and the encoder-decoder
-(seamless-m4t-medium).  The dense and MoE families (but the VLM) also
-build sharded over a within-pod ("data", "model") mesh."""
+(seamless-m4t-medium).  The dense, MoE, SSM and hybrid families (but
+the VLM) also build sharded over a within-pod ("data", "model") mesh."""
 from __future__ import annotations
 
 from typing import Optional
@@ -26,8 +26,9 @@ _FAMILY_CLS = {"dense": DenseTransformer, "moe": MoETransformer,
 def build_model(cfg: ModelConfig, run: Optional[RunConfig] = None,
                 device="cuda", ctx: Optional[ShardCtx] = None):
     """``cfg``'s model; ``ctx`` shards it over a ("data", "model") mesh
-    (the dense and MoE families without a frontend stub: any other
-    raises)."""
+    (the families of ``MESH_FAMILIES`` without a frontend stub: the
+    encoder-decoder and the VLM raise, naming ROADMAP Queue 1 item
+    2b)."""
     try:
         cls = _FAMILY_CLS[cfg.family]
     except KeyError:
@@ -40,5 +41,5 @@ def build_model(cfg: ModelConfig, run: Optional[RunConfig] = None,
             f"{cfg.name}: the {cfg.family} family"
             f"{' behind its ' + cfg.frontend if cfg.frontend else ''} "
             f"under a ('data', 'model') mesh is not ported yet (ROADMAP "
-            f"Queue 1, item 2)")
+            f"Queue 1, item 2b)")
     return cls(cfg, run, device=device, ctx=ctx)

@@ -54,13 +54,22 @@ code crosses from one to the other:
     backward;
   * :func:`scale_grad` — the identity forward, the gradient scaled
     backward (a computation that every "model" rank repeats alike counts
-    1 / M on each).
+    1 / M on each);
+  * :func:`gather_model_cols` — a "model" shard gathered whole for a
+    product that each rank computes only its columns of (the RG-LRU's
+    gates, K/V heads fewer than "model"): an all-gather forward, the
+    gradient reduce-scattered over "model" backward;
+  * :func:`uz_exchange` — a fused [u | z] projection's columns moved
+    from the reference's contiguous "model" shard to this rank's own
+    channels of both halves (mamba's ``in_proj``): a permutation over
+    "model" forward (:meth:`ShardCtx.exchange_halves`), its inverse
+    backward.
 
 Parameters replicated over an axis whose gradient each rank computes only
 in part (every weight but the FSDP-sharded ones over "data", whose batch
 block is the rank's own; the qk-norms and the router over "model") are
 summed after the backward by the model
-(:meth:`~repro_torch.models.transformer.DenseTransformer.reduce_grads`).  The model code finds
+(:meth:`~repro_torch.models.transformer.LanguageModel.reduce_grads`).  The model code finds
 the context through :func:`current_ctx`, installed by
 :func:`use_shard_ctx` as the reference's ``use_shard_ctx(mesh)``.
 
@@ -70,9 +79,10 @@ is excluded) is dropped, and an axis shards a dimension only if it
 divides it — a product where the spec names several — else the
 dimension is replicated.  It decides the MoE's token blocks (a decode
 step's S = 1 stays whole over "model", as does a batch D does not
-divide) and the FSDP split of each weight's d_model dimension over
-"data".  Where the port splits by whole units instead (attention heads,
-the vocabulary, d_ff: its tensor parallelism), a spec entry
+divide), the FSDP split of each weight's d_model dimension over "data"
+and the "model" split of the recurrent mixers' channels and of K/V
+columns.  Where the port splits by whole units instead (query heads, the
+vocabulary, d_ff, experts: its tensor parallelism), a spec entry
 ``("model", units)`` says so; see :func:`axis_range`.
 """
 from __future__ import annotations
@@ -162,9 +172,9 @@ def axis_range(n: int, size: int, index: int, units: Optional[int] = None):
     dimension.  With ``units`` (the dimension holds that many whole
     units, e.g. heads): ``size`` | units splits the units evenly; units
     | ``size`` gives each rank the one unit its place falls in, that
-    unit replicated over the ``size / units`` ranks that share it (the
-    port's choice for K/V heads fewer than the axis); anything else
-    raises ``ValueError``."""
+    unit replicated over the ``size / units`` ranks that share it
+    (experts fewer than the axis, a layout the trainer refuses: the
+    reference splits them); anything else raises ``ValueError``."""
     if size == 1:
         return 0, n
     if units is None:
@@ -316,6 +326,36 @@ class ShardCtx:
         parts = torch.stack(x.chunk(g.size, dim=split_dim))
         return torch.cat(g.all_to_all(parts).unbind(0), dim=concat_dim)
 
+    def exchange_halves(self, x: torch.Tensor, axis: str,
+                        inverse: bool = False) -> torch.Tensor:
+        """The last dimension of ``x`` from this rank's contiguous part q
+        of a fused [u | z] (2 * size * c columns cut into one equal part
+        per rank of the axis: part q is blocks 2q and 2q + 1 of c
+        columns, block b of u where b < size, else block b - size of z)
+        to [u_q | z_q], this rank's block of each half; ``inverse``
+        undoes it.  Block b lives on rank b // 2 and belongs to rank
+        b % size, so every rank sends two blocks and receives two: one
+        ``all_to_all`` of c-column parts, the parts no rank needs zero
+        (none at size 2)."""
+        g = self._group(axis)
+        if g is None:
+            return x
+        M, q = g.size, self.index(axis)
+        c = x.shape[-1] // 2
+        halves = x.split(c, dim=-1)
+        parts = x.new_zeros((M,) + tuple(x.shape[:-1]) + (c,))
+        if inverse:
+            # u_q back to the rank holding block q, z_q to block M + q's
+            dst, src = (q // 2, (M + q) // 2), ((2 * q) % M,
+                                                 (2 * q + 1) % M)
+        else:
+            dst, src = ((2 * q) % M, (2 * q + 1) % M), (q // 2,
+                                                        (M + q) // 2)
+        for h, r in zip(halves, dst):
+            parts[r] = h
+        got = g.all_to_all(parts)
+        return torch.cat([got[r] for r in src], dim=-1)
+
     def gather_batch(self, x: torch.Tensor, B: int) -> torch.Tensor:
         """This rank's block of a batch of ``B`` rows (dim 0) gathered
         over "data" into all of them (``x`` itself where the batch is not
@@ -415,6 +455,18 @@ class _AllToAll(torch.autograd.Function):
                                 split_dim), None, None, None, None)
 
 
+class _Halves(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, sctx, axis):
+        fctx.sctx, fctx.axis = sctx, axis
+        return sctx.exchange_halves(x, axis)
+
+    @staticmethod
+    def backward(fctx, g):
+        return (fctx.sctx.exchange_halves(g.contiguous(), fctx.axis,
+                                          inverse=True), None, None)
+
+
 class _ScaleGrad(torch.autograd.Function):
     @staticmethod
     def forward(fctx, x, scale):
@@ -488,3 +540,25 @@ def all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int,
 def scale_grad(x: torch.Tensor, scale: float) -> torch.Tensor:
     """``x``, its gradient times ``scale``."""
     return x if scale == 1.0 else _ScaleGrad.apply(x, scale)
+
+
+def gather_model_cols(x: torch.Tensor, dim: int,
+                      ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    """The "model" ranks' parts of ``dim`` gathered whole, for a product
+    of which each rank computes its own columns only: backward, the
+    gradient summed over "model" and this rank's part kept (a
+    reduce-scatter)."""
+    ctx = ctx or current_ctx()
+    if not _live(ctx, "model"):
+        return x
+    return _Gather.apply(x, ctx, "model", dim)
+
+
+def uz_exchange(x: torch.Tensor, ctx: Optional[ShardCtx] = None
+                ) -> torch.Tensor:
+    """:meth:`ShardCtx.exchange_halves` over "model" on the last
+    dimension, its backward the inverse exchange."""
+    ctx = ctx or current_ctx()
+    if not _live(ctx, "model"):
+        return x
+    return _Halves.apply(x, ctx, "model")

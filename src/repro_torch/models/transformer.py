@@ -41,12 +41,17 @@ over "data", a remat layer re-issues its forward collectives in the
 backward (every rank recomputes the same layers in the same order, the
 context re-installed around each), and :meth:`LanguageModel.loss` is the
 mean over the global batch, each rank's gradient its batch block's part
-of it.  :meth:`DenseTransformer.reduce_grads` then sums the gradients of
+of it.  :meth:`LanguageModel.reduce_grads` then sums the gradients of
 the leaves that a rank computes only in part: over "data" every leaf that
-is not FSDP-sharded, over "model" the qk-norms and the router.
+is not FSDP-sharded, over "model" the qk-norms and the router.  These
+layout methods live on :class:`LanguageModel`, driven by a model's
+``full_shapes`` and ``param_shardings()``, so the recurrent families
+(``models/mamba.py``, ``models/rglru.py``) shard, train and checkpoint
+through the same code.
 """
 from __future__ import annotations
 
+import math
 from functools import partial
 from typing import Optional
 
@@ -151,15 +156,14 @@ class LanguageModel(nn.Module):
     def param_shapes(self) -> dict:
         return T.tree_map(lambda p: tuple(p.shape), self.param_tree())
 
-    def global_param_shapes(self) -> dict:
-        """Each leaf's whole shape (under a mesh, not this rank's
-        shard's)."""
-        return self.param_shapes()
-
     def active_param_count(self) -> int:
         """N of ``flops.model_flops``, counted from the tree: the
-        parameters one token runs through."""
-        return sum(p.numel() for p in self.parameters())
+        parameters one token runs through (on a mesh rank, of the whole
+        model: its leaves' global shapes, so each rank's MFU counts the
+        model the mesh runs)."""
+        if self.ctx is None:
+            return sum(p.numel() for p in self.parameters())
+        return sum(math.prod(s) for s in self.full_shapes.values())
 
     # ---------------- inputs ----------------
     def frontend_shapes(self, B: int, S: int) -> dict:
@@ -209,7 +213,7 @@ class LanguageModel(nn.Module):
                 f"{self.cfg.name}: training the {self.cfg.family} family"
                 f"{' behind its ' + self.cfg.frontend if self.cfg.frontend else ''}"
                 f" under a ('data', 'model') mesh is not ported yet "
-                f"(ROADMAP Queue 1, item 2)")
+                f"(ROADMAP Queue 1, item 2b)")
         with use_shard_ctx(self.ctx):
             x = self._embed(self._local_batch(tokens), patch_embs)
             B, S, _ = x.shape
@@ -240,6 +244,12 @@ class LanguageModel(nn.Module):
             value = (ctx.all_reduce_sum(local * (1.0 / ctx.D), "data")
                      if split else local.clone())
         return _GlobalLoss.apply(local, value, 1.0 / ctx.D)
+
+    def _cache_batch(self, B: int) -> int:
+        """The sequences of a batch of ``B`` this rank's caches hold (its
+        "data" block)."""
+        return B if self.ctx is None else len(range(B)[
+            self.ctx.batch_slice(B)])
 
     def _local_batch(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's "data" block of a global batch (all of it without
@@ -284,6 +294,159 @@ class LanguageModel(nn.Module):
             return self.logits(x), caches
 
 
+    # ---------------- the layout on a ("data", "model") mesh ----------------
+    #: leaves (by the last part of their path) that every "model" rank
+    #: holds whole but computes its gradient of only in part: the
+    #: qk-norms over its heads, the MoE router over its tokens
+    MODEL_PARTIAL = ("q_norm", "k_norm", "router")
+
+    def _check_divides(self, ctx: ShardCtx, need: dict) -> None:
+        """Raise ``ValueError`` unless "model" divides each of ``need``
+        ({what: count}): the mesh splits them evenly or not at all (no
+        fall back)."""
+        bad = {k: v for k, v in need.items() if v % ctx.M}
+        if bad:
+            raise ValueError(f"{self.cfg.name}: model = {ctx.M} does not "
+                             f"divide its {bad}")
+
+    def _mesh_layout(self) -> None:
+        """After ``full_shapes`` (each leaf's whole shape, by path) is
+        set: the specs (``param_shardings()``) and the stacked leaves
+        FSDP-sharded over "data" (``_fsdp``: path -> the dimension of one
+        layer's slice to gather)."""
+        ctx = self.ctx
+        self._specs = self.param_shardings()
+        self._fsdp = {}
+        if ctx is not None and ctx.D > 1:
+            for path, spec in self._specs.items():
+                dims = [j for j, ax in enumerate(spec) if ax == "data"
+                        and self.full_shapes[path][j] % ctx.D == 0]
+                if dims and path.startswith(("blocks/", "tail/")):
+                    self._fsdp[path] = dims[0] - 1
+
+    def _local_shape(self, path: str) -> tuple:
+        full = self.full_shapes[path]
+        return full if self.ctx is None else self.ctx.local_shape(
+            self._specs[path], full)
+
+    def shard_index(self, path: str) -> tuple:
+        """The index of this rank's Parameter ``path`` in the full leaf
+        (whole slices without a mesh)."""
+        full = self.full_shapes[path]
+        if self.ctx is None:
+            return tuple(slice(None) for _ in full)
+        return self.ctx.local_index(self._specs[path], full)
+
+    def _draw_leaf(self, path: str, p, generator, std: float) -> None:
+        _draw(p, generator, std, (self.full_shapes[path],
+                                  self.shard_index(path)))
+
+    def _fsdp_dims(self, prefix: str, names) -> list:
+        """The FSDP dimension (None: whole) of each leaf ``prefix + name``
+        of one layer."""
+        return [self._fsdp.get(prefix + k) for k in names]
+
+    def _gathered(self, w, fsdp) -> list:
+        """One layer's weights, each FSDP-sharded one gathered over
+        "data" (its gradient reduce-scattered back)."""
+        return [t if dim is None else gather_data(t, dim, self.ctx)
+                for t, dim in zip(w, fsdp)]
+
+    def global_param_shapes(self) -> dict:
+        """Each leaf's whole shape (under a mesh, not this rank's
+        shard's)."""
+        if self.ctx is None:
+            return self.param_shapes()
+        return T.from_flat_dict({T.path_str(q): self.full_shapes[
+            T.path_str(q)] for q, _ in T.leaves_with_path(self.param_tree())})
+
+    def check_reference_shards(self) -> None:
+        """Raise ``ValueError`` naming the first leaf whose shard on this
+        rank is not the reference's local shard on the same mesh (its
+        nested manual region divides each spec'd dimension by its axis'
+        size): the sync round runs on the shards, so a different layout
+        would be a different sync."""
+        ctx = self.ctx
+        if ctx is None:
+            return
+        for path, spec in self._specs.items():
+            full = self.full_shapes[path]
+            want = tuple(n // ctx.sizes[ax[0] if isinstance(ax, tuple)
+                                        else ax] if ax else n
+                         for n, ax in zip(full, spec))
+            got = ctx.local_shape(spec, full)
+            if got != want:
+                raise ValueError(
+                    f"{self.cfg.name}: leaf {path}: this rank's shard "
+                    f"{got} of {full} is not the reference's local shard "
+                    f"{want} on a ({ctx.D}, {ctx.M}) mesh; training "
+                    f"refuses a sync layout other than the reference's")
+
+    def _replicas(self, path: str) -> list:
+        """The ranks that hold the same shard of leaf ``path`` as this
+        one, in rank order."""
+        ctx = self.ctx
+        full, spec = self.full_shapes[path], self._specs[path]
+        mine = ctx.local_index(spec, full)
+        return [r for r in range(ctx.D * ctx.M)
+                if ShardCtx(ctx.D, ctx.M, r // ctx.M, r % ctx.M)
+                .local_index(spec, full) == mine]
+
+    def shard_of(self, path: str) -> tuple:
+        """(leaf ``path``'s full shape, this rank's index into it, whether
+        this rank is the first of the ranks holding that shard: the one
+        that counts it in a sum over the whole mesh and writes it to a
+        checkpoint)."""
+        first = self.ctx is None or self._replicas(path)[0] == self.ctx.rank
+        return self.full_shapes[path], self.shard_index(path), first
+
+    def owned_leaves(self) -> list:
+        """Per leaf (sorted-key order): whether this rank is the first of
+        the ranks holding its shard (:meth:`shard_of`) — the one that
+        counts it in a global norm and the grad stats."""
+        return [self.shard_of(T.path_str(q))[2] for q, _ in
+                T.leaves_with_path(self.param_tree())]
+
+    def grad_reduce_axes(self, path: str) -> tuple:
+        """The axes over which the gradient of leaf ``path`` is summed
+        after the backward: "data" where it is not FSDP-sharded (each data
+        rank saw its own batch block), "model" for the leaves every model
+        rank holds but computes its gradient of in part
+        (``MODEL_PARTIAL``).  Experts every model rank holds (M not
+        dividing E) would be such leaves too; the reference splits them,
+        so that mesh does not train (:meth:`check_reference_shards`)."""
+        ctx = self.ctx
+        if ctx is None:
+            return ()
+        axes = []
+        if ctx.D > 1 and path not in self._fsdp:
+            axes.append("data")
+        if ctx.M > 1 and path.rsplit("/", 1)[-1] in self.MODEL_PARTIAL:
+            axes.append("model")
+        return tuple(axes)
+
+    def reduce_grads(self, grads: list) -> list:
+        """The gradients of the leaves (sorted-key order) summed over the
+        axes :meth:`grad_reduce_axes` names: each rank's becomes its shard
+        of the gradient of the global loss."""
+        if self.ctx is None:
+            return list(grads)
+        # a shard other than the reference's (experts replicated over the
+        # ranks that share them) would need its gradient summed over them
+        # too: such a mesh does not train
+        self.check_reference_shards()
+        paths = [T.path_str(q) for q, _ in
+                 T.leaves_with_path(self.param_tree())]
+        out = []
+        for path, g in zip(paths, grads):
+            axes = self.grad_reduce_axes(path)
+            if axes:
+                g = self.ctx.all_reduce_sum(
+                    g, "world" if len(axes) == 2 else axes[0])
+            out.append(g)
+        return out
+
+
 class _GlobalLoss(torch.autograd.Function):
     """``value`` (the global loss, the same on every rank) forward; the
     gradient of ``local`` (this rank's block's loss) times ``scale``
@@ -300,7 +463,7 @@ class _GlobalLoss(torch.autograd.Function):
 
 
 #: the families whose models build (and train) under a mesh
-MESH_FAMILIES = ("dense", "moe")
+MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 class DenseTransformer(LanguageModel):
@@ -342,18 +505,19 @@ class DenseTransformer(LanguageModel):
         #: each leaf's full (stacked) shape, by path
         self.full_shapes = {"embed": (cfg.padded_vocab, cfg.d_model),
                             "final_norm": (cfg.d_model,)}
-        self._specs = specs = self.param_shardings()
-        local = {}
+        parts = {}
         for i in range(len(self.group_kinds)):
             for part, shapes in (("attn", L.attn_shapes(cfg, n)),
                                  ("ffn", self._ffn_shapes(n))):
                 pre = f"blocks/slot{i}/{part}/"
                 self.full_shapes.update({pre + k: v
                                          for k, v in shapes.items()})
-                local[i, part] = {k: self._local_shape(pre + k)
-                                  for k in shapes}
+                parts[i, part] = (pre, shapes)
             self.full_shapes.update({f"blocks/slot{i}/{k}": (n, cfg.d_model)
                                      for k in _norm_names(cfg)})
+        self._mesh_layout()
+        local = {key: {k: self._local_shape(pre + k) for k in shapes}
+                 for key, (pre, shapes) in parts.items()}
         self.blocks = nn.ModuleDict(
             {f"slot{i}": _Slot(cfg, n, self.device, local[i, "attn"],
                                local[i, "ffn"])
@@ -363,27 +527,17 @@ class DenseTransformer(LanguageModel):
             device=self.device))
         self.final_norm = nn.Parameter(torch.zeros(
             (cfg.d_model,), dtype=torch.float32, device=self.device))
-        #: the stacked leaves FSDP-sharded over "data", by path: the
-        #: dimension of one layer's slice to gather
-        self._fsdp = {}
-        if ctx is not None and ctx.D > 1:
-            for path, spec in specs.items():
-                dims = [j for j, ax in enumerate(spec) if ax == "data"
-                        and self.full_shapes[path][j] % ctx.D == 0]
-                if dims and path.startswith("blocks/"):
-                    self._fsdp[path] = dims[0] - 1
 
     def _check_mesh(self, ctx: ShardCtx) -> None:
         """The mesh splits heads, d_ff (dense) and the vocabulary evenly
-        over "model": anything else raises (no fall back)."""
+        over "model", and the K/V heads over it or it over them: anything
+        else raises (no fall back)."""
         cfg = self.cfg
         need = {"heads": cfg.n_heads, "padded vocab": cfg.padded_vocab}
         if self.family == "dense":
             need["d_ff"] = cfg.d_ff
-        bad = {k: v for k, v in need.items() if v % ctx.M}
-        if bad:
-            raise ValueError(f"{cfg.name}: model = {ctx.M} does not divide "
-                             f"its {bad}")
+        self._check_divides(ctx, need)
+        L.kv_heads_local(cfg, ctx)
 
     def param_shardings(self) -> dict:
         """Each leaf's spec, by path: the layers' (``attn_shardings``,
@@ -401,23 +555,6 @@ class DenseTransformer(LanguageModel):
             out.update({f"blocks/slot{i}/{k}": (None, None)
                         for k in _norm_names(cfg)})
         return out
-
-    def _local_shape(self, path: str) -> tuple:
-        full = self.full_shapes[path]
-        return full if self.ctx is None else self.ctx.local_shape(
-            self._specs[path], full)
-
-    def shard_index(self, path: str) -> tuple:
-        """The index of this rank's Parameter ``path`` in the full leaf
-        (whole slices without a mesh)."""
-        full = self.full_shapes[path]
-        if self.ctx is None:
-            return tuple(slice(None) for _ in full)
-        return self.ctx.local_index(self._specs[path], full)
-
-    def _draw_leaf(self, path: str, p, generator, std: float) -> None:
-        _draw(p, generator, std, (self.full_shapes[path],
-                                  self.shard_index(path)))
 
     def frontend_shapes(self, B: int, S: int) -> dict:
         if self.cfg.frontend != "vision_stub":
@@ -478,10 +615,8 @@ class DenseTransformer(LanguageModel):
         cfg = self.cfg
         if kind == "local" and cfg.sliding_window:
             S = min(S, cfg.sliding_window)
-        kv = self.blocks["slot0"].attn["wk"].shape[-1] // cfg.head_dim
-        if self.ctx is not None:
-            B = len(range(B)[self.ctx.batch_slice(B)])
-        return (self.n_groups, B, S, kv, cfg.head_dim)
+        kv = L.kv_heads_local(cfg, self.ctx)
+        return (self.n_groups, self._cache_batch(B), S, kv, cfg.head_dim)
 
     def init_cache(self, B: int, S: int) -> dict:
         """Zeroed ring KV caches for ``B`` sequences of up to ``S``
@@ -500,9 +635,7 @@ class DenseTransformer(LanguageModel):
         tree, ``fsdp`` the dimension to gather over "data" of each (None:
         whole)."""
         cfg = self.cfg
-        w = [t if dim is None else gather_data(t, dim, self.ctx)
-             for t, dim in zip(w, fsdp)]
-        p = T.from_flat_dict(dict(zip(names, w)))
+        p = T.from_flat_dict(dict(zip(names, self._gathered(w, fsdp))))
         h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
         h = L.attn_apply(
             p["attn"], h, cfg, positions=positions,
@@ -526,7 +659,7 @@ class DenseTransformer(LanguageModel):
         slots = []
         for i, kind in enumerate(self.group_kinds):
             names, per_layer = unstack(self.blocks[f"slot{i}"].tree())
-            fsdp = [self._fsdp.get(f"blocks/slot{i}/{k}") for k in names]
+            fsdp = self._fsdp_dims(f"blocks/slot{i}/", names)
             slots.append((kind, names, fsdp, per_layer))
         for g in range(self.n_groups):
             for i, (kind, names, fsdp, per_layer) in enumerate(slots):
@@ -550,99 +683,6 @@ class DenseTransformer(LanguageModel):
         recompute runs in the backward, where none is installed."""
         with use_shard_ctx(self.ctx):
             return self._layer(*args)
-
-    # ---------------- training under a mesh ----------------
-    def global_param_shapes(self) -> dict:
-        return T.from_flat_dict({T.path_str(q): self.full_shapes[
-            T.path_str(q)] for q, _ in T.leaves_with_path(self.param_tree())})
-
-    def check_reference_shards(self) -> None:
-        """Raise ``ValueError`` naming the first leaf whose shard on this
-        rank is not the reference's local shard on the same mesh (its
-        nested manual region divides each spec'd dimension by its axis'
-        size): the sync round runs on the shards, so a different layout
-        would be a different sync.  K/V heads fewer than M, which the
-        port replicates and the reference splits, are the case."""
-        ctx = self.ctx
-        if ctx is None:
-            return
-        for path, spec in self._specs.items():
-            full = self.full_shapes[path]
-            want = tuple(n // ctx.sizes[ax[0] if isinstance(ax, tuple)
-                                        else ax] if ax else n
-                         for n, ax in zip(full, spec))
-            got = ctx.local_shape(spec, full)
-            if got != want:
-                raise ValueError(
-                    f"{self.cfg.name}: leaf {path}: this rank's shard "
-                    f"{got} of {full} is not the reference's local shard "
-                    f"{want} on a ({ctx.D}, {ctx.M}) mesh; training "
-                    f"refuses a sync layout other than the reference's")
-
-    def _replicas(self, path: str) -> list:
-        """The ranks that hold the same shard of leaf ``path`` as this
-        one, in rank order."""
-        ctx = self.ctx
-        full, spec = self.full_shapes[path], self._specs[path]
-        mine = ctx.local_index(spec, full)
-        return [r for r in range(ctx.D * ctx.M)
-                if ShardCtx(ctx.D, ctx.M, r // ctx.M, r % ctx.M)
-                .local_index(spec, full) == mine]
-
-    def shard_of(self, path: str) -> tuple:
-        """(leaf ``path``'s full shape, this rank's index into it, whether
-        this rank is the first of the ranks holding that shard: the one
-        that counts it in a sum over the whole mesh and writes it to a
-        checkpoint)."""
-        first = self.ctx is None or self._replicas(path)[0] == self.ctx.rank
-        return self.full_shapes[path], self.shard_index(path), first
-
-    def owned_leaves(self) -> list:
-        """Per leaf (sorted-key order): whether this rank is the first of
-        the ranks holding its shard (:meth:`shard_of`) — the one that
-        counts it in a global norm and the grad stats."""
-        return [self.shard_of(T.path_str(q))[2] for q, _ in
-                T.leaves_with_path(self.param_tree())]
-
-    def grad_reduce_axes(self, path: str) -> tuple:
-        """The axes over which the gradient of leaf ``path`` is summed
-        after the backward: "data" where it is not FSDP-sharded (each data
-        rank saw its own batch block), "model" for the leaves every model
-        rank holds but computes its gradient of in part (the qk-norms
-        over its heads, the router over its tokens).  Experts every model
-        rank holds (M not dividing E) would be such leaves too; the
-        reference splits them, so that mesh does not train
-        (:meth:`check_reference_shards`)."""
-        ctx = self.ctx
-        if ctx is None:
-            return ()
-        axes = []
-        if ctx.D > 1 and path not in self._fsdp:
-            axes.append("data")
-        if ctx.M > 1 and path.rsplit("/", 1)[-1] in ("q_norm", "k_norm",
-                                                     "router"):
-            axes.append("model")
-        return tuple(axes)
-
-    def reduce_grads(self, grads: list) -> list:
-        """The gradients of the leaves (sorted-key order) summed over the
-        axes :meth:`grad_reduce_axes` names: each rank's becomes its shard
-        of the gradient of the global loss."""
-        if self.ctx is None:
-            return list(grads)
-        # a head replicated over the ranks that share it would need its
-        # gradient summed over them too: such a mesh does not train
-        self.check_reference_shards()
-        paths = [T.path_str(q) for q, _ in
-                 T.leaves_with_path(self.param_tree())]
-        out = []
-        for path, g in zip(paths, grads):
-            axes = self.grad_reduce_axes(path)
-            if axes:
-                g = self.ctx.all_reduce_sum(
-                    g, "world" if len(axes) == 2 else axes[0])
-            out.append(g)
-        return out
 
 
 class MoETransformer(DenseTransformer):

@@ -318,14 +318,15 @@ def test_state_from_reference_cuts_every_tree_on_a_rank():
 
 
 def test_a_mesh_whose_shards_are_not_the_references_is_refused():
-    """Two K/V heads over four "model" ranks: the port replicates each
-    head over two ranks, the reference splits the heads' columns — the
-    Trainer refuses, naming the leaf."""
-    cfg = SMOKE_ARCHS["starcoder2-3b"]
-    assert cfg.n_kv_heads == 2
+    """Two experts over four "model" ranks: the port replicates each
+    expert over two ranks, the reference splits the experts' stacks — the
+    Trainer refuses, naming the leaf.  (K/V heads fewer than "model" are
+    held as the reference splits them: tests/test_torch_mesh_recurrent.py
+    trains starcoder2-3b's two over four ranks.)"""
+    cfg = dataclasses.replace(SMOKE_ARCHS["dbrx-132b"], n_experts=2)
     run = RunConfig(model=cfg, shape=ShapeConfig("t", 32, 4, "train"))
     model = build_model(cfg, run, device="cpu", ctx=SC.ShardCtx(1, 4))
-    with pytest.raises(ValueError, match="attn/wk.*not the reference's"):
+    with pytest.raises(ValueError, match="ffn/w_.*not the reference's"):
         Trainer(model, run)
 
 

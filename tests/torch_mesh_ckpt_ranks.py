@@ -34,13 +34,13 @@ def _step_dir(d, step) -> Path:
     return Path(d) / f"step_{step:08d}"
 
 
-def ckpt_rank(ctx, archs, tmp):
+def ckpt_rank(ctx, archs, tmp, loop=True):
     """One rank: for each arch, its state loaded from the reference's
     (``<arch>_state.npz``, the reference's state after ``STEP`` steps),
     saved on the mesh to ``port/<arch>`` with the save's numbers, and the
     reference's own checkpoint (``ref/<arch>``) restored onto the rank
-    (:func:`convert.rank_shards` of it and its extras); then the loop
-    cases (:func:`loop_cases`)."""
+    (:func:`convert.rank_shards` of it and its extras); then, with
+    ``loop``, the loop cases (:func:`loop_cases`)."""
     torch.set_num_threads(1)
     tmp = Path(tmp)
     out = {"rank": ctx.rank, "archs": {}}
@@ -57,7 +57,8 @@ def ckpt_rank(ctx, archs, tmp):
                                    mesh=mesh).restore(tr.init_state(99))
         out["archs"][arch] = {"restored": convert.rank_shards(got, tr),
                               "extras": extras, "save": dict(ck.last_save)}
-    out["loop"] = loop_cases(ctx, tmp)
+    if loop:
+        out["loop"] = loop_cases(ctx, tmp)
     return out
 
 

@@ -122,10 +122,11 @@ print("REF_OK")
 """
 
 
-def run_mesh(tmp: Path, mesh, archs=ARCHS) -> tuple:
+def run_mesh(tmp: Path, mesh, archs=ARCHS, loop=True) -> tuple:
     """(the reference's restores of the port's checkpoints, [the port's
-    ``ckpt_rank`` result per rank]) on ``mesh``; the checkpoints and the
-    reference's states stay in ``tmp``."""
+    ``ckpt_rank`` result per rank]) on ``mesh``, the ranks running the
+    loop cases where ``loop``; the checkpoints and the reference's states
+    stay in ``tmp``."""
     from repro_torch.launch.mesh import spawn_mesh
     from torch_mesh_ckpt_ranks import ckpt_rank
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -144,7 +145,7 @@ def run_mesh(tmp: Path, mesh, archs=ARCHS) -> tuple:
             time.sleep(0.2)
         try:
             port = spawn_mesh(ckpt_rank, *mesh, "cpu",
-                              args=(list(archs), str(tmp)),
+                              args=(list(archs), str(tmp), loop),
                               init_method=f"file://{tmp / 'store'}",
                               threads=1, timeout=600)
         finally:

@@ -53,32 +53,47 @@ def port_rank(ctx, moe_in, archs, weights, tf_tokens):
         out["moe"] = TM.moe_apply(ep, xl, cfg).numpy()
     toks = torch.from_numpy(tf_tokens)
     for arch in archs:
-        model = tbuild(dataclasses.replace(SMOKE_ARCHS[arch],
-                                           dtype="float32"),
-                       device="cpu", ctx=ctx)
-        convert.params_from_reference(
-            convert.shard_params(weights[arch], model), model)
-        r = {}
-        with torch.inference_mode():
-            logits, caches = model.prefill(toks[:, :SP], CACHE)
-            r["logits0"] = logits.numpy()
-            r["prefill"] = {f"{s}/{kv}": c.numpy().copy()
-                            for s, kvs in caches.items()
-                            for kv, c in kvs.items()}
-            for i in range(STEPS):
-                logits, caches = model.decode_step(
-                    caches, SP + i, toks[:, SP + i:SP + i + 1])
-                r[f"logits{i + 1}"] = logits.numpy()
-            r["decode"] = {f"{s}/{kv}": c.numpy() for s, kvs in
-                           caches.items() for kv, c in kvs.items()}
-        done = tserve.Server(model, CACHE, B, ctx=ctx).serve(requests())
-        r["tokens"] = [q.out_tokens for q in done]
-        seeded = tserve.init_model(SMOKE_ARCHS[arch], "cpu", seed=5,
-                                   ctx=ctx)
-        r["seeded"] = {k: v.detach().float().numpy() for k, v in
-                       port_flat(seeded.param_tree()).items()}
-        r["index"] = {k: seeded.shard_index(k) for k in r["seeded"]}
-        r["param_bytes"] = sum(q.numel() * q.element_size()
-                               for q in seeded.parameters())
-        out["models"][arch] = r
+        out["models"][arch] = serve_arch(ctx, arch, weights[arch], toks)
     return out
+
+
+def serve_arch(ctx, arch, weights, toks) -> dict:
+    """One arch on the rank, from the reference's ``weights`` (f32): the
+    prefill's and ``STEPS`` teacher-forced decode steps' logits and
+    caches of its shards, its Server's tokens and its seeded init's
+    shards, their indices and bytes."""
+    model = tbuild(dataclasses.replace(SMOKE_ARCHS[arch], dtype="float32"),
+                   device="cpu", ctx=ctx)
+    convert.params_from_reference(convert.shard_params(weights, model),
+                                  model)
+    r = {}
+    with torch.inference_mode():
+        logits, caches = model.prefill(toks[:, :SP], CACHE)
+        r["logits0"] = logits.numpy()
+        r["prefill"] = {f"{s}/{kv}": c.numpy().copy()
+                        for s, kvs in caches.items()
+                        for kv, c in kvs.items()}
+        for i in range(STEPS):
+            logits, caches = model.decode_step(
+                caches, SP + i, toks[:, SP + i:SP + i + 1])
+            r[f"logits{i + 1}"] = logits.numpy()
+        r["decode"] = {f"{s}/{kv}": c.numpy() for s, kvs in
+                       caches.items() for kv, c in kvs.items()}
+    done = tserve.Server(model, CACHE, B, ctx=ctx).serve(requests())
+    r["tokens"] = [q.out_tokens for q in done]
+    seeded = tserve.init_model(SMOKE_ARCHS[arch], "cpu", seed=5, ctx=ctx)
+    r["seeded"] = {k: v.detach().float().numpy() for k, v in
+                   port_flat(seeded.param_tree()).items()}
+    r["index"] = {k: seeded.shard_index(k) for k in r["seeded"]}
+    r["param_bytes"] = sum(q.numel() * q.element_size()
+                           for q in seeded.parameters())
+    return r
+
+
+def serve_rank(ctx, archs, weights, tf_tokens):
+    """One rank: :func:`serve_arch` of each arch."""
+    torch.set_num_threads(1)
+    toks = torch.from_numpy(tf_tokens)
+    return {"coords": (ctx.d, ctx.m),
+            "models": {a: serve_arch(ctx, a, weights[a], toks)
+                       for a in archs}}

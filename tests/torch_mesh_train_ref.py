@@ -167,17 +167,23 @@ print("REF_OK")
 """
 
 
-def run_mesh(tmp: Path, mesh) -> tuple:
+def run_mesh(tmp: Path, mesh, archs=ARCHS, kernels=False) -> tuple:
     """({arch: the reference's results}, [the port's result per rank]) on
-    ``mesh``: two reference subprocesses, two archs each, and the port's
-    ranks, which start once the reference has written every initial
-    state."""
+    ``mesh`` for ``archs``: two reference subprocesses, half the archs
+    each, and the port's ranks, which start once the reference has
+    written every initial state.  With ``kernels`` the reference's sync
+    rounds go through its Pallas kernels, interpreted
+    (``REPRO_FORCE_INTERPRET=1``), as the port's go through theirs: the
+    top-k rungs select by the kernels' bisection (about k a block, as
+    the port's K4), not by ``lax.top_k`` (exactly k), its CPU default."""
     from repro_torch.launch.mesh import spawn_mesh
     from torch_mesh_train_ranks import trainer_rank
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                JAX_PLATFORMS="cpu")
+    if kernels:
+        env["REPRO_FORCE_INTERPRET"] = "1"
     procs = []
-    for half in (ARCHS[::2], ARCHS[1::2]):
+    for half in (archs[::2], archs[1::2]):
         args = {"mesh": mesh, "archs": half, "seqs": KIND_SEQS,
                 "trees": TREES, "seq": SEQ, "batch": BATCH, "lr": LR,
                 "gamma": SYNC_GAMMA, "out": str(tmp)}
@@ -185,7 +191,7 @@ def run_mesh(tmp: Path, mesh) -> tuple:
             [sys.executable, "-c", REF_SCRIPT, json.dumps(args)], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     try:
-        inits = {a: tmp / f"{a}_init.npz" for a in ARCHS}
+        inits = {a: tmp / f"{a}_init.npz" for a in archs}
         deadline = time.monotonic() + 600
         while not all(p.exists() for p in inits.values()):
             if (any(p.poll() not in (None, 0) for p in procs)
@@ -193,14 +199,14 @@ def run_mesh(tmp: Path, mesh) -> tuple:
                 break
             time.sleep(0.2)
         port = spawn_mesh(trainer_rank, *mesh, "cpu",
-                          args=(ARCHS, {a: str(p) for a, p in inits.items()}),
+                          args=(archs, {a: str(p) for a, p in inits.items()}),
                           init_method=f"file://{tmp / 'store'}", threads=1,
                           timeout=600)
         for proc in procs:
             so, se = proc.communicate(timeout=600)
             assert proc.returncode == 0 and "REF_OK" in so, se[-3000:]
         ref = {a: dict(np.load(tmp / f"{a}_init.npz"),
-                       **np.load(tmp / f"{a}.npz")) for a in ARCHS}
+                       **np.load(tmp / f"{a}.npz")) for a in archs}
     finally:
         for proc in procs:
             if proc.poll() is None:
