@@ -98,16 +98,24 @@ def mesh_train_bytes(cfg, D: int, M: int, bytes_per_param: float,
             for n in mesh_param_counts(cfg, D, M)]
 
 
+def cut_depth(cfg, n: int):
+    """``cfg`` cut to ``n`` (decoder) layers; an encoder-decoder's
+    encoder to the same share of its own (at least one layer)."""
+    enc = cfg.n_enc_layers and max(1, n * cfg.n_enc_layers // cfg.n_layers)
+    return dataclasses.replace(cfg, n_layers=n, n_enc_layers=enc)
+
+
 def mesh_train_depth(cfg, D: int, M: int, limit_bytes: float,
                      bytes_per_param: float, batch: int = 0,
                      seq: int = 0) -> int:
     """The most layers (in steps of the config's layer group) at which
     every card's :func:`mesh_train_bytes` stays within ``limit_bytes``
-    (0: not even one group)."""
+    (0: not even one group).  An encoder-decoder's depth cuts both
+    stacks (:func:`cut_depth`)."""
     group = 2 if cfg.layer_pattern == "local_global" else 1
     best = 0
     for n in range(group, cfg.n_layers + 1, group):
-        c = dataclasses.replace(cfg, n_layers=n)
+        c = cut_depth(cfg, n)
         if max(mesh_train_bytes(c, D, M, bytes_per_param, batch,
                                 seq)) > limit_bytes:
             break

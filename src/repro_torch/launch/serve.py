@@ -32,14 +32,18 @@ caller asks for the CPU::
 prints ``{"requests", "tokens", "wall_s", "tok_per_s"}``.  The weights
 come from a seed (no checkpoint is read) and are served in bf16.
 
-The dense, MoE and recurrent families also serve on a within-pod
-("data", "model") mesh of D x M ranks, one process each
-(``launch/mesh.py``'s ``spawn_mesh``; NCCL with a card per rank, gloo
-where ranks share one)::
+Every family also serves on a within-pod ("data", "model") mesh of D x
+M ranks, one process each (``launch/mesh.py``'s ``spawn_mesh``; NCCL
+with a card per rank, gloo where ranks share one)::
 
     python -m repro_torch.launch.serve --arch dbrx-132b --data 1 --model 4
     python -m repro_torch.launch.serve --arch falcon-mamba-7b --data 1 \
         --model 4
+    python -m repro_torch.launch.serve --arch llava-next-mistral-7b \
+        --data 1 --model 4
+
+(a frontend's zero inputs at the global batch, each rank keeping its
+batch block of them, as of the tokens).
 
 Each rank holds its shards of the weights (``init_model(ctx=)``) and its
 part of the caches; the ``Server`` gathers the last position's logits
@@ -191,8 +195,9 @@ def main(argv=None):
     ap.add_argument("--data", type=int, default=1,
                     help="D: ranks the batch is split over")
     ap.add_argument("--model", type=int, default=1,
-                    help="M: ranks heads, d_ff, experts, d_inner / the "
-                         "RG-LRU's width and vocab split over")
+                    help="M: ranks heads (the encoder's and the "
+                         "cross-attention's too), d_ff, experts, d_inner / "
+                         "the RG-LRU's width and vocab split over")
     args = ap.parse_args(argv)
     resolve_device(args.device)
     if args.data * args.model == 1:

@@ -89,7 +89,9 @@ CLI::
     python -m repro_torch.launch.train --steps 8 [--smoke] [--device cuda]
     python -m repro_torch.launch.train --data 2 --model 2 ...  # D*M ranks
     python -m repro_torch.launch.train --arch recurrentgemma-2b \
-        --data 2 --model 2 ...               # the recurrent families too
+        --data 2 --model 2 ...               # every family: the recurrent,
+    python -m repro_torch.launch.train --arch seamless-m4t-medium \
+        --data 2 --model 2 ...               # the encoder-decoder, the VLM
     python -m repro_torch.launch.train --pods 2 --steps 8 ...  # P processes
     python -m repro_torch.launch.train --pods 4 --edge 2 \
         --strategy acesync_hier ...          # 2 clusters x 2 members

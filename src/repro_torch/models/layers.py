@@ -2,7 +2,8 @@
 ``repro/models/layers.py``: RMSNorm, the logit softcap, RoPE, attention
 (training / prefill, causal or — the encoder's — bidirectional, and
 single-token decode over a ring KV cache), the encoder-decoder's
-cross-attention (prefill writing its K/V cache once, decode reading it),
+cross-attention (prefill writing its K/V cache once, decode reading it;
+on a mesh sharded as self-attention is),
 the ring-cache writes, the SwiGLU MLP, the embedding (with gemma's
 sqrt(d) scale) and a chunked cross-entropy through the softcapped LM
 head.
@@ -374,32 +375,42 @@ def cross_attn_apply(p, x, mem, cfg, *, cache=None, q_chunk: int = 2048,
     qk-norm, no softcap, every key visible (the reference's
     ``chunked_attention(causal=False)``, its chunk rule kept).  ``cache``
     (one layer's ``{"k", "v"}`` of (B, Sm, KV, Dh)), where given, takes
-    the keys and values in place: prefill writes them once."""
+    the keys and values in place: prefill writes them once.  Under a mesh
+    as :func:`attn_apply`: ``p`` holds this rank's query heads and K/V
+    columns (K/V heads fewer than "model" gathered whole), x and mem enter
+    them through ``copy_to_model``, the cache holds the rank's K/V heads,
+    and wo's partial sums are summed over "model"."""
     B, S, _ = x.shape
     Sm = mem.shape[1]
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    wk, wv = _kv_weights(p, cfg, current_ctx())
+    H, KV = p["wq"].shape[-1] // Dh, wk.shape[-1] // Dh
     dt = x.dtype
+    x, mem = copy_to_model(x), copy_to_model(mem)
     q = (x @ p["wq"].to(dt)).reshape(B, S, H, Dh)
-    k = (mem @ p["wk"].to(dt)).reshape(B, Sm, KV, Dh)
-    v = (mem @ p["wv"].to(dt)).reshape(B, Sm, KV, Dh)
+    k = (mem @ wk.to(dt)).reshape(B, Sm, KV, Dh)
+    v = (mem @ wv.to(dt)).reshape(B, Sm, KV, Dh)
     if cache is not None:
         cache["k"].copy_(k)
         cache["v"].copy_(v)
     check_chunks(S, Sm, q_chunk, kv_chunk)
     o = full_attention(q, k, v)
-    return o.reshape(B, S, H * Dh) @ p["wo"].to(dt)
+    return reduce_model(o.reshape(B, S, H * Dh) @ p["wo"].to(dt))
 
 
 def cross_attn_decode(p, x, cache, cfg):
     """One token's cross-attention (x: (B, 1, D)) over the K/V cache that
     prefill wrote (B, F, KV, Dh): the reference's ``decode_attention`` at
-    t = F - 1, under which every slot is visible."""
+    t = F - 1, under which every slot is visible.  Under a mesh, the
+    rank's query heads over its cached K/V heads, wo's partial sums
+    summed over "model"."""
     B = x.shape[0]
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+    H = p["wq"].shape[-1] // cfg.head_dim
+    q = (x @ p["wq"].to(dt)).reshape(B, 1, H, cfg.head_dim)
     F_ = cache["k"].shape[1]
     o = decode_attention(q, cache["k"].to(dt), cache["v"].to(dt), F_ - 1)
-    return o.reshape(B, 1, -1) @ p["wo"].to(dt)
+    return reduce_model(o.reshape(B, 1, -1) @ p["wo"].to(dt))
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,6 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
 from repro_torch.models.mamba import (SCAN_CHUNK, RecurrentLM,
@@ -295,7 +294,7 @@ class GriffinLM(RecurrentLM):
         the rounded one, and the caller rounds where the reference's
         layer scan carries the stream (after each group)."""
         cfg, dt = self.cfg, self.dtype
-        p = T.from_flat_dict(dict(zip(names, self._gathered(w, fsdp))))
+        p = self._layer_tree(names, fsdp, w)
         h = L.rms_norm(x, p["ln1"], cfg.rms_eps).to(dt)
         if kind == "rec":
             h = rec_mix(p["mix"], h, cfg, cache)

@@ -46,8 +46,10 @@ the leaves that a rank computes only in part: over "data" every leaf that
 is not FSDP-sharded, over "model" the qk-norms and the router.  These
 layout methods live on :class:`LanguageModel`, driven by a model's
 ``full_shapes`` and ``param_shardings()``, so the recurrent families
-(``models/mamba.py``, ``models/rglru.py``) shard, train and checkpoint
-through the same code.
+(``models/mamba.py``, ``models/rglru.py``) and the encoder-decoder
+(``models/encdec.py``) shard, train and checkpoint through the same
+code.  The VLM's patch embeddings are blocked over "data" with the
+tokens.
 """
 from __future__ import annotations
 
@@ -195,27 +197,23 @@ class LanguageModel(nn.Module):
         return specs
 
     def _embed(self, tokens, patch_embs=None):
-        """The token embeddings, after the patch embeddings (cast to the
-        compute dtype) where given."""
-        x = L.embed_lookup(self.embed, tokens, self.cfg, self.dtype)
+        """The token embeddings of this rank's batch block of ``tokens``
+        (all of it without a mesh), after its block of the patch
+        embeddings (cast to the compute dtype) where given."""
+        x = L.embed_lookup(self.embed, self._local_batch(tokens), self.cfg,
+                           self.dtype)
         if patch_embs is not None:
-            x = torch.cat([patch_embs.to(self.dtype), x], dim=1)
+            x = torch.cat([self._local_batch(patch_embs).to(self.dtype), x],
+                          dim=1)
         return x
 
     def forward(self, tokens: torch.Tensor,
                 patch_embs: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens (B, S) (after ``patch_embs`` (B, P, D) where given) ->
-        final hidden states (B, P + S, D) in the compute dtype."""
-        if (self.ctx is not None and torch.is_grad_enabled()
-                and (self.cfg.family not in MESH_FAMILIES
-                     or self.cfg.frontend is not None)):
-            raise NotImplementedError(
-                f"{self.cfg.name}: training the {self.cfg.family} family"
-                f"{' behind its ' + self.cfg.frontend if self.cfg.frontend else ''}"
-                f" under a ('data', 'model') mesh is not ported yet "
-                f"(ROADMAP Queue 1, item 2b)")
+        final hidden states (B, P + S, D) in the compute dtype (under a
+        mesh, of this rank's batch block)."""
         with use_shard_ctx(self.ctx):
-            x = self._embed(self._local_batch(tokens), patch_embs)
+            x = self._embed(tokens, patch_embs)
             B, S, _ = x.shape
             positions = torch.arange(S, device=x.device)[None].expand(B, S)
             return self._backbone(x, positions)
@@ -272,7 +270,7 @@ class LanguageModel(nn.Module):
         mesh, the logits and caches of this rank's batch block, the
         logits its vocabulary part."""
         with use_shard_ctx(self.ctx):
-            x = self._embed(self._local_batch(tokens), patch_embs)
+            x = self._embed(tokens, patch_embs)
             B, S, _ = x.shape
             positions = torch.arange(S, device=x.device)[None].expand(B, S)
             caches = self.init_cache(tokens.shape[0], cache_len or S)
@@ -321,7 +319,9 @@ class LanguageModel(nn.Module):
             for path, spec in self._specs.items():
                 dims = [j for j, ax in enumerate(spec) if ax == "data"
                         and self.full_shapes[path][j] % ctx.D == 0]
-                if dims and path.startswith(("blocks/", "tail/")):
+                # a stacked leaf: its leading (layer) axis whole, one
+                # layer's slice gathered just before the layer
+                if dims and len(spec) > 1 and spec[0] is None:
                     self._fsdp[path] = dims[0] - 1
 
     def _local_shape(self, path: str) -> tuple:
@@ -351,6 +351,17 @@ class LanguageModel(nn.Module):
         "data" (its gradient reduce-scattered back)."""
         return [t if dim is None else gather_data(t, dim, self.ctx)
                 for t, dim in zip(w, fsdp)]
+
+    def _layer_tree(self, names, fsdp, w) -> dict:
+        """One layer's weights ``w`` (paths ``names``) as a tree, each
+        FSDP-sharded one gathered over "data"."""
+        return T.from_flat_dict(dict(zip(names, self._gathered(w, fsdp))))
+
+    def _in_ctx(self, layer, *args):
+        """``layer(*args)`` under the model's context: a remat layer's
+        recompute runs in the backward, where none is installed."""
+        with use_shard_ctx(self.ctx):
+            return layer(*args)
 
     def global_param_shapes(self) -> dict:
         """Each leaf's whole shape (under a mesh, not this rank's
@@ -460,10 +471,6 @@ class _GlobalLoss(torch.autograd.Function):
     @staticmethod
     def backward(fctx, g):
         return g * fctx.scale, None, None
-
-
-#: the families whose models build (and train) under a mesh
-MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 class DenseTransformer(LanguageModel):
@@ -635,7 +642,7 @@ class DenseTransformer(LanguageModel):
         tree, ``fsdp`` the dimension to gather over "data" of each (None:
         whole)."""
         cfg = self.cfg
-        p = T.from_flat_dict(dict(zip(names, self._gathered(w, fsdp))))
+        p = self._layer_tree(names, fsdp, w)
         h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
         h = L.attn_apply(
             p["attn"], h, cfg, positions=positions,
@@ -666,8 +673,8 @@ class DenseTransformer(LanguageModel):
                 cache = None
                 if caches is not None:
                     cache = {kv: c[g] for kv, c in caches[f"slot{i}"].items()}
-                layer = partial(self._layer_in_ctx, kind, names, fsdp,
-                                cache, cache_len)
+                layer = partial(self._in_ctx, self._layer, kind, names,
+                                fsdp, cache, cache_len)
                 if remat:
                     # under a mesh every rank recomputes each layer whole,
                     # its collectives included, in the same order
@@ -677,12 +684,6 @@ class DenseTransformer(LanguageModel):
                 else:
                     x = layer(x, positions, *per_layer[g])
         return L.rms_norm(x, self.final_norm, self.cfg.rms_eps)
-
-    def _layer_in_ctx(self, *args):
-        """:meth:`_layer` under the model's context: a remat layer's
-        recompute runs in the backward, where none is installed."""
-        with use_shard_ctx(self.ctx):
-            return self._layer(*args)
 
 
 class MoETransformer(DenseTransformer):

@@ -1,0 +1,38 @@
+"""Checkpoints of the encoder-decoder and the VLM on a (2, 2) ("data",
+"model") mesh against the live reference (see
+``tests/torch_mesh_ckpt_ref.py``, the shared body): the reference's
+``Trainer(mesh=)`` steps SMOKE seamless-m4t-medium and
+llava-next-mistral-7b (f32, the pipeline's seeded frames / patches)
+twice and saves with its ``Checkpointer``; the port's ranks save the same
+state on the mesh — the encoder's, the cross-attention's and the
+decoder's FSDP and tensor shards into the reference's whole-leaf files,
+byte for byte — and each package restores the other's checkpoint bit for
+bit (the reference on its mesh and without one)."""
+import pytest
+
+import torch_mesh_ckpt_ref as R
+
+ARCHS = ("seamless-m4t-medium", "llava-next-mistral-7b")
+MESH = (2, 2)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("mesh_frontend_ckpt")
+    return (tmp,) + R.run_mesh(tmp, MESH, ARCHS, loop=False)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_mesh_checkpoint_files_are_the_references(runs, arch):
+    R.check_files(runs[0], arch)
+    R.check_save_numbers(runs[2], arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_reference_restores_the_ports_mesh_checkpoint(runs, arch):
+    R.check_reference_restores(runs[1], arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_port_restores_the_references_mesh_checkpoint(runs, arch):
+    R.check_port_restores(runs[0], runs[2], arch)

@@ -34,7 +34,7 @@ tests/test_torch_mesh_recurrent_ckpt.py.
   shards against one process's.
 * The refusals: recurrentgemma-2b (10 heads) on model = 4 and
   falcon-mamba-7b (d_inner 8192) on model = 3, naming the config; the
-  encoder-decoder and the VLM naming ROADMAP Queue 1 item 2b.
+  encoder-decoder and the VLM (which build on a mesh) on model = 3.
 * ``launch.memory.mesh_train_bytes`` counts a rank's scan bytes over its
   d_inner / M channels, and ``mesh_train_depth`` the layers that fit.
 """
@@ -268,8 +268,13 @@ def test_meshes_that_do_not_split_refuse():
 @pytest.mark.parametrize("arch", ["seamless-m4t-medium",
                                   "llava-next-mistral-7b"])
 def test_frontend_families_refuse_a_mesh_naming_item_2b(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2b"):
-        build_model(SMOKE_ARCHS[arch], device="meta", ctx=SC.ShardCtx(1, 2))
+    """The encoder-decoder and the VLM build on a mesh since ROADMAP
+    Queue 1 item 2b was ported; the refusal left to them is a "model"
+    that does not divide their heads (SMOKE: 4 heads over model = 3),
+    ``ValueError`` naming the config."""
+    build_model(SMOKE_ARCHS[arch], device="meta", ctx=SC.ShardCtx(1, 2))
+    with pytest.raises(ValueError, match=f"{arch}.*heads"):
+        build_model(SMOKE_ARCHS[arch], device="meta", ctx=SC.ShardCtx(1, 3))
 
 
 def test_mesh_train_bytes_count_a_ranks_scan_channels():

@@ -28,11 +28,12 @@ and MoE models served on D x M meshes.
 
 * ``init_model(ctx=)``'s shards equal slices of the unsharded seeded
   model, bit for bit; the serve CLI on a (1, 2) mesh prints its JSON
-  keys; the encoder-decoder and VLM families, a mesh that does not
-  split the heads, and training the VLM under a mesh are refused (the
+  keys; a mesh that does not split the heads is refused (the published
+  encoder-decoder and VLM too), and a Trainer of pods x a mesh (the
   dense and MoE families train there: tests/test_torch_mesh_train*.py;
   the recurrent families serve and train there:
-  tests/test_torch_mesh_recurrent*.py).
+  tests/test_torch_mesh_recurrent*.py; the frontend families:
+  tests/test_torch_mesh_frontend*.py).
 """
 import dataclasses
 import json
@@ -51,7 +52,7 @@ from jax.sharding import PartitionSpec as P
 from repro.configs import SMOKE_ARCHS as J_SMOKE
 from repro.models import shardctx as JS
 from repro.models.registry import build_model as jbuild
-from repro_torch.configs import SMOKE_ARCHS
+from repro_torch.configs import ARCHS as PUBLISHED, SMOKE_ARCHS
 from repro_torch.launch import serve as tserve
 from repro_torch.models import moe as TM
 from repro_torch.models import shardctx as S
@@ -406,8 +407,15 @@ def test_serve_cli_on_a_mesh():
 @pytest.mark.parametrize("arch", ["seamless-m4t-medium",
                                   "llava-next-mistral-7b"])
 def test_unported_families_refuse_a_mesh(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 2b"):
-        tbuild(SMOKE_ARCHS[arch], device="meta", ctx=S.ShardCtx(1, 2))
+    """Every family builds on a mesh (the encoder-decoder and the VLM
+    since ROADMAP Queue 1 item 2b): what is refused is a mesh that does
+    not split the published config's heads (16 / 32 over model = 3),
+    ``ValueError`` naming the config, from ``init_model`` as from the
+    registry."""
+    cfg = PUBLISHED[arch]
+    with pytest.raises(ValueError, match=f"{cfg.name}.*heads"):
+        tserve.init_model(cfg, "cpu", ctx=S.ShardCtx(1, 3))
+    assert tbuild(cfg, device="meta", ctx=S.ShardCtx(1, 4)).ctx.M == 4
 
 
 def test_a_mesh_that_does_not_split_the_heads_raises():
@@ -416,12 +424,17 @@ def test_a_mesh_that_does_not_split_the_heads_raises():
 
 
 def test_training_under_a_mesh_raises():
-    """Training under a mesh is ported for the dense and MoE families;
-    the VLM (the dense stack behind its vision stub), whose model the
-    registry does not build under a mesh, raises if it is built there
-    anyway and trained."""
+    """Every family trains under a mesh (the VLM, the dense stack behind
+    its vision stub, since ROADMAP Queue 1 item 2b: its forward takes the
+    patches under a (1, 1) context and differentiates); what raises is a
+    Trainer of pods x that mesh (item 3)."""
+    from repro_torch.core.trainer import Trainer
     from repro_torch.models.transformer import DenseTransformer
-    model = DenseTransformer(SMOKE_ARCHS["llava-next-mistral-7b"],
-                             device="cpu", ctx=S.ShardCtx(1, 1))
-    with pytest.raises(NotImplementedError, match="training"):
-        model(torch.zeros((2, 8), dtype=torch.int32))
+    cfg = SMOKE_ARCHS["llava-next-mistral-7b"]
+    model = DenseTransformer(cfg, device="cpu", ctx=S.ShardCtx(1, 1))
+    patches = torch.ones((2, cfg.n_patches, cfg.d_model))
+    x = model(torch.zeros((2, 8), dtype=torch.int32), patch_embs=patches)
+    assert x.shape == (2, cfg.n_patches + 8, cfg.d_model) and x.requires_grad
+    pods = type("Pods", (), {"size": 2, "n_edge": 1})()
+    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
+        Trainer(model, None, pods=pods)

@@ -1,352 +1,51 @@
-"""Training the model zoo through the port, held to the reference on the
-CPU: every SMOKE arch of the port (the dense paper-350m, qwen3-8b,
-gemma2-9b, minitron-8b and starcoder2-3b, the MoE qwen3-moe-30b-a3b and
-dbrx-132b, the recurrent falcon-mamba-7b and recurrentgemma-2b, the
-encoder-decoder seamless-m4t-medium and the VLM llava-next-mistral-7b,
-both fed the pipeline's seeded non-zero frames / patch embeddings) from
-the reference's own weights or train state.
-
-Tolerances, stated per test:
-
-* f32 compute (``dtype="float32"`` on both sides): the loss within
-  ``F32_LOSS_RTOL`` = 1e-5 relative, and every gradient leaf within
-  ``GRAD_F32_REL`` = 1e-5 of the reference's, relative to the leaf's
-  largest magnitude (max |g - w| / max |w|; 2.1e-6 is the largest seen).
-  In f32 the MoE routes agree, so nothing is forced.
-* bf16 compute (the configs' own): the loss within ``LOSS_RTOL`` = 2e-2
-  relative and every leaf's cosine with the reference's above
-  ``GRAD_COS`` = 0.999 (tests/test_torch_trainer.py's).  The MoE archs
-  are routed as the reference routed
-  (``test_torch_models.force_reference_routing``: the reference records
-  each dispatch — the forward's and the backward's recompute under remat
-  — and the port's dispatches take them in the same order, its router
-  logits within 3e-2 of the reference's largest): a bf16 near-tie the
-  two frameworks round apart swaps an expert, and the router's gradient
-  with it (qwen3-moe's router leaf, unrouted: cosine 0.9935, printed).
-* the gradients are the same bits with the loss's per-chunk recompute as
-  without it.
-* plans: the sync groups (name, size, depth, kind) and the default plan's
-  rungs and bucket signature equal to the reference's.
-* the step kinds (``grad_sync``, ``local``, ``delta_sync``) of the
-  Trainer from the reference's initial state: the loss sequences within
-  2e-2 relative (tests/test_torch_trainer.py's), MoE in f32 (no route can
-  flip across the steps).
-* the session and the CLI: the smoke archs train finitely, with two
-  ``delta_sync`` rounds and a device replan.
-"""
-import dataclasses
-
-import jax
-import jax.numpy as jnp
-import numpy as np
+"""Training the dense zoo through the port, held to the reference on the
+CPU: SMOKE paper-350m, qwen3-8b, gemma2-9b, minitron-8b and
+starcoder2-3b — gradients in f32 and bf16, the loss's per-chunk
+recompute, the sync groups and default plan, the Trainer's step kinds
+(gemma2-9b, qwen3-8b), sessions and the CLI.  The body and its
+tolerances: ``tests/torch_train_zoo_ref.py``; the other families:
+``tests/test_torch_train_zoo_{moe,recurrent,frontend}.py``."""
 import pytest
-import torch
 
-from repro.configs import SMOKE_ARCHS as J_SMOKE
-from repro.configs.base import RunConfig as JRun, ShapeConfig as JShape
-from repro.core import sync as JS
-from repro.core.trainer import Trainer as JTrainer
-from repro.models.registry import build_model as jbuild
-from repro_torch import convert
-from repro_torch import tree as T
-from repro_torch.configs import SMOKE_ARCHS
-from repro_torch.configs.base import ACESyncConfig, RunConfig, ShapeConfig
-from repro_torch.core import sync as S
-from repro_torch.core.trainer import Trainer as TTrainer
-from repro_torch.data.pipeline import TokenPipeline
-from repro_torch.launch.session import TrainSession
-from repro_torch.models import layers as L
-from repro_torch.models.registry import build_model as tbuild
-from test_torch_models import (DENSE, FRONTEND, MOE, RECURRENT,
-                               force_reference_routing, ref_flat)
+from test_torch_models import DENSE
+import torch_train_zoo_ref as Z
+from torch_train_zoo_ref import step_trainers  # noqa: F401 (a fixture)
 
-ARCHS = DENSE + MOE + RECURRENT + FRONTEND
-SEQ, BATCH = 32, 2
-RUN_KW = dict(lr=1e-2, warmup_steps=1, total_steps=50)
-F32_LOSS_RTOL = 1e-5
-GRAD_F32_REL = 1e-5
-LOSS_RTOL = 2e-2
-GRAD_COS = 0.999
-#: the archs whose Trainer step kinds run against the reference's, and
-#: the compute dtype they run in
-STEP_ARCHS = {"qwen3-moe-30b-a3b": "float32", "dbrx-132b": "float32",
-              "gemma2-9b": None, "qwen3-8b": None, "falcon-mamba-7b": None,
-              "recurrentgemma-2b": None, "seamless-m4t-medium": None,
-              "llava-next-mistral-7b": None}
-KIND_SEQS = {
-    "grad_sync": ["grad_sync"] * 3,
-    "local": ["local"] * 3,
-    "delta_sync": ["local", "delta_sync"] * 3 + ["local"],
-}
-
-
-def _cfgs(arch, dtype=None):
-    cfg, jcfg = SMOKE_ARCHS[arch], J_SMOKE[arch]
-    if dtype:
-        cfg = dataclasses.replace(cfg, dtype=dtype)
-        jcfg = dataclasses.replace(jcfg, dtype=dtype)
-    return cfg, jcfg
-
-
-def _runs(arch, dtype=None, **kw):
-    cfg, jcfg = _cfgs(arch, dtype)
-    kw = dict(RUN_KW, **kw)
-    return (JRun(model=jcfg, shape=JShape("t", SEQ, BATCH, "train"), **kw),
-            RunConfig(model=cfg, shape=ShapeConfig("t", SEQ, BATCH, "train"),
-                      **kw))
-
-
-def _key(path):
-    return "/".join(str(getattr(k, "key", getattr(k, "name", k)))
-                    for k in path)
-
-
-def _flat_state(tree):
-    """A reference train state as {path: numpy}, pod dimension stripped."""
-    return {_key(p): np.asarray(x)[0]
-            for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
-
-
-def _batches(model, n, seed=0):
-    pipe = TokenPipeline(model, model.run.shape, seed=seed)
-    return [pipe.host_batch(i) for i in range(n)]
-
-
-def _tb(b):
-    return {k: torch.from_numpy(v) for k, v in b.items()}
-
-
-def _jb(b):
-    return {k: jnp.asarray(v) for k, v in b.items()}
-
-
-def _models(arch, dtype=None):
-    """(reference model, its params, port model loaded with them, one
-    batch)."""
-    jrun, trun = _runs(arch, dtype)
-    jm = jbuild(jrun.model, jrun)
-    params = jm.init(jax.random.PRNGKey(0))
-    tm = tbuild(trun.model, trun, device="cpu")
-    convert.params_from_reference(ref_flat(params), tm)
-    return jm, params, tm, _batches(tm, 1)[0]
-
-
-def _port_grads(tm, batch):
-    loss = tm.loss(_tb(batch))
-    grads = torch.autograd.grad(loss, T.leaves(tm.param_tree()))
-    return float(loss.detach()), grads
-
-
-def _cosines(jg, tg):
-    out = {}
-    for (path, want), got in zip(
-            jax.tree_util.tree_flatten_with_path(jg)[0], tg):
-        w = np.asarray(want, np.float64).reshape(-1)
-        g = got.numpy().astype(np.float64).reshape(-1)
-        out[_key(path)] = float(
-            w @ g / (np.linalg.norm(w) * np.linalg.norm(g) + 1e-30))
-    return out
+ARCHS = DENSE
+STEP_ARCHS = [a for a in sorted(Z.STEP_ARCHS) if a in ARCHS]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_grads_match_reference_f32(arch):
-    jm, params, tm, batch = _models(arch, "float32")
-    jl, jg = jax.jit(jax.value_and_grad(jm.loss))(params, _jb(batch))
-    tl, tg = _port_grads(tm, batch)
-    assert abs(tl - float(jl)) <= F32_LOSS_RTOL * abs(float(jl))
-    worst = 0.0
-    for (path, want), got in zip(
-            jax.tree_util.tree_flatten_with_path(jg)[0], tg):
-        w = np.asarray(want, np.float64)
-        g = got.numpy().astype(np.float64)
-        assert g.shape == w.shape, _key(path)
-        rel = float(np.abs(g - w).max() / np.abs(w).max())
-        assert rel <= GRAD_F32_REL, (_key(path), rel)
-        worst = max(worst, rel)
-    print(arch, "largest relative gradient difference", worst)
+    Z.check_grads_match_reference_f32(arch)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_grads_match_reference_bf16(arch, monkeypatch):
-    jm, params, tm, batch = _models(arch)
-    with force_reference_routing(arch, "bfloat16", monkeypatch):
-        jl, jg = jax.jit(jax.value_and_grad(jm.loss))(params, _jb(batch))
-        jax.effects_barrier()
-        tl, tg = _port_grads(tm, batch)
-    assert abs(tl - float(jl)) <= LOSS_RTOL * abs(float(jl))
-    cos = _cosines(jg, tg)
-    low = {k: c for k, c in cos.items() if not c > GRAD_COS}
-    assert not low, low
-    print(arch, "lowest gradient cosine", min(cos.values()))
-    if arch == "qwen3-moe-30b-a3b":
-        # the same without the routes forced: a near-tie the two packages
-        # round apart swaps an expert (logged, not held)
-        free = _cosines(jg, _port_grads(tm, batch)[1])
-        print(arch, "unrouted router cosine",
-              free["blocks/slot0/ffn/router"])
+    Z.check_grads_match_reference_bf16(arch, monkeypatch)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["gemma2-9b"])
 def test_loss_chunk_recompute_keeps_the_gradients(arch, monkeypatch):
-    """The chunked loss recomputes each chunk's logits in the backward
-    (``torch.utils.checkpoint``) instead of keeping them: the loss and
-    every gradient are the same bits as without the recompute."""
-    run = _runs(arch)[1].replace(shape=ShapeConfig("t", 1024, 1, "train"))
-    tm = tbuild(run.model, run, device="cpu")
-    tm.init_params(torch.Generator().manual_seed(0))
-    batch = _batches(tm, 1)[0]
-    got = _port_grads(tm, batch)
-    monkeypatch.setattr(L, "checkpoint",
-                        lambda fn, *a, use_reentrant: fn(*a))
-    want = _port_grads(tm, batch)
-    assert got[0] == want[0]
-    for a, b in zip(got[1], want[1]):
-        assert torch.equal(a, b)
+    Z.check_loss_chunk_recompute_keeps_the_gradients(arch, monkeypatch)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sync_groups_and_default_plan_match(arch):
-    """The sync groups of the param tree (the MoE's ``ffn/{router,
-    w_down, w_gate, w_up}`` of kind ``mlp``) and the default plan's rung
-    per group and bucket signature are the reference's."""
-    jrun, trun = _runs(arch)
-    jt = JTrainer(jbuild(jrun.model, jrun), jrun, mesh=None,
-                  strategy="acesync")
-    tt = TTrainer(tbuild(trun.model, trun, device="cpu"), trun,
-                  strategy="acesync")
-    want = JS.group_metas(jt.param_specs)
-    got = S.group_metas(tt.param_shapes)
-    assert [(m.name, m.size, m.depth, m.kind) for m in got] == \
-        [(m.name, m.size, m.depth, m.kind) for m in want]
-    if arch in MOE:
-        ffn = {m.name.split("/")[-1]: m.kind for m in got if "/ffn/" in m.name}
-        assert ffn == {k: "mlp" for k in ("router", "w_down", "w_gate",
-                                          "w_up")}
-    jplan, tplan = jt.default_plan(), tt.default_plan()
-    assert tplan.level_idx == jplan.level_idx
-    assert tplan.bucket_sig == jplan.bucket_sig
+    Z.check_sync_groups_and_default_plan_match(arch)
 
 
-@pytest.fixture(scope="module")
-def step_trainers():
-    """{arch: (reference Trainer, port Trainer)}, built on first use."""
-    cache = {}
-
-    def get(arch):
-        if arch not in cache:
-            jrun, trun = _runs(arch, STEP_ARCHS[arch])
-            cache[arch] = (
-                JTrainer(jbuild(jrun.model, jrun), jrun, mesh=None,
-                         strategy="acesync"),
-                TTrainer(tbuild(trun.model, trun, device="cpu"), trun,
-                         strategy="acesync"))
-        return cache[arch]
-    return get
-
-
-@pytest.mark.parametrize("kind", sorted(KIND_SEQS))
-@pytest.mark.parametrize("arch", sorted(STEP_ARCHS))
+@pytest.mark.parametrize("kind", sorted(Z.KIND_SEQS))
+@pytest.mark.parametrize("arch", STEP_ARCHS)
 def test_trainer_step_kinds_match(step_trainers, arch, kind):
-    jt, tt = step_trainers(arch)
-    jstate = jt.init_state(jax.random.PRNGKey(0))
-    tstate = convert.state_from_reference(_flat_state(jstate), tt)
-    jplan, tplan = jt.default_plan(), tt.default_plan()
-    seq = KIND_SEQS[kind]
-    jl, tl = [], []
-    for k, b in zip(seq, _batches(tt.model, len(seq))):
-        jstate, jmet = jt.step(jstate, _jb(b), jplan, k)
-        tstate, tmet = tt.step(tstate, _tb(b), tplan, k)
-        assert set(tmet) == set(jmet)
-        if "loss" in jmet:
-            jl.append(float(jmet["loss"]))
-            tl.append(float(tmet["loss"]))
-    assert len(tl) >= 3 and all(np.isfinite(tl))
-    print(arch, kind, "losses port", tl, "reference", jl)
-    np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
-    assert int(tstate["step"]) == int(np.asarray(jstate["step"])[0])
+    Z.check_trainer_step_kinds_match(step_trainers, arch, kind)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_session_trains_every_smoke_arch(arch, tmp_path):
-    """``TrainSession.from_config`` takes every arch: 8 acesync steps with
-    two delta_sync rounds and one device replan, finite losses."""
-    sess = TrainSession.from_config(
-        arch, smoke=True, seq_len=SEQ, batch=BATCH, steps=8, device="cpu",
-        warmup_steps=1, ckpt_dir=str(tmp_path),
-        acesync=ACESyncConfig(replan_every=4))
-    sess.run(8, log_every=0)
-    kinds = [k for h in sess.history for k in h["kinds"]]
-    assert kinds.count("delta_sync") == 2
-    assert sess.loop.device_replans == 1
-    assert len(sess.losses) == 8 and all(np.isfinite(sess.losses))
-    assert sess.comm_bytes > 0
+    Z.check_session_trains_every_smoke_arch(arch, tmp_path)
 
 
-@pytest.mark.parametrize("arch", MOE + ["gemma2-9b"] + RECURRENT + FRONTEND)
+@pytest.mark.parametrize("arch", ["gemma2-9b"])
 def test_cli_trains_a_zoo_arch_on_cpu(arch, tmp_path, capsys):
-    """``python -m repro_torch.launch.train --arch ... --smoke --device
-    cpu``: the JSON summary of a finite run."""
-    import json
-    from repro_torch.launch import train
-    train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "4",
-                "--seq-len", str(SEQ), "--batch", str(BATCH), "--ckpt-dir",
-                str(tmp_path)])
-    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert out["steps"] == 4 and out["device"] == "cpu"
-    assert np.isfinite(out["first_loss"]) and np.isfinite(out["last_loss"])
-
-
-@pytest.mark.parametrize("arch", FRONTEND)
-def test_pipeline_frontend_inputs_match_reference(arch):
-    """The pipeline's batches of a frontend arch, at P = 2: each pod's
-    tokens, labels (the VLM's left-padded with label 0 under its
-    patches) and float inputs (``frames`` / ``patch_embs``, one draw over
-    the global batch per step) equal its rows of the reference's
-    ``_host_batch``, for three steps."""
-    from repro.data.pipeline import TokenPipeline as JPipe
-    jrun, trun = _runs(arch)
-    jm = jbuild(jrun.model, jrun)
-    shape = ShapeConfig("t", SEQ, 4, "train")
-    jpipe = JPipe(jm, JShape("t", SEQ, 4, "train"), seed=3)
-    tm = tbuild(trun.model, trun, device="cpu")
-    pods = [TokenPipeline(tm, shape, seed=3, pod=p, n_pods=2)
-            for p in range(2)]
-    name = tm.float_inputs[0]
-    for step in range(3):
-        want = jpipe._host_batch(step)
-        assert set(want) == {"tokens", "labels", name}
-        for p, pipe in enumerate(pods):
-            got = pipe.host_batch(step)
-            assert set(got) == set(want)
-            for k, w in want.items():
-                assert got[k].dtype == w.dtype, k
-                np.testing.assert_array_equal(got[k], w[2 * p:2 * p + 2])
-        assert np.abs(want[name]).max() > 0
-
-
-@pytest.mark.parametrize("kind", ["grad_sync", "delta_sync"])
-def test_sync_round_row_chunks_keep_the_bits(kind, monkeypatch):
-    """One pod's sync round runs each rung in row chunks of
-    ``sync.SYNC_ROWS`` (encode, residuals and the rung-ordered apply): a
-    step under a plan with a group on every rung gives the same state,
-    bit for bit, with chunks of 3 rows as with each bucket in one
-    chunk."""
-    run = _runs("qwen3-moe-30b-a3b")[1]
-    outs = []
-    for rows in (None, 3):
-        if rows:
-            monkeypatch.setattr(S, "SYNC_ROWS", rows)
-        tr = TTrainer(tbuild(run.model, run, device="cpu"), run)
-        state = tr.init_state(0)
-        plan = tr.scheduler.plan_from_levels(
-            [i % 8 for i in range(len(tr.sizes))], (1.0,))
-        assert max(tr.exec_plan(plan).seg_sig[0]) > 3
-        for b in _batches(tr.model, 2):
-            state, _ = tr.step(state, _tb(b), plan, "local")
-            state, _ = tr.step(state, _tb(b), plan, kind)
-        outs.append([x.detach().clone() for x in
-                     T.leaves(state["params"]) + T.leaves(state["m"])
-                     + T.leaves(state["v"]) + T.leaves(state["ace"].errors)
-                     + T.leaves(state["anchor"])])
-    for a, b in zip(*outs):
-        assert torch.equal(a, b)
+    Z.check_cli_trains_a_zoo_arch_on_cpu(arch, tmp_path, capsys)

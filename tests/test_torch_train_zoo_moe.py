@@ -1,0 +1,55 @@
+"""Training the MoE family through the port, held to the reference on
+the CPU: SMOKE qwen3-moe-30b-a3b and dbrx-132b — gradients in f32 and
+in bf16 (routed as the reference routed), the loss's per-chunk
+recompute, the sync groups and default plan, the Trainer's step kinds
+(f32), sessions, the CLI, and the sync round's row chunks bit for bit.
+The body and its tolerances: ``tests/torch_train_zoo_ref.py``."""
+import pytest
+
+from test_torch_models import MOE
+import torch_train_zoo_ref as Z
+from torch_train_zoo_ref import step_trainers  # noqa: F401 (a fixture)
+
+ARCHS = MOE
+STEP_ARCHS = [a for a in sorted(Z.STEP_ARCHS) if a in ARCHS]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_grads_match_reference_f32(arch):
+    Z.check_grads_match_reference_f32(arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_grads_match_reference_bf16(arch, monkeypatch):
+    Z.check_grads_match_reference_bf16(arch, monkeypatch)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b"])
+def test_loss_chunk_recompute_keeps_the_gradients(arch, monkeypatch):
+    Z.check_loss_chunk_recompute_keeps_the_gradients(arch, monkeypatch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sync_groups_and_default_plan_match(arch):
+    Z.check_sync_groups_and_default_plan_match(arch)
+
+
+@pytest.mark.parametrize("kind", sorted(Z.KIND_SEQS))
+@pytest.mark.parametrize("arch", STEP_ARCHS)
+def test_trainer_step_kinds_match(step_trainers, arch, kind):
+    Z.check_trainer_step_kinds_match(step_trainers, arch, kind)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_session_trains_every_smoke_arch(arch, tmp_path):
+    Z.check_session_trains_every_smoke_arch(arch, tmp_path)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_cli_trains_a_zoo_arch_on_cpu(arch, tmp_path, capsys):
+    Z.check_cli_trains_a_zoo_arch_on_cpu(arch, tmp_path, capsys)
+
+
+@pytest.mark.parametrize("kind", ["grad_sync", "delta_sync"])
+def test_sync_round_row_chunks_keep_the_bits(kind, monkeypatch):
+    Z.check_sync_round_row_chunks_keep_the_bits(kind, monkeypatch)

@@ -57,29 +57,33 @@ def port_rank(ctx, moe_in, archs, weights, tf_tokens):
     return out
 
 
-def serve_arch(ctx, arch, weights, toks) -> dict:
+def serve_arch(ctx, arch, weights, toks, inputs=None) -> dict:
     """One arch on the rank, from the reference's ``weights`` (f32): the
     prefill's and ``STEPS`` teacher-forced decode steps' logits and
-    caches of its shards, its Server's tokens and its seeded init's
-    shards, their indices and bytes."""
+    caches of its shards (a frontend's float ``inputs``, numpy of the
+    global batch, prefilled with the tokens; the VLM's ring holds its
+    patches too and its decode follows them), its Server's tokens and its
+    seeded init's shards, their indices and bytes."""
     model = tbuild(dataclasses.replace(SMOKE_ARCHS[arch], dtype="float32"),
                    device="cpu", ctx=ctx)
     convert.params_from_reference(convert.shard_params(weights, model),
                                   model)
     r = {}
+    P = model.n_prefix
+    extra = {k: torch.from_numpy(v) for k, v in (inputs or {}).items()}
     with torch.inference_mode():
-        logits, caches = model.prefill(toks[:, :SP], CACHE)
+        logits, caches = model.prefill(toks[:, :SP], P + CACHE, **extra)
         r["logits0"] = logits.numpy()
         r["prefill"] = {f"{s}/{kv}": c.numpy().copy()
                         for s, kvs in caches.items()
                         for kv, c in kvs.items()}
         for i in range(STEPS):
             logits, caches = model.decode_step(
-                caches, SP + i, toks[:, SP + i:SP + i + 1])
+                caches, P + SP + i, toks[:, SP + i:SP + i + 1])
             r[f"logits{i + 1}"] = logits.numpy()
         r["decode"] = {f"{s}/{kv}": c.numpy() for s, kvs in
                        caches.items() for kv, c in kvs.items()}
-    done = tserve.Server(model, CACHE, B, ctx=ctx).serve(requests())
+    done = tserve.Server(model, P + CACHE, B, ctx=ctx).serve(requests())
     r["tokens"] = [q.out_tokens for q in done]
     seeded = tserve.init_model(SMOKE_ARCHS[arch], "cpu", seed=5, ctx=ctx)
     r["seeded"] = {k: v.detach().float().numpy() for k, v in

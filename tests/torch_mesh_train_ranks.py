@@ -266,16 +266,24 @@ def moe_grads(ctx):
 
 def model_case(arch, seq, batch, cf, ctx=None):
     """(a seeded f32 model of ``arch``'s SMOKE config at capacity factor
-    ``cf`` (None: its own) on ``ctx``'s mesh, a seeded batch)."""
+    ``cf`` (None: its own) on ``ctx``'s mesh, a seeded batch: ``seq``
+    tokens, and a frontend's seeded non-zero float inputs — the VLM's
+    patches before the tokens, labelled 0 as the pipeline labels them)."""
     cfg = dataclasses.replace(SMOKE_ARCHS[arch], dtype="float32")
     if cf is not None:
         cfg = dataclasses.replace(cfg, capacity_factor=cf)
     run = RunConfig(model=cfg, shape=ShapeConfig("t", seq, batch, "train"))
     model = build_model(cfg, run, device="cpu", ctx=ctx)
     model.init_params(torch.Generator().manual_seed(3))
-    toks = torch.from_numpy(np.random.RandomState(0).randint(
+    r = np.random.RandomState(0)
+    toks = torch.from_numpy(r.randint(
         0, cfg.vocab_size, size=(batch, seq + 1)).astype(np.int32))
-    return model, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    labels = torch.cat([torch.zeros((batch, model.n_prefix),
+                                    dtype=torch.int32), toks[:, 1:]], 1)
+    batch_ = {"tokens": toks[:, :-1], "labels": labels}
+    batch_.update({k: torch.from_numpy(r.randn(*d).astype(np.float32))
+                   for k, d in model.frontend_shapes(batch, seq).items()})
+    return model, batch_
 
 
 def model_grads(ctx, arch, seq, batch, cf):
