@@ -4,10 +4,11 @@ NVIDIA GPU: the quickest proof that the port builds, is right, trains
 (paper-350m and the model zoo) and serves (the dense, MoE and recurrent
 families, the encoder-decoder and the VLM; every family also on a
 ("data", "model") mesh, across four cards where there are four, and
-checkpoints and resumes on a mesh).
+checkpoints and resumes on a mesh; P pods of such meshes train and
+checkpoint).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phases 17b,18b,19b,20b,21b   # four cards' parts
+    python3 chip_smoke.py --phases 17b,18b,19b,20b,21b,22b   # four cards
 
 The processes it starts (pods, mesh ranks, one process per model) fork
 from ``launch/mesh.py``'s start server, which imports torch and the port
@@ -101,7 +102,7 @@ Phases (any failure exits nonzero before the result lines):
    launched.  Prints the tier grids, the bytes per tier, the cross-tier
    reduction, step means and peak memory per member;
 9. the fault-tolerant train loop.  9a, restart-replay on one pod in phase
-   5's configuration cut to 4 layers (paper-350m, batch 8, seq 1024,
+   5's configuration cut to 2 layers (paper-350m, batch 8, seq 1024,
    ``replan_every`` 4, ``ckpt_every`` 4, ``blocking_replans``, in a
    process of its own under ``RunConfig.deterministic``, so that no
    other phase runs under deterministic algorithms and cuBLAS): run A
@@ -187,7 +188,8 @@ Phases (any failure exits nonzero before the result lines):
    weights, seq 1024, batch 8, each through ``TrainSession`` under
    ``acesync`` with ``replan_every=4`` for 8 steps (two ``delta_sync``
    rounds, one device replan), then one ``grad_sync`` with a group on
-   every rung; then qwen3-moe at its depth twice more under
+   every rung; then qwen3-moe at 1 layer (its phase-12 depth of 2 until
+   phase 22 joined the script) twice more under
    ``RunConfig.deterministic`` (a process of its own), 3 steps ending in
    a ``delta_sync``.  Gates: (1) every loss finite; (2) K1-K4 launched on
    every model's path; (3) the two deterministic runs' parameter hashes
@@ -317,37 +319,36 @@ Phases (any failure exits nonzero before the result lines):
    its models in turn), full width, cut in depth
    at ``MESH_BYTES_PER_PARAM`` per parameter of each rank with 8 GiB of
    each card to spare.  (a) the ranks share the one card over gloo:
-   qwen3-8b at 2 layers on (1, 2), qwen3-moe-30b-a3b at 1 layer on
-   (1, 2) and (2, 2), batch 4 x 512, seeded weights; the unsharded
+   qwen3-8b at 2 layers and qwen3-moe-30b-a3b at 1 layer on (1, 2)
+   (qwen3-moe's (2, 2) run in (b) since phase 22 joined the script),
+   batch 4 x 512, seeded weights; the unsharded
    models of the same seed first, in a process of their own, save their
    f32 gradients.  Each rank trains through TrainSession (the loop's
-   steps, a device replan on (1, 2); then a grad_sync under the loop's
-   plan and an all-rungs one; on (2, 2) one local step and the all-rungs
-   one).  Gates: (1) f32 loss and each leaf's
+   steps, a device replan; then a grad_sync under the loop's
+   plan and an all-rungs one).  Gates: (1) f32 loss and each leaf's
    gradient, gathered, within 1e-3 of the unsharded model's (the MoE at
-   capacity E / K, and at 1.25 against ``moe_apply_blocked``; at D = 2
-   the 1.25 run only); (2) every sync round bit-identical to the one-pod
+   capacity E / K, and at 1.25 against ``moe_apply_blocked``); (2) every sync round bit-identical to the one-pod
    ``sync_tree`` of the step's plan on the rank's own grads, errors and
    local layout; (3) losses, grad norms, plan, step and importance state
    identical on every rank; (4) K1-K4 launched on every rank.  Prints
    step ms per kind (median, min-max), tokens/s, MFU over D * M x 989
    TFLOP/s, peak memory per rank (the host's times: a shared card).  (b)
-   only with four cards: dbrx-132b on (1, 4) and qwen3-8b on (2, 2) over
-   NCCL, at ``launch.memory.mesh_train_depth``'s depths, batch 8 x 1024,
+   only with four cards: dbrx-132b on (1, 4), qwen3-8b and
+   qwen3-moe-30b-a3b on (2, 2) over NCCL, at
+   ``launch.memory.mesh_train_depth``'s depths, batch 8 x 1024,
    gates 2-4, and ``launch.memory.step_memory``'s bytes per parameter by
    owner per card.  On fewer cards (b) prints one line and is not run;
 19. checkpoints on a within-pod ("data", "model") mesh, every run through
    TrainSession under ``RunConfig.deterministic`` (phase 9a's switch).
    (a) one fleet of four processes sharing the card over gloo (one
    spawn), meshes of its ranks made by ``launch.mesh.sub_mesh``:
-   paper-350m at full width and phase 9a's 4 layers, batch 8 x 1024,
+   paper-350m at full width and phase 9a's 2 layers, batch 8 x 1024,
    ``acesync``, ``replan_every`` 4, ``ckpt_every`` 2: 4 uninterrupted
    steps on (1, 2) (fleet ranks 0-1; the replan at step 4) and one
    all-rungs ``grad_sync``; ranks 2-3, fresh processes in a (1, 2) group
    of their own, resumed from a copy of the step-2 checkpoint to step 4
    and the same all-rungs step; the step-4 checkpoint restored on (2, 2)
-   (all four), on (2, 1) (ranks 0-1) and, rank 0, on one card without a
-   mesh; then one leaf of the uninterrupted run's step 4 bit-rotted and
+   (all four) and, rank 0, on one card without a mesh; then one leaf of the uninterrupted run's step 4 bit-rotted and
    that directory restored on (1, 2).  Gates: (1) every state leaf's
    hash, the plan, H and the losses of the resumed run equal the
    uninterrupted run's on every rank at step 4 and after the all-rungs
@@ -378,8 +379,9 @@ Phases (any failure exits nonzero before the result lines):
    identical on every rank, weight bytes the shards'.  Training, f32
    compute, batch 4 x 512, 4 loop steps (three ``local``, a
    ``delta_sync``) and an all-rungs ``grad_sync``: falcon-mamba-7b at 1
-   layer on (2, 2) and on (1, 2), which checkpoints at step 4, and
-   recurrentgemma-2b at 3 layers on (1, 2), each held to a one-card run
+   layer on (1, 2), which checkpoints at step 4, and
+   recurrentgemma-2b at 3 layers on (1, 2) (falcon-mamba's (2, 2) run in
+   (b) since phase 22 joined the script), each held to a one-card run
    of the same seed and batches by fleet rank 0 (one per model).  Gates:
    (1) above; (2) each loop step's loss and grad norm within 1e-3 of the
    one-card run's, every params / m / v shard after the local steps
@@ -394,10 +396,10 @@ Phases (any failure exits nonzero before the result lines):
    MFU over D * M x 989 TFLOP/s and peaks (the host's times: a shared
    card) and the seconds from the spawn to the end of each stage.
    (b) only with four cards, over NCCL: falcon-mamba-7b served at all 64
-   layers on (1, 4) (workload (a) twice) and trained there at
-   ``launch.memory.mesh_train_depth``'s layers (its scan over the rank's
-   channels counted), recurrentgemma-2b trained at all 26 layers on
-   (2, 2), batch 8 x 1024, phase 18 (b)'s gates and lines.  On fewer
+   layers on (1, 4) (workload (a) twice) and trained there and on (2, 2)
+   at ``launch.memory.mesh_train_depth``'s layers (its scan over the
+   rank's channels counted), recurrentgemma-2b trained at all 26 layers
+   on (2, 2), batch 8 x 1024, phase 18 (b)'s gates and lines.  On fewer
    cards (b) prints one line and is not run;
 21. the encoder-decoder and the VLM on a within-pod ("data", "model")
    mesh.  (a) in phase 20 (a)'s fleet, after it, full width, seeded
@@ -406,8 +408,9 @@ Phases (any failure exits nonzero before the result lines):
    gate 1 as phase 20's on seeded non-zero frames / patches (the VLM's
    decode after its patches), the Server with zero frontend inputs (as
    the reference serves them); trained in f32 compute as phase 20's,
-   seamless at 4 x 512 on (1, 2) (checkpointed at step 4) and (2, 2),
-   llava at 4 x 1024 (576 patches and 448 tokens) on (1, 2), each held
+   seamless at 4 x 512 on (1, 2) (checkpointed at step 4; its (2, 2)
+   run in (b) since phase 22 joined the script), llava at
+   4 x 1024 (576 patches and 448 tokens) on (1, 2), each held
    to a one-card run; gate 4: seamless's checkpoint restored
    on (2, 1) (fleet ranks 2-3) and as one card (fleet rank 2), every
    shard of the writing and the restoring ranks bit for bit.  (b) only
@@ -415,7 +418,32 @@ Phases (any failure exits nonzero before the result lines):
    (1, 4), gate 1 against the unsharded model on one card, workload (a)
    twice; trained on (2, 2) at 8 x 1024, seamless at 12 + 12 layers,
    llava at ``launch.memory.mesh_train_depth``'s, phase 18 (b)'s gates
-   and lines.  On fewer cards (b) prints one line and is not run.
+   and lines.  On fewer cards (b) prints one line and is not run;
+22. pods x ("data", "model"): a fleet of P pods, each a (D, M) mesh, one
+   process per rank (world rank p * D * M + d * M + m), each with its
+   pod's mesh and the pod group of the ranks at its (d, m)
+   (``launch.mesh.split_fleet_mesh``).  (a) one spawn of four processes
+   sharing the card over gloo: P = 2 pods x (1, 2) of paper-350m at full
+   width and 4 layers, global batch 8 x 1024, ``acesync`` with
+   ``replan_every`` 4, 8 loop steps (a checkpoint at step 4), then an
+   all-rungs ``grad_sync`` one-shot and one ringed in 2 chunks; the
+   fleet's state freed, mesh rank 0 of each pod restores the step-4
+   checkpoint as one of 2 whole-model pods.  Gates: (1) every sync round
+   bit-identical to the pod-only ``sync_tree`` of the step's plan on the
+   rank's shards over its pod group; (2) every parameter shard
+   bit-identical across the pods after each ``delta_sync``; (3) the bytes each
+   (d, m)'s pod group moved equal to ``plan_wire_bytes`` of its local
+   layout (FULL's within its shard padding); (4) H, the plan, omega and
+   the losses identical on every rank; (5) the restore bit for bit:
+   every rank's shards of the whole leaves equal the shards it wrote;
+   (6) K1-K8 and K12-K15 launched on every rank.  Prints step ms by kind
+   (median, min-max), MFU, the pod tier's bytes and host seconds (its
+   rate), the mesh tiers' bytes and peak memory per rank.  (b) only with
+   four cards, over NCCL: qwen3-8b at full width on P = 2 x (1, 2), a
+   card a rank, at ``launch.memory.mesh_train_depth``'s depth for
+   (1, 2) at ``FLEET_BYTES_PER_PARAM``, batch 8 x 1024, gates 1-4 and
+   6, the same prints.  On fewer cards (b) prints one line and is not
+   run.
 
 Output: progress lines with each phase's seconds, the pod link's latency
 and rate, then the ``nvidia-smi`` line, the kernels' JSON line (each
@@ -430,13 +458,14 @@ process), ``zoo_determinism`` (phase 12, both runs) and
 training runs, all ranks; ``mesh_rec_b_...`` for (b)) and
 ``mesh_rec_serve`` (phase 20 (a)'s serving, none),
 ``mesh_front_<arch>_<D>x<M>`` / ``mesh_front_b_...`` /
-``mesh_front_serve`` (phase 21's, likewise), each counted from 0
+``mesh_front_serve`` (phase 21's, likewise), ``fleet_mesh`` (phase
+22 (a), all ranks; ``fleet_mesh_b`` for (b)), each counted from 0
 just before its run; phases 10, 11, 13, 15 and 17 launch none;
 K16's ``library_ms``
 is ``torch.mul(q, s)``'s time; ``paths`` gives each path's pods, members
 per cluster and depth; ``link`` the measured link), and as the last line
 ``{"ok": true, "device": {...}}``.  With ``--phases``, only phases 1-2
-and the four-card parts named (of 17b, 18b, 19b, 20b, 21b) run, and the last
+and the four-card parts named (of 17b, 18b, 19b, 20b, 21b, 22b) run, and the last
 line is ``{"phases": {name: seconds}, "launches": {path: {kernel: n}}}``.
 """
 from __future__ import annotations
@@ -523,11 +552,11 @@ PATHS = {
 #: depth (at 24 layers its disk-bound checkpoint writes of 9.09 GB made it
 #: the script's longest phase, 150-161 s; at 12, 79-92 s; 6 since phase
 #: 18 joined the script; 4 since phase 19, which trains at this depth,
-#: did): run A trains ``steps`` steps, run B
+#: did; 2 since phase 22 did): run A trains ``steps`` steps, run B
 #: ``steps - 1`` and restarts from the checkpoints of every ``ckpt_every``
 #: steps
 RESTART = {"pods": 1, "batch": 8, "steps": 10, "ckpt_every": 4,
-           "n_layers": 4}
+           "n_layers": 2}
 #: phase 9b: elastic membership, P = 3 pod processes sharing the card
 #: (three full-depth pods and their checkpoint copies do not fit; 12
 #: layers, 85 s, until phase 18 joined the script: 6; 4 since phase 19
@@ -1922,7 +1951,7 @@ def restart_pod_path(group, spec):
 
 def restart_phase(torch) -> tuple:
     """Phase 9a: restart-replay on one pod, paper-350m at full width and
-    ``RESTART``'s 4 layers (phase 5's configuration cut in depth,
+    ``RESTART``'s 2 layers (phase 5's configuration cut in depth,
     ``ckpt_every`` 4), under ``RunConfig.deterministic``, in a process of
     its own.  Run A trains
     10 steps; run B trains 9 in a fresh directory, leaves a crashed
@@ -2935,10 +2964,11 @@ ZOO_BYTES_PER_PARAM = 48.0
 ZOO_FREE_GIB = 8.0
 ZOO_SEQ = 1024
 ZOO_STEPS = 8
-#: the determinism runs: qwen3-moe at its phase-12 depth, twice, under
+#: the determinism runs: qwen3-moe at ``n_layers`` (its phase-12 depth of
+#: 2 until phase 22 joined the script), twice, under
 #: ``RunConfig.deterministic``, ``steps`` steps with the sync interval H
 #: set so that the last is a delta_sync
-ZOO_DET = {"arch": "qwen3-moe-30b-a3b", "steps": 3, "H": 3}
+ZOO_DET = {"arch": "qwen3-moe-30b-a3b", "n_layers": 1, "steps": 3, "H": 3}
 
 
 def zoo_config(arch, spec):
@@ -3079,7 +3109,7 @@ def zoo_train_path(group, spec):
 
 def zoo_det_path(group, spec):
     """Phase 12's determinism runs, in a process of its own (the switch
-    is process-wide): ``ZOO_DET["arch"]`` at its phase-12 depth under
+    is process-wide): ``ZOO_DET["arch"]`` at ``ZOO_DET["n_layers"]`` under
     ``RunConfig.deterministic``, twice from the same seed, each
     ``ZOO_DET["steps"]`` steps ending in a delta_sync; the hashes of the
     parameters after each run and the launches of both."""
@@ -3186,7 +3216,7 @@ def zoo_phase(torch, card) -> dict:
     from repro_torch.launch.mesh import spawn_pods
     tag = "phase 12"
     launches, _ = train_models(torch, card, tag, TRAIN_ZOO)
-    spec = dict(TRAIN_ZOO[ZOO_DET["arch"]],
+    spec = dict(TRAIN_ZOO[ZOO_DET["arch"]], n_layers=ZOO_DET["n_layers"],
                 dir=str(CKPT_ROOT / "zoo_determinism"))
     (d,) = spawn_pods(zoo_det_path, 1, "cuda", args=(spec,), timeout=600)
     launches["zoo_determinism"] = d["launches"]
@@ -4090,26 +4120,25 @@ MESH_BYTES_PER_PARAM = 52.0
 #: of each rank, leaves ``ZOO_FREE_GIB`` of the card.  qwen3-8b does not
 #: fit four ranks on one card even at 1 layer (each holds half its
 #: 622M-entry embedding: 74.6 GB reckoned; it ran out of memory), so
-#: (2, 2) runs qwen3-moe-30b-a3b (half of a 311M-entry embedding a rank),
-#: and qwen3-8b trains on (2, 2) in (b)
+#: (2, 2) ran qwen3-moe-30b-a3b (half of a 311M-entry embedding a rank),
 #: and qwen3-8b trains on (2, 2) in (b).  At D = 2 every step gathers the
 #: FSDP halves through gloo on the host (qwen3-moe's local step 6.6 s on
-#: (2, 2) against 0.68 s on (1, 2)): there the loop takes one local step
-#: and the sync is the all-rungs grad_sync alone (the (1, 2) runs and
-#: phases 20-21's (2, 2) runs take delta_sync and the loop's own plan),
-#: and gate 1 runs at capacity 1.25 only (the E / K run holds the layout
-#: alone, which the 1.25 run holds too)
+#: (2, 2) against 0.68 s on (1, 2)): since phase 22 joined the script
+#: qwen3-moe's (2, 2) run is in (b), over NCCL at its reckoned depth (and
+#: on the CPU, tests/test_torch_mesh_train_ref_2x2.py); a spec's "steps",
+#: "H" and "loop_grad_sync" (False: the all-rungs round alone) cut a run,
+#: and at D = 2 gate 1 runs at capacity 1.25 only
 MESH_TRAIN_A = ({"arch": "qwen3-8b", "n_layers": 2, "mesh": (1, 2)},
-                {"arch": "qwen3-moe-30b-a3b", "n_layers": 1, "mesh": (1, 2)},
-                {"arch": "qwen3-moe-30b-a3b", "n_layers": 1, "mesh": (2, 2),
-                 "steps": 1, "H": 2, "loop_grad_sync": False})
+                {"arch": "qwen3-moe-30b-a3b", "n_layers": 1, "mesh": (1, 2)})
 #: 18(a)'s batch (global) x sequence
 MESH_TRAIN_A_SHAPE = (4, 512)
 #: 18(b), with four cards or more, over NCCL: depth by
 #: ``launch.memory.mesh_train_depth`` at ``MESH_BYTES_PER_PARAM``, leaving
-#: ``ZOO_FREE_GIB`` of each card
+#: ``ZOO_FREE_GIB`` of each card; qwen3-moe-30b-a3b's (2, 2) run (FSDP and
+#: 64 experts a rank), 18(a)'s until phase 22 joined the script
 MESH_TRAIN_B = ({"arch": "dbrx-132b", "mesh": (1, 4)},
-                {"arch": "qwen3-8b", "mesh": (2, 2)})
+                {"arch": "qwen3-8b", "mesh": (2, 2)},
+                {"arch": "qwen3-moe-30b-a3b", "mesh": (2, 2)})
 MESH_TRAIN_B_SHAPE = (8, 1024)
 #: the loop's steps (replan every 4: local x 3, delta_sync, the replan,
 #: local; a mesh's "steps" and "H" where it gives them), then a grad_sync
@@ -4279,7 +4308,11 @@ def checked_sync(torch, T, S, current, record):
     is elementwise, run on its whole leaves after) — each output leaf's
     bit hash — then the trainer's round, whose output leaves must hash
     alike.  The reference round's buffers are freed before the trainer's
-    starts."""
+    starts.  With a pod group (pods x mesh) the reference round is the
+    pod-only round over it, and the record holds the bytes the trainer's
+    round moved over the group beside the priced ones (``tier_priced``:
+    gather + ring, FULL, the plan's payload and FULL bytes, FULL's
+    padding bound)."""
     real = S.sync_tree
 
     def leaf_hashes(ts):
@@ -4287,8 +4320,11 @@ def checked_sync(torch, T, S, current, record):
 
     def sync_tree(tree, errors, plan, *, gamma, block, apply_fn=None,
                   apply_aux=(), apply_scalars=(), **kw):
+        pods = kw.get("pods")
         agg, err = real(tree, errors, current["plan"], gamma=gamma,
-                        block=block)
+                        block=block, **{k: kw[k] for k in ("pods",
+                                                           "fixed_bits")
+                                        if k in kw})
         want = leaf_hashes(T.leaves(err))
         if apply_fn is None:
             want += leaf_hashes(T.leaves(agg))
@@ -4303,19 +4339,29 @@ def checked_sync(torch, T, S, current, record):
                     outs[j].append(bits_hash(torch, r.to(aux[j][i].dtype)))
             want += [int(h) for o in outs for h in o]
         del agg, err
+        since = 0 if pods is None else len(pods.log)
         out, new_err = real(tree, errors, plan, gamma=gamma, block=block,
                             apply_fn=apply_fn, apply_aux=apply_aux,
                             apply_scalars=apply_scalars, **kw)
         got = leaf_hashes(T.leaves(new_err))
         got += (leaf_hashes(T.leaves(out)) if apply_fn is None else
                 [h for o in out for h in leaf_hashes(T.leaves(o))])
-        record.append({"kind": current["kind"], "leaves": len(got),
-                       "differ": sum(a != b for a, b in zip(got, want))})
+        entry = {"kind": current["kind"], "leaves": len(got),
+                 "differ": sum(a != b for a, b in zip(got, want))}
+        if pods is not None and pods.size > 1:
+            new = [x for x in pods.log[since:] if x["tier"] == pods.tier]
+            pay, full, _, pad, _ = tier_priced(plan, pods.size, 1)
+            entry["bytes"] = (
+                sum(x["bytes"] for x in new if x["op"] in ("gather",
+                                                           "ring")),
+                sum(x["bytes"] for x in new if x["op"] == "full"), pay,
+                full, pad)
+        record.append(entry)
         return out, new_err
     return sync_tree
 
 
-def mesh_train_path(ctx, spec, session=None, stops=()):
+def mesh_train_path(ctx, spec, session=None, stops=(), on_step=None):
     """One rank of phase 18: ``spec["arch"]`` at full width and
     ``spec["n_layers"]``, sharded on the mesh, trained from seed 0
     through TrainSession (``session()`` builds it where given, phase
@@ -4324,11 +4370,17 @@ def mesh_train_path(ctx, spec, session=None, stops=()):
     grad_sync under its plan and an all-rungs one, each on CUDA events,
     the sync rounds checked (gate 2), the kernels' launches counted from
     0 before the loop; ``stops``: (n, fn) pairs, ``fn(sess, out)`` called
-    after the loop's first n steps; with ``spec["memory"]``,
-    ``launch.memory.step_memory`` after."""
+    after the loop's first n steps (n = 0: before the loop);
+    ``on_step(sess, result, plan, kind)`` called after every step; with
+    ``spec["memory"]``, ``launch.memory.step_memory`` after.  The
+    all-rungs round puts the levels ``spec["rungs"]`` on the groups
+    (round robin where not given) and runs once under the trainer's own
+    exec plan or, with ``spec["rings"]``, once per ring setting (-1:
+    one-shot, K: K chunks)."""
     import numpy as np
     import torch
     from repro_torch import tree as T
+    from repro_torch.core import planexec
     from repro_torch.core import sync as S
     from repro_torch.kernels import ops
     from repro_torch.launch.memory import state_bytes, step_memory
@@ -4366,12 +4418,15 @@ def mesh_train_path(ctx, spec, session=None, stops=()):
         e1.record()
         times.append((kind, e0, e1, sum(ops.launch_counts().get(k, 0)
                                         for k in KERNELS) - before))
+        if on_step:
+            on_step(sess, res, plan, kind)
         return res
 
     tr.step = timed
     S.sync_tree = checked_sync(torch, T, S, current, record)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    t1 = time.perf_counter()
     done = 0
     for n, fn in sorted(stops, key=lambda x: x[0]) + [
             (spec.get("steps", MESH_TRAIN_STEPS), None)]:
@@ -4388,10 +4443,20 @@ def mesh_train_path(ctx, spec, session=None, stops=()):
                            "grad_sync")
         extra.append(("grad_sync", m))
     rr = tr.scheduler.plan_from_levels(
-        [i % 8 for i in range(len(tr.sizes))], (1.0,))
-    state, m = tr.step(state, next(sess.pipeline), rr, "grad_sync")
-    extra.append(("grad_sync_all_rungs", m))
+        list(spec.get("rungs") or (i % 8 for i in range(len(tr.sizes)))),
+        (1.0,) if tr.n_pods == 1 else sess.loop.plan.omega)
+    for ring in spec.get("rings", (None,)):
+        plan, kind = rr, "grad_sync_all_rungs"
+        if ring is not None:
+            plan = planexec.build_exec_plan(
+                rr, layout=tr.leaf_layout, n_pods=tr.n_pods, ring=ring,
+                segments=planexec.config_segments(
+                    sess.run_config.acesync), device=ctx.device)
+            kind += f"_k{max(ring, 0)}"
+        state, m = tr.step(state, next(sess.pipeline), plan, "grad_sync")
+        extra.append((kind, m))
     torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t1
     out["launches"] = ops.launch_counts()
     out["peak_alloc"] = torch.cuda.max_memory_allocated()
     out["card_bytes"] = torch.cuda.get_device_properties(
@@ -4411,8 +4476,9 @@ def mesh_train_path(ctx, spec, session=None, stops=()):
                         for p in T.leaves(state["params"]))
     out["sync"] = record
     out["ms"], out["sync_launches"] = {}, []
+    first = len(times) - len(extra)
     for i, (kind, e0, e1, n) in enumerate(times):
-        kind = "grad_sync_all_rungs" if i == len(times) - 1 else kind
+        kind = extra[i - first][0] if i >= first else kind
         out["ms"].setdefault(kind, []).append(e0.elapsed_time(e1))
         if kind != "local":
             out["sync_launches"].append((kind, n))
@@ -4602,14 +4668,14 @@ def mesh_train_phase(torch, card) -> dict:
 
 
 def mesh_train_big_phase(torch) -> dict:
-    """Phase 18(b): dbrx-132b on (1, 4) and qwen3-8b on (2, 2), a card a
-    rank, over NCCL, at the depths the reckoning gives; one line and
-    nothing else on fewer cards."""
+    """Phase 18(b): dbrx-132b on (1, 4), qwen3-8b and qwen3-moe-30b-a3b
+    on (2, 2), a card a rank, over NCCL, at the depths the reckoning
+    gives; one line and nothing else on fewer cards."""
     tag = "phase 18 (b)"
     n = torch.cuda.device_count()
     if n < 4:
-        log(f"{tag}: {n} card(s): dbrx-132b on a (1, 4) mesh and qwen3-8b "
-            f"on (2, 2) train on four; not run")
+        log(f"{tag}: {n} card(s): dbrx-132b on a (1, 4) mesh, qwen3-8b and "
+            f"qwen3-moe-30b-a3b on (2, 2) train on four; not run")
         return {}
     return mesh_train_big(torch, tag, MESH_TRAIN_B, four_cards(), "mesh_b_")
 
@@ -4674,10 +4740,12 @@ def mesh_train_big(torch, tag, cases, cards, prefix) -> dict:
 #: group of their own that never trained, resume on ``mesh`` from step
 #: ``resume`` to ``steps``; the last checkpoint is restored on every
 #: shape of ``restore_on`` (the fleet's first ranks; None: one card
-#: without a mesh, rank 0), and on ``mesh`` after rank 0 corrupts a leaf
+#: without a mesh, rank 0; (2, 1), 8 s through gloo, left out since
+#: phase 22 joined the script), and on ``mesh`` after rank 0 corrupts a
+#: leaf
 MESH_CKPT_A = {"n_layers": RESTART["n_layers"], "batch": 8, "seq": 1024,
                "steps": 4, "ckpt_every": 2, "resume": 2, "mesh": (1, 2),
-               "restore_on": ((2, 2), (2, 1), None)}
+               "restore_on": ((2, 2), None)}
 #: 19(b), with four cards, over NCCL: paper-350m at full depth on (2, 2),
 #: ``steps`` steps checkpointing every ``ckpt_every``; the last
 #: checkpoint restored on (1, 4) and on one card
@@ -4967,8 +5035,8 @@ def mesh_ckpt_phase(torch, card, restart_save) -> dict:
     (:func:`mesh_ckpt_fleet_path`): paper-350m at phase 9a's depth trains
     on (1, 2) with checkpoints, two fresh processes resume from step
     ``resume`` and must replay it bit for bit (gate 1); the last checkpoint restores
-    on (2, 2), (2, 1) and one card, each assembling to one state (gate
-    2); a corrupt leaf makes every (1, 2) rank fall back to the same step
+    on each shape of ``restore_on`` ((2, 2) and one card), each assembling
+    to one state (gate 2); a corrupt leaf makes every (1, 2) rank fall back to the same step
     (gate 3); K1-K4 launch on the training path (gate 4).  (b) on four
     cards.  Returns the kernels' launches per path."""
     import gc
@@ -5121,17 +5189,16 @@ MESH_REC_TF = {"batch": 4, "prompt": 256, "steps": 16}
 MESH_REC_TF_RUNS = {"bf16": (None, TF_TOL), "f32": ("float32",
                                                      MESH_GATE1_RTOL)}
 #: 20(a) training, f32 compute, batch 4 x 512 (phase 18 (a)'s), ranks
-#: sharing the card: falcon-mamba-7b at 1 layer on (2, 2) and on (1, 2)
-#: (which checkpoints at its last loop step; one one-card run holds both),
-#: recurrentgemma-2b at one group on (1, 2).  ``MESH_REC_STEPS`` loop
+#: sharing the card: falcon-mamba-7b at 1 layer on (1, 2) (which
+#: checkpoints at its last loop step; its (2, 2) run, 2.2 s a local step
+#: through gloo, is in 20(b), over NCCL, and on the CPU since phase 22
+#: joined the script), recurrentgemma-2b at one group on (1, 2).  ``MESH_REC_STEPS`` loop
 #: steps (H = 4: three ``local``, then a ``delta_sync``; no replan), then
 #: a ``grad_sync`` under the loop's plan and an all-rungs one; a run's
 #: "steps" (at D = 2, where every step gathers the FSDP halves through
 #: gloo: the ``MESH_REC_LOCAL`` local steps gate 2 compares) and
 #: "loop_grad_sync" (False: the all-rungs round alone) cut that
-MESH_REC_TRAIN = ({"arch": "falcon-mamba-7b", "n_layers": 1, "mesh": (2, 2),
-                   "steps": 3, "loop_grad_sync": False},
-                  {"arch": "falcon-mamba-7b", "n_layers": 1, "mesh": (1, 2),
+MESH_REC_TRAIN = ({"arch": "falcon-mamba-7b", "n_layers": 1, "mesh": (1, 2),
                    "ckpt": True},
                   {"arch": "recurrentgemma-2b", "n_layers": 3,
                    "mesh": (1, 2)})
@@ -5149,11 +5216,13 @@ MESH_REC_RTOL = MESH_GATE1_RTOL
 #: are their initial values until the first sync)
 MESH_REC_TREES = ("params/", "m/", "v/")
 #: 20(b), with four cards, over NCCL: falcon-mamba-7b served at all 64
-#: layers on (1, 4) (workload (a) twice) and trained there at
-#: ``mesh_train_depth``'s layers; recurrentgemma-2b trained at all 26
-#: layers on (2, 2); batch 8 x 1024, phase 18 (b)'s gates and lines
+#: layers on (1, 4) (workload (a) twice) and trained there and on (2, 2)
+#: (FSDP and d_inner over "model"; 20(a)'s until phase 22 joined the
+#: script) at ``mesh_train_depth``'s layers; recurrentgemma-2b trained at
+#: all 26 layers on (2, 2); batch 8 x 1024, phase 18 (b)'s gates and lines
 MESH_REC_B_SERVE = {"arch": "falcon-mamba-7b", "mesh": (1, 4)}
 MESH_REC_B_TRAIN = ({"arch": "falcon-mamba-7b", "mesh": (1, 4)},
+                    {"arch": "falcon-mamba-7b", "mesh": (2, 2)},
                     {"arch": "recurrentgemma-2b", "mesh": (2, 2),
                      "n_layers": 26})
 
@@ -5170,15 +5239,13 @@ MESH_FRONT_SERVE = {"seamless-m4t-medium": 2, "llava-next-mistral-7b": 2}
 #: 21(a) training, f32 compute, 20(a)'s loop and gates, each held to a
 #: one-card run: seamless 4 x 512 on (1, 2) (checkpointed at its last
 #: loop step; restored on (2, 1) by fleet ranks 2-3 and as one card by
-#: fleet rank 2) and on (2, 2), cut as 20(a)'s; llava 4 x 1024 (576
-#: patches and 448 tokens: at 512 positions no token would be scored) on
-#: (1, 2) — its D = 2 training, 5.5 s a step through gloo here, runs on
-#: four cards in 21(b) and on the CPU
+#: fleet rank 2); llava 4 x 1024 (576 patches and 448 tokens: at 512
+#: positions no token would be scored) on (1, 2) — their D = 2 training
+#: (2.1-5.5 s a step through gloo here) runs on four cards in 21(b) and
+#: on the CPU
 MESH_FRONT_TRAIN = (
     {"arch": "seamless-m4t-medium", "n_layers": 2, "mesh": (1, 2),
      "ckpt": True, "shape": (4, 512)},
-    {"arch": "seamless-m4t-medium", "n_layers": 2, "mesh": (2, 2),
-     "shape": (4, 512), "steps": 3, "loop_grad_sync": False},
     {"arch": "llava-next-mistral-7b", "n_layers": 2, "mesh": (1, 2),
      "shape": (4, 1024)})
 #: 21(b), with four cards, over NCCL: each model served at its published
@@ -5755,15 +5822,17 @@ def mesh_rec_big_serve_path(ctx, spec):
 
 def mesh_rec_big_phase(torch) -> dict:
     """Phase 20 (b): with four cards, over NCCL — falcon-mamba-7b served
-    at 64 layers on (1, 4) and trained there at ``mesh_train_depth``'s
-    layers, recurrentgemma-2b trained at 26 on (2, 2) (phase 18 (b)'s
+    at 64 layers on (1, 4) and trained there and on (2, 2) at
+    ``mesh_train_depth``'s layers, recurrentgemma-2b trained at 26 on
+    (2, 2) (phase 18 (b)'s
     gates 2-4 and lines); one line and nothing else on fewer cards."""
     from repro_torch.launch.mesh import spawn_mesh
     tag = "phase 20 (b)"
     n = torch.cuda.device_count()
     if n < 4:
-        log(f"{tag}: {n} card(s): falcon-mamba-7b on a (1, 4) mesh and "
-            f"recurrentgemma-2b on (2, 2) serve and train on four; not run")
+        log(f"{tag}: {n} card(s): falcon-mamba-7b on (1, 4) and (2, 2) "
+            f"meshes and recurrentgemma-2b on (2, 2) serve and train on "
+            f"four; not run")
         return {}
     cards = four_cards()
     spec = MESH_REC_B_SERVE
@@ -5903,7 +5972,7 @@ def mesh_front_phase(torch, card, fleet) -> dict:
     sharing the card, part "21" of the fleet phase 20 (a) shares
     (:func:`mesh_fleet_phase`): served on (1, 2) on seeded non-zero
     frames / patches against the unsharded models (gate 1), no kernel
-    launched; trained on (1, 2) and (2, 2), each held to a one-card run,
+    launched; trained on (1, 2), each held to a one-card run,
     every sync round to the one-pod round (gate 2), K1-K4 on every rank
     (gate 3); the (1, 2) checkpoint restored on (2, 1) and on one card
     bit for bit (gate 4); (b) with four cards, over NCCL.  Returns the
@@ -5915,11 +5984,311 @@ def mesh_front_phase(torch, card, fleet) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 22: pods x ("data", "model") — a fleet of meshes
+# ---------------------------------------------------------------------------
+
+#: 22(a): P = 2 pods, each a (1, 2) mesh, the four ranks sharing the card
+#: over gloo: paper-350m at full width and 4 layers, global batch 8 x
+#: 1024, ``acesync`` with ``replan_every`` 4, 8 loop steps, a checkpoint at
+#: step 4 (``ckpt_every`` 4), then an all-rungs grad_sync one-shot and one
+#: ringed in 2 chunks (the flat encoders K12-K15)
+FLEET_MESH_A = {"arch": "paper-350m", "n_layers": 4, "pods": 2,
+                "mesh": (1, 2), "shape": (8, 1024), "steps": 8,
+                "ckpt_every": 4, "restore": 4, "loop_grad_sync": False,
+                "rungs": ALL_RUNGS, "rings": (-1, 2)}
+#: 22(b), with four cards, over NCCL: qwen3-8b at full width, P = 2 x
+#: (1, 2), a card a rank, at ``launch.memory.mesh_train_depth``'s depth
+#: for (1, 2) reckoned at ``FLEET_BYTES_PER_PARAM``; no checkpoint (tens
+#: of GB at that depth; (a) restores)
+FLEET_MESH_B = {"arch": "qwen3-8b", "pods": 2, "mesh": (1, 2),
+                "shape": (8, 1024), "steps": 8, "ckpt_every": 0,
+                "loop_grad_sync": False, "rings": (-1, 2)}
+#: a fleet rank's step peak per parameter, reckoned: phase 18's one-pod
+#: mesh peak plus the pod exchange's gathered payloads and decode
+#: accumulators at P = 2 (a few bytes per parameter of the rank)
+FLEET_BYTES_PER_PARAM = MESH_BYTES_PER_PARAM + 8.0
+#: the kernels every fleet rank must launch: K1-K8 and K12-K15
+FLEET_KERNELS = (tuple(KERNELS) + tuple(DECODE)[:4]
+                 + tuple(k for k in FLAT if k != "dequant_int8"))
+
+
+def fleet_mesh_path(world, spec):
+    """Phase 22, one rank of P pods of (D, M) meshes (world rank
+    p * D * M + d * M + m): phase 18's rank (:func:`mesh_train_path`) on
+    a TrainSession of its pod's mesh and its (d, m)'s pod group, whose
+    checked rounds are the pod-only ``sync_tree`` over that group (gate
+    1) and record its bytes beside the priced ones (gate 3); each step's
+    H, levels and omega, and the parameter shards' hashes after each
+    delta_sync (gate 2: the pods' moments differ, so a grad_sync's AdamW
+    does not give the same parameters); with ``spec["restore"]``, the
+    state's shard hashes at that step's save, then, the fleet's state
+    freed, mesh rank 0 of each pod restores that checkpoint as one pod of
+    a fleet of P whole-model processes (gate 5)."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.core import sync as S
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.launch.mesh import split_fleet_mesh
+    from repro_torch.launch.session import TrainSession
+    from repro_torch.models.registry import build_model
+    P, (D, M) = spec["pods"], spec["mesh"]
+    ctx, pods = split_fleet_mesh(world, P, D, M)
+    cfg, run = mesh_train_config(spec["arch"], spec["n_layers"],
+                                 *spec["shape"])
+    run = dataclasses.replace(run, ckpt_every=spec["ckpt_every"],
+                              ckpt_dir=spec["dir"])
+    steps, saved = [], {}
+
+    def on_step(sess, res, plan, kind):
+        omega = plan.omega
+        rec = {"step": sess.loop._host_step, "kind": kind, "H": sess.loop._H,
+               "levels": list(getattr(plan, "level_idx", ())),
+               "omega": [float(w) for w in (omega.tolist()
+                                            if torch.is_tensor(omega)
+                                            else omega)]}
+        if kind == "delta_sync":
+            rec["hashes"] = [int(bits_hash(torch, x))
+                             for x in T.leaves(res[0]["params"])]
+        steps.append(rec)
+
+    def hash_saves(sess, out):
+        tr, save = sess.trainer, sess.loop.ckpt.save
+
+        def hashed_save(step_no, state, extras=None, blocking=False):
+            if step_no == spec.get("restore"):
+                saved["shards"] = [(int(bits_hash(torch, x)), sh.index)
+                                   for (_, x), sh in zip(
+                                       T.reference_leaves_with_path(state),
+                                       tr.state_layout(state))]
+            return save(step_no, state, extras=extras, blocking=blocking)
+
+        sess.loop.ckpt.save = hashed_save
+
+    plain = S.sync_tree
+    try:
+        out = mesh_train_path(
+            ctx, spec, stops=((0, hash_saves),), on_step=on_step,
+            session=lambda: TrainSession(
+                build_model(cfg, run, device=ctx.device, ctx=ctx), run,
+                strategy="acesync", pods=pods))
+    finally:
+        S.sync_tree = plain
+    pod = [x for x in pods.log if x["tier"] == "pod"]
+    out.update(rank=world.rank, pod=pods.rank, coords=(ctx.d, ctx.m),
+               steps=steps, layers=cfg.n_layers,
+               width=(cfg.d_model, cfg.vocab_size),
+               pod_bytes=sum(x["bytes"] for x in pod),
+               pod_s=sum(x["seconds"] for x in pod),
+               mesh_bytes=sum(x["bytes"] for x in pods.log
+                              if x["tier"] != "pod"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    if spec.get("restore"):
+        # every rank's saved (hash, index) per leaf, then mesh rank 0 of
+        # each pod restores that step as a pod of P whole-model processes
+        every = [None] * world.size
+        dist.all_gather_object(every, saved.get("shards"),
+                               group=world.host_pg)
+        sub = world.regroup([p * D * M for p in range(P)])
+        if sub is not None:
+            t2 = time.perf_counter()
+            model = build_model(cfg, run, device=ctx.device)
+            one = Trainer(model, run, strategy="acesync", pods=sub)
+            restored, _ = Checkpointer(spec["dir"], pods=sub).restore(
+                one.init_state(run.seed), step=spec["restore"])
+            torch.cuda.synchronize()
+            mine = every[sub.rank * D * M:(sub.rank + 1) * D * M]
+            bad = [i for i, (_, x) in enumerate(
+                T.reference_leaves_with_path(restored))
+                for sh in mine if int(bits_hash(
+                    torch, x[sh[i][1]])) != sh[i][0]]
+            out["restored"] = {"seconds": time.perf_counter() - t2,
+                               "bad": bad, "leaves": len(mine[0]),
+                               "step": int(restored["step"])}
+            del restored, one, model
+            gc.collect()
+            torch.cuda.empty_cache()
+        world.barrier()
+    return out
+
+
+def check_fleet_mesh(tag, card, spec, res, cards=1) -> dict:
+    """Phase 22's gates on the ranks' results and their lines; returns
+    the kernels' launches summed over the ranks."""
+    from repro_torch.models import flops
+    P, (D, M) = spec["pods"], spec["mesh"]
+    name = f"{spec['arch']} ({spec['n_layers']} layers) on P = {P} x {(D, M)}"
+    r0 = res[0]
+    keys = ("step", "kind", "H", "levels", "omega")
+    for r in res:
+        if not r["finite"] or not all(math.isfinite(x) for x in r["losses"]):
+            fail(f"{tag}: {name} rank {r['rank']}: non-finite losses "
+                 f"{r['losses']} or parameters")
+        # gate 1: every round bit-identical to the pod-only sync_tree
+        bad = [x for x in r["sync"] if x["differ"]]
+        if bad or not r["sync"]:
+            fail(f"{tag}: {name} rank {r['rank']}: sync rounds not the pod "
+                 f"round on the rank's shards: {bad or 'none run'}")
+        # gate 3: each (d, m)'s bytes
+        for x in r["sync"]:
+            got_pay, got_full, pay, full, pad = x["bytes"]
+            if got_pay != pay or not (got_full == full
+                                      or 0 <= got_full - full < pad):
+                fail(f"{tag}: {name} rank {r['rank']}: {x['kind']} moved "
+                     f"{got_pay} B (gather + ring) and {got_full} B FULL "
+                     f"over its pod group; plan_wire_bytes {pay}, "
+                     f"FullCodec.wire_bytes {full} (+{pad})")
+        # gate 4: H, the plan, omega and the losses on every rank
+        if ([{k: s[k] for k in keys} for s in r["steps"]]
+                != [{k: s[k] for k in keys} for s in r0["steps"]]
+                or r["losses"] != r0["losses"]):
+            fail(f"{tag}: {name} rank {r['rank']}: H, plan, omega or "
+                 f"losses differ from rank 0's")
+        # gate 2: the shards bit-identical across the pods after each
+        # delta_sync
+        mate = res[r["rank"] % (D * M)]
+        for a, b in zip(r["steps"], mate["steps"]):
+            if a.get("hashes") != b.get("hashes"):
+                fail(f"{tag}: {name} rank {r['rank']}: parameter shards "
+                     f"differ from pod 0's after the {a['kind']} of step "
+                     f"{a['step']}")
+        # gate 6: K1-K8 and K12-K15 on every rank
+        missing = [k for k in FLEET_KERNELS if r["launches"].get(k, 0) < 1]
+        if missing:
+            fail(f"{tag}: {name} rank {r['rank']}: kernels never "
+                 f"launched: {missing}")
+    # gate 5: the restore as P pods x one card
+    if spec.get("restore"):
+        done = [r["restored"] for r in res if r.get("restored")]
+        if len(done) != P or any(x["bad"] or x["step"] != spec["restore"]
+                                 for x in done):
+            fail(f"{tag}: {name}: the step-{spec['restore']} checkpoint "
+                 f"restored as {P} pods x one card differs from the "
+                 f"shards written: {done}")
+        log(f"{tag}: {name}: the step-{spec['restore']} checkpoint restored "
+            f"as {P} pods x one card, {done[0]['leaves']} leaves, every "
+            f"rank's shards bit for bit; "
+            f"{[round(x['seconds'], 3) for x in done]} s [{card}]")
+    syncs = sum(1 for s in r0["steps"] if s["kind"] == "delta_sync")
+    log(f"{tag}: {name} over {r0['backend']}: kinds "
+        f"{r0['kinds']}, H {[s['H'] for s in r0['steps']]}"
+        f", losses {[round(x, 4) for x in r0['losses']]}, "
+        f"{r0['replans']} device replan(s), identical on all "
+        f"{len(res)} ranks; {syncs} delta_syncs, every shard "
+        f"bit-identical across the pods after each; "
+        f"{sum(len(r['sync']) for r in res)} "
+        f"rounds bit-identical to the pod-only sync_tree on each rank's "
+        f"shards; pod-tier bytes = plan_wire_bytes of each (d, m)'s local "
+        f"layout; K1-K8, K12-K15 launched per rank "
+        f"{[[r['launches'].get(k, 0) for k in FLEET_KERNELS] for r in res]}")
+    for r in res:
+        line = []
+        for kind, xs in r["ms"].items():
+            med, lo, hi = _spread(xs)
+            line.append(f"{kind} {med:.3f} ({lo:.3f}-{hi:.3f})")
+        med = _spread(r["ms"]["local"])[0]
+        mfu = flops.mfu(r["model_flops"], med * 1e-3, cards=len(res))
+        rate = r["pod_bytes"] / r["pod_s"] if r["pod_s"] else float("nan")
+        log(f"{tag}: {name}, rank {r['rank']} (pod {r['pod']}, (d, m) "
+            f"{tuple(r['coords'])}) on {card}: {r['n_params']:,} "
+            f"parameters, state {r['state_bytes']:,} B, init "
+            f"{r['init_s']:.2f} s, trained in {r['train_s']:.2f} s; step "
+            f"ms median (min-max): {'; '.join(line)}; local MFU {mfu:.6g} "
+            f"over {len(res)} x 989 TFLOP/s; pod tier {r['pod_bytes']:,} B "
+            f"in {r['pod_s']:.3f} s of host time ({rate:.6g} B/s), mesh "
+            f"tiers {r['mesh_bytes']:,} B; peak "
+            f"{r['peak_alloc'] / 2**30:.3f} GiB allocated "
+            f"({r['peak_alloc'] / r['n_params']:.2f} B per parameter)")
+    return {k: sum(r["launches"].get(k, 0) for r in res)
+            for k in r0["launches"]}
+
+
+def fleet_mesh_phase(torch, card) -> dict:
+    """Phase 22: (a) P = 2 pods x (1, 2) of paper-350m, the four ranks
+    sharing the card over gloo (one spawn), gates 1-6; (b) with four
+    cards.  Returns the kernels' launches per path."""
+    import gc
+    from repro_torch.launch.mesh import spawn_pods
+    tag = "phase 22 (a)"
+    spec = dict(FLEET_MESH_A, dir=str(CKPT_ROOT / "fleet_mesh"))
+    # the loop's checkpoints at steps 4 and 8, each P rows
+    _disk_check(tag, spec["n_layers"], 2 * spec["pods"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        res = spawn_pods(fleet_mesh_path, spec["pods"] * 2, "cuda",
+                         args=(spec,), timeout=600)
+    finally:
+        shutil.rmtree(spec["dir"], ignore_errors=True)
+    if res[0]["width"] != (1024, 50304) or res[0]["layers"] != 4:
+        fail(f"{tag}: ran {res[0]['layers']} layers at {res[0]['width']}")
+    launches = {"fleet_mesh": check_fleet_mesh(tag, card, spec, res)}
+    log(f"{tag}: wall {time.perf_counter() - t0:.2f} s")
+    launches.update(fleet_mesh_big_phase(torch))
+    return launches
+
+
+def fleet_mesh_big_phase(torch) -> dict:
+    """Phase 22(b): qwen3-8b on P = 2 x (1, 2), a card a rank, over NCCL,
+    at the depth ``launch.memory.mesh_train_depth`` gives (1, 2) at
+    ``FLEET_BYTES_PER_PARAM``; gates 1-4 and 6.  One line and nothing
+    else on fewer cards."""
+    import gc
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.memory import mesh_train_depth
+    from repro_torch.launch.mesh import spawn_pods
+    tag = "phase 22 (b)"
+    spec = dict(FLEET_MESH_B, dir=str(CKPT_ROOT / "fleet_mesh_b"))
+    n = spec["pods"] * spec["mesh"][0] * spec["mesh"][1]
+    if torch.cuda.device_count() < n:
+        log(f"{tag}: {torch.cuda.device_count()} card(s): qwen3-8b on "
+            f"P = 2 x (1, 2) trains on {n}; not run")
+        return {}
+    cards = four_cards()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    B, S = spec["shape"]
+    layers = mesh_train_depth(ARCHS[spec["arch"]], *spec["mesh"],
+                              card_bytes - ZOO_FREE_GIB * 2**30,
+                              FLEET_BYTES_PER_PARAM, batch=B // spec["pods"],
+                              seq=S)
+    if layers < 1:
+        fail(f"{tag}: {spec['arch']}: not one layer fits")
+    spec["n_layers"] = layers
+    log(f"{tag}: {spec['arch']} at {layers} layers (the most that fit "
+        f"(1, 2) at {FLEET_BYTES_PER_PARAM} B per parameter of a rank, "
+        f"{ZOO_FREE_GIB} GiB of each card to spare)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        res = spawn_pods(fleet_mesh_path, n, "cuda", args=(spec,),
+                         timeout=900)
+    finally:
+        if saved is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+        shutil.rmtree(spec["dir"], ignore_errors=True)
+    if res[0]["backend"] != "nccl":
+        fail(f"{tag}: the fleet ran over {res[0]['backend']}, not NCCL")
+    out = {"fleet_mesh_b": check_fleet_mesh(tag, cards, spec, res, cards=4)}
+    log(f"{tag}: wall {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 #: the parts ``--phases`` can run alone (each needs four cards)
 FOUR_CARD_PHASES = {"17b": "mesh_big_phase", "18b": "mesh_train_big_phase",
                     "19b": "mesh_ckpt_big_phase",
                     "20b": "mesh_rec_big_phase",
-                    "21b": "mesh_front_big_phase"}
+                    "21b": "mesh_front_big_phase",
+                    "22b": "fleet_mesh_big_phase"}
 
 
 def main(argv=None) -> int:
@@ -6020,6 +6389,7 @@ def main(argv=None) -> int:
     by_path.update(timed_phase("phase 21", mesh_front_phase, torch, card,
                                fleet))
     del fleet
+    by_path.update(timed_phase("phase 22", fleet_mesh_phase, torch, card))
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     # the processes' start server and its resource tracker end with this
     # process; stop them before the result lines instead
@@ -6064,7 +6434,8 @@ def main(argv=None) -> int:
                   for arch, spec in dict(TRAIN_ZOO, **TRAIN_RECURRENT,
                                          **TRAIN_FRONTEND).items()})
     paths["zoo_determinism"] = dict(paths[f"zoo_{ZOO_DET['arch']}"],
-                                    runs=2, steps=ZOO_DET["steps"])
+                                    layers=ZOO_DET["n_layers"], runs=2,
+                                    steps=ZOO_DET["steps"])
     paths.update({f"mesh_{c['arch']}_{c['mesh'][0]}x{c['mesh'][1]}": {
         "arch": c["arch"], "layers": c["n_layers"], "mesh": c["mesh"],
         "batch": MESH_TRAIN_A_SHAPE[0], "seq": MESH_TRAIN_A_SHAPE[1]}
@@ -6096,6 +6467,13 @@ def main(argv=None) -> int:
         for t in MESH_FRONT_TRAIN})
     paths["mesh_front_serve"] = {"archs": MESH_FRONT_SERVE, "mesh": (1, 2),
                                  "launches": "none"}
+    paths.update({p: {"arch": s["arch"], "pods": s["pods"],
+                      "mesh": s["mesh"], "layers": s.get("n_layers"),
+                      "batch": s["shape"][0], "seq": s["shape"][1],
+                      "cards": 1 if p == "fleet_mesh" else 4}
+                  for p, s in (("fleet_mesh", FLEET_MESH_A),
+                               ("fleet_mesh_b", FLEET_MESH_B))
+                  if p in by_path})
     print(json.dumps({"kernels": kernels, "paths": paths,
                       "link": {k: link[k] for k in ("latency_s",
                                                     "rate_bytes_per_s")}}),

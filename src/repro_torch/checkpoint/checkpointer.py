@@ -44,8 +44,14 @@ giving one :class:`LeafShard` per state leaf): its shard of row 0 (the
 reference's state on a mesh has one row, the global leaves), written by
 the first of the ranks holding that shard.  So a mesh checkpoint is the
 one-card checkpoint of the same state, byte for byte, and a restore onto
-any mesh shape, or onto one card, reads slices of the same files.  Pods
-x mesh is not ported (the reference aborts there).
+any mesh shape, or onto one card, reads slices of the same files.  On a
+fleet of meshes (both: ``pods`` the group of the P ranks at this rank's
+(d, m)) rank (p, d, m) takes its shard of row p, written by the first
+rank of pod p holding it: the checkpoint that P pod processes with one
+card each write for the same state, byte for byte; a restore reads its
+shard of row p mod P_saved, onto any fleet of meshes, a pod-only fleet
+or one card.  Its stages are agreed over the pod's mesh, then over the
+(d, m)'s pods, which reaches every rank.
 
 No process's state crosses a link: rank 0 of the group creates each
 ``leaf_<k>.npy`` at its global (P, ...) size, every process ``pwrite``s
@@ -162,9 +168,6 @@ class Checkpointer:
 
     def __init__(self, directory: str, pods=None,
                  mesh: Optional[MeshLayout] = None):
-        if pods is not None and mesh is not None:
-            raise ValueError("checkpoints of pods x a (data, model) mesh "
-                             "are not ported (ROADMAP Queue 1 item 3)")
         self.dir = directory
         os.makedirs(directory, exist_ok=True)
         #: the pod group of the next save and of restores (None: one
@@ -172,8 +175,8 @@ class Checkpointer:
         self.pods = pods
         #: a within-pod mesh's group and layout (None: no mesh)
         self.mesh = mesh
-        #: the group writing the save in flight
-        self._writers = self._group()
+        #: the groups writing the save in flight
+        self._writers = self._groups()
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         #: steps whose directories failed verification this process
@@ -184,27 +187,33 @@ class Checkpointer:
         #: it rank 0's read-back for the CRCs
         self.last_save: Dict[str, float] = {}
 
-    def _group(self):
-        """The group whose processes write and read one checkpoint."""
-        return self.mesh.group if self.mesh is not None else self.pods
+    def _groups(self) -> list:
+        """The groups whose processes write and read one checkpoint,
+        agreed over in this order: the mesh's, then the pods'."""
+        return [g for g in (None if self.mesh is None else self.mesh.group,
+                            self.pods) if g is not None]
+
+    def _lead(self, groups=None) -> bool:
+        """This process prepares, publishes and prunes: rank 0 of every
+        group of ``groups`` (by default :meth:`_groups`)."""
+        return all(g.rank == 0 for g in (self._groups() if groups is None
+                                         else groups))
 
     def _rows(self) -> int:
-        """The rows of a checkpoint this process saves: one per pod, one
-        on a mesh."""
-        return 1 if self.mesh is not None else self._size(self.pods)
+        """The rows of a checkpoint this process saves: one per pod."""
+        return self._size(self.pods)
 
     def _regions(self, state, rows: int) -> List[LeafShard]:
         """Where each leaf of ``state`` lies in a checkpoint of ``rows``
         rows: its global shape (no pod dimension), this process's region
         of the (rows, ...) file (the row, then a slice per dimension) and
-        whether this process writes it.  Pod p takes row p mod rows,
-        whole; a mesh rank its layout's shard of row 0."""
-        if self.mesh is None:
-            row = self._rank(self.pods) % rows
-            return [LeafShard(sh.shape, (slice(row, row + 1),) + sh.index,
-                              True) for sh in whole_leaves(state)]
-        return [LeafShard(sh.shape, (slice(0, 1),) + sh.index, sh.writes)
-                for sh in self.mesh.layout(state)]
+        whether this process writes it.  Pod p takes row p mod rows: whole,
+        or on a mesh rank its layout's shard of it."""
+        row = self._rank(self.pods) % rows
+        shards = (whole_leaves(state) if self.mesh is None
+                  else self.mesh.layout(state))
+        return [LeafShard(sh.shape, (slice(row, row + 1),) + sh.index,
+                          sh.writes) for sh in shards]
 
     @staticmethod
     def _rank(group) -> int:
@@ -235,7 +244,7 @@ class Checkpointer:
         self.wait()             # also re-raises a prior failed write
         t0 = time.perf_counter()
         pairs = T.reference_leaves_with_path(state)
-        self._writers = self._group()
+        self._writers = self._groups()
         P = self._rows()
         layout = self._regions(state, P)
         # (leaf number, region, host copy) of each leaf this process writes
@@ -295,22 +304,27 @@ class Checkpointer:
                 fn()
             except BaseException as e:  # noqa: BLE001 - raised below
                 err = e
-        group = self._writers
-        if self._size(group) > 1:
-            got = [None] * group.size
-            dist.all_gather_object(got, None if err is None else repr(err),
-                                   group=group.ckpt_pg)
-            bad = [(p, m) for p, m in enumerate(got) if m is not None]
-            if bad and err is None:
-                raise RuntimeError(f"checkpoint write failed on rank "
-                                   f"{bad[0][0]}: {bad[0][1]}")
+        # the failures known to this process, as (rank, message), ranks
+        # written as the index in each group from the last one out; a
+        # gather over each group in turn spreads them to every process
+        bad = [] if err is None else [((), repr(err))]
+        for group in self._writers:
+            if group.size > 1:
+                got = [None] * group.size
+                dist.all_gather_object(got, bad, group=group.ckpt_pg)
+                bad = sorted({((p,) + who, m) for p, part in enumerate(got)
+                              for who, m in part})
+        if bad and err is None:
+            who = "/".join(str(p) for p in bad[0][0])
+            raise RuntimeError(f"checkpoint write failed on rank {who}: "
+                               f"{bad[0][1]}")
         if err is not None:
             raise err
 
     def _write(self, step: int, host, payload):
         final = self._path(step)
         tmp = final + ".tmp"
-        lead = self._rank(self._writers) == 0
+        lead = self._lead(self._writers)
         self._stage((lambda: self._prepare(tmp, payload)) if lead else None)
         self._stage(lambda: self._write_shards(tmp, host))
         self._stage((lambda: self._publish(final, tmp, payload))
@@ -498,20 +512,21 @@ class Checkpointer:
             f"(last failure: {last_err})")
 
     def _agreed_step(self, step: Optional[int], n_expected: int) -> int:
-        """:meth:`_verified_step` on rank 0, the same answer (or error)
-        on every process of the group."""
-        group = self._group()
-        if self._size(group) == 1:
+        """:meth:`_verified_step` on the lead, the same answer (or error)
+        on every process of the groups (a broadcast over each in turn)."""
+        groups = [g for g in self._groups() if g.size > 1]
+        if not groups:
             return self._verified_step(step, n_expected)
         msg = [None]
-        if group.rank == 0:
+        if self._lead():
             try:
                 msg[0] = ("ok", self._verified_step(step, n_expected),
                           self.corrupt_steps)
             except (FileNotFoundError, CheckpointCorruptError) as e:
                 msg[0] = (type(e).__name__, str(e), self.corrupt_steps)
-        dist.broadcast_object_list(msg, src=group.ranks[0],
-                                   group=group.host_pg)
+        for group in groups:
+            dist.broadcast_object_list(msg, src=group.ranks[0],
+                                       group=group.host_pg)
         kind, val, corrupt = msg[0]
         self.corrupt_steps = list(corrupt)
         if kind == "FileNotFoundError":
@@ -527,8 +542,8 @@ class Checkpointer:
 
         With ``step=None`` the newest checkpoint that verifies is used
         (fallback past corrupt ones); an explicit ``step`` raises on
-        corruption.  Pod p of P reads row p mod P_saved of each leaf; a
-        mesh rank its layout's region of row 0 (:meth:`_regions`)."""
+        corruption.  Pod p of P reads row p mod P_saved of each leaf, a
+        mesh rank its layout's region of it (:meth:`_regions`)."""
         pairs = T.reference_leaves_with_path(template)
         s = self._agreed_step(step, len(pairs))
         payload = self._manifest(s)
@@ -562,9 +577,9 @@ class Checkpointer:
     def prune(self, keep: int = 3):
         """Keep only the newest ``keep`` checkpoints — but never remove
         the step LATEST points to (restore's anchor), and clean leftover
-        ``.tmp`` directories from crashed writers.  Rank 0 prunes for a
-        group."""
-        if self._rank(self._group()) != 0:
+        ``.tmp`` directories from crashed writers.  The lead prunes for
+        the groups."""
+        if not self._lead():
             return
         for n in os.listdir(self.dir):
             if n.startswith("step_") and n.endswith(".tmp"):

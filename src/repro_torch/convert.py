@@ -26,13 +26,14 @@ rest (step, importance state) taken whole.  The inverse,
 into the reference's whole leaves.
 :func:`pod_state_from_reference` takes the
 reference's multi-pod state as it is, every leaf with its leading pod
-dimension, and returns pod ``pod``'s state (one per pod process).  On a
-hierarchical fleet that dimension is the reference's pod-major fleet
+dimension, and returns pod ``pod``'s state (one per pod process; on a
+fleet of meshes each rank of pod ``pod`` takes its shards of that row).
+On a hierarchical fleet that dimension is the reference's pod-major fleet
 ("pod", "edge"), and ``pod`` is the fleet slot c * n_edge + e.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -129,13 +130,23 @@ def rank_shards(state, trainer) -> Dict[str, tuple]:
                                   trainer.state_layout(state))}
 
 
-def reference_from_shards(ranks: Sequence[Dict[str, tuple]]
+def reference_from_shards(ranks: Sequence[Dict[str, tuple]],
+                          pods: Optional[Sequence[int]] = None
                           ) -> Dict[str, np.ndarray]:
     """The reference's whole train state, keyed by path with no pod
     dimension (as :func:`state_from_reference` takes it), assembled from
     every rank's :func:`rank_shards`.  Every entry of a leaf must be held
     by some rank, and ranks holding the same entry must hold the same
-    bits: ``ValueError`` naming the leaf otherwise."""
+    bits: ``ValueError`` naming the leaf otherwise.  With ``pods`` (each
+    rank's pod, on a fleet of meshes) the reference's stacked multi-pod
+    state: every leaf with its leading (P, ...) pod dimension, row p
+    assembled from pod p's ranks (:func:`pod_state_from_reference`
+    carries row p back into them)."""
+    if pods is not None:
+        rows = [reference_from_shards([r for r, q in zip(ranks, pods)
+                                       if q == p])
+                for p in range(max(pods) + 1)]
+        return {k: np.stack([row[k] for row in rows]) for k in rows[0]}
     out = {}
     for key, (first, _, shape) in ranks[0].items():
         whole = np.empty(shape, first.dtype)

@@ -11,7 +11,10 @@ pods before they feed the estimator, so the importance state (and the
 device replan it drives) is the same on every pod.  On a ("data",
 "model") mesh rank the stats are the whole leaves' (``stats_reduce`` and
 ``sizes``, see ``sync.grad_group_stats``): the same on every rank, while
-the sync round runs on the rank's shards.
+the sync round runs on the rank's shards.  On a fleet of such meshes
+``pods`` is the group of the pods' ranks at this rank's (d, m): the mesh
+sum comes first, then the pod mean, as the reference's auto region runs
+inside its pod-manual one.
 """
 from __future__ import annotations
 

@@ -41,9 +41,11 @@ Memory: the residuals are written over the packed errors, and on one pod
 each rung runs in row chunks of :data:`SYNC_ROWS` — every codec encodes
 a row on its own, so either gives the same bits as the whole bucket.
 
-On a ("data", "model") mesh rank (one pod) the round runs on the rank's
-shards: the leaves are the rank's local shards, laid out from their own
-sizes, the one-pod round of the reference's nested manual region.
+On a ("data", "model") mesh rank the round runs on the rank's shards:
+the leaves are the rank's local shards, laid out from their own sizes,
+the round of the reference's nested manual region; on a fleet of meshes
+``pods`` is the group of the P ranks at the rank's (d, m), the devices
+the reference's collectives over "pod" join there.
 
 Backward segments: a segmented plan runs one pack + exchange per leaf
 range, walked in reverse leaf order as the reference does.  In this slice

@@ -29,8 +29,8 @@ PyTorch runs eagerly, so there is no compiled-step cache: a plan is
 lowered to an :class:`ExecPlan` (perms on the device) once per distinct
 assignment.
 
-On a within-pod ("data", "model") mesh (the model's ``ctx``; one pod,
-one process per rank) the state is the rank's shards: params, m, v, the
+On a within-pod ("data", "model") mesh (the model's ``ctx``; one
+process per rank) the state is the rank's shards: params, m, v, the
 error buffers and the anchor, each leaf as the model shards it.  The
 loss, the gradient norm and the importance statistics are global — the
 model's loss is the global-batch mean, the gradients are reduced to
@@ -45,6 +45,18 @@ refused (``ValueError`` naming the leaf).  :meth:`Trainer.state_layout`
 places each state leaf of a rank in the checkpoint's global leaf: the
 parameter-shaped trees (``PARAM_TREES``) as the parameters, the rest
 whole — the reference's ``state_shardings``.
+
+Pods x ("data", "model"): each pod is such a mesh, and ``pods`` is the
+group of the P ranks at this rank's (d, m) (``launch.mesh.
+split_fleet_mesh``), so the pod of a rank is its rank in ``pods``.  The
+pod means (metrics, grad stats, divergence) run over that group after
+the mesh sums, as the reference's auto region runs inside its
+pod-manual one; the sync round is the pod round on the rank's shards,
+its exchange over that group; ``param_avg`` weighs the rank's shards
+with its pod's omega.  The divergence projects the pod's global
+parameters (``divergence.project_params`` with the shards' places), so
+every rank of a pod runs the same H.  A two-tier fleet of meshes is not
+ported (ROADMAP Queue 1, item 3b).
 """
 from __future__ import annotations
 
@@ -106,10 +118,11 @@ class Trainer:
         #: the model's ("data", "model") mesh (None: one card)
         self.ctx = getattr(model, "ctx", None)
         if self.ctx is not None:
-            if pods is not None and pods.size > 1:
+            if pods is not None and pods.n_edge > 1:
                 raise NotImplementedError(
-                    f"{model.cfg.name}: pods x ('data', 'model') meshes "
-                    f"are not ported yet (ROADMAP Queue 1, item 3)")
+                    f"{model.cfg.name}: a two-tier fleet of ('data', "
+                    f"'model') meshes is not ported yet (ROADMAP Queue 1, "
+                    f"item 3b)")
             model.check_reference_shards()
         self.model = model
         self.run = run
@@ -131,10 +144,15 @@ class Trainer:
                                                 run.acesync.topk_block)
         self._exec_cache: Dict = {}
         self._owned = None
+        #: each leaf's (global shape, this rank's index) on a mesh, for the
+        #: divergence's projections
+        self._shards = None
         if self.ctx is not None:
             self._owned = torch.tensor(model.owned_leaves(),
                                        dtype=torch.float32,
                                        device=self.device)
+            self._shards = [model.shard_of(T.path_str(q))[:2] for q, _ in
+                            T.leaves_with_path(model.param_tree())]
 
     # ------------------------------------------------------------------
     # state
@@ -213,6 +231,14 @@ class Trainer:
             gnorm = adamw.global_norm(grads, reduce)
         return loss.detach(), grads, gnorm
 
+    def _divergence(self, params) -> torch.Tensor:
+        """The pod-mean divergence estimate (eq. 9's D_k), the same on
+        every rank of a pod."""
+        reduce = None if self.ctx is None else self._mesh_sum
+        return self._pmean(D.pod_divergence(params, self.pods,
+                                            shards=self._shards,
+                                            reduce=reduce))
+
     def _sync_kw(self) -> dict:
         """The sync round's keywords: the pod group, and on a mesh the
         global statistics' reduction and sizes."""
@@ -278,7 +304,7 @@ class Trainer:
         the anchor update rung-ordered under ``overlap_apply``."""
         delta = T.tree_map(lambda p, a: (p - a).to(p.dtype), st["params"],
                            st["anchor"])
-        div = self._pmean(D.pod_divergence(st["params"], self.pods))
+        div = self._divergence(st["params"])
         cfg = self.run.acesync
         if cfg.overlap_apply:
             def apply_anchor(d_rows, aux_rows, _scalars):
@@ -305,8 +331,9 @@ class Trainer:
     def _body_param_avg(self, st, batch, plan: ExecPlan):
         """FedAvg baseline: the omega-weighted parameter average across
         the pods (on one pod, the pod's own parameters); the weight is
-        the fleet slot's."""
-        div = self._pmean(D.pod_divergence(st["params"], self.pods))
+        the fleet slot's (on a fleet of meshes the rank's pod's, its
+        shards averaged with the other pods' same shards)."""
+        div = self._divergence(st["params"])
         if self.n_pods > 1:
             w = plan.omega[self.pods.rank]
             avg = T.tree_map(

@@ -75,8 +75,20 @@ D * M ranks, one process each (:func:`spawn_mesh`), rank d * M + m at
 (``models/shardctx.py``): the "data" and "model" sub-groups, every rank
 creating every group in one order.  The backend follows from the layout
 as for pods: NCCL with a card per rank, gloo staged through pinned host
-memory when ranks share a card or run on the CPU.  Multi-pod meshes
-(pods x data x model) are not ported.
+memory when ranks share a card or run on the CPU.
+
+A fleet of P pods, each a D x M mesh (the reference's ("pod", "data",
+"model") mesh), is P * D * M ranks, one process each
+(:func:`spawn_fleet_mesh`), world rank p * D * M + d * M + m as
+``make_mesh((P, D, M), ("pod", "data", "model"))`` orders its devices.
+:func:`split_fleet_mesh` gives each rank its pod's ``ShardCtx`` (the
+"data" and "model" groups of the pod's D * M ranks) and a
+:class:`PodGroup` of tier "pod": the P ranks at its (d, m), which the
+sync round exchanges over (the reference's collectives over "pod" in its
+manual region), sharing one byte log with the mesh groups.  Every rank
+creates every group in one order.  A membership change regroups each
+(d, m)'s pod group to the alive pods, every (d, m) alike
+(:meth:`PodGroup.regroup` over its ``siblings``).
 """
 from __future__ import annotations
 
@@ -85,7 +97,7 @@ import os
 import socket
 import time
 import traceback
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -157,6 +169,11 @@ class PodGroup:
         #: sub-groups by membership (:meth:`regroup`), None where this pod
         #: is not a member
         self._members: dict = {}
+        #: the offsets of the global ranks of the groups parallel to this
+        #: one, this one's (0) among them, in the order every process
+        #: creates them: on a fleet of meshes, the pod groups of every
+        #: (d, m); :meth:`regroup` regroups them all alike
+        self.siblings: tuple = (0,)
 
     @property
     def n_cross(self) -> int:
@@ -171,24 +188,31 @@ class PodGroup:
         self.ckpt_pg = dist.new_group(self.ranks, backend="gloo")
 
     def regroup(self, members: Sequence[int]) -> Optional["PodGroup"]:
-        """The group of fleet ranks ``members`` (this group's own ranks
-        for the whole fleet), or None where this pod is not a member.
-        Called on the fleet's group by every process of the fleet, in the
-        same order, member or not; the groups are cached per membership,
-        so a fleet that returns to a membership reuses them.  The rank of
-        a pod in the new group is its index in the sorted members."""
+        """The group of fleet ranks ``members`` (global ranks, among this
+        group's own), or None where this pod is not a member.  Called on
+        the fleet's group by every process of the fleet, in the same
+        order, member or not; the groups are cached per membership, so a
+        fleet that returns to a membership reuses them.  The rank of a pod
+        in the new group is its index in the sorted members.  The groups
+        parallel to this one (``siblings``) are regrouped alike, in one
+        order, so that every process creates every group."""
         members = sorted(int(m) for m in members)
         if members == self.ranks:
             return self
         key = tuple(members)
         if key not in self._members:
-            pg = dist.new_group(members)
-            sub = PodGroup(members.index(self.rank) if self.rank in members
-                           else 0, len(members), self.device, self.backend,
-                           tier=self.tier, pg=pg, ranks=members,
-                           log=self.log)
-            sub.make_host_groups()
-            self._members[key] = sub if self.rank in members else None
+            me = self.ranks[self.rank]
+            for off in self.siblings:
+                ranks = [m + off for m in members]
+                pg = dist.new_group(ranks)
+                sub = PodGroup(ranks.index(me) if me in ranks else 0,
+                               len(ranks), self.device, self.backend,
+                               tier=self.tier, pg=pg, ranks=ranks,
+                               log=self.log)
+                sub.make_host_groups()
+                if off == 0:
+                    sub.siblings = self.siblings
+                    self._members[key] = sub if me in members else None
         return self._members[key]
 
     def split_tiers(self, n_edge: int) -> None:
@@ -702,3 +726,56 @@ def spawn_mesh(fn: Callable, D: int, M: int, device="cuda", args=(),
     order."""
     return spawn_pods(_mesh_main, D * M, device, args=(D, M, fn) + tuple(args),
                       **kw)
+
+
+# ---------------------------------------------------------------------------
+# pods x ("data", "model"): a fleet of meshes
+# ---------------------------------------------------------------------------
+
+
+def split_fleet_mesh(world: PodGroup, P: int, D: int,
+                     M: int) -> Tuple[ShardCtx, PodGroup]:
+    """This rank's place on P pods of D x M meshes (``world`` the group of
+    all P * D * M ranks, rank p * D * M + d * M + m): its pod's
+    :class:`ShardCtx` and the :class:`PodGroup` (tier "pod") of the P
+    ranks at its (d, m), with its gloo ``host_pg`` and ``ckpt_pg``; every
+    group logs into ``world``'s byte log.  Every rank creates every
+    group, in one order: each pod's mesh, then each (d, m)'s pod group."""
+    n = D * M
+    if P < 1 or n < 1 or world.size != P * n:
+        raise ValueError(f"a ({P}, {D}, {M}) fleet needs {P * n} ranks, "
+                         f"the group has {world.size}")
+    ctx = None
+    for p in range(P):
+        got = sub_mesh(world, [world.ranks[p * n + i] for i in range(n)],
+                       D, M)
+        ctx = got if got is not None else ctx
+    cell = world.rank % n
+    pods = None
+    for c in range(n):
+        ranks = [world.ranks[p * n + c] for p in range(P)]
+        group = PodGroup(world.rank // n, P, world.device, world.backend,
+                         tier="pod", pg=dist.new_group(ranks), ranks=ranks,
+                         log=world.log)
+        group.make_host_groups()
+        if c == cell:
+            pods = group
+    # the other (d, m)'s pod groups: the same pods, ranks shifted
+    pods.siblings = tuple(world.ranks[c] - world.ranks[cell]
+                          for c in range(n))
+    return ctx, pods
+
+
+def _fleet_main(world, P, D, M, fn, *args):
+    return fn(*split_fleet_mesh(world, P, D, M), *args)
+
+
+def spawn_fleet_mesh(fn: Callable, P: int, D: int, M: int, device="cuda",
+                     args=(), **kw) -> list:
+    """Run ``fn(ctx, pods, *args)`` on P pods of D x M ("data", "model")
+    meshes: P * D * M fresh processes (:func:`spawn_pods`, whose keywords
+    ``kw`` takes), each with its pod's :class:`ShardCtx` and its (d, m)'s
+    pod group (:func:`split_fleet_mesh`); returns their results in world
+    rank order."""
+    return spawn_pods(_fleet_main, P * D * M, device,
+                      args=(P, D, M, fn) + tuple(args), **kw)

@@ -20,7 +20,10 @@ within-pod ("data", "model") mesh: the model is built sharded on the
 rank's device and every rank reads the whole global batch (the model
 keeps its block); every rank checkpoints and restores its shards (see
 :mod:`repro_torch.launch.train`), so :meth:`TrainSession.save_now` and
-:meth:`TrainSession.finish` are called on every rank.
+:meth:`TrainSession.finish` are called on every rank.  With both (a
+rank of pods x ("data", "model"), see
+:func:`repro_torch.launch.mesh.spawn_fleet_mesh`: ``pods`` the pods at
+its (d, m)) every rank of pod p reads pod p's rows.
 
 :meth:`TrainSession.init` resumes from the newest checkpoint in the run's
 ``ckpt_dir`` that verifies (a fresh state when there is none);

@@ -80,9 +80,21 @@ Every rank checkpoints its shards into the reference's whole-leaf files
 card, so a restore reads its shards of any checkpoint of the model — one
 written on another mesh shape, on one card, or by the reference — and
 every rank takes the same host state from the manifest.  Rank 0 of the
-mesh alone logs and injects checkpoint corruption.  Pods x mesh is not
-ported (ROADMAP Queue 1, item 3), so nor is elastic membership of mesh
-ranks.
+mesh alone logs and injects checkpoint corruption.
+
+Pods x ("data", "model") (``pods`` the group of the P ranks at this
+rank's (d, m), ``launch.mesh.split_fleet_mesh``): the loop's host
+exchanges — the step times, the heartbeats, the broadcasts of a
+membership change — run over that group, and the exchanged step times
+are then taken from the pod's mesh rank 0, so that every rank of the
+fleet holds the same monitor.  At every plan refresh each rank checks
+that H, the step, the plan's levels and omega are the same on every rank
+of its pod.  Checkpoints hold row p of each leaf, each rank its shards
+of it.  Elastic membership follows the reference's rule: data and model
+stay fixed and only the pod axis changes; a preempted pod's D x M ranks
+leave together, each (d, m)'s pod group regroups to the alive pods, and
+a rejoining pod's rank (d, m) takes the state of pod 0's rank (d, m).
+A two-tier fleet of meshes is not ported (ROADMAP Queue 1, item 3b).
 
 CLI::
 
@@ -93,6 +105,8 @@ CLI::
     python -m repro_torch.launch.train --arch seamless-m4t-medium \
         --data 2 --model 2 ...               # the encoder-decoder, the VLM
     python -m repro_torch.launch.train --pods 2 --steps 8 ...  # P processes
+    python -m repro_torch.launch.train --pods 2 --data 1 --model 2 \
+        ...                                  # P*D*M ranks, pods x mesh
     python -m repro_torch.launch.train --pods 4 --edge 2 \
         --strategy acesync_hier ...          # 2 clusters x 2 members
     ... --ckpt-dir DIR --ckpt-every N        # checkpoint; a rerun resumes
@@ -196,8 +210,10 @@ class TrainLoop:
         # elastic membership only on a flat fleet (the edge dimension of a
         # hierarchical one is cluster topology, not membership)
         self.elastic = pods is not None and pods.n_edge == 1
-        self.planner = (ElasticPlanner(MeshPlan(n_pods=n, data=1, model=1))
-                        if self.elastic else None)
+        self.planner = (ElasticPlanner(MeshPlan(
+            n_pods=n, data=1 if self.mesh is None else self.mesh.D,
+            model=1 if self.mesh is None else self.mesh.M))
+            if self.elastic else None)
         self.faults = fault_schedule
         #: apply replans and H at the step that launches them (all pods,
         #: and all ranks of a mesh, must switch plans on the same step; one
@@ -219,8 +235,10 @@ class TrainLoop:
         #: same on every process of the fleet, preempted ones included)
         self._members: List[int] = list(range(n))
         self._group_members = tuple(self._members)
-        self._trainers: Dict[tuple, Trainer] = {self._group_members:
-                                                self.trainer}
+        #: the trainer of each membership, by its group's global ranks
+        self._trainers: Dict[tuple, Trainer] = {
+            tuple(range(n)) if pods is None else tuple(pods.ranks):
+            self.trainer}
         self._elastic_pending = None
         self._hb_delay: Dict[int, int] = {}
         self._hb_now: Optional[float] = None
@@ -299,6 +317,19 @@ class TrainLoop:
             kw["clusters"] = self.clusters
         self._plan = self.strategy.make_plan(sched, **kw)
         return self._plan
+
+    def _check_replicated(self, step: int) -> None:
+        """On a mesh: H, the step, the plan's levels and omega must be the
+        same on every rank of the pod (a rank that diverged would run
+        other collectives and hang the fleet)."""
+        if self.mesh is None:
+            return
+        p = self._plan
+        vals = [float(self._H or 0), float(step), *map(float, p.level_idx),
+                *map(float, p.omega)]
+        self.mesh.check_replicated(
+            torch.tensor(vals, dtype=torch.float64, device=self.mesh.device),
+            f"H, the step, the plan's levels and omega at step {step}")
 
     def poll_replan(self, block: bool = False) -> bool:
         """Apply a pending device replan once its host copy has landed."""
@@ -463,7 +494,7 @@ class TrainLoop:
         t0 = time.perf_counter()
         launched = self._host_step or 0
         before, self._group_members = self._group_members, members
-        group = self.fleet.regroup(members)
+        group = self.fleet.regroup([self.fleet.ranks[p] for p in members])
         if group is None:
             self._elastic_pending = (None, None, None, launched, t0, group,
                                      ())
@@ -559,10 +590,10 @@ class TrainLoop:
         self.membership_events.append({
             "step": self._host_step, "launched_step": launched,
             "n_pods": group.size, "warm_steps": (self._host_step or 0)
-            - launched, "members": list(group.ranks),
+            - launched, "members": list(self._group_members),
             "seconds": time.perf_counter() - t0})
         self._log(f"ELASTIC: swapped to P={group.size} (pods "
-                  f"{list(group.ranks)}) at step {self._host_step}")
+                  f"{list(self._group_members)}) at step {self._host_step}")
         return state
 
     def _beat_pods(self) -> List[int]:
@@ -606,6 +637,10 @@ class TrainLoop:
         got = self.fleet.gather_floats(
             [x for _, dt, now in rows
              for x in (math.nan if dt is None else dt, now)])
+        if self.mesh is not None and self.mesh.world is not None:
+            # the pod's mesh rank 0's exchange (the ranks at its (d, m) on
+            # every pod got the same): one monitor on every rank
+            got = self.mesh.world.broadcast_object(got)
         self.heartbeat_seconds.append(time.perf_counter() - t0)
         for j, (pods, _, _) in enumerate(rows):
             times = [(g[2 * j], g[2 * j + 1]) for g in got]
@@ -640,6 +675,7 @@ class TrainLoop:
             self.refresh_plan(state, self._host_step)
             if self.blocking_replans:
                 self.poll_replan(block=True)
+            self._check_replicated(self._host_step)
         inflight = None
         for i in range(n_steps):
             step = self._host_step
@@ -658,6 +694,7 @@ class TrainLoop:
                 if self.blocking_replans:
                     self.poll_replan(block=True)
                 self._H = self.adapt_interval(state)
+                self._check_replicated(step)
             H = (self._H if self._H is not None
                  else self.strategy.initial_interval(cfg))
             batch = next(self._pipeline)
@@ -723,14 +760,20 @@ def _pod_run(group, arch, kw, steps):
                 intra_bytes=group.bytes_logged(payload, "intra"))
 
 
-def _mesh_run(ctx, arch, kw, steps):
+def _mesh_run(ctx, pods, arch, kw, steps):
     """One rank's CLI run on a ("data", "model") mesh (spawned by
-    ``--data`` / ``--model``): its summary; rank 0 logs."""
+    ``--data`` / ``--model``; with ``pods``, the pods at its (d, m) on a
+    fleet of meshes, ``--pods`` too): its summary; rank 0 logs."""
     from repro_torch.launch.session import TrainSession
-    sess = TrainSession.from_config(arch, mesh=ctx, **kw)
-    sess.run(steps, log_every=10 if ctx.rank == 0 else 0)
+    sess = TrainSession.from_config(arch, mesh=ctx, pods=pods, **kw)
+    lead = ctx.rank == 0 and (pods is None or pods.rank == 0)
+    sess.run(steps, log_every=10 if lead else 0)
     sess.finish()
-    return dict(_summary(sess), rank=ctx.rank)
+    out = dict(_summary(sess), rank=ctx.rank)
+    if pods is not None:
+        out.update(pod=pods.rank, wire_bytes=pods.bytes_logged(
+            ("gather", "ring", "full"), "pod"))
+    return out
 
 
 def main(argv=None):
@@ -776,12 +819,23 @@ def main(argv=None):
 
     kw = _session_kwargs(args)
     if args.data * args.model > 1:
+        if args.edge > 1:
+            ap.error("--edge with --data / --model (a two-tier fleet of "
+                     "meshes) is not ported yet (ROADMAP Queue 1, item 3b)")
         if args.pods > 1:
-            ap.error("--pods with --data / --model (pods x data x model) is "
-                     "not ported yet (ROADMAP Queue 1, item 3)")
+            from repro_torch.launch.mesh import spawn_fleet_mesh
+            outs = spawn_fleet_mesh(_mesh_run, args.pods, args.data,
+                                    args.model, args.device,
+                                    args=(args.arch, kw, args.steps))
+            print(json.dumps(dict(outs[0], pods=args.pods, data=args.data,
+                                  model=args.model,
+                                  ranks=[{k: o[k] for k in
+                                          ("pod", "rank", "wire_bytes",
+                                           "last_loss")} for o in outs])))
+            return
         from repro_torch.launch.mesh import spawn_mesh
         outs = spawn_mesh(_mesh_run, args.data, args.model, args.device,
-                          args=(args.arch, kw, args.steps))
+                          args=(None, args.arch, kw, args.steps))
         print(json.dumps(dict(outs[0], data=args.data, model=args.model)))
         return
     if args.pods > 1:

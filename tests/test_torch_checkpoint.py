@@ -21,6 +21,7 @@ reference's (``repro.checkpoint``): the same on-disk format, both ways.
   checkpoint the reference wrote of a P = 2 state restores on every pod
   to exactly ``convert.pod_state_from_reference``'s state for its row.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import json
 import os
 

@@ -9,6 +9,7 @@ f32), except the sign rung's scale — XLA sums ``mean|x|`` in another order
 than the port's fixed order — which may differ by at most 8 ulp, and the
 values derived from it by at most 8 ulp of the scale.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@ gradient shards of one training step on such meshes against the CPU's.  They ski
 CUDA device; on the card
 run
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``."""
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@ turns a -0 or a denormal there into +0; the oracle's scatter-add (and the
 port) leave such lanes as they were, so the interpreted kernel is held to
 the port on rows whose untouched lanes hold neither.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

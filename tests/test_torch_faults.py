@@ -4,6 +4,7 @@ inputs: seeded random schedules, heartbeat sequences with registers and
 rejoins, straggle factors and straggler picks, elastic planner
 trajectories, and the bytes a corrupted or truncated checkpoint leaf ends
 up with.  One parametrised test per class."""
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import os
 
 import numpy as np

@@ -17,6 +17,7 @@ order, so the scale may differ by 8 ulp and the residual and ``own`` by
 8 ulp of the scale (tests/test_torch_kernels.py states the same bound
 for the gather kernel).
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

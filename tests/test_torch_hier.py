@@ -55,6 +55,7 @@ fleet of C clusters x E members.
     ``delta_sync`` per tier equal to the priced bytes of its executed
     plan.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import dataclasses
 import json
 import os

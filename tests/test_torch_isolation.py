@@ -4,6 +4,7 @@
 dynamically in a fresh interpreter that imports the whole port and then
 inspects ``sys.modules``.  And ``chip_smoke.py`` refuses to run without a
 card, or without the repo around it, printing no result."""
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import ast
 import os
 import shutil

@@ -11,6 +11,7 @@ residual derived from it: XLA sums ``mean|ef|`` in another order than the
 port's fixed 4-lane-then-tree order, so the scale may differ by at most
 8 ulp and the residual by at most 8 ulp of the scale.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -20,21 +20,26 @@ reference: tests/test_torch_mesh_ckpt_<D>x<M>.py.
   a numpy slice assignment does; a write the operating system refuses
   (a file size limit, in a process of its own) fails the save with
   ``OSError`` and leaves the previous checkpoint intact; pods x a mesh
-  is refused.
+  places row p's shards, a two-tier fleet of meshes is refused.
 * ``launch.mesh.sub_mesh``: meshes of some processes of a fleet of four
   gloo processes, each mesh's collectives on its own ranks.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import dataclasses
+
 import numpy as np
 import pytest
+import torch
 
 from repro_torch import convert
 from repro_torch import tree as T
-from repro_torch.checkpoint.checkpointer import Checkpointer, MeshLayout
+from repro_torch.checkpoint.checkpointer import (Checkpointer, LeafShard,
+                                                 MeshLayout)
 from repro_torch.core.trainer import Trainer, param_path
 from repro_torch.models import shardctx as SC
 from repro_torch.models.registry import build_model
@@ -195,10 +200,24 @@ def test_a_refused_shard_write_raises(tmp_path):
 
 
 def test_checkpoints_of_pods_times_a_mesh_are_refused(tmp_path):
-    pods = type("Pods", (), {"size": 2, "rank": 0})()
-    with pytest.raises(ValueError, match="Queue 1 item 3"):
-        Checkpointer(str(tmp_path), pods=pods,
-                     mesh=MeshLayout(None, lambda state: []))
+    """Pods x mesh checkpoints (ROADMAP Queue 1 item 3): rank (p, d, m)
+    places its shard in row p of each leaf; what stays refused is a
+    two-tier fleet of meshes (item 3b), by its loop's trainer before any
+    checkpoint."""
+    from repro_torch.launch.train import TrainLoop
+    pods = type("Pods", (), {"size": 2, "rank": 1})()
+    shard = LeafShard((4, 6), (slice(0, 4), slice(3, 6)), False)
+    ck = Checkpointer(str(tmp_path), pods=pods,
+                      mesh=MeshLayout(None, lambda state: [shard]))
+    assert ck._rows() == 2
+    assert ck._regions({"w": torch.zeros(4, 3)}, 2) == [LeafShard(
+        (4, 6), (slice(1, 2), slice(0, 4), slice(3, 6)), False)]
+    run = run_config("qwen3-8b")
+    model = build_model(run.model, run, device="cpu", ctx=SC.ShardCtx(1, 1))
+    two_tier = type("Pods", (), {"size": 4, "n_edge": 2})()
+    with pytest.raises(NotImplementedError, match="Queue 1, item 3b"):
+        TrainLoop(model, dataclasses.replace(run, ckpt_dir=str(tmp_path)),
+                  pods=two_tier)
 
 
 def test_sub_mesh_of_a_fleet(tmp_path):

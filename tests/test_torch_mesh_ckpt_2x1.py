@@ -6,6 +6,7 @@ the loop's resume, corruption fallback, failed write and refusal of
 another arch's checkpoint on every rank.  The archs: SMOKE
 qwen3-8b and dbrx-132b (FSDP over "data"; the (2, 2) file runs both MoE
 archs)."""
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import pytest
 
 import torch_mesh_ckpt_ref as R

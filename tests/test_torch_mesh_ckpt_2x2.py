@@ -6,6 +6,7 @@ the loop's resume, corruption fallback, failed write and refusal of
 another arch's checkpoint on every rank.  The reference's (2, 2)
 checkpoint of SMOKE paper-350m (four K/V heads: the archs with two do
 not train on four "model" ranks) also restores onto a (1, 4) mesh."""
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import numpy as np
 import pytest
 

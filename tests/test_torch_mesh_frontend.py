@@ -32,6 +32,7 @@ tests/test_torch_mesh_frontend_ckpt.py.
 * ``launch.memory.mesh_train_depth`` cuts both of seamless's stacks.
 """
 
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import jax
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ state on the mesh — the encoder's, the cross-attention's and the
 decoder's FSDP and tensor shards into the reference's whole-leaf files,
 byte for byte — and each package restores the other's checkpoint bit for
 bit (the reference on its mesh and without one)."""
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import pytest
 
 import torch_mesh_ckpt_ref as R

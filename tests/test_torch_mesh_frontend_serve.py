@@ -32,6 +32,7 @@ same seeded tokens), the reference's own (its mesh against its
 unsharded model) and the port's (its ranks against its one process).
 The port's must not exceed twice the reference's; both are printed.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import dataclasses
 import json
 import os

@@ -9,6 +9,7 @@ shards (see ``tests/torch_mesh_train_ref.py``, the shared body and its
 tolerances), the reference's sync round through its interpreted
 kernels (``kernels=True``: the top-k rungs' bisection, as the port's
 K4)."""
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import pytest
 
 from torch_mesh_train_ranks import KIND_SEQS

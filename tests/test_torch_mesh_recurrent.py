@@ -38,6 +38,7 @@ tests/test_torch_mesh_recurrent_ckpt.py.
 * ``launch.memory.mesh_train_bytes`` counts a rank's scan bytes over its
   d_inner / M channels, and ``mesh_train_depth`` the layers that fit.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import dataclasses
 
 import jax

@@ -6,6 +6,7 @@ falcon-mamba-7b and recurrentgemma-2b (f32) twice and saves with its
 files byte for byte the reference's, mamba's ``in_proj`` shards in the
 reference's column order — and each package restores the other's
 checkpoint bit for bit (the reference on its mesh and without one)."""
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import pytest
 
 import torch_mesh_ckpt_ref as R

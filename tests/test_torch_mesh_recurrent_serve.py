@@ -15,6 +15,7 @@ relative; the ``Server``'s greedy tokens (4 requests, 6 new) equal to
 the reference's on every rank; the seeded shards slices of the unsharded
 seeded model, bit for bit.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import dataclasses
 import json
 import os

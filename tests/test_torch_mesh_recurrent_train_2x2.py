@@ -8,6 +8,7 @@ and the step kinds' losses, grad norms and state shards (see
 tolerances), the reference's sync round through its interpreted
 kernels (``kernels=True``: the top-k rungs' bisection, as the port's
 K4)."""
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import pytest
 
 from torch_mesh_train_ranks import KIND_SEQS

@@ -26,9 +26,11 @@ reference: tests/test_torch_mesh_train_ref_<D>x<M>.py.
 * The MoE at its capacity factor 1.25 with tokens skewed so that blocks
   drop pairs: output and gradients against ``moe_apply_blocked``'s
   autograd on one process within ``F32_RTOL``.
-* The refusal of pods x mesh, and the train CLI on a (1, 2) mesh, which
+* The refusal of a two-tier fleet of meshes (pods x mesh trains), and
+  the train CLI on a (1, 2) mesh, which
   checkpoints and, run again over the same directory, resumes.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import dataclasses
 import json
 import os
@@ -331,15 +333,20 @@ def test_a_mesh_whose_shards_are_not_the_references_is_refused():
 
 
 def test_pods_times_a_mesh_is_refused_and_a_mesh_loop_checkpoints(tmp_path):
-    """Pods x mesh raises, naming ROADMAP Queue 1 item 3; a loop on a mesh
-    takes ``ckpt_every`` and checkpoints through its trainer's layout."""
+    """Pods x mesh trains (ROADMAP Queue 1 item 3: the trainer prices its
+    plans for the pods); a two-tier fleet of meshes raises, naming item
+    3b; a loop on a mesh takes ``ckpt_every`` and checkpoints through its
+    trainer's layout."""
     from repro_torch.launch.train import TrainLoop
     run = run_config("qwen3-8b")
     model = build_model(run.model, run, device="cpu",
                         ctx=SC.ShardCtx(1, 1))
     pods = type("Pods", (), {"size": 2, "n_edge": 1})()
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        Trainer(model, run, pods=pods)
+    tr = Trainer(model, run, pods=pods)
+    assert tr.n_pods == 2 and tr.scheduler.n_pods == 2
+    two_tier = type("Pods", (), {"size": 4, "n_edge": 2})()
+    with pytest.raises(NotImplementedError, match="Queue 1, item 3b"):
+        Trainer(model, run, pods=two_tier)
     run = dataclasses.replace(run, ckpt_every=5, ckpt_dir=str(tmp_path))
     loop = TrainLoop(model, run)
     assert loop.ckpt.mesh.layout == loop.trainer.state_layout

@@ -3,6 +3,7 @@ reference (see ``tests/torch_mesh_train_ref.py``, the shared body and
 its tolerances): each rank's local sizes and default plan, the sync
 round on its shards, and the step kinds' losses, grad norms and state
 shards, for SMOKE qwen3-8b, gemma2-9b, qwen3-moe-30b-a3b and dbrx-132b."""
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import pytest
 
 from torch_mesh_train_ranks import KIND_SEQS

@@ -29,6 +29,7 @@ Tolerances, stated per test:
   the port would have made otherwise lies within twice that of a tie.
   In f32 nothing is forced: the routes agree.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import contextlib
 import dataclasses
 import math

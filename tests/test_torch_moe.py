@@ -22,6 +22,7 @@ Fe 32; dbrx: 4 experts top-2, D 64, Fe 96).
   ``BF16_REL`` = 3e-2 in relative norm (tests/test_torch_models.py's).
 * ``load_balance_loss``: within 1e-6.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import dataclasses
 
 import jax

@@ -60,6 +60,7 @@ Checked, with their tolerances:
   forced in both packages (``ring_chunks=2``), at P = 2 and 3, with the
   tolerances above.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import dataclasses
 import json
 import os

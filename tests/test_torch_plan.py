@@ -9,6 +9,7 @@ are identical.  Importance scores (a few small f32 matmuls, whose
 reduction order differs between XLA and PyTorch) agree to 1e-6 absolute;
 the plans the device solver derives from the same scores are identical.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -24,6 +24,7 @@ Tolerances, stated per test:
 * teacher-forced decode against the forward: the reference test's
   rtol = atol = 0.15.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import dataclasses
 import json
 import os

@@ -12,6 +12,7 @@ Tolerances: f32, every input's gradient within ``GRAD_REL`` = 1e-5 of
 that gradient's largest magnitude (the two scan in other orders, which
 moves f32 results by ~3e-7).
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

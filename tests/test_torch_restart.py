@@ -39,6 +39,7 @@ reference, and the train CLI's resume.
   step-6 checkpoints byte for byte; the switch (``RunConfig.
   deterministic``) is applied before the model is built.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import dataclasses
 import json
 import os

@@ -27,6 +27,7 @@ on a (P, 1, 1) CPU mesh.
   states for the one-shot fold) and SIGN1 as above.  Residuals are bit for
   bit everywhere but SIGN1.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import json
 import os
 import subprocess

@@ -8,6 +8,7 @@ the refused prompt length, serving's default device and ``init_model``'s
 leaf-by-leaf draws.  The shared bodies and their tolerances:
 ``tests/torch_serve_ref.py``; the other families:
 ``tests/test_torch_serve_{moe,recurrent,frontend}.py``."""
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import json
 import os
 import subprocess

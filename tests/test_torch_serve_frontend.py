@@ -5,6 +5,7 @@ llava-next-mistral-7b), fed seeded non-zero frames / patch embeddings:
 ``Server`` against the reference's model-level calls, the cross K/V
 cache, the VLM's decode after its patches (R8) and the CLI.  The shared
 bodies and their tolerances: ``tests/torch_serve_ref.py``."""
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import json
 import os
 import subprocess

@@ -5,6 +5,7 @@ decode against one forward at the capacity factor E / K, ``prefill`` /
 as the reference routed), the CLI on the CPU and by default on the
 card, ``init_model``'s draws.  The shared bodies and their tolerances:
 ``tests/torch_serve_ref.py``."""
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import dataclasses
 import json
 import os

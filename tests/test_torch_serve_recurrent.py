@@ -3,6 +3,7 @@ the recurrent families (SMOKE falcon-mamba-7b, recurrentgemma-2b):
 ``prefill`` / ``decode_step`` logits and caches per step and the
 ``Server`` against the reference.  The shared bodies and their
 tolerances: ``tests/torch_serve_ref.py``."""
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import pytest
 
 from test_torch_models import RECURRENT

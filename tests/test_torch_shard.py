@@ -35,6 +35,7 @@ and MoE models served on D x M meshes.
   tests/test_torch_mesh_recurrent*.py; the frontend families:
   tests/test_torch_mesh_frontend*.py).
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import dataclasses
 import json
 import os
@@ -427,7 +428,7 @@ def test_training_under_a_mesh_raises():
     """Every family trains under a mesh (the VLM, the dense stack behind
     its vision stub, since ROADMAP Queue 1 item 2b: its forward takes the
     patches under a (1, 1) context and differentiates); what raises is a
-    Trainer of pods x that mesh (item 3)."""
+    Trainer of a two-tier fleet of such meshes (item 3b)."""
     from repro_torch.core.trainer import Trainer
     from repro_torch.models.transformer import DenseTransformer
     cfg = SMOKE_ARCHS["llava-next-mistral-7b"]
@@ -435,6 +436,6 @@ def test_training_under_a_mesh_raises():
     patches = torch.ones((2, cfg.n_patches, cfg.d_model))
     x = model(torch.zeros((2, 8), dtype=torch.int32), patch_embs=patches)
     assert x.shape == (2, cfg.n_patches + 8, cfg.d_model) and x.requires_grad
-    pods = type("Pods", (), {"size": 2, "n_edge": 1})()
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
+    pods = type("Pods", (), {"size": 4, "n_edge": 2})()
+    with pytest.raises(NotImplementedError, match="Queue 1, item 3b"):
         Trainer(model, None, pods=pods)

@@ -9,6 +9,7 @@ the SIGN1 rung, whose per-block scale may differ by at most 8 ulp (XLA
 sums ``mean|ef|`` in another order); there the aggregate and the residual
 may differ by at most 8 ulp of the block scale.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -5,6 +5,7 @@ recompute, the sync groups and default plan, the Trainer's step kinds
 (gemma2-9b, qwen3-8b), sessions and the CLI.  The body and its
 tolerances: ``tests/torch_train_zoo_ref.py``; the other families:
 ``tests/test_torch_train_zoo_{moe,recurrent,frontend}.py``."""
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import pytest
 
 from test_torch_models import DENSE

@@ -5,6 +5,7 @@ embeddings — gradients in f32 and bf16, the sync groups and default
 plan, the Trainer's step kinds, sessions, the CLI, and the pipeline's
 float inputs per pod against the reference's.  The body and its
 tolerances: ``tests/torch_train_zoo_ref.py``."""
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import pytest
 
 from test_torch_models import FRONTEND

@@ -4,6 +4,7 @@ in bf16 (routed as the reference routed), the loss's per-chunk
 recompute, the sync groups and default plan, the Trainer's step kinds
 (f32), sessions, the CLI, and the sync round's row chunks bit for bit.
 The body and its tolerances: ``tests/torch_train_zoo_ref.py``."""
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import pytest
 
 from test_torch_models import MOE

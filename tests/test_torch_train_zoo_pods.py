@@ -22,6 +22,7 @@ Checked, with their tolerances:
 * the bytes each pod gathered in the ``delta_sync`` and in the
   ``grad_sync`` equal ``plan_wire_bytes`` of the plan's gather rungs.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import dataclasses
 import json
 import os

@@ -3,6 +3,7 @@ reference on the CPU: SMOKE falcon-mamba-7b and recurrentgemma-2b —
 gradients in f32 and bf16, the sync groups and default plan, the
 Trainer's step kinds, sessions and the CLI.  The body and its
 tolerances: ``tests/torch_train_zoo_ref.py``."""
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import pytest
 
 from test_torch_models import RECURRENT

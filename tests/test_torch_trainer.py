@@ -11,6 +11,7 @@ frameworks (and the port's attention is SDPA), so losses agree to 2e-2
 relative, and each gradient leaf has cosine similarity above 0.999 with
 the reference's.
 """
+from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import jax
 import jax.numpy as jnp
 import numpy as np
