@@ -4,8 +4,8 @@ NVIDIA GPU: the quickest proof that the port builds, is right, trains
 (paper-350m and the model zoo) and serves (the dense, MoE and recurrent
 families, the encoder-decoder and the VLM; every family also on a
 ("data", "model") mesh, across four cards where there are four, and
-checkpoints and resumes on a mesh; P pods of such meshes train and
-checkpoint).
+checkpoints and resumes on a mesh; P pods of such meshes, and a two-tier
+fleet of them, train and checkpoint).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 17b,18b,19b,20b,21b,22b   # four cards
@@ -114,8 +114,8 @@ Phases (any failure exits nonzero before the result lines):
    counters bit-identical to run A's.  Prints the bytes per checkpoint,
    save()'s foreground seconds, the background write's seconds and
    rate, and the restore's seconds.  9b, elastic membership: three pod
-   processes sharing the card at 4 layers (6 until phase 19 joined the
-   script), global batch 6, the default
+   processes sharing the card at 2 layers (6 until phase 19 joined the
+   script, 4 until phase 23 did), global batch 6, the default
    ``ACESyncConfig`` with ``replan_every`` 4, ``ckpt_every`` 5, 12
    steps, pod 2 preempted at step 4 and back at step 8: the membership
    events [2, 3] at steps 4 and 8, the global batch 6 -> 4 -> 6, right
@@ -424,7 +424,8 @@ Phases (any failure exits nonzero before the result lines):
    pod's mesh and the pod group of the ranks at its (d, m)
    (``launch.mesh.split_fleet_mesh``).  (a) one spawn of four processes
    sharing the card over gloo: P = 2 pods x (1, 2) of paper-350m at full
-   width and 4 layers, global batch 8 x 1024, ``acesync`` with
+   width and 2 layers (4 until phase 23 joined the script), global batch
+   8 x 1024, ``acesync`` with
    ``replan_every`` 4, 8 loop steps (a checkpoint at step 4), then an
    all-rungs ``grad_sync`` one-shot and one ringed in 2 chunks; the
    fleet's state freed, mesh rank 0 of each pod restores the step-4
@@ -443,7 +444,29 @@ Phases (any failure exits nonzero before the result lines):
    card a rank, at ``launch.memory.mesh_train_depth``'s depth for
    (1, 2) at ``FLEET_BYTES_PER_PARAM``, batch 8 x 1024, gates 1-4 and
    6, the same prints.  On fewer cards (b) prints one line and is not
-   run.
+   run;
+23. a two-tier fleet of ("data", "model") meshes: C clusters x E members,
+   each member a (D, M) mesh, one process per rank (world rank
+   (c * E + e) * D * M + d * M + m), each (d, m)'s fleet group split into
+   its ``intra`` and ``cross`` sub-groups (``split_fleet_mesh(...,
+   n_edge=E)``).  (a) one spawn of eight processes sharing the card over
+   gloo: C = 2 x E = 2 members x (1, 2) of paper-350m at full width and 2
+   layers, global batch 8 x 1024, ``acesync_hier`` over 16 edge devices
+   with ``sync_interval_init`` and ``replan_every`` 3 (the loop's
+   clustering re-clusters at each replan), 7 loop steps (a checkpoint at
+   step 4), then all-rungs ``grad_sync`` rounds with the two-tier rungs
+   at the INT8 intra stage, the cross tier one-shot and ringed in 2
+   chunks, and one flat over the four members; mesh rank 0 of each
+   member restores the step-4 checkpoint as a 2 x 2 hierarchical fleet of
+   one-card members.  Phase 22's gates, with (1) against the two-tier
+   ``sync_tree`` over each (d, m)'s groups, (3) the bytes of the cross
+   tier (the fleet group's flat rungs and the ``cross`` sub-group's) and
+   of the ``intra`` sub-group equal to the priced bytes of the local
+   layout, (4) also the tier grid and the clusters identical on every
+   rank and the clustering updated at the replans, and (6) K1-K6 and
+   K8-K13 on every rank.  Prints phase 22's lines with the bytes and host
+   seconds of every tier.  No four-card part: eight ranks on four cards
+   would put two ranks of one NCCL communicator on one card.
 
 Output: progress lines with each phase's seconds, the pod link's latency
 and rate, then the ``nvidia-smi`` line, the kernels' JSON line (each
@@ -459,7 +482,8 @@ training runs, all ranks; ``mesh_rec_b_...`` for (b)) and
 ``mesh_rec_serve`` (phase 20 (a)'s serving, none),
 ``mesh_front_<arch>_<D>x<M>`` / ``mesh_front_b_...`` /
 ``mesh_front_serve`` (phase 21's, likewise), ``fleet_mesh`` (phase
-22 (a), all ranks; ``fleet_mesh_b`` for (b)), each counted from 0
+22 (a), all ranks; ``fleet_mesh_b`` for (b)), ``fleet_hier_mesh``
+(phase 23 (a), all ranks), each counted from 0
 just before its run; phases 10, 11, 13, 15 and 17 launch none;
 K16's ``library_ms``
 is ``torch.mul(q, s)``'s time; ``paths`` gives each path's pods, members
@@ -560,9 +584,10 @@ RESTART = {"pods": 1, "batch": 8, "steps": 10, "ckpt_every": 4,
 #: phase 9b: elastic membership, P = 3 pod processes sharing the card
 #: (three full-depth pods and their checkpoint copies do not fit; 12
 #: layers, 85 s, until phase 18 joined the script: 6; 4 since phase 19
-#: joined it), pod 2 preempted at step 4 and back at step 8
+#: joined it; 2 since phase 23 did), pod 2 preempted at step 4 and back
+#: at step 8
 ELASTIC = {"pods": 3, "batch": 6, "steps": 12, "ckpt_every": 5,
-           "n_layers": 4, "kill": 4, "rejoin": 8, "killed": 2}
+           "n_layers": 2, "kill": 4, "rejoin": 8, "killed": 2}
 
 
 def fail(msg: str):
@@ -4312,7 +4337,10 @@ def checked_sync(torch, T, S, current, record):
     pod-only round over it, and the record holds the bytes the trainer's
     round moved over the group beside the priced ones (``tier_priced``:
     gather + ring, FULL, the plan's payload and FULL bytes, FULL's
-    padding bound)."""
+    padding bound); on a two-tier fleet (``pods.n_edge`` > 1) the cross
+    tier's bytes are those of the group and its ``cross`` sub-group, and
+    the record's "intra" holds the ``intra`` sub-group's beside the priced
+    intra bytes and their padding bound."""
     real = S.sync_tree
 
     def leaf_hashes(ts):
@@ -4349,13 +4377,18 @@ def checked_sync(torch, T, S, current, record):
         entry = {"kind": current["kind"], "leaves": len(got),
                  "differ": sum(a != b for a, b in zip(got, want))}
         if pods is not None and pods.size > 1:
-            new = [x for x in pods.log[since:] if x["tier"] == pods.tier]
-            pay, full, _, pad, _ = tier_priced(plan, pods.size, 1)
+            new = [x for x in pods.log[since:]
+                   if x["tier"] in (pods.tier, "cross")]
+            pay, full, intra, pad, ipad = tier_priced(plan, pods.size,
+                                                      pods.n_edge)
             entry["bytes"] = (
                 sum(x["bytes"] for x in new if x["op"] in ("gather",
                                                            "ring")),
                 sum(x["bytes"] for x in new if x["op"] == "full"), pay,
                 full, pad)
+            if pods.n_edge > 1:
+                entry["intra"] = (sum(x["bytes"] for x in pods.log[since:]
+                                      if x["tier"] == "intra"), intra, ipad)
         record.append(entry)
         return out, new_err
     return sync_tree
@@ -4376,7 +4409,10 @@ def mesh_train_path(ctx, spec, session=None, stops=(), on_step=None):
     all-rungs round puts the levels ``spec["rungs"]`` on the groups
     (round robin where not given) and runs once under the trainer's own
     exec plan or, with ``spec["rings"]``, once per ring setting (-1:
-    one-shot, K: K chunks)."""
+    one-shot, K: K chunks), or with ``spec["rounds"]`` once per (tier
+    grid, ring setting) pair on a two-tier fleet (the tier grid as
+    ``planexec.hier_override`` takes it: -1 flat, 1 / 2 two-tier with the
+    bf16 / INT8 intra stage)."""
     import numpy as np
     import torch
     from repro_torch import tree as T
@@ -4445,14 +4481,19 @@ def mesh_train_path(ctx, spec, session=None, stops=(), on_step=None):
     rr = tr.scheduler.plan_from_levels(
         list(spec.get("rungs") or (i % 8 for i in range(len(tr.sizes)))),
         (1.0,) if tr.n_pods == 1 else sess.loop.plan.omega)
-    for ring in spec.get("rings", (None,)):
+    rounds = spec.get("rounds") or [(None, r)
+                                     for r in spec.get("rings", (None,))]
+    for hier, ring in rounds:
         plan, kind = rr, "grad_sync_all_rungs"
         if ring is not None:
             plan = planexec.build_exec_plan(
                 rr, layout=tr.leaf_layout, n_pods=tr.n_pods, ring=ring,
+                n_edge=tr.n_edge, hier=hier,
                 segments=planexec.config_segments(
                     sess.run_config.acesync), device=ctx.device)
             kind += f"_k{max(ring, 0)}"
+            if hier is not None:
+                kind += "_flat" if hier < 0 else f"_intra{hier}"
         state, m = tr.step(state, next(sess.pipeline), plan, "grad_sync")
         extra.append((kind, m))
     torch.cuda.synchronize()
@@ -5989,11 +6030,12 @@ def mesh_front_phase(torch, card, fleet) -> dict:
 # ---------------------------------------------------------------------------
 
 #: 22(a): P = 2 pods, each a (1, 2) mesh, the four ranks sharing the card
-#: over gloo: paper-350m at full width and 4 layers, global batch 8 x
+#: over gloo: paper-350m at full width and 2 layers (4 until phase 23
+#: joined the script), global batch 8 x
 #: 1024, ``acesync`` with ``replan_every`` 4, 8 loop steps, a checkpoint at
 #: step 4 (``ckpt_every`` 4), then an all-rungs grad_sync one-shot and one
 #: ringed in 2 chunks (the flat encoders K12-K15)
-FLEET_MESH_A = {"arch": "paper-350m", "n_layers": 4, "pods": 2,
+FLEET_MESH_A = {"arch": "paper-350m", "n_layers": 2, "pods": 2,
                 "mesh": (1, 2), "shape": (8, 1024), "steps": 8,
                 "ckpt_every": 4, "restore": 4, "loop_grad_sync": False,
                 "rungs": ALL_RUNGS, "rings": (-1, 2)}
@@ -6014,17 +6056,20 @@ FLEET_KERNELS = (tuple(KERNELS) + tuple(DECODE)[:4]
 
 
 def fleet_mesh_path(world, spec):
-    """Phase 22, one rank of P pods of (D, M) meshes (world rank
-    p * D * M + d * M + m): phase 18's rank (:func:`mesh_train_path`) on
-    a TrainSession of its pod's mesh and its (d, m)'s pod group, whose
-    checked rounds are the pod-only ``sync_tree`` over that group (gate
-    1) and record its bytes beside the priced ones (gate 3); each step's
-    H, levels and omega, and the parameter shards' hashes after each
+    """Phases 22 and 23, one rank of P pods of (D, M) meshes (world rank
+    p * D * M + d * M + m; with ``spec["edge"]`` = E > 1 the pods are a
+    two-tier fleet of P / E clusters, p = c * E + e): phase 18's rank
+    (:func:`mesh_train_path`) on a TrainSession of its pod's mesh and its
+    (d, m)'s pod group, whose checked rounds are the pod-only (two-tier)
+    ``sync_tree`` over that group (gate 1) and record its bytes per tier
+    beside the priced ones (gate 3); each step's H, levels, tier grid,
+    omega and clusters, and the parameter shards' hashes after each
     delta_sync (gate 2: the pods' moments differ, so a grad_sync's AdamW
     does not give the same parameters); with ``spec["restore"]``, the
     state's shard hashes at that step's save, then, the fleet's state
     freed, mesh rank 0 of each pod restores that checkpoint as one pod of
-    a fleet of P whole-model processes (gate 5)."""
+    a fleet of P whole-model processes (gate 5; hierarchical, C x E, on a
+    two-tier fleet)."""
     import gc
     import torch
     import torch.distributed as dist
@@ -6032,21 +6077,27 @@ def fleet_mesh_path(world, spec):
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.core import sync as S
     from repro_torch.core.trainer import Trainer
-    from repro_torch.launch.mesh import split_fleet_mesh
+    from repro_torch.launch.mesh import PodGroup, split_fleet_mesh
     from repro_torch.launch.session import TrainSession
     from repro_torch.models.registry import build_model
-    P, (D, M) = spec["pods"], spec["mesh"]
-    ctx, pods = split_fleet_mesh(world, P, D, M)
+    P, (D, M), E = spec["pods"], spec["mesh"], spec.get("edge", 1)
+    strategy = spec.get("strategy", "acesync")
+    ctx, pods = split_fleet_mesh(world, P, D, M, n_edge=E)
     cfg, run = mesh_train_config(spec["arch"], spec["n_layers"],
-                                 *spec["shape"])
-    run = dataclasses.replace(run, ckpt_every=spec["ckpt_every"],
-                              ckpt_dir=spec["dir"])
+                                 *spec["shape"], H=spec.get("H"))
+    run = dataclasses.replace(
+        run, ckpt_every=spec["ckpt_every"], ckpt_dir=spec["dir"],
+        acesync=dataclasses.replace(run.acesync, replan_every=spec.get(
+            "replan_every", run.acesync.replan_every)))
     steps, saved = [], {}
 
     def on_step(sess, res, plan, kind):
         omega = plan.omega
         rec = {"step": sess.loop._host_step, "kind": kind, "H": sess.loop._H,
                "levels": list(getattr(plan, "level_idx", ())),
+               "hier": list(getattr(plan, "hier", None) or ()),
+               "clusters": list(sess.loop.clusters.assignments or ()),
+               "updates": sess.loop.clusters.updates,
                "omega": [float(w) for w in (omega.tolist()
                                             if torch.is_tensor(omega)
                                             else omega)]}
@@ -6074,17 +6125,17 @@ def fleet_mesh_path(world, spec):
             ctx, spec, stops=((0, hash_saves),), on_step=on_step,
             session=lambda: TrainSession(
                 build_model(cfg, run, device=ctx.device, ctx=ctx), run,
-                strategy="acesync", pods=pods))
+                strategy=strategy, pods=pods,
+                n_edge_devices=spec.get("edge_devices", 8)))
     finally:
         S.sync_tree = plain
-    pod = [x for x in pods.log if x["tier"] == "pod"]
+    tiers = {}
+    for x in pods.log:
+        b, sec = tiers.get(x["tier"], (0, 0.0))
+        tiers[x["tier"]] = (b + x["bytes"], sec + x["seconds"])
     out.update(rank=world.rank, pod=pods.rank, coords=(ctx.d, ctx.m),
                steps=steps, layers=cfg.n_layers,
-               width=(cfg.d_model, cfg.vocab_size),
-               pod_bytes=sum(x["bytes"] for x in pod),
-               pod_s=sum(x["seconds"] for x in pod),
-               mesh_bytes=sum(x["bytes"] for x in pods.log
-                              if x["tier"] != "pod"))
+               width=(cfg.d_model, cfg.vocab_size), tiers=tiers)
     gc.collect()
     torch.cuda.empty_cache()
     if spec.get("restore"):
@@ -6093,11 +6144,15 @@ def fleet_mesh_path(world, spec):
         every = [None] * world.size
         dist.all_gather_object(every, saved.get("shards"),
                                group=world.host_pg)
-        sub = world.regroup([p * D * M for p in range(P)])
+        members = [p * D * M for p in range(P)]
+        sub = world.regroup(members)
+        # a two-tier fleet's tier groups: every process creates them
+        (sub or PodGroup(0, P, world.device, world.backend,
+                         ranks=members)).split_tiers(E)
         if sub is not None:
             t2 = time.perf_counter()
             model = build_model(cfg, run, device=ctx.device)
-            one = Trainer(model, run, strategy="acesync", pods=sub)
+            one = Trainer(model, run, strategy=strategy, pods=sub)
             restored, _ = Checkpointer(spec["dir"], pods=sub).restore(
                 one.init_state(run.seed), step=spec["restore"])
             torch.cuda.synchronize()
@@ -6108,7 +6163,8 @@ def fleet_mesh_path(world, spec):
                     torch, x[sh[i][1]])) != sh[i][0]]
             out["restored"] = {"seconds": time.perf_counter() - t2,
                                "bad": bad, "leaves": len(mine[0]),
-                               "step": int(restored["step"])}
+                               "step": int(restored["step"]),
+                               "n_edge": one.n_edge}
             del restored, one, model
             gc.collect()
             torch.cuda.empty_cache()
@@ -6117,13 +6173,15 @@ def fleet_mesh_path(world, spec):
 
 
 def check_fleet_mesh(tag, card, spec, res, cards=1) -> dict:
-    """Phase 22's gates on the ranks' results and their lines; returns
-    the kernels' launches summed over the ranks."""
+    """Phases 22's and 23's gates on the ranks' results and their lines;
+    returns the kernels' launches summed over the ranks."""
     from repro_torch.models import flops
-    P, (D, M) = spec["pods"], spec["mesh"]
-    name = f"{spec['arch']} ({spec['n_layers']} layers) on P = {P} x {(D, M)}"
+    P, (D, M), E = spec["pods"], spec["mesh"], spec.get("edge", 1)
+    fleet = f"P = {P}" if E == 1 else f"C = {P // E} x E = {E}"
+    name = f"{spec['arch']} ({spec['n_layers']} layers) on {fleet} x {(D, M)}"
+    kernels = spec.get("kernels", FLEET_KERNELS)
     r0 = res[0]
-    keys = ("step", "kind", "H", "levels", "omega")
+    keys = ("step", "kind", "H", "levels", "hier", "omega", "clusters")
     for r in res:
         if not r["finite"] or not all(math.isfinite(x) for x in r["losses"]):
             fail(f"{tag}: {name} rank {r['rank']}: non-finite losses "
@@ -6133,21 +6191,27 @@ def check_fleet_mesh(tag, card, spec, res, cards=1) -> dict:
         if bad or not r["sync"]:
             fail(f"{tag}: {name} rank {r['rank']}: sync rounds not the pod "
                  f"round on the rank's shards: {bad or 'none run'}")
-        # gate 3: each (d, m)'s bytes
+        # gate 3: each (d, m)'s bytes per tier
         for x in r["sync"]:
             got_pay, got_full, pay, full, pad = x["bytes"]
             if got_pay != pay or not (got_full == full
                                       or 0 <= got_full - full < pad):
                 fail(f"{tag}: {name} rank {r['rank']}: {x['kind']} moved "
                      f"{got_pay} B (gather + ring) and {got_full} B FULL "
-                     f"over its pod group; plan_wire_bytes {pay}, "
-                     f"FullCodec.wire_bytes {full} (+{pad})")
-        # gate 4: H, the plan, omega and the losses on every rank
+                     f"over its cross tier; priced {pay}, FULL {full} "
+                     f"(+{pad})")
+            got, want, ipad = x.get("intra", (0, 0, 0))
+            if not (got == want or 0 <= got - want < ipad):
+                fail(f"{tag}: {name} rank {r['rank']}: {x['kind']} moved "
+                     f"{got} B over its intra tier, priced {want} "
+                     f"(+{ipad})")
+        # gate 4: H, the plan, its tier grid, omega, the clusters and the
+        # losses on every rank
         if ([{k: s[k] for k in keys} for s in r["steps"]]
                 != [{k: s[k] for k in keys} for s in r0["steps"]]
                 or r["losses"] != r0["losses"]):
-            fail(f"{tag}: {name} rank {r['rank']}: H, plan, omega or "
-                 f"losses differ from rank 0's")
+            fail(f"{tag}: {name} rank {r['rank']}: H, plan, tier grid, "
+                 f"omega, clusters or losses differ from rank 0's")
         # gate 2: the shards bit-identical across the pods after each
         # delta_sync
         mate = res[r["rank"] % (D * M)]
@@ -6156,35 +6220,46 @@ def check_fleet_mesh(tag, card, spec, res, cards=1) -> dict:
                 fail(f"{tag}: {name} rank {r['rank']}: parameter shards "
                      f"differ from pod 0's after the {a['kind']} of step "
                      f"{a['step']}")
-        # gate 6: K1-K8 and K12-K15 on every rank
-        missing = [k for k in FLEET_KERNELS if r["launches"].get(k, 0) < 1]
+        # gate 6: the path's kernels on every rank
+        missing = [k for k in kernels if r["launches"].get(k, 0) < 1]
         if missing:
             fail(f"{tag}: {name} rank {r['rank']}: kernels never "
                  f"launched: {missing}")
+    syncs = sum(1 for s in r0["steps"] if s["kind"] == "delta_sync")
+    if E > 1 and (not syncs or not any(r0["steps"][0]["hier"])
+                  or len({s["updates"] for s in r0["steps"]}) < 2):
+        fail(f"{tag}: {name}: {syncs} delta_syncs, tier grid "
+             f"{r0['steps'][0]['hier']}, clustering updates "
+             f"{[s['updates'] for s in r0['steps']]}: no two-tier sync or "
+             f"no re-clustering")
     # gate 5: the restore as P pods x one card
+    target = f"{P} pods x one card" if E == 1 else (
+        f"a {P // E} x {E} hierarchical fleet of one-card members")
     if spec.get("restore"):
         done = [r["restored"] for r in res if r.get("restored")]
         if len(done) != P or any(x["bad"] or x["step"] != spec["restore"]
-                                 for x in done):
+                                 or x.get("n_edge", 1) != E for x in done):
             fail(f"{tag}: {name}: the step-{spec['restore']} checkpoint "
-                 f"restored as {P} pods x one card differs from the "
-                 f"shards written: {done}")
+                 f"restored as {target} differs from the shards written: "
+                 f"{done}")
         log(f"{tag}: {name}: the step-{spec['restore']} checkpoint restored "
-            f"as {P} pods x one card, {done[0]['leaves']} leaves, every "
-            f"rank's shards bit for bit; "
-            f"{[round(x['seconds'], 3) for x in done]} s [{card}]")
-    syncs = sum(1 for s in r0["steps"] if s["kind"] == "delta_sync")
+            f"as {target}, {done[0]['leaves']} leaves, every rank's shards "
+            f"bit for bit; {[round(x['seconds'], 3) for x in done]} s "
+            f"[{card}]")
     log(f"{tag}: {name} over {r0['backend']}: kinds "
         f"{r0['kinds']}, H {[s['H'] for s in r0['steps']]}"
         f", losses {[round(x, 4) for x in r0['losses']]}, "
-        f"{r0['replans']} device replan(s), identical on all "
+        f"{r0['replans']} device replan(s), tier grids "
+        f"{[s['hier'] for s in r0['steps'] if s['kind'] == 'delta_sync']}, "
+        f"clusters {r0['steps'][-1]['clusters']} after "
+        f"{r0['steps'][-1]['updates']} updates, identical on all "
         f"{len(res)} ranks; {syncs} delta_syncs, every shard "
         f"bit-identical across the pods after each; "
         f"{sum(len(r['sync']) for r in res)} "
         f"rounds bit-identical to the pod-only sync_tree on each rank's "
-        f"shards; pod-tier bytes = plan_wire_bytes of each (d, m)'s local "
-        f"layout; K1-K8, K12-K15 launched per rank "
-        f"{[[r['launches'].get(k, 0) for k in FLEET_KERNELS] for r in res]}")
+        f"shards; bytes per tier = the priced bytes of each (d, m)'s local "
+        f"layout; {', '.join(kernels)} launched per rank "
+        f"{[[r['launches'].get(k, 0) for k in kernels] for r in res]}")
     for r in res:
         line = []
         for kind, xs in r["ms"].items():
@@ -6192,43 +6267,54 @@ def check_fleet_mesh(tag, card, spec, res, cards=1) -> dict:
             line.append(f"{kind} {med:.3f} ({lo:.3f}-{hi:.3f})")
         med = _spread(r["ms"]["local"])[0]
         mfu = flops.mfu(r["model_flops"], med * 1e-3, cards=len(res))
-        rate = r["pod_bytes"] / r["pod_s"] if r["pod_s"] else float("nan")
+        tiers = "; ".join(
+            f"{t} {b:,} B in {sec:.3f} s ({b / sec if sec else math.nan:.6g}"
+            f" B/s)" for t, (b, sec) in sorted(r["tiers"].items()))
         log(f"{tag}: {name}, rank {r['rank']} (pod {r['pod']}, (d, m) "
             f"{tuple(r['coords'])}) on {card}: {r['n_params']:,} "
             f"parameters, state {r['state_bytes']:,} B, init "
             f"{r['init_s']:.2f} s, trained in {r['train_s']:.2f} s; step "
             f"ms median (min-max): {'; '.join(line)}; local MFU {mfu:.6g} "
-            f"over {len(res)} x 989 TFLOP/s; pod tier {r['pod_bytes']:,} B "
-            f"in {r['pod_s']:.3f} s of host time ({rate:.6g} B/s), mesh "
-            f"tiers {r['mesh_bytes']:,} B; peak "
+            f"over {len(res)} x 989 TFLOP/s; bytes received and host time "
+            f"per tier: {tiers}; peak "
             f"{r['peak_alloc'] / 2**30:.3f} GiB allocated "
             f"({r['peak_alloc'] / r['n_params']:.2f} B per parameter)")
     return {k: sum(r["launches"].get(k, 0) for r in res)
             for k in r0["launches"]}
 
 
-def fleet_mesh_phase(torch, card) -> dict:
-    """Phase 22: (a) P = 2 pods x (1, 2) of paper-350m, the four ranks
-    sharing the card over gloo (one spawn), gates 1-6; (b) with four
-    cards.  Returns the kernels' launches per path."""
+def fleet_mesh_one_card(torch, card, tag, spec) -> dict:
+    """The one-card part of phase 22 or 23: ``spec``'s fleet of meshes,
+    its ranks sharing the card over gloo (one spawn), gates 1-6.  Returns
+    the kernels' launches summed over the ranks."""
     import gc
     from repro_torch.launch.mesh import spawn_pods
-    tag = "phase 22 (a)"
-    spec = dict(FLEET_MESH_A, dir=str(CKPT_ROOT / "fleet_mesh"))
-    # the loop's checkpoints at steps 4 and 8, each P rows
+    # the loop's checkpoints (phase 22's at steps 4 and 8), each P rows
     _disk_check(tag, spec["n_layers"], 2 * spec["pods"])
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     try:
-        res = spawn_pods(fleet_mesh_path, spec["pods"] * 2, "cuda",
-                         args=(spec,), timeout=600)
+        res = spawn_pods(fleet_mesh_path, spec["pods"] * spec["mesh"][0]
+                         * spec["mesh"][1], "cuda", args=(spec,),
+                         timeout=600)
     finally:
         shutil.rmtree(spec["dir"], ignore_errors=True)
-    if res[0]["width"] != (1024, 50304) or res[0]["layers"] != 4:
+    if (res[0]["width"] != (1024, 50304)
+            or res[0]["layers"] != spec["n_layers"]):
         fail(f"{tag}: ran {res[0]['layers']} layers at {res[0]['width']}")
-    launches = {"fleet_mesh": check_fleet_mesh(tag, card, spec, res)}
+    launches = check_fleet_mesh(tag, card, spec, res)
     log(f"{tag}: wall {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
+def fleet_mesh_phase(torch, card) -> dict:
+    """Phase 22: (a) P = 2 pods x (1, 2) of paper-350m, the four ranks
+    sharing the card over gloo (one spawn), gates 1-6; (b) with four
+    cards.  Returns the kernels' launches per path."""
+    launches = {"fleet_mesh": fleet_mesh_one_card(
+        torch, card, "phase 22 (a)",
+        dict(FLEET_MESH_A, dir=str(CKPT_ROOT / "fleet_mesh")))}
     launches.update(fleet_mesh_big_phase(torch))
     return launches
 
@@ -6281,6 +6367,41 @@ def fleet_mesh_big_phase(torch) -> dict:
     out = {"fleet_mesh_b": check_fleet_mesh(tag, cards, spec, res, cards=4)}
     log(f"{tag}: wall {time.perf_counter() - t0:.2f} s")
     return out
+
+
+#: 23(a): a two-tier fleet of meshes, C = 2 clusters x E = 2 members, each
+#: member a (1, 2) mesh, the eight ranks sharing the card over gloo:
+#: paper-350m at full width and 2 layers, global batch 8 x 1024,
+#: ``acesync_hier`` over 16 edge devices, ``sync_interval_init`` 3 and
+#: ``replan_every`` 3 (the replans re-cluster), 7 loop steps with a
+#: checkpoint at step 4 (``ckpt_every`` 4), then all-rungs grad_syncs with
+#: the two-tier rungs at the INT8 intra stage and the cross tier one-shot
+#: and ringed in 2 chunks (the flat encoders K12-K13), and one flat over
+#: the four members (the fixed-point folds K9-K11); no four-card part:
+#: eight ranks on four cards would put two ranks of one NCCL communicator
+#: on one card
+FLEET_HIER_MESH_A = {"arch": "paper-350m", "n_layers": 2, "pods": 4,
+                     "edge": 2, "mesh": (1, 2), "shape": (8, 1024),
+                     "steps": 7, "H": 3, "replan_every": 3,
+                     "edge_devices": 16, "strategy": "acesync_hier",
+                     "ckpt_every": 4, "restore": 4, "loop_grad_sync": False,
+                     "rungs": ALL_RUNGS,
+                     "rounds": ((2, -1), (2, 2), (-1, -1))}
+#: the kernels every rank of 23(a) must launch: K1-K6, K8-K13 (phase 8's)
+FLEET_HIER_KERNELS = (tuple(KERNELS) + tuple(k for k in DECODE
+                                             if k != "sign_vote_accum")
+                      + ("quantize_int8", "ef_int4"))
+
+
+def fleet_hier_mesh_phase(torch, card) -> dict:
+    """Phase 23 (a): the two-tier fleet of meshes of ``FLEET_HIER_MESH_A``,
+    its eight ranks sharing the card over gloo (one spawn), phase 22's
+    rank code and gates 1-6 with the bytes of every tier, and the
+    re-clustering.  Returns the kernels' launches per path."""
+    return {"fleet_hier_mesh": fleet_mesh_one_card(
+        torch, card, "phase 23 (a)",
+        dict(FLEET_HIER_MESH_A, dir=str(CKPT_ROOT / "fleet_hier_mesh"),
+             kernels=FLEET_HIER_KERNELS))}
 
 
 #: the parts ``--phases`` can run alone (each needs four cards)
@@ -6390,6 +6511,8 @@ def main(argv=None) -> int:
                                fleet))
     del fleet
     by_path.update(timed_phase("phase 22", fleet_mesh_phase, torch, card))
+    by_path.update(timed_phase("phase 23", fleet_hier_mesh_phase, torch,
+                               card))
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     # the processes' start server and its resource tracker end with this
     # process; stop them before the result lines instead
@@ -6412,7 +6535,7 @@ def main(argv=None) -> int:
             # phase 8 (every member of the 2 x 2 fleet) + phase 9 (the
             # restart runs on one pod, every pod of the elastic run) +
             # phases 12, 14 and 16 (each trained model's process, phase
-            # 12's determinism runs) + phases 18-21 (every mesh rank)
+            # 12's determinism runs) + phases 18-23 (every mesh rank)
             "launches": sum(n.get(name, 0) for n in by_path.values()),
             "launches_by_path": {path: n.get(name, 0)
                                  for path, n in by_path.items()},
@@ -6468,11 +6591,13 @@ def main(argv=None) -> int:
     paths["mesh_front_serve"] = {"archs": MESH_FRONT_SERVE, "mesh": (1, 2),
                                  "launches": "none"}
     paths.update({p: {"arch": s["arch"], "pods": s["pods"],
-                      "mesh": s["mesh"], "layers": s.get("n_layers"),
+                      "edge": s.get("edge", 1), "mesh": s["mesh"],
+                      "layers": s.get("n_layers"),
                       "batch": s["shape"][0], "seq": s["shape"][1],
-                      "cards": 1 if p == "fleet_mesh" else 4}
+                      "cards": 4 if p == "fleet_mesh_b" else 1}
                   for p, s in (("fleet_mesh", FLEET_MESH_A),
-                               ("fleet_mesh_b", FLEET_MESH_B))
+                               ("fleet_mesh_b", FLEET_MESH_B),
+                               ("fleet_hier_mesh", FLEET_HIER_MESH_A))
                   if p in by_path})
     print(json.dumps({"kernels": kernels, "paths": paths,
                       "link": {k: link[k] for k in ("latency_s",

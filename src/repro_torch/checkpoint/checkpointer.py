@@ -50,8 +50,12 @@ fleet of meshes (both: ``pods`` the group of the P ranks at this rank's
 rank of pod p holding it: the checkpoint that P pod processes with one
 card each write for the same state, byte for byte; a restore reads its
 shard of row p mod P_saved, onto any fleet of meshes, a pod-only fleet
-or one card.  Its stages are agreed over the pod's mesh, then over the
-(d, m)'s pods, which reaches every rank.
+or one card.  On a two-tier fleet of meshes the pods are the C * E
+fleet slots p = c * E + e (the reference shards its replica dimension
+over ("pod", "edge")), so rank (c, e, d, m) writes its shard of row
+c * E + e: the files of C * E whole-model processes.  Its stages are
+agreed over the pod's mesh, then over the (d, m)'s pods, which reaches
+every rank.
 
 No process's state crosses a link: rank 0 of the group creates each
 ``leaf_<k>.npy`` at its global (P, ...) size, every process ``pwrite``s

@@ -29,7 +29,9 @@ reference's multi-pod state as it is, every leaf with its leading pod
 dimension, and returns pod ``pod``'s state (one per pod process; on a
 fleet of meshes each rank of pod ``pod`` takes its shards of that row).
 On a hierarchical fleet that dimension is the reference's pod-major fleet
-("pod", "edge"), and ``pod`` is the fleet slot c * n_edge + e.
+("pod", "edge"), and ``pod`` is the fleet slot c * n_edge + e (on a
+two-tier fleet of meshes too: :func:`reference_from_shards` with each
+rank's fleet slot assembles the C * E rows).
 """
 from __future__ import annotations
 

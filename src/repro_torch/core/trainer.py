@@ -55,8 +55,16 @@ pod-manual one; the sync round is the pod round on the rank's shards,
 its exchange over that group; ``param_avg`` weighs the rank's shards
 with its pod's omega.  The divergence projects the pod's global
 parameters (``divergence.project_params`` with the shards' places), so
-every rank of a pod runs the same H.  A two-tier fleet of meshes is not
-ported (ROADMAP Queue 1, item 3b).
+every rank of a pod runs the same H.
+
+A two-tier fleet of meshes (C clusters x E members, each member a D x M
+mesh; ``split_fleet_mesh(..., n_edge=E)``): ``pods`` is the group of the
+C * E members at this rank's (d, m), its rank the fleet slot c * E + e,
+with its ``intra`` and ``cross`` sub-groups.  ``n_pods`` = C * E and
+``n_edge`` = E come from it, so the scheduler prices the two-tier plan
+of the fleet, and the round runs the two-tier rungs over the sub-groups
+on the rank's shards, its tier grid laid out from the local sizes; the
+pod means and ``param_avg``'s weight span the C * E members, as above.
 """
 from __future__ import annotations
 
@@ -118,11 +126,6 @@ class Trainer:
         #: the model's ("data", "model") mesh (None: one card)
         self.ctx = getattr(model, "ctx", None)
         if self.ctx is not None:
-            if pods is not None and pods.n_edge > 1:
-                raise NotImplementedError(
-                    f"{model.cfg.name}: a two-tier fleet of ('data', "
-                    f"'model') meshes is not ported yet (ROADMAP Queue 1, "
-                    f"item 3b)")
             model.check_reference_shards()
         self.model = model
         self.run = run

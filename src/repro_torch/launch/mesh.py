@@ -89,6 +89,17 @@ manual region), sharing one byte log with the mesh groups.  Every rank
 creates every group in one order.  A membership change regroups each
 (d, m)'s pod group to the alive pods, every (d, m) alike
 (:meth:`PodGroup.regroup` over its ``siblings``).
+
+A two-tier fleet of such meshes (the reference's ("pod", "edge", "data",
+"model") mesh: C clusters x E members, each member a D x M mesh) is the
+same fleet of P = C * E pods, pod p = c * E + e, world rank
+p * D * M + d * M + m as ``make_mesh((C, E, D, M), ("pod", "edge",
+"data", "model"))`` orders its devices: ``split_fleet_mesh(...,
+n_edge=E)`` splits each (d, m)'s pod group into its ``intra`` and
+``cross`` sub-groups of global ranks (:meth:`PodGroup.split_tiers`), the
+reference's collectives over "edge" and "pod" at that (d, m).  Every rank
+creates the tier groups of every (d, m), in one order.  Its membership is
+fixed (the reference's two-tier fleet has no elastic membership).
 """
 from __future__ import annotations
 
@@ -217,10 +228,13 @@ class PodGroup:
 
     def split_tiers(self, n_edge: int) -> None:
         """Make this fleet of C = size / n_edge clusters hierarchical: the
-        ``intra`` group of the E members of its cluster (ranks c*E ..
+        ``intra`` group of the E members of its cluster (members c*E ..
         c*E+E-1) and the ``cross`` group of the C members with its edge
-        index (ranks e, E+e, ...).  Every rank creates every sub-group, in
-        the same order, including the groups it is not in."""
+        index (members e, E+e, ...), made of the members' global ranks
+        (``ranks``).  Every process creates every sub-group, in the same
+        order, including the groups it is not in: those of this group and
+        of each group parallel to it (``siblings``, on a fleet of meshes
+        the fleet groups of every (d, m)), sibling by sibling."""
         E = int(n_edge)
         if E < 1 or self.size % E:
             raise ValueError(f"{self.size} fleet members do not split into "
@@ -233,13 +247,15 @@ class PodGroup:
                     for c in range(C)]
                    + [("cross", [c * E + e for c in range(C)])
                       for e in range(E)])
-        for tier, ranks in layouts:
-            pg = dist.new_group(ranks)
-            if self.rank in ranks:
-                setattr(self, tier, PodGroup(
-                    ranks.index(self.rank), len(ranks), self.device,
-                    self.backend, tier=tier, pg=pg, ranks=ranks,
-                    log=self.log))
+        for off in self.siblings:
+            for tier, members in layouts:
+                ranks = [self.ranks[i] + off for i in members]
+                pg = dist.new_group(ranks)
+                if off == 0 and self.rank in members:
+                    setattr(self, tier, PodGroup(
+                        members.index(self.rank), len(ranks), self.device,
+                        self.backend, tier=tier, pg=pg, ranks=ranks,
+                        log=self.log))
 
     # ---- transport -------------------------------------------------------
     def _stage(self, u8: torch.Tensor) -> torch.Tensor:
@@ -733,14 +749,18 @@ def spawn_mesh(fn: Callable, D: int, M: int, device="cuda", args=(),
 # ---------------------------------------------------------------------------
 
 
-def split_fleet_mesh(world: PodGroup, P: int, D: int,
-                     M: int) -> Tuple[ShardCtx, PodGroup]:
+def split_fleet_mesh(world: PodGroup, P: int, D: int, M: int,
+                     n_edge: int = 1) -> Tuple[ShardCtx, PodGroup]:
     """This rank's place on P pods of D x M meshes (``world`` the group of
     all P * D * M ranks, rank p * D * M + d * M + m): its pod's
     :class:`ShardCtx` and the :class:`PodGroup` (tier "pod") of the P
     ranks at its (d, m), with its gloo ``host_pg`` and ``ckpt_pg``; every
-    group logs into ``world``'s byte log.  Every rank creates every
-    group, in one order: each pod's mesh, then each (d, m)'s pod group."""
+    group logs into ``world``'s byte log.  ``n_edge`` = E > 1 makes the P
+    pods a two-tier fleet of P / E clusters (pod p = c * E + e, the
+    reference's fleet slot): each (d, m)'s pod group gets its ``intra``
+    and ``cross`` sub-groups (:meth:`PodGroup.split_tiers`).  Every rank
+    creates every group, in one order: each pod's mesh, then each
+    (d, m)'s pod group, then each (d, m)'s tier groups."""
     n = D * M
     if P < 1 or n < 1 or world.size != P * n:
         raise ValueError(f"a ({P}, {D}, {M}) fleet needs {P * n} ranks, "
@@ -763,19 +783,21 @@ def split_fleet_mesh(world: PodGroup, P: int, D: int,
     # the other (d, m)'s pod groups: the same pods, ranks shifted
     pods.siblings = tuple(world.ranks[c] - world.ranks[cell]
                           for c in range(n))
+    pods.split_tiers(n_edge)
     return ctx, pods
 
 
-def _fleet_main(world, P, D, M, fn, *args):
-    return fn(*split_fleet_mesh(world, P, D, M), *args)
+def _fleet_main(world, P, D, M, n_edge, fn, *args):
+    return fn(*split_fleet_mesh(world, P, D, M, n_edge), *args)
 
 
 def spawn_fleet_mesh(fn: Callable, P: int, D: int, M: int, device="cuda",
-                     args=(), **kw) -> list:
+                     args=(), n_edge: int = 1, **kw) -> list:
     """Run ``fn(ctx, pods, *args)`` on P pods of D x M ("data", "model")
     meshes: P * D * M fresh processes (:func:`spawn_pods`, whose keywords
     ``kw`` takes), each with its pod's :class:`ShardCtx` and its (d, m)'s
-    pod group (:func:`split_fleet_mesh`); returns their results in world
-    rank order."""
+    pod group (:func:`split_fleet_mesh`; ``n_edge`` > 1: a two-tier fleet
+    of P / ``n_edge`` clusters); returns their results in world rank
+    order."""
     return spawn_pods(_fleet_main, P * D * M, device,
-                      args=(P, D, M, fn) + tuple(args), **kw)
+                      args=(P, D, M, n_edge, fn) + tuple(args), **kw)

@@ -23,7 +23,11 @@ keeps its block); every rank checkpoints and restores its shards (see
 :meth:`TrainSession.finish` are called on every rank.  With both (a
 rank of pods x ("data", "model"), see
 :func:`repro_torch.launch.mesh.spawn_fleet_mesh`: ``pods`` the pods at
-its (d, m)) every rank of pod p reads pod p's rows.
+its (d, m)) every rank of pod p reads pod p's rows; on a two-tier fleet
+of meshes (``spawn_fleet_mesh(..., n_edge=E)``) pod p is the fleet slot
+c * E + e, and the group carries ``n_edge`` and its tier sub-groups into
+the trainer, its scheduler and the clustering as on a hierarchical fleet
+of one-card members.
 
 :meth:`TrainSession.init` resumes from the newest checkpoint in the run's
 ``ckpt_dir`` that verifies (a fresh state when there is none);

@@ -94,7 +94,16 @@ of it.  Elastic membership follows the reference's rule: data and model
 stay fixed and only the pod axis changes; a preempted pod's D x M ranks
 leave together, each (d, m)'s pod group regroups to the alive pods, and
 a rejoining pod's rank (d, m) takes the state of pod 0's rank (d, m).
-A two-tier fleet of meshes is not ported (ROADMAP Queue 1, item 3b).
+
+A two-tier fleet of meshes (``--pods C*E --edge E --data D --model M``:
+C clusters x E members, each member a D x M mesh, ``pods`` the group of
+the C * E members at this rank's (d, m) with its ``intra`` and ``cross``
+sub-groups, ``launch.mesh.split_fleet_mesh(..., n_edge=E)``) runs the
+same loop: the clustering keeps one cluster per cross-tier slot, as on a
+hierarchical fleet of one-card members, and the plan-refresh check also
+covers the plan's tier grid and the clustering's device assignment, so
+that every rank of a member re-clusters alike and runs the same tier
+groups' collectives.  Its membership is fixed, as the reference's.
 
 CLI::
 
@@ -109,6 +118,8 @@ CLI::
         ...                                  # P*D*M ranks, pods x mesh
     python -m repro_torch.launch.train --pods 4 --edge 2 \
         --strategy acesync_hier ...          # 2 clusters x 2 members
+    python -m repro_torch.launch.train --pods 4 --edge 2 --data 1 \
+        --model 2 --strategy acesync_hier ...  # and each member a mesh
     ... --ckpt-dir DIR --ckpt-every N        # checkpoint; a rerun resumes
     ... --deterministic                      # and replays bit for bit
 """
@@ -319,17 +330,20 @@ class TrainLoop:
         return self._plan
 
     def _check_replicated(self, step: int) -> None:
-        """On a mesh: H, the step, the plan's levels and omega must be the
-        same on every rank of the pod (a rank that diverged would run
-        other collectives and hang the fleet)."""
+        """On a mesh: H, the step, the plan's levels, tier grid and omega
+        and the clustering's device assignment must be the same on every
+        rank of the pod (a rank that diverged would run other collectives
+        and hang the fleet)."""
         if self.mesh is None:
             return
         p = self._plan
         vals = [float(self._H or 0), float(step), *map(float, p.level_idx),
-                *map(float, p.omega)]
+                *map(float, p.hier or ()), *map(float, p.omega),
+                *map(float, self.clusters.assignments or ())]
         self.mesh.check_replicated(
             torch.tensor(vals, dtype=torch.float64, device=self.mesh.device),
-            f"H, the step, the plan's levels and omega at step {step}")
+            f"H, the step, the plan's levels, tier grid and omega and the "
+            f"clusters at step {step}")
 
     def poll_replan(self, block: bool = False) -> bool:
         """Apply a pending device replan once its host copy has landed."""
@@ -763,7 +777,10 @@ def _pod_run(group, arch, kw, steps):
 def _mesh_run(ctx, pods, arch, kw, steps):
     """One rank's CLI run on a ("data", "model") mesh (spawned by
     ``--data`` / ``--model``; with ``pods``, the pods at its (d, m) on a
-    fleet of meshes, ``--pods`` too): its summary; rank 0 logs."""
+    fleet of meshes, ``--pods`` too): its summary; rank 0 logs.  On a
+    fleet its pod, cluster and member, the payload bytes its (d, m)'s
+    cross tier received (the pod group's and the ``cross`` sub-group's)
+    and its ``intra`` sub-group's."""
     from repro_torch.launch.session import TrainSession
     sess = TrainSession.from_config(arch, mesh=ctx, pods=pods, **kw)
     lead = ctx.rank == 0 and (pods is None or pods.rank == 0)
@@ -771,8 +788,11 @@ def _mesh_run(ctx, pods, arch, kw, steps):
     sess.finish()
     out = dict(_summary(sess), rank=ctx.rank)
     if pods is not None:
-        out.update(pod=pods.rank, wire_bytes=pods.bytes_logged(
-            ("gather", "ring", "full"), "pod"))
+        payload = ("gather", "ring", "full")
+        out.update(pod=pods.rank, cluster=pods.rank // pods.n_edge,
+                   member=pods.rank % pods.n_edge,
+                   wire_bytes=pods.bytes_logged(payload, ("pod", "cross")),
+                   intra_bytes=pods.bytes_logged(payload, "intra"))
     return out
 
 
@@ -819,19 +839,19 @@ def main(argv=None):
 
     kw = _session_kwargs(args)
     if args.data * args.model > 1:
-        if args.edge > 1:
-            ap.error("--edge with --data / --model (a two-tier fleet of "
-                     "meshes) is not ported yet (ROADMAP Queue 1, item 3b)")
         if args.pods > 1:
             from repro_torch.launch.mesh import spawn_fleet_mesh
             outs = spawn_fleet_mesh(_mesh_run, args.pods, args.data,
                                     args.model, args.device,
-                                    args=(args.arch, kw, args.steps))
-            print(json.dumps(dict(outs[0], pods=args.pods, data=args.data,
-                                  model=args.model,
+                                    args=(args.arch, kw, args.steps),
+                                    n_edge=args.edge)
+            print(json.dumps(dict(outs[0], pods=args.pods, edge=args.edge,
+                                  data=args.data, model=args.model,
                                   ranks=[{k: o[k] for k in
-                                          ("pod", "rank", "wire_bytes",
-                                           "last_loss")} for o in outs])))
+                                          ("pod", "cluster", "member",
+                                           "rank", "wire_bytes",
+                                           "intra_bytes", "last_loss")}
+                                         for o in outs])))
             return
         from repro_torch.launch.mesh import spawn_mesh
         outs = spawn_mesh(_mesh_run, args.data, args.model, args.device,

@@ -266,9 +266,11 @@ def test_divergence_without_a_mesh_is_unchanged():
 
 
 def test_two_tier_fleets_of_meshes_are_refused(tmp_path, capsys):
-    """The refusal that remains: a two-tier fleet (``n_edge`` > 1) of
-    ("data", "model") meshes, named ROADMAP Queue 1 item 3b, by the
-    Trainer and by the train CLI."""
+    """A two-tier fleet (``n_edge`` > 1) of ("data", "model") meshes
+    trains since ROADMAP Queue 1 item 3b: the Trainer of a mesh model
+    builds on it with its scheduler hierarchical (C = 2 clusters x E = 2
+    members); what the train CLI still refuses is a fleet that does not
+    split into clusters (tests/test_torch_fleet_hier_mesh*.py run it)."""
     from repro_torch.core.trainer import Trainer
     from repro_torch.launch import train
     from repro_torch.models import shardctx as SC
@@ -276,10 +278,11 @@ def test_two_tier_fleets_of_meshes_are_refused(tmp_path, capsys):
     run = R.run_config("paper-350m", 2)
     model = build_model(run.model, run, device="cpu", ctx=SC.ShardCtx(1, 2))
     two_tier = type("Pods", (), {"size": 4, "n_edge": 2})()
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3b"):
-        Trainer(model, run, pods=two_tier)
+    tr = Trainer(model, run, pods=two_tier)
+    assert (tr.n_pods, tr.n_edge) == (4, 2)
+    assert tr.scheduler.hier_enabled and tr.scheduler.n_cross == 2
     with pytest.raises(SystemExit):
-        train.main(["--pods", "4", "--edge", "2", "--data", "1", "--model",
+        train.main(["--pods", "3", "--edge", "2", "--data", "1", "--model",
                     "2", "--smoke", "--device", "cpu", "--ckpt-dir",
                     str(tmp_path)])
-    assert "item 3b" in capsys.readouterr().err
+    assert "clusters of --edge 2" in capsys.readouterr().err

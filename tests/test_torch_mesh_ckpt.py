@@ -201,9 +201,9 @@ def test_a_refused_shard_write_raises(tmp_path):
 
 def test_checkpoints_of_pods_times_a_mesh_are_refused(tmp_path):
     """Pods x mesh checkpoints (ROADMAP Queue 1 item 3): rank (p, d, m)
-    places its shard in row p of each leaf; what stays refused is a
-    two-tier fleet of meshes (item 3b), by its loop's trainer before any
-    checkpoint."""
+    places its shard in row p of each leaf; on a two-tier fleet of meshes
+    (item 3b) the loop builds, hierarchical and not elastic, and its
+    checkpointer holds one row per fleet slot c * E + e."""
     from repro_torch.launch.train import TrainLoop
     pods = type("Pods", (), {"size": 2, "rank": 1})()
     shard = LeafShard((4, 6), (slice(0, 4), slice(3, 6)), False)
@@ -214,10 +214,15 @@ def test_checkpoints_of_pods_times_a_mesh_are_refused(tmp_path):
         (4, 6), (slice(1, 2), slice(0, 4), slice(3, 6)), False)]
     run = run_config("qwen3-8b")
     model = build_model(run.model, run, device="cpu", ctx=SC.ShardCtx(1, 1))
-    two_tier = type("Pods", (), {"size": 4, "n_edge": 2})()
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3b"):
-        TrainLoop(model, dataclasses.replace(run, ckpt_dir=str(tmp_path)),
-                  pods=two_tier)
+    two_tier = type("Pods", (), {"size": 4, "n_edge": 2, "rank": 3,
+                                 "ranks": [1, 3, 5, 7]})()
+    loop = TrainLoop(model, dataclasses.replace(run, ckpt_dir=str(tmp_path)),
+                     pods=two_tier)
+    assert loop.trainer.scheduler.hier_enabled and not loop.elastic
+    assert loop.clusters.k == loop.trainer.scheduler.n_cross == 2
+    assert loop.ckpt._rows() == 4
+    assert loop.ckpt._regions({"w": torch.zeros(4, 3)}, 4)[0].index[0] == \
+        slice(3, 4)
 
 
 def test_sub_mesh_of_a_fleet(tmp_path):

@@ -334,9 +334,10 @@ def test_a_mesh_whose_shards_are_not_the_references_is_refused():
 
 def test_pods_times_a_mesh_is_refused_and_a_mesh_loop_checkpoints(tmp_path):
     """Pods x mesh trains (ROADMAP Queue 1 item 3: the trainer prices its
-    plans for the pods); a two-tier fleet of meshes raises, naming item
-    3b; a loop on a mesh takes ``ckpt_every`` and checkpoints through its
-    trainer's layout."""
+    plans for the pods), and a two-tier fleet of meshes too (item 3b: its
+    scheduler hierarchical, C = 2 clusters x E = 2 members); a loop on a
+    mesh takes ``ckpt_every`` and checkpoints through its trainer's
+    layout."""
     from repro_torch.launch.train import TrainLoop
     run = run_config("qwen3-8b")
     model = build_model(run.model, run, device="cpu",
@@ -345,8 +346,9 @@ def test_pods_times_a_mesh_is_refused_and_a_mesh_loop_checkpoints(tmp_path):
     tr = Trainer(model, run, pods=pods)
     assert tr.n_pods == 2 and tr.scheduler.n_pods == 2
     two_tier = type("Pods", (), {"size": 4, "n_edge": 2})()
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3b"):
-        Trainer(model, run, pods=two_tier)
+    tr = Trainer(model, run, pods=two_tier)
+    assert (tr.n_pods, tr.n_edge, tr.scheduler.n_cross) == (4, 2, 2)
+    assert tr.scheduler.hier_enabled
     run = dataclasses.replace(run, ckpt_every=5, ckpt_dir=str(tmp_path))
     loop = TrainLoop(model, run)
     assert loop.ckpt.mesh.layout == loop.trainer.state_layout

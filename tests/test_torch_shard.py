@@ -427,8 +427,10 @@ def test_a_mesh_that_does_not_split_the_heads_raises():
 def test_training_under_a_mesh_raises():
     """Every family trains under a mesh (the VLM, the dense stack behind
     its vision stub, since ROADMAP Queue 1 item 2b: its forward takes the
-    patches under a (1, 1) context and differentiates); what raises is a
-    Trainer of a two-tier fleet of such meshes (item 3b)."""
+    patches under a (1, 1) context and differentiates), on a two-tier
+    fleet of such meshes too (item 3b): the Trainer builds, its scheduler
+    hierarchical."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
     from repro_torch.core.trainer import Trainer
     from repro_torch.models.transformer import DenseTransformer
     cfg = SMOKE_ARCHS["llava-next-mistral-7b"]
@@ -437,5 +439,6 @@ def test_training_under_a_mesh_raises():
     x = model(torch.zeros((2, 8), dtype=torch.int32), patch_embs=patches)
     assert x.shape == (2, cfg.n_patches + 8, cfg.d_model) and x.requires_grad
     pods = type("Pods", (), {"size": 4, "n_edge": 2})()
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3b"):
-        Trainer(model, None, pods=pods)
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", 8, 4, "train"))
+    tr = Trainer(model, run, pods=pods)
+    assert tr.scheduler.hier_enabled and tr.scheduler.n_cross == 2
