@@ -5,7 +5,8 @@ NVIDIA GPU: the quickest proof that the port builds, is right, trains
 families, the encoder-decoder and the VLM; every family also on a
 ("data", "model") mesh, across four cards where there are four, and
 checkpoints and resumes on a mesh; P pods of such meshes, and a two-tier
-fleet of them, train and checkpoint).
+fleet of them, train and checkpoint), and that its dry run counts what
+the card runs.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 17b,18b,19b,20b,21b,22b   # four cards
@@ -286,23 +287,22 @@ Phases (any failure exits nonzero before the result lines):
    (the encoder over the 128 frames, the LM head over the tokens).
 17. serving on a within-pod ("data", "model") mesh, one process per
    rank (``launch/mesh.py``'s ``spawn_mesh``).  (a) qwen3-8b and
-   dbrx-132b at full published width cut to 1 layer, on (1, 2) and
-   (2, 2) meshes whose ranks share the card (gloo, staged through
-   pinned host memory), seeded bf16 weights drawn whole slice by slice
-   and kept shard by shard (``init_model(ctx=)``).  Gates: (1) the last
-   position's logits of a prefill of 4 x 256 seeded tokens and of 4
-   teacher-forced decode steps (1 at D = 2, where every forward's FSDP
-   gathers go through gloo), gathered, against an unsharded port
+   dbrx-132b at full published width cut to 1 layer, on a (1, 2) mesh
+   whose ranks share the card (gloo, staged through pinned host
+   memory; their (2, 2) run is in (b) since phase 24 joined the
+   script), seeded bf16 weights drawn whole slice by slice and kept shard by
+   shard (``init_model(ctx=)``).  Gates: (1) the last position's logits
+   of a prefill of 4 x 256 seeded tokens and of 4 teacher-forced decode
+   steps, gathered, against an unsharded port
    model of the same seed on the same card (a process of its own)
    within rtol = atol = 0.15: qwen3-8b in bf16; dbrx-132b in f32
    compute (a bf16 near-tie, rounded apart by the mesh's and the one
    card's sums, would swap an expert and, under capacity, the drops
-   after it) at capacity factor E / K against the unsharded model (on
-   (1, 2) only: at D = 2 every forward's FSDP gathers through gloo take
-   seconds) and at its 1.25 against ``moe_apply_blocked`` (each mesh
-   block dispatched on its own, the reference's semantics); (2) the
-   Server's tokens on 4 requests of 256 / 200 / 128 / 256 tokens + 1
-   identical on every rank (at D = 2 qwen3-8b's only); (3) each rank's weight bytes equal to its
+   after it) at capacity factor E / K against the unsharded model (at
+   D = 1) and at its 1.25 against ``moe_apply_blocked`` (each mesh
+   block dispatched on its own, the reference's semantics); (2) the Server's
+   tokens on 4 requests of 256 / 200 / 128 / 256 tokens + 1 identical
+   on every rank; (3) each rank's weight bytes equal to its
    shards' sizes reckoned from the specs; (4) K1-K16 launch 0 times.  Prints each
    rank's weight bytes, prefill / decode ms, decode bound per card and
    peak memory (the shared card's and the host's times, not a
@@ -313,7 +313,11 @@ Phases (any failure exits nonzero before the result lines):
    2-4; prints per card the weight bytes, prefill ms and its share of
    4 x 989 TFLOP/s, the decode step's median (min-max) against the
    bound per card ((its weights + its caches) / 3.35 TB/s), tokens/s
-   and peak memory.  On fewer cards (b) prints one line and is not run;
+   and peak memory; then (a)'s models, depth and gates on a (2, 2)
+   mesh, a card a rank (the batch over "data", every forward's FSDP
+   gathers, the Server's batch gathered over "data"), against the
+   unsharded models on card 0.  On fewer cards (b) prints one line and
+   is not run;
 18. training on a within-pod ("data", "model") mesh, one process per
    rank (``launch/mesh.py``'s ``spawn_mesh``; one spawn per mesh shape,
    its models in turn), full width, cut in depth
@@ -370,9 +374,13 @@ Phases (any failure exits nonzero before the result lines):
 20. the recurrent families on a within-pod ("data", "model") mesh.
    (a) one fleet of four processes sharing the card over gloo (one
    spawn for phases 20 (a) and 21 (a), ``mesh_fleet_path``; meshes of
-   its ranks by ``launch.mesh.sub_mesh``), full width, seeded weights.  Serving on (1, 2) (fleet ranks 0-1):
-   falcon-mamba-7b at 2 layers and recurrentgemma-2b at 3 (one rec, rec,
-   attn group); gate 1: rank 0's gathered logits of a 4 x 256 prefill
+   its ranks by ``launch.mesh.sub_mesh``), full width, seeded weights.
+   Serving: falcon-mamba-7b at 2 layers on (1, 2) (fleet ranks 0-1) and
+   recurrentgemma-2b at 3 (one rec, rec, attn group) on (1, 4) (all
+   four: its 10 heads over model = 4, wq / wo split by their flat
+   H * Dh columns as the reference splits them, each rank gathering the
+   heads its part touches; on (1, 2) until phase 24 joined the script);
+   gate 1: rank 0's gathered logits of a 4 x 256 prefill
    and 16 teacher-forced decode steps against the unsharded model of the
    same seed (fleet rank 0, one card) within rtol = atol = 0.15 in bf16
    and 1e-3 in f32 compute; then the Server on phase 17's workload, tokens
@@ -467,6 +475,26 @@ Phases (any failure exits nonzero before the result lines):
    K8-K13 on every rank.  Prints phase 22's lines with the bytes and host
    seconds of every tier.  No four-card part: eight ranks on four cards
    would put two ranks of one NCCL communicator on one card.
+24. the dry run (``repro_torch.launch.dryrun``): one rank's step counted
+   on the meta device (dry process groups, ``analysis/cost.py``'s
+   counters, the kernel wrappers recording the launches they would make)
+   held against the same step on the card.  Three processes on the CPU,
+   started right after phase 2 (none sees the card), run beside the
+   card's phases: the dry runs of (a) and (b), and the CLI on each of
+   ``DRYRUN_CELLS``.  (a) phase 5's all-rungs ``grad_sync`` (paper-350m,
+   24 layers, 8 x 1024) once more inside phase 5's process under the
+   same counters: the FLOPs equal, every kernel's launches equal to
+   ``launch_counts()`` over the step, the state bytes equal to the card
+   state's leaves' (``launch.memory.state_bytes`` counts the pad rows of
+   the packed rung buffers the anchor's leaves are views of after a
+   ``delta_sync`` too, and is printed beside), and the counted peak of
+   the step's allocations within ``PEAK_RTOL`` of
+   ``max_memory_allocated`` above the step's start.  (b) phase 22 (a)'s one-shot all-rungs round on rank 0
+   of P = 2 x (1, 2) (2 layers): the counted collective bytes and counts
+   by op and tier equal to what that rank's groups logged in the step
+   (the bytes of gate 1's own reference round left out).  (c) the CLI's
+   records of qwen3-8b x train_4k on 16 x 16 and dbrx-132b x train_4k on
+   2 x 16 x 16 ``ok``; prints each cell's seconds.
 
 Output: progress lines with each phase's seconds, the pod link's latency
 and rate, then the ``nvidia-smi`` line, the kernels' JSON line (each
@@ -483,7 +511,8 @@ training runs, all ranks; ``mesh_rec_b_...`` for (b)) and
 ``mesh_front_<arch>_<D>x<M>`` / ``mesh_front_b_...`` /
 ``mesh_front_serve`` (phase 21's, likewise), ``fleet_mesh`` (phase
 22 (a), all ranks; ``fleet_mesh_b`` for (b)), ``fleet_hier_mesh``
-(phase 23 (a), all ranks), each counted from 0
+(phase 23 (a), all ranks), ``dryrun`` (phase 24 (a)'s step), each
+counted from 0
 just before its run; phases 10, 11, 13, 15 and 17 launch none;
 K16's ``library_ms``
 is ``torch.mul(q, s)``'s time; ``paths`` gives each path's pods, members
@@ -515,44 +544,18 @@ NB_350M = 443_697                   # blocks of paper-350m's 11 groups
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM datasheet
 FP32_FLOPS = 67e12                  # H100 SXM datasheet, non-tensor f32
 LANES = 1024
-SOURCE = "src/repro_torch/kernels/csrc/gather_encode.cu"
-#: name -> (TPU kernel it replaces, bytes written per row, f32 operations
-#: per element of the row body).  int8 / int4 / sign write the encoded row,
-#: its scale, the residual and own = ef - residual; top-k writes the
-#: selection and the residual.
-KERNELS = {
-    "gather_ef_int8": ("src/repro/kernels/quantize.py:68", 9220, 10),
-    "gather_ef_int4": ("src/repro/kernels/quantize.py:151", 8708, 11),
-    "gather_ef_sign": ("src/repro/kernels/sign.py:72", 9220, 8),
-    "gather_ef_topk": ("src/repro/kernels/topk_compress.py:159", 8192, 38),
-}
-#: k of the 25 / 10 / 1 % top-k rungs (the all-rungs step runs all three);
-#: the timed call uses the 10 % rung's
-TOPK_KS = (256, 104, 16)
-TOPK_K = 104
-DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_accum.cu"
-#: decode-accumulate kernel -> (TPU kernel it replaces, bytes per row:
-#: the accumulator read and written, the payload row and its scale)
-DECODE = {
-    "decode_accum_int8": ("src/repro/kernels/decode.py:100", 9220),
-    "decode_accum_int4": ("src/repro/kernels/decode.py:122", 8708),
-    "sign_vote_accum": ("src/repro/kernels/decode.py:146", 8332),
-    "topk_scatter_accum": ("src/repro/kernels/decode.py:256",
-                           8192 + 3 * TOPK_K + 4),
-    "decode_accum_int8_fp": ("src/repro/kernels/decode.py:185", 9220),
-    "decode_accum_int4_fp": ("src/repro/kernels/decode.py:209", 8708),
-    "sign_vote_accum_fp": ("src/repro/kernels/decode.py:236", 8332),
-}
-#: flat encoder / dequantiser (K12-K16) -> (TPU kernel it replaces, bytes
-#: per row: each input read once, each output written once, f32
-#: operations per element of the row body)
-FLAT = {
-    "quantize_int8": ("src/repro/kernels/quantize.py:44", 9220, 9),
-    "ef_int4": ("src/repro/kernels/quantize.py:126", 12804, 11),
-    "ef_sign": ("src/repro/kernels/sign.py:47", 13316, 8),
-    "ef_topk": ("src/repro/kernels/topk_compress.py:139", 16384, 38),
-    "dequant_int8": ("src/repro/kernels/quantize.py:174", 5124, 1),
-}
+# the kernels' table lives in the package (a dry run reckons each
+# launch's bytes from it): each kernel's TPU counterpart, its bytes per row
+# and f32 operations per element; the top-k rungs' k
+sys.path.insert(0, str(SRC))
+try:
+    from repro_torch.kernels.table import (DECODE, DECODE_SOURCE, FLAT,
+                                           KERNELS, SOURCE, TOPK_K, TOPK_KS,
+                                           row_bytes)
+except ImportError as e:
+    print(f"chip_smoke: FAILED: the port is not next to this script "
+          f"({SRC}): {e}", file=sys.stderr, flush=True)
+    sys.exit(1)
 #: (fixed_bits, payload scale) of the fixed-point checks: the default
 #: width, and one where the clip to +-2^31 saturates
 FP_CASES = ((16, 1.0), (30, 50.0))
@@ -719,7 +722,7 @@ def kernel_phase(np, torch, ops, ref, dev) -> dict:
     # the perm a plan putting every group on one rung builds: all NB rows
     perm = torch.arange(NB_350M, dtype=torch.int32, device=dev)
     S = NB_350M
-    for name, (_, wbytes, flops_el) in KERNELS.items():
+    for name, (_, _, flops_el) in KERNELS.items():
         err = 0.0
         for k in ks(name):
             kern, plain = _fns(ops, ref, name, k)
@@ -730,7 +733,7 @@ def kernel_phase(np, torch, ops, ref, dev) -> dict:
         ms = time_ms(torch, lambda: kern(fb, eb, perm, 0.9), 10)
         plain_ms = time_ms(torch, lambda: plain(fb, eb, perm, 0.9), 2)
         torch.cuda.empty_cache()
-        nbytes = S * (2 * LANES * 4 + 4 + wbytes)
+        nbytes = S * row_bytes(name)
         nops = S * LANES * flops_el
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / FP32_FLOPS * 1e3
@@ -844,14 +847,14 @@ def decode_phase(np, torch, ops, ref, dev) -> dict:
         f"0.37 / 0 / 1, fixed_bits 16 and 30, top-k k = {TOPK_KS})")
     w = torch.tensor(0.37, dtype=torch.float32, device=dev)
     x = decode_inputs(np, torch, dev, NB_350M, 7)
-    for name, (_, row_bytes) in DECODE.items():
+    for name in DECODE:
         kern, plain = decode_fns(ops, ref, name, x, w)
         err = compare(torch, kern(), plain())
         torch.cuda.empty_cache()
         ms = time_ms(torch, kern, 10)
         plain_ms = time_ms(torch, plain, 2)
         torch.cuda.empty_cache()
-        nbytes = NB_350M * row_bytes
+        nbytes = NB_350M * row_bytes(name)
         nops = NB_350M * LANES * 3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / FP32_FLOPS * 1e3
@@ -931,14 +934,14 @@ def flat_phase(torch, ops, ref, dev) -> dict:
     log(f"phase 6b: K12-K16 bit-exact on {n_cases} small cases (rows 1-23, "
         f"gamma 1.0 / 0.9 / 0.6, top-k k = {TOPK_KS})")
     g, e = flat_inputs(torch, dev, NB_350M, 9)
-    for name, (_, row_bytes, flops_el) in FLAT.items():
+    for name, (_, _, flops_el) in FLAT.items():
         kern, plain = flat_fns(ops, ref, name, g, e, 0.9)
         err = compare(torch, kern(), plain())
         torch.cuda.empty_cache()
         ms = time_ms(torch, kern, 10)
         plain_ms = time_ms(torch, plain, 2)
         torch.cuda.empty_cache()
-        nbytes = NB_350M * row_bytes
+        nbytes = NB_350M * row_bytes(name)
         nops = NB_350M * LANES * flops_el
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / FP32_FLOPS * 1e3
@@ -1153,7 +1156,42 @@ def main_path(torch, ops) -> dict:
         f"replan {list(sess.loop.plan.level_idx)}")
     log(f"phase 5: launches {launches}; peak memory "
         f"{peak / 2**30:.2f} GiB; wall {wall:.1f} s")
+    PHASE24["a"] = dryrun_card_step(torch, ops, step, state,
+                                    next(sess.pipeline), plan,
+                                    sess.run_config)
     return launches
+
+
+def dryrun_card_step(torch, ops, step, state, batch, plan, run) -> dict:
+    """Phase 24 (a), the card's side, in phase 5's process: phase 5's
+    all-rungs ``grad_sync`` once more, from its state, under the dry
+    run's counters (``analysis.cost.Counters``), the kernels' launches
+    counted from 0 and the allocator's peak above the step's start."""
+    import dataclasses as dc
+    from repro_torch.analysis.cost import Counters
+    from repro_torch.launch.memory import state_bytes
+    if dc.replace(run, ckpt_dir="") != dc.replace(dryrun_runs()["a"],
+                                                  ckpt_dir=""):
+        fail("phase 24 (a): phase 5's RunConfig is not the dry run's")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with Counters() as c:
+        _, m = step(state, batch, plan, "grad_sync")
+    torch.cuda.synchronize()
+    from repro_torch import tree as T
+    return {"seconds": time.perf_counter() - t0,
+            "flops": c.report.flops, "op_flops": c.report.op_flops,
+            "launches": ops.launch_counts(),
+            "state_bytes": state_bytes(state),
+            "state_leaf_bytes": sum(
+                x.numel() * x.element_size()
+                for _, x in T.reference_leaves_with_path(state)),
+            "peak": torch.cuda.max_memory_allocated() - base,
+            "counted_peak_on_card": c.report.transient_peak,
+            "loss": float(m["loss"])}
 
 
 #: elements of a tensor that ``bits_hash`` hashes at a time: its int64
@@ -3767,26 +3805,18 @@ def frontend_train_phase(torch, card) -> dict:
 #: (2 until phase 18 joined the script: dbrx's (2, 2) decode step 8.3 s
 #: there, its FSDP gathers through gloo), on these (D, M) meshes, the
 #: D * M ranks sharing the one card (gloo, staged through pinned host
-#: memory)
+#: memory).  Their (2, 2) mesh runs in 17(b), a card a rank over NCCL
+#: (here until phase 24 joined the script: every forward gathered the
+#: FSDP halves through gloo, dbrx's decode step 6.9 s)
 MESH_MODELS = ("qwen3-8b", "dbrx-132b")
 MESH_LAYERS = 1
-MESH_SHAPES = ((1, 2), (2, 2))
+MESH_A_SHAPE = (1, 2)
 #: gate 1: a seeded batch of 4 x 256 tokens prefilled (batch over "data"
 #: at D = 2, sequence over "model"), then 4 teacher-forced decode steps;
 #: the last position's logits of each, gathered, against an unsharded
 #: port model of the same seed on the same card within rtol = atol =
 #: TF_TOL
 MESH_TF = {"batch": 4, "prompt": 256, "steps": 4}
-#: at D = 2 (every forward gathers the FSDP halves through gloo: dbrx's
-#: decode step 6.9 s) gate 1 takes one teacher-forced decode step after
-#: the prefill, held to the first rows of the reference's run (a longer
-#: ring changes no value the shorter one computes)
-MESH_TF_D2_STEPS = 1
-#: the models whose Server workload runs at D = 2: qwen3-8b's (0.6 s a
-#: step there) holds its gate — every rank's tokens identical, the batch
-#: gathered over "data"; dbrx-132b's D = 2 prefill and decode (6.9 s a
-#: step) stay under gate 1 alone
-MESH_A_D2 = ("qwen3-8b",)
 #: gate 1's runs per model: qwen3-8b in its served bf16; dbrx-132b in f32
 #: compute (its bf16 weights cast at use: a bf16 near-tie between two
 #: experts, which the mesh's and the one card's roundings break apart,
@@ -3804,7 +3834,7 @@ MESH_TF_RUNS = {"qwen3-8b": {"bf16": (None, False, False)},
 #: layer; on an H100 its decode step took 6.9-7.5 s on (2, 2) against
 #: 26-31 ms on (1, 2)).  So at D = 2 gate 1 runs only at capacity 1.25:
 #: the E / K run (nothing drops) holds the layout alone, which the 1.25
-#: run holds too, with the blocks
+#: run holds too, with the blocks (17(b)'s (2, 2) keeps the rule)
 MESH_A = {"prompts": (256, 200, 128, 256), "new": 1, "batch": 4}
 
 
@@ -3817,6 +3847,10 @@ def mesh_runs(arch, mesh) -> dict:
 #: gate 1 at 8 layers (phase 11's depth), then served at its published
 #: 40 layers on workload (a), twice
 MESH_B = {"arch": "dbrx-132b", "mesh": (1, 4), "gate_layers": 8}
+#: 17(b)'s second mesh: 17(a)'s models and gates on (2, 2), a card a rank
+#: over NCCL — the batch over "data", each forward's FSDP gathers, the
+#: Server's batch gathered over "data" with every rank's tokens compared
+MESH_B_D2 = (2, 2)
 
 
 def mesh_gathered(ctx, logits, B):
@@ -3932,13 +3966,12 @@ def mesh_serve_path(ctx, spec):
         r = {"param_bytes": sum(p.numel() * p.element_size()
                                 for p in model.parameters()),
              "shard_bytes": expected_shard_bytes(model, ctx), "tf": {}}
-        steps = MESH_TF["steps"] if ctx.D == 1 else MESH_TF_D2_STEPS
         for name, run in mesh_runs(arch, (ctx.D, ctx.M)).items():
-            got = mesh_tf_logits(torch, np, model, run, steps=steps)
+            got = mesh_tf_logits(torch, np, model, run,
+                                 steps=MESH_TF["steps"])
             if ctx.rank == 0:
                 r["tf"][name] = got
-        if ctx.D == 1 or arch in MESH_A_D2:
-            r["a"] = serve_once(torch, np, tserve, model, MESH_A)
+        r["a"] = serve_once(torch, np, tserve, model, MESH_A)
         out["models"][arch] = r
         del model
         gc.collect()
@@ -4021,8 +4054,6 @@ def check_mesh_gates(tag, ref, res, mesh, archs, card):
                 fail(f"{tag}: {arch} rank {r['rank']} holds "
                      f"{m['param_bytes']} weight bytes, its shards "
                      f"{m['shard_bytes']}")
-            if "a" not in m:
-                continue
             w = m["a"]
             if (not all(w["tokens_ok"]) or not w["finite"]
                     or w["tokens"] != r0["models"][arch]["a"]["tokens"]):
@@ -4055,20 +4086,14 @@ def log_mesh_served(tag, arch, mesh, res, card) -> None:
                f"step median {w['cold']['decode_ms'][0]:.3f} ms"))
 
 
-def serve_mesh_phase(torch, card) -> None:
-    """Phase 17: (a) qwen3-8b and dbrx-132b at full width, 1 layer, on
-    (1, 2) and (2, 2) meshes of ranks sharing the card, held to the
-    unsharded model; (b) with four cards, dbrx-132b on (1, 4) over NCCL,
-    gated at 8 layers and served at 40."""
-    import gc
+def mesh_serve_run(tag, mesh, card) -> None:
+    """17(a)'s models at ``MESH_LAYERS`` served on ``mesh`` (ranks sharing
+    the card over gloo, or a card a rank over NCCL) beside the unsharded
+    models they are held to (a process of its own on the first card):
+    gates 1-4, each rank's served lines."""
     from repro_torch.launch.mesh import spawn_mesh, spawn_pods
-    tag = "phase 17"
-    gc.collect()
-    torch.cuda.empty_cache()
-    spec = {"device": "cuda", "meshes": list(MESH_SHAPES),
+    spec = {"device": "cuda", "meshes": [mesh],
             "models": [(a, MESH_LAYERS) for a in MESH_MODELS]}
-    # the unsharded models run beside the first mesh (together ~45 GB of
-    # the card at their peaks; the (2, 2) mesh alone needs ~40)
     box = {}
 
     def reference():
@@ -4079,37 +4104,45 @@ def serve_mesh_phase(torch, card) -> None:
             box["error"] = e
     ref_thread = threading.Thread(target=reference)
     ref_thread.start()
-    runs = {}
     try:
-        runs[MESH_SHAPES[0]] = spawn_mesh(mesh_serve_path, *MESH_SHAPES[0],
-                                          "cuda", args=(spec,), timeout=600)
+        res = spawn_mesh(mesh_serve_path, *mesh, "cuda", args=(spec,),
+                         timeout=600)
     finally:
         ref_thread.join()
     if "error" in box:
         raise box["error"]
-    ref = box["ref"]
-    for mesh in MESH_SHAPES:
-        res = runs.get(mesh) or spawn_mesh(mesh_serve_path, *mesh, "cuda",
-                                           args=(spec,), timeout=600)
-        check_mesh_gates(tag + " (a)", ref, res, mesh, MESH_MODELS, card)
-        for arch in MESH_MODELS:
-            if "a" in res[0]["models"][arch]:
-                log_mesh_served(tag + " (a)", arch, mesh, res, card)
-    log(f"{tag} (a): tokens identical on every rank, weight bytes the "
-        f"shards', K1-K16 launched 0 times")
+    check_mesh_gates(tag, box["ref"], res, mesh, MESH_MODELS, card)
+    for arch in MESH_MODELS:
+        log_mesh_served(tag, arch, mesh, res, card)
+    log(f"{tag}: on {mesh}, tokens identical on every rank, weight bytes "
+        f"the shards', K1-K16 launched 0 times")
+
+
+def serve_mesh_phase(torch, card) -> None:
+    """Phase 17: (a) qwen3-8b and dbrx-132b at full width, 1 layer, on a
+    (1, 2) mesh of ranks sharing the card, held to the unsharded model;
+    (b) with four cards, over NCCL, dbrx-132b on (1, 4), gated at 8
+    layers and served at 40, and (a)'s models on (2, 2)."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the unsharded models run beside the mesh (together ~45 GB of the
+    # card at their peaks)
+    mesh_serve_run("phase 17 (a)", MESH_A_SHAPE, card)
     mesh_big_phase(torch)
 
 
 def mesh_big_phase(torch) -> None:
-    """Phase 17(b): dbrx-132b on a (1, 4) mesh of four cards over NCCL;
-    one line and nothing else on fewer cards."""
+    """Phase 17(b): dbrx-132b on a (1, 4) mesh of four cards over NCCL,
+    then 17(a)'s models on (2, 2); one line and nothing else on fewer
+    cards."""
     import gc
     from repro_torch.launch.mesh import spawn_mesh, spawn_pods
     tag = "phase 17 (b)"
     n = torch.cuda.device_count()
     if n < 4:
         log(f"{tag}: {n} card(s): dbrx-132b at 40 layers on a (1, 4) mesh "
-            f"needs four; not run")
+            f"and qwen3-8b and dbrx-132b on (2, 2) need four; not run")
         return
     cards = four_cards()
     gc.collect()
@@ -4129,6 +4162,9 @@ def mesh_big_phase(torch) -> None:
     log_mesh_served(tag, arch, MESH_B["mesh"], res, cards)
     log(f"{tag}: tokens identical on every rank, weight bytes the "
         f"shards', K1-K16 launched 0 times")
+    del ref, res
+    gc.collect()
+    mesh_serve_run(tag, MESH_B_D2, cards)
 
 
 # ---------------------------------------------------------------------------
@@ -4349,6 +4385,7 @@ def checked_sync(torch, T, S, current, record):
     def sync_tree(tree, errors, plan, *, gamma, block, apply_fn=None,
                   apply_aux=(), apply_scalars=(), **kw):
         pods = kw.get("pods")
+        log0 = 0 if pods is None else len(pods.log)
         agg, err = real(tree, errors, current["plan"], gamma=gamma,
                         block=block, **{k: kw[k] for k in ("pods",
                                                            "fixed_bits")
@@ -4368,6 +4405,9 @@ def checked_sync(torch, T, S, current, record):
             want += [int(h) for o in outs for h in o]
         del agg, err
         since = 0 if pods is None else len(pods.log)
+        # the check's own round moved bytes over the pods: phase 24 (b)
+        # leaves them out of the step's
+        current.setdefault("skip", []).append((log0, since))
         out, new_err = real(tree, errors, plan, gamma=gamma, block=block,
                             apply_fn=apply_fn, apply_aux=apply_aux,
                             apply_scalars=apply_scalars, **kw)
@@ -4483,6 +4523,8 @@ def mesh_train_path(ctx, spec, session=None, stops=(), on_step=None):
         (1.0,) if tr.n_pods == 1 else sess.loop.plan.omega)
     rounds = spec.get("rounds") or [(None, r)
                                      for r in spec.get("rings", (None,))]
+    from repro_torch.analysis.cost import collectives
+    out["step_logs"] = {}
     for hier, ring in rounds:
         plan, kind = rr, "grad_sync_all_rungs"
         if ring is not None:
@@ -4494,8 +4536,13 @@ def mesh_train_path(ctx, spec, session=None, stops=(), on_step=None):
             kind += f"_k{max(ring, 0)}"
             if hier is not None:
                 kind += "_flat" if hier < 0 else f"_intra{hier}"
+        log, a = ctx.world.log, len(ctx.world.log)
+        current["skip"] = []
         state, m = tr.step(state, next(sess.pipeline), plan, "grad_sync")
         extra.append((kind, m))
+        out["step_logs"][kind] = collectives(
+            [e for i, e in enumerate(log[a:], a)
+             if not any(x <= i < y for x, y in current["skip"])])
     torch.cuda.synchronize()
     out["train_s"] = time.perf_counter() - t1
     out["launches"] = ops.launch_counts()
@@ -5225,6 +5272,15 @@ def mesh_ckpt_big_phase(torch) -> dict:
 #: f32 compute; then the Server on phase 17's ``MESH_A`` once, tokens
 #: identical on every rank
 MESH_REC_SERVE = {"falcon-mamba-7b": 2, "recurrentgemma-2b": 3}
+#: the fleet's serving meshes other than (1, 2): recurrentgemma-2b on
+#: (1, 4), all four processes — its 10 heads over model = 4, the flat
+#: H * Dh columns split as the reference splits them, each rank gathering
+#: the heads its part touches (on (1, 2) until phase 24 joined the script)
+SERVE_MESH = {"recurrentgemma-2b": (1, 4)}
+
+
+def serve_mesh(arch: str) -> tuple:
+    return SERVE_MESH.get(arch, (1, 2))
 MESH_REC_TF = {"batch": 4, "prompt": 256, "steps": 16}
 #: gate 1's runs: (compute dtype, None: the served bf16; rtol = atol)
 MESH_REC_TF_RUNS = {"bf16": (None, TF_TOL), "f32": ("float32",
@@ -5328,13 +5384,14 @@ def mesh_rec_tf_logits(torch, np, model, dtype):
         model.cfg, model.dtype = cfg, real
 
 
-def mesh_rec_serve_path(ctx, world, models):
-    """A fleet part's serving on ``ctx``'s (1, 2) mesh (None: this process
-    is not on it) and, on fleet rank 0, the unsharded models gate 1 holds
-    it to: per model of ``models`` ({arch: layers}; an encoder-decoder's
-    encoder cut with its decoder) the rank's weight bytes against its
-    shards', its Server lines and gate 1's readings; the kernels'
-    launches over the serving (which must be none)."""
+def mesh_rec_serve_path(meshes, world, models):
+    """A fleet part's serving, each model on its mesh of ``meshes``
+    (:func:`serve_mesh`; None: this process is not on it) and, on fleet
+    rank 0, the unsharded models gate 1 holds it to: per model of
+    ``models`` ({arch: layers}; an encoder-decoder's encoder cut with its
+    decoder) the rank's weight bytes against its shards', its Server
+    lines and gate 1's readings; the kernels' launches over the serving
+    (which must be none)."""
     import gc
     import numpy as np
     import torch
@@ -5347,6 +5404,7 @@ def mesh_rec_serve_path(ctx, world, models):
     out = {}
     for arch, layers in models.items():
         cfg = cut_depth(ARCHS[arch], layers)
+        ctx = meshes[serve_mesh(arch)]
         r = {}
         tf = {}
         if ctx is not None:
@@ -5613,7 +5671,8 @@ def mesh_fleet_path(world, parts):
     stamps = {"entry": time.time()}
     meshes = {(1, 2): sub_mesh(world, range(2), 1, 2),
               (2, 2): sub_mesh(world, range(4), 2, 2),
-              (2, 1): sub_mesh(world, range(2, 4), 2, 1)}
+              (2, 1): sub_mesh(world, range(2, 4), 2, 1),
+              (1, 4): sub_mesh(world, range(4), 1, 4)}
     out = {"rank": world.rank, "stamps": stamps}
 
     def stage(name):
@@ -5625,8 +5684,7 @@ def mesh_fleet_path(world, parts):
     for part in parts:
         spec = FLEET_PARTS[part]
         res = out[part] = {"train": {}, "ref": {}, "restore": {}}
-        res["serve"] = mesh_rec_serve_path(meshes[(1, 2)], world,
-                                           spec["serve"])
+        res["serve"] = mesh_rec_serve_path(meshes, world, spec["serve"])
         stage(f"{part}: serve")
         refs = {}
         for t in spec["train"]:
@@ -5753,12 +5811,13 @@ def check_fleet_part(tag, card, part, fleet) -> dict:
     launches = {}
     prefix = "mesh_rec" if part == "20" else "mesh_front"
     for arch, layers in spec["serve"].items():
+        mesh = serve_mesh(arch)
         ranks = [dict(ranks_of[i]["serve"]["models"][arch], rank=i,
                       models={arch: ranks_of[i]["serve"]["models"][arch]})
-                 for i in range(2)]
+                 for i in range(mesh[0] * mesh[1])]
         for name, tf in ranks_of[0]["serve"]["models"][arch]["tf"].items():
             tol = MESH_REC_TF_RUNS[name][1]
-            log(f"{tag}: {arch} ({layers} layers) on (1, 2), gate 1, "
+            log(f"{tag}: {arch} ({layers} layers) on {mesh}, gate 1, "
                 f"{name}: the last position's logits of a "
                 f"{MESH_REC_TF['batch']} x {MESH_REC_TF['prompt']} prefill "
                 f"and {MESH_REC_TF['steps']} teacher-forced decode steps "
@@ -5766,7 +5825,7 @@ def check_fleet_part(tag, card, part, fleet) -> dict:
                 f"{tf['max_diff']:.4g}, argmax agrees on "
                 f"{tf['argmax']:.4f} (rtol = atol = {tol}) [{card}]")
             if not tf["ok"]:
-                fail(f"{tag}: {arch} on (1, 2), {name}: the mesh's logits "
+                fail(f"{tag}: {arch} on {mesh}, {name}: the mesh's logits "
                      f"differ from the unsharded model's beyond {tol}")
         for r in ranks:
             w = r["a"]
@@ -5779,7 +5838,7 @@ def check_fleet_part(tag, card, part, fleet) -> dict:
                 fail(f"{tag}: {arch} rank {r['rank']} holds "
                      f"{r['param_bytes']} weight bytes, its shards "
                      f"{r['shard_bytes']}")
-        log_mesh_served(tag, arch, (1, 2), ranks, card)
+        log_mesh_served(tag, arch, mesh, ranks, card)
     serve_launch = {k: sum(r["serve"]["launches"].get(k, 0) for r in res)
                     for k in res[0]["serve"]["launches"]}
     if any(serve_launch.values()):
@@ -6305,6 +6364,8 @@ def fleet_mesh_one_card(torch, card, tag, spec) -> dict:
         fail(f"{tag}: ran {res[0]['layers']} layers at {res[0]['width']}")
     launches = check_fleet_mesh(tag, card, spec, res)
     log(f"{tag}: wall {time.perf_counter() - t0:.2f} s")
+    if spec["arch"] == FLEET_MESH_A["arch"] and "edge" not in spec:
+        PHASE24["b"] = res[0]["step_logs"]["grad_sync_all_rungs_k0"]
     return launches
 
 
@@ -6404,6 +6465,202 @@ def fleet_hier_mesh_phase(torch, card) -> dict:
              kernels=FLEET_HIER_KERNELS))}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the dry run
+# ---------------------------------------------------------------------------
+
+#: what phases 5 and 22 (a) leave for phase 24: "a", the card's side of
+#: (a) (:func:`dryrun_card_step`); "b", rank 0's collectives of phase 22
+#: (a)'s one-shot all-rungs round by op and tier
+PHASE24: dict = {}
+#: 24 (c): the dry run's CLI on these cells, each a process of its own
+#: (arch, shape, with --multi-pod)
+DRYRUN_CELLS = (("qwen3-8b", "train_4k", False),
+                ("dbrx-132b", "train_4k", True))
+DRYRUN_OUT = ROOT / "build" / "dryrun_smoke"
+#: 24 (a)'s bound on the dry run's counted peak of the step's allocations
+#: against the allocator's (``max_memory_allocated`` above the step's
+#: start), relative: measured -0.0089% on an H100 (PERF.md §6)
+PEAK_RTOL = 0.01
+
+
+def dryrun_runs() -> dict:
+    """The RunConfigs of 24 (a) (phase 5's: paper-350m at full width and
+    depth, 8 x 1024) and (b) (phase 22 (a)'s: 2 layers)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ACESyncConfig, RunConfig, ShapeConfig
+    a = RunConfig(model=ARCHS["paper-350m"],
+                  shape=ShapeConfig("session", 1024, 8, "train"),
+                  total_steps=100, warmup_steps=2,
+                  acesync=ACESyncConfig(replan_every=4))
+    spec = FLEET_MESH_A
+    _, b = mesh_train_config(spec["arch"], spec["n_layers"], *spec["shape"])
+    return {"a": a, "b": b}
+
+
+def dryrun_side(path: str) -> None:
+    """Phase 24's dry runs of (a) and (b) on the meta device, in a process
+    of its own beside the card's phases (it touches no card): (a) phase
+    5's all-rungs ``grad_sync`` on one pod, (b) phase 22 (a)'s one-shot
+    all-rungs round on rank (0, 0) of pod 0 of P = 2 x (1, 2).  Writes
+    their records to ``path`` as JSON."""
+    from repro_torch.core import planexec
+    from repro_torch.launch.dryrun import dry_step
+    runs = dryrun_runs()
+
+    def rungs(levels, omega):
+        return lambda tr: tr.scheduler.plan_from_levels(
+            list(levels or (i % 8 for i in range(len(tr.sizes)))), omega)
+
+    def one_shot(tr):
+        rr = rungs(FLEET_MESH_A["rungs"], (0.5, 0.5))(tr)
+        return planexec.build_exec_plan(
+            rr, layout=tr.leaf_layout, n_pods=tr.n_pods, ring=-1,
+            n_edge=tr.n_edge, hier=None,
+            segments=planexec.config_segments(runs["b"].acesync),
+            device=tr.device)
+
+    out = {}
+    for key, kw in (("a", {"plan": rungs(None, (1.0,))}),
+                    ("b", {"plan": one_shot, "P": 2, "D": 1, "M": 2})):
+        run = runs[key]
+        out[key] = dry_step(run.model, run.shape, run=run, kind="grad_sync",
+                            **kw)
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def start_dryrun_side() -> dict:
+    """Start phase 24's processes on the CPU after phase 2 (none sees the
+    card): :func:`dryrun_side` and the CLI on each of ``DRYRUN_CELLS``.
+    They run beside the card's phases; an exit of this script stops
+    them."""
+    import atexit
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    DRYRUN_OUT.mkdir(parents=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(ROOT), str(SRC)]))
+    side = {"procs": {}}
+
+    def start(name, cmd):
+        logf = open(DRYRUN_OUT / f"{name}.log", "w")
+        side["procs"][name] = (subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT),
+            logf)
+
+    start("side", [sys.executable, "-c",
+                   "import chip_smoke as c; c.dryrun_side("
+                   f"{str(DRYRUN_OUT / 'side.json')!r})"])
+    for arch, shape, multi in DRYRUN_CELLS:
+        start(f"{arch}_{shape}", [
+            sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            arch, "--shape", shape, "--out", str(DRYRUN_OUT)]
+            + (["--multi-pod"] if multi else []))
+
+    def stop():
+        for p, logf in side["procs"].values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            logf.close()
+    atexit.register(stop)
+    return side
+
+
+def _wait(side, name, timeout=600) -> float:
+    """Wait for phase 24's process ``name`` (it must exit 0); the seconds
+    phase 24 waited for it beside the card's phases (0: it had ended)."""
+    p, logf = side["procs"][name]
+    t0 = time.perf_counter()
+    try:
+        rc = p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"phase 24: {name} did not end in {timeout} s")
+    logf.close()
+    if rc != 0:
+        tail = (DRYRUN_OUT / f"{name}.log").read_text()[-3000:]
+        fail(f"phase 24: {name} exited {rc}:\n{tail}")
+    return time.perf_counter() - t0
+
+
+def dryrun_phase(torch, card, side) -> dict:
+    """Phase 24, the dry run: (a) phase 5's all-rungs step counted on the
+    meta device against the same step on the card — FLOPs, every
+    kernel's launches, the state bytes equal, the counted peak within
+    ``PEAK_RTOL`` of the allocator's; (b) phase 22 (a)'s one-shot
+    all-rungs round on rank 0: the counted collective bytes and counts by
+    op and tier equal to what its groups logged; (c) the CLI's records
+    of ``DRYRUN_CELLS`` ok.  Returns the kernels' launches of (a)'s step
+    on the card (path ``dryrun``)."""
+    tag = "phase 24"
+    _wait(side, "side")
+    with open(DRYRUN_OUT / "side.json") as f:
+        dry = json.load(f)
+    card_a, a = PHASE24["a"], dry["a"]
+    w = a["walker"]
+    log(f"{tag} (a): paper-350m's all-rungs grad_sync (24 layers, 8 x "
+        f"1024) counted on the meta device in {a['trace_s']:.2f} s: "
+        f"{w['flops_per_device']:.6e} FLOPs, "
+        f"{w['bytes_per_device']:.6e} bytes by aten op, state "
+        f"{a['memory']['state_bytes']} B, counted peak of the step's "
+        f"allocations {a['memory']['transient_peak_bytes']} B; on the "
+        f"card: {card_a['flops']:.6e} FLOPs, state "
+        f"{card_a['state_leaf_bytes']} B in its leaves "
+        f"({card_a['state_bytes']} B of storage: the anchor's packed rung "
+        f"buffers' pad rows), allocator's peak above the step's "
+        f"start {card_a['peak']} B (the counters on the card's tensors "
+        f"count {card_a['counted_peak_on_card']} B), step "
+        f"{card_a['seconds']:.2f} s under the counters [{card}]")
+    if w["flops_per_device"] != card_a["flops"]:
+        ops_d, ops_c = w["op_flops"], card_a["op_flops"]
+        diff = {k: (ops_d.get(k), ops_c.get(k))
+                for k in set(ops_d) | set(ops_c)
+                if ops_d.get(k) != ops_c.get(k)}
+        fail(f"{tag} (a): FLOPs {w['flops_per_device']} counted, "
+             f"{card_a['flops']} on the card; by op {diff}")
+    got = {k: v["launches"] for k, v in w["kernels"].items()}
+    want = {k: v for k, v in card_a["launches"].items() if v}
+    if got != want:
+        fail(f"{tag} (a): launches counted {got}, on the card {want}")
+    # the dry run's state is fresh, each leaf its own storage; after a
+    # delta_sync the card's anchor leaves are views of the rungs' packed
+    # buffers, whose pad rows ``state_bytes`` counts too
+    if a["memory"]["state_bytes"] != card_a["state_leaf_bytes"]:
+        fail(f"{tag} (a): state bytes counted "
+             f"{a['memory']['state_bytes']}, the card's leaves "
+             f"{card_a['state_leaf_bytes']}")
+    rel = (a["memory"]["transient_peak_bytes"] - card_a["peak"]) \
+        / card_a["peak"]
+    log(f"{tag} (a): FLOPs, the launches of {sorted(got)} and the state "
+        f"bytes equal; the counted peak {rel:+.4%} of the allocator's "
+        f"(bound {PEAK_RTOL:.0%})")
+    if abs(rel) > PEAK_RTOL:
+        fail(f"{tag} (a): the counted peak is {rel:+.4%} of the "
+             f"allocator's")
+    b = dry["b"]["walker"]
+    card_b = PHASE24["b"]
+    log(f"{tag} (b): phase 22 (a)'s one-shot all-rungs round, rank 0 of "
+        f"P = 2 x (1, 2): counted {b['collective_bytes_per_device']} "
+        f"bytes in {b['collective_counts']} collectives; its groups "
+        f"logged {card_b[0]} in {card_b[1]} [{card}]")
+    if (b["collective_bytes_per_device"], b["collective_counts"]) != \
+            tuple(card_b):
+        fail(f"{tag} (b): the counted collectives differ from the logged")
+    for arch, shape, multi in DRYRUN_CELLS:
+        secs = _wait(side, f"{arch}_{shape}")
+        mesh = "2x16x16" if multi else "16x16"
+        with open(DRYRUN_OUT / f"{mesh}_{arch}_{shape}_acesync.json") as f:
+            rec = json.load(f)
+        if not rec["ok"]:
+            fail(f"{tag} (c): {mesh} {arch} x {shape}: {rec.get('error')}")
+        log(f"{tag} (c): the CLI on {mesh} {arch} x {shape}: ok, built in "
+            f"{rec['build_s']:.2f} s, traced in {rec['trace_s']:.2f} s "
+            f"beside the card's phases (phase 24 waited {secs:.2f} s for "
+            f"it); {rec['bytes_per_device'] / 1e9:.3f} GB a device, "
+            f"{rec['walker']['flops_per_device']:.4e} FLOPs a device")
+    return {"dryrun": card_a["launches"]}
+
+
 #: the parts ``--phases`` can run alone (each needs four cards)
 FOUR_CARD_PHASES = {"17b": "mesh_big_phase", "18b": "mesh_train_big_phase",
                     "19b": "mesh_ckpt_big_phase",
@@ -6457,6 +6714,7 @@ def main(argv=None) -> int:
     phase_s = {}
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     CKPT_ROOT.mkdir(parents=True)
+    side = None if only else start_dryrun_side()
 
     def timed_phase(name, fn, *args):
         t = time.perf_counter()
@@ -6513,6 +6771,7 @@ def main(argv=None) -> int:
     by_path.update(timed_phase("phase 22", fleet_mesh_phase, torch, card))
     by_path.update(timed_phase("phase 23", fleet_hier_mesh_phase, torch,
                                card))
+    by_path.update(timed_phase("phase 24", dryrun_phase, torch, card, side))
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     # the processes' start server and its resource tracker end with this
     # process; stop them before the result lines instead
@@ -6535,7 +6794,8 @@ def main(argv=None) -> int:
             # phase 8 (every member of the 2 x 2 fleet) + phase 9 (the
             # restart runs on one pod, every pod of the elastic run) +
             # phases 12, 14 and 16 (each trained model's process, phase
-            # 12's determinism runs) + phases 18-23 (every mesh rank)
+            # 12's determinism runs) + phases 18-23 (every mesh rank) +
+            # phase 24 (a)'s step
             "launches": sum(n.get(name, 0) for n in by_path.values()),
             "launches_by_path": {path: n.get(name, 0)
                                  for path, n in by_path.items()},
@@ -6546,7 +6806,9 @@ def main(argv=None) -> int:
             "parity": "bit-exact", "bytes": r["bytes"],
             "gbps": r["gbps"]})
     print(card, flush=True)
-    paths = {"one_pod": {"pods": 1, "layers": 24}}
+    paths = {"one_pod": {"pods": 1, "layers": 24},
+             "dryrun": {"pods": 1, "layers": 24, "batch": 8, "seq": 1024,
+                        "step": "phase 5's all-rungs grad_sync, counted"}}
     paths.update({path: {"pods": spec["pods"], "edge": spec.get("edge", 1),
                          "layers": spec["n_layers"] or 24}
                   for path, spec in dict(PATHS, restart=RESTART,
@@ -6577,7 +6839,9 @@ def main(argv=None) -> int:
         "arch": t["arch"], "layers": t["n_layers"], "mesh": t["mesh"],
         "batch": MESH_REC_SHAPE[0], "seq": MESH_REC_SHAPE[1],
         "compute": "float32"} for t in MESH_REC_TRAIN})
-    paths["mesh_rec_serve"] = {"archs": MESH_REC_SERVE, "mesh": (1, 2),
+    paths["mesh_rec_serve"] = {"archs": MESH_REC_SERVE,
+                               "mesh": {a: serve_mesh(a)
+                                        for a in MESH_REC_SERVE},
                                "launches": "none"}
     paths.update({p: {"arch": p.split("_")[3], "mesh": p.split("_")[4],
                       "cards": 4, "batch": MESH_TRAIN_B_SHAPE[0],

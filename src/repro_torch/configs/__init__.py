@@ -67,5 +67,28 @@ SMOKE_ARCHS = {
     "paper-350m": paper_350m_smoke,
 }
 
+#: archs whose long_500k cell is kept: the recurrent ones (the
+#: full-attention archs skip it, as the reference's dry run does)
+LONG_CONTEXT_ARCHS = {"falcon-mamba-7b", "recurrentgemma-2b"}
+
+
+def cells(include_long_skips: bool = False):
+    """Every (arch, shape) cell of the dry run, in the reference's order:
+    each arch of ``ARCHS`` but paper-350m by each shape of ``SHAPES``,
+    long_500k only for ``LONG_CONTEXT_ARCHS`` unless
+    ``include_long_skips``."""
+    out = []
+    for arch in ARCHS:
+        if arch == "paper-350m":
+            continue
+        for shape in SHAPES.values():
+            if (shape.name == "long_500k" and not include_long_skips
+                    and arch not in LONG_CONTEXT_ARCHS):
+                continue
+            out.append((arch, shape.name))
+    return out
+
+
 __all__ = ["ACESyncConfig", "ModelConfig", "RunConfig", "SHAPES",
-           "ShapeConfig", "ARCHS", "SMOKE_ARCHS"]
+           "ShapeConfig", "ARCHS", "SMOKE_ARCHS", "LONG_CONTEXT_ARCHS",
+           "cells"]

@@ -165,6 +165,15 @@ class Trainer:
         place; its RNG stream differs from the reference's)."""
         g = torch.Generator(device=self.device).manual_seed(int(seed))
         self.model.init_params(g)
+        return self.state_of_params(g)
+
+    def state_of_params(self, generator: torch.Generator) -> dict:
+        """The train state around the model's Parameters as they stand:
+        zero moments and error buffers, the strategy's extra state, the
+        importance estimator drawn from ``generator`` (on any device: a
+        dry run's model lives on the meta device, where no generator
+        does)."""
+        g = generator
         params = self.model.param_tree()
         opt = adamw.init_opt_state(params)
         ace = acesync.init_state(g, params, self.metas, self.run.acesync,

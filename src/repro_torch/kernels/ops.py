@@ -32,14 +32,22 @@ accumulator, as the reference's do.
 Every kernel launch adds one to its entry in :data:`LAUNCHES` (and
 nothing else does), so a run can show that its main path went through the
 kernels.
+
+Tensors on the meta device (a dry run, ``launch/dryrun.py``) take a third
+branch: the wrapper allocates its outputs' shapes and dtypes on meta and
+records the launch it would make — its name, rows and bytes by the
+kernels' table (``kernels/table.py``) — in :data:`DRY_LAUNCHES`.  It
+builds nothing, launches nothing and runs no plain version; a ``cpu`` or
+``cuda`` tensor never takes it.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.table import row_bytes
 
 LANES = ref.LANES
 
@@ -50,6 +58,9 @@ KERNELS = ("gather_ef_int8", "gather_ef_int4", "gather_ef_sign",
            "ef_int4", "ef_sign", "ef_topk", "dequant_int8")
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+#: the launches wrappers given meta tensors would have made, in order:
+#: (name, rows, bytes)
+DRY_LAUNCHES: List[Tuple[str, int, int]] = []
 
 
 def reset_launch_counts() -> None:
@@ -61,8 +72,15 @@ def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
 
 
+def _devtype(dev: torch.device) -> str:
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type
+
+
 def _check(fb: torch.Tensor, eb: torch.Tensor, perm: torch.Tensor) -> str:
-    """Validate the buffers; returns the device type ('cpu' or 'cuda')."""
+    """Validate the buffers; returns the device type ('cpu', 'cuda' or
+    'meta')."""
     if fb.dtype != torch.float32 or eb.dtype != torch.float32:
         raise TypeError(f"fb/eb must be float32, got {fb.dtype}/{eb.dtype}")
     if fb.dim() != 2 or fb.shape[1] != LANES or eb.shape != fb.shape:
@@ -78,14 +96,19 @@ def _check(fb: torch.Tensor, eb: torch.Tensor, perm: torch.Tensor) -> str:
         if not (fb.is_contiguous() and eb.is_contiguous()
                 and perm.is_contiguous()):
             raise ValueError("the CUDA kernels need contiguous inputs")
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type
+    return _devtype(dev)
 
 
-def _launch(name: str, rows: int, *args) -> None:
-    """Launch ``name`` over ``rows`` rows (0: no launch)."""
+def _launch(name: str, rows: int, like: torch.Tensor, *args,
+            k: Optional[int] = None) -> None:
+    """Launch ``name`` over ``rows`` rows (0: no launch); on the meta
+    device (``like``'s) record it in :data:`DRY_LAUNCHES` instead, its
+    bytes by the table (top-k's scatter at its ``k``)."""
     if rows == 0:
+        return
+    if like.device.type == "meta":
+        DRY_LAUNCHES.append((name, int(rows),
+                             int(rows) * row_bytes(name, k)))
         return
     from repro_torch.kernels import build
     rc = getattr(build.load(), name)(*args)
@@ -96,7 +119,7 @@ def _launch(name: str, rows: int, *args) -> None:
 
 
 def _common(fb, eb, perm, gamma):
-    stream = torch.cuda.current_stream(fb.device).cuda_stream
+    stream = _stream(fb)
     return ((fb.data_ptr(), eb.data_ptr(), perm.data_ptr(),
              int(perm.shape[0]), int(fb.shape[0]), float(gamma)), stream)
 
@@ -114,7 +137,7 @@ def _quantised(name, plain, fb, eb, perm, gamma, q_cols, q_dtype):
     r = torch.empty((S, LANES), dtype=torch.float32, device=fb.device)
     own = torch.empty((S, LANES), dtype=torch.float32, device=fb.device)
     args, stream = _common(fb, eb, perm, gamma)
-    _launch(name, S, *args, q.data_ptr(), s.data_ptr(), r.data_ptr(),
+    _launch(name, S, fb, *args, q.data_ptr(), s.data_ptr(), r.data_ptr(),
             own.data_ptr(), stream)
     return q, s, r.reshape(-1), own.reshape(-1)
 
@@ -155,7 +178,7 @@ def gather_ef_topk(fb, eb, perm, *, gamma: float, k: int):
     sel = torch.empty((S, LANES), dtype=torch.float32, device=fb.device)
     r = torch.empty((S, LANES), dtype=torch.float32, device=fb.device)
     (fbp, ebp, pp, S_, nbp1, gam), stream = _common(fb, eb, perm, gamma)
-    _launch("gather_ef_topk", S, fbp, ebp, pp, S_, nbp1, gam, int(k),
+    _launch("gather_ef_topk", S, fb, fbp, ebp, pp, S_, nbp1, gam, int(k),
             sel.data_ptr(), r.data_ptr(), stream)
     return sel, r.reshape(-1)
 
@@ -196,9 +219,7 @@ def _decode_device(acc, payload, s, w, acc_dtype, pay_dtype, pay_cols,
             raise ValueError("the CUDA kernels need 16-byte aligned "
                              f"accumulators and {vec}-byte aligned "
                              "payload rows")
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type
+    return _devtype(dev)
 
 
 def _fixed(fixed_bits):
@@ -211,6 +232,9 @@ def _fixed(fixed_bits):
 
 
 def _stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s card (0 on the meta device)."""
+    if t.device.type == "meta":
+        return 0
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -237,7 +261,7 @@ def _dequant(kind, acc, payload, s, w, fixed_bits):
             int(acc.shape[0]))
     tail = (() if bits is None else (bits,)) + (out.data_ptr(),
                                                 _stream(acc))
-    _launch(name, int(acc.shape[0]), *head, *tail)
+    _launch(name, int(acc.shape[0]), acc, *head, *tail)
     return out
 
 
@@ -283,8 +307,8 @@ def sign_vote_accum(vote, mag, p, s, w, *, fixed_bits=None):
             w.data_ptr(), int(nb))
     mid = () if bits is None else (bits,)
     name = "sign_vote_accum" + ("" if bits is None else "_fp")
-    _launch(name, int(nb), *head, *mid, vout.data_ptr(),
-                   mout.data_ptr(), _stream(vote))
+    _launch(name, int(nb), vote, *head, *mid, vout.data_ptr(),
+            mout.data_ptr(), _stream(vote))
     return vout, mout
 
 
@@ -309,9 +333,9 @@ def topk_scatter_accum(acc, q, idx, s, w):
                          "indices")
     out = torch.empty_like(acc)
     nb = int(acc.shape[0])
-    _launch("topk_scatter_accum", nb, acc.data_ptr(), q.data_ptr(),
-                   idx.data_ptr(), s.data_ptr(), w.data_ptr(), nb, k,
-                   out.data_ptr(), _stream(acc))
+    _launch("topk_scatter_accum", nb, acc, acc.data_ptr(), q.data_ptr(),
+            idx.data_ptr(), s.data_ptr(), w.data_ptr(), nb, k,
+            out.data_ptr(), _stream(acc), k=k)
     return out
 
 
@@ -329,9 +353,7 @@ def _flat_device(*xs: torch.Tensor) -> str:
         if x.shape != x0.shape or x.device != x0.device:
             raise ValueError("the flat buffers must share one length and "
                              "one device")
-    if x0.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x0.device}")
-    return x0.device.type
+    return _devtype(x0.device)
 
 
 def _flat_rows(x: torch.Tensor) -> torch.Tensor:
@@ -364,8 +386,8 @@ def quantize_int8(x):
     R = x2.shape[0]
     q, s = _empty(R, LANES, torch.int8, x), _empty(R, 1, torch.float32, x)
     r = _empty(R, LANES, torch.float32, x)
-    _launch("quantize_int8", R, x2.data_ptr(), R, q.data_ptr(), s.data_ptr(),
-            r.data_ptr(), _stream(x))
+    _launch("quantize_int8", R, x, x2.data_ptr(), R, q.data_ptr(),
+            s.data_ptr(), r.data_ptr(), _stream(x))
     return q, s, r.reshape(-1)[:n], n
 
 
@@ -380,7 +402,7 @@ def _ef_flat(name, plain, g, e, gamma, q_cols, q_dtype):
     R = g2.shape[0]
     q, s = _empty(R, q_cols, q_dtype, g), _empty(R, 1, torch.float32, g)
     r = _empty(R, LANES, torch.float32, g)
-    _launch(name, R, g2.data_ptr(), e2.data_ptr(), R, float(gamma),
+    _launch(name, R, g, g2.data_ptr(), e2.data_ptr(), R, float(gamma),
             q.data_ptr(), s.data_ptr(), r.data_ptr(), _stream(g))
     return q, s, r.reshape(-1)[:n], n
 
@@ -413,8 +435,9 @@ def ef_topk(g, e, *, gamma: float, k: int):
         R = g2.shape[0]
         sel = _empty(R, LANES, torch.float32, g)
         r = _empty(R, LANES, torch.float32, g)
-        _launch("ef_topk", R, g2.data_ptr(), e2.data_ptr(), R, float(gamma),
-                int(k), sel.data_ptr(), r.data_ptr(), _stream(g))
+        _launch("ef_topk", R, g, g2.data_ptr(), e2.data_ptr(), R,
+                float(gamma), int(k), sel.data_ptr(), r.data_ptr(),
+                _stream(g))
     return sel.reshape(-1)[:n], r.reshape(-1)[:n]
 
 
@@ -431,16 +454,15 @@ def dequant_int8(q, scales, n: int):
                          f"{scales.dtype} {tuple(scales.shape)}")
     if not 0 <= n <= R * LANES:
         raise ValueError(f"n must be in [0, {R * LANES}], got {n}")
-    if q.device.type == "cpu":
+    if _devtype(q.device) == "cpu":
         return ref.dequantize_int8_ref(q, scales.reshape(R, 1)
                                        ).reshape(-1)[:n]
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if not (q.is_contiguous() and scales.is_contiguous()
+    if q.device.type == "cuda" and not (
+            q.is_contiguous() and scales.is_contiguous()
             and _vec_aligned(q, 4) and _vec_aligned(scales, 4)):
         raise ValueError("the CUDA kernels need contiguous, aligned q and "
                          "scales")
     out = _empty(R, LANES, torch.float32, q)
-    _launch("dequant_int8", R, q.data_ptr(), scales.data_ptr(), R,
+    _launch("dequant_int8", R, q, q.data_ptr(), scales.data_ptr(), R,
             out.data_ptr(), _stream(q))
     return out.reshape(-1)[:n]

@@ -127,6 +127,25 @@ PRELOAD = ("numpy", "torch", "torch.distributed", "repro_torch.convert",
            "repro_torch.launch.train", "repro_torch.models.registry")
 
 
+def production_layout(multi_pod: bool = False) -> tuple:
+    """(shape, axis names) of the reference's production mesh
+    (``make_production_mesh``): (16, 16) ("data", "model"), or (2, 16, 16)
+    ("pod", "data", "model") with ``multi_pod``.  A layout only: no
+    process, no device."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def received_bytes(size: int, nbytes: int, scatter: bool = False) -> int:
+    """The bytes a member of a group of ``size`` receives in one
+    collective of ``nbytes`` bytes a member: every other member's
+    ``nbytes`` in a gather, its own piece (``nbytes / size``) of every
+    other member's in a scatter (``all_to_all``, reduce-scatter).  The
+    rule of every byte log, the real groups' and the dry run's alike."""
+    return (size - 1) * (nbytes // size if scatter else nbytes)
+
+
 def backend_for(n_pods: int, device_type: str) -> str:
     """'nccl' when every pod gets a card of its own, else 'gloo'."""
     if device_type == "cuda" and n_pods <= torch.cuda.device_count():
@@ -249,13 +268,23 @@ class PodGroup:
                       for e in range(E)])
         for off in self.siblings:
             for tier, members in layouts:
-                ranks = [self.ranks[i] + off for i in members]
-                pg = dist.new_group(ranks)
-                if off == 0 and self.rank in members:
-                    setattr(self, tier, PodGroup(
-                        members.index(self.rank), len(ranks), self.device,
-                        self.backend, tier=tier, pg=pg, ranks=ranks,
-                        log=self.log))
+                mine = off == 0 and self.rank in members
+                group = self._sub_group(
+                    tier, [self.ranks[i] + off for i in members],
+                    members.index(self.rank) if mine else None)
+                if group is not None:
+                    setattr(self, tier, group)
+
+    def _sub_group(self, tier: str, ranks: List[int],
+                   rank: Optional[int]) -> Optional["PodGroup"]:
+        """The sub-group of global ranks ``ranks``, created on every
+        process, member or not; this member's handle on it (its rank there
+        ``rank``; None where it is not a member), on this group's log."""
+        pg = dist.new_group(ranks)
+        if rank is None:
+            return None
+        return PodGroup(rank, len(ranks), self.device, self.backend,
+                        tier=tier, pg=pg, ranks=ranks, log=self.log)
 
     # ---- transport -------------------------------------------------------
     def _stage(self, u8: torch.Tensor) -> torch.Tensor:
@@ -304,12 +333,8 @@ class PodGroup:
         self._sync_s = 0.0
         t0 = time.perf_counter()
         u8 = u8.contiguous().view(-1)
-        if scatter:
-            out = self._scatter_flat(u8)
-            got = (self.size - 1) * (u8.numel() // self.size)
-        else:
-            out = self._gather_flat(u8)
-            got = (self.size - 1) * u8.numel()
+        out = self._scatter_flat(u8) if scatter else self._gather_flat(u8)
+        got = received_bytes(self.size, u8.numel(), scatter)
         self.log.append({"op": op, "tier": self.tier, "bytes": got,
                          "seconds": time.perf_counter() - t0,
                          "sync_seconds": self._sync_s})
@@ -371,8 +396,9 @@ class PodGroup:
             dist.reduce_scatter_tensor(out, parts.contiguous(),
                                        group=self.pg)
             self.log.append({"op": "reduce_scatter", "tier": self.tier,
-                             "bytes": (P - 1) * out.numel()
-                             * out.element_size(),
+                             "bytes": received_bytes(
+                                 P, parts.numel() * parts.element_size(),
+                                 scatter=True),
                              "seconds": time.perf_counter() - t0,
                              "sync_seconds": 0.0})
             return out
@@ -451,8 +477,21 @@ class PodGroup:
         cross.  Buffers are the transport's (:meth:`ring_stage`, or what
         an earlier hop received).  Returns the hop's handle; its log entry
         (op "ring") counts the bytes received."""
-        P, r = self.size, self.rank
         t0 = time.perf_counter()
+        works, recvs = self._post_hop(fwd, bwd, tag)
+        entry = {"op": "ring", "tier": self.tier,
+                 "bytes": sum(x.numel() for x in recvs if x is not None),
+                 "seconds": time.perf_counter() - t0,
+                 "sync_seconds": self._sync_s}
+        self._sync_s = 0.0
+        self.log.append(entry)
+        return RingHop(entry, works, recvs[0], recvs[1])
+
+    def _post_hop(self, fwd, bwd, tag: int):
+        """Post :meth:`ring_hop`'s sends and receives: (the transport's
+        work handles, [the forward buffer, the backward buffer] that
+        receive, None where nothing comes)."""
+        P, r = self.size, self.rank
         works, recvs, ops = [], [], []
         for d, buf in ((1, fwd), (-1, bwd)):
             if buf is None:
@@ -471,13 +510,7 @@ class PodGroup:
                 works.append(dist.isend(buf, dst, group=self.pg, tag=t))
         if ops:
             works = dist.batch_isend_irecv(ops)
-        entry = {"op": "ring", "tier": self.tier,
-                 "bytes": sum(x.numel() for x in recvs if x is not None),
-                 "seconds": time.perf_counter() - t0,
-                 "sync_seconds": self._sync_s}
-        self._sync_s = 0.0
-        self.log.append(entry)
-        return RingHop(entry, works, recvs[0], recvs[1])
+        return works, recvs
 
     def ring_to_device(self, buf: torch.Tensor) -> torch.Tensor:
         """A received buffer on this pod's device (a non-blocking copy out

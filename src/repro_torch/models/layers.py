@@ -21,10 +21,12 @@ sequence lengths (:func:`check_chunks`).
 Under a ("data", "model") mesh (``models/shardctx.py``) each rank holds
 the shards that ``attn_shardings`` / ``mlp_shardings`` name (stacked
 leaves: one leading None before each spec): attention column-parallel
-by whole heads over "model" (wq / wk / wv; wo row-parallel, its partial
-sums all-reduced; K/V heads fewer than "model" split by columns as the
-reference splits them, each rank gathering its head whole at use), the
-MLP likewise (w_gate / w_up columns, w_down
+over "model" (wq / wk / wv; wo row-parallel, its partial sums
+all-reduced), every one split evenly by columns as the reference splits
+it: by whole heads where "model" divides them, else a rank holds parts
+of heads and gathers whole the heads it computes at use (query heads
+that "model" does not divide: :func:`_q_weights`; K/V heads fewer than
+"model": :func:`_kv_weights`), the MLP likewise (w_gate / w_up columns, w_down
 rows), and every weight's d_model dimension over "data" (FSDP, gathered
 by the model just before the layer).  The blocks read their head counts
 from the weights they are given, so they run the same code on a shard.
@@ -107,6 +109,27 @@ def _repeat_kv(k, v, G: int):
     return k, v
 
 
+def _sdpa(q, k, v, attn_mask=None, is_causal=False):
+    """``F.scaled_dot_product_attention``.  On the meta device (a dry run)
+    the fused memory-efficient op, whose FLOP formula the card's fused
+    kernels share and which keeps no (Sq, Sk) matrix, where PyTorch would
+    decompose the call into its math version; a boolean mask becomes the
+    additive bias the card's dispatch makes of it."""
+    if q.device.type != "meta":
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                              is_causal=is_causal)
+    bias = None
+    if attn_mask is not None:
+        bias = torch.zeros(attn_mask.shape, dtype=q.dtype,
+                           device=q.device).masked_fill(~attn_mask,
+                                                        float("-inf"))
+        bias = bias.expand(q.shape[:-1] + (k.shape[-2],))
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return torch.ops.aten._scaled_dot_product_efficient_attention(
+        q, k, v, bias, grad, 0.0, is_causal)[0]
+
+
 def causal_attention(q, k, v, window: Optional[int] = None):
     """q: (B, S, H, Dh); k, v: (B, S, KV, Dh) with H % KV == 0.  Causal
     SDPA, limited to the last ``window`` positions where one is given.
@@ -114,12 +137,11 @@ def causal_attention(q, k, v, window: Optional[int] = None):
     k, v = _repeat_kv(k, v, q.shape[2] // k.shape[2])
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if window is None:
-        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        o = _sdpa(qt, kt, vt, is_causal=True)
     else:
         pos = torch.arange(q.shape[1], device=q.device)
         d = pos[:, None] - pos[None, :]
-        o = F.scaled_dot_product_attention(qt, kt, vt,
-                                           attn_mask=(d >= 0) & (d < window))
+        o = _sdpa(qt, kt, vt, attn_mask=(d >= 0) & (d < window))
     return o.transpose(1, 2)
 
 
@@ -128,8 +150,7 @@ def full_attention(q, k, v):
     H % KV == 0, every key visible to every query.  Returns (B, Sq, H,
     Dh)."""
     k, v = _repeat_kv(k, v, q.shape[2] // k.shape[2])
-    o = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                       v.transpose(1, 2))
+    o = _sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     return o.transpose(1, 2)
 
 
@@ -277,13 +298,12 @@ def attn_shapes(cfg, n_layers: int):
 def attn_shardings(cfg) -> dict:
     """One layer's attention specs: the reference's ``attn_shardings``
     (column-parallel in, row-parallel out, FSDP over "data" on d_model),
-    the "model" splits of wq / wo by whole heads; wk / wv split their
-    columns evenly, as the reference does — whole heads where "model"
-    divides the K/V heads, else a part of one head, which
-    :func:`attn_apply` gathers whole (:func:`kv_heads_local`)."""
-    H = cfg.n_heads
-    sp = {"wq": ("data", ("model", H)), "wk": ("data", "model"),
-          "wv": ("data", "model"), "wo": (("model", H), "data")}
+    every "model" split even over the flat H * Dh (KV * Dh) dimension as
+    the reference's fit rule cuts it: whole heads where "model" divides
+    the heads, else parts of heads, which :func:`attn_apply` gathers
+    whole (:func:`_q_weights`, :func:`kv_heads_local`)."""
+    sp = {"wq": ("data", "model"), "wk": ("data", "model"),
+          "wv": ("data", "model"), "wo": ("model", "data")}
     if cfg.qk_norm:
         sp["q_norm"] = (None,)
         sp["k_norm"] = (None,)
@@ -317,6 +337,36 @@ def _kv_weights(p, cfg, ctx):
                  for w in (wk, wv))
 
 
+def _q_weights(p, cfg, ctx):
+    """(wq of the query heads this rank computes, the slice (start,
+    length) of their flattened outputs that meets its rows of wo, or None
+    where that is all of them).  Where "model" divides the heads, its own
+    shard: whole heads.  Else its shard is an even part of the H * Dh
+    columns, cutting heads: the rank computes every head its part
+    touches, gathered whole over "model" (the gradient reduce-scattered
+    back to the parts), and multiplies only its own columns of their
+    outputs into its rows of wo, so each output column — and each
+    element's gradient — is counted once over the ranks."""
+    wq = p["wq"]
+    if ctx is None or ctx.M == 1 or cfg.n_heads % ctx.M == 0:
+        return wq, None
+    Dh, c = cfg.head_dim, wq.shape[-1]
+    lo = ctx.m * c
+    h0, h1 = lo // Dh, -(-(lo + c) // Dh)
+    w = gather_model_cols(wq, -1, ctx).narrow(-1, h0 * Dh, (h1 - h0) * Dh)
+    return w, (lo - h0 * Dh, c)
+
+
+def _out_proj(o, wo, cut):
+    """Row-parallel output projection of the heads' outputs ``o`` (B, S,
+    H, Dh): this rank's columns of them (``cut``, :func:`_q_weights`)
+    into its rows of wo, the partial sums summed over "model"."""
+    o = o.reshape(o.shape[0], o.shape[1], -1)
+    if cut is not None:
+        o = o.narrow(-1, *cut)
+    return reduce_model(o @ wo.to(o.dtype))
+
+
 def attn_apply(p, x, cfg, *, positions, causal: bool = True,
                window: Optional[int] = None, cache=None,
                cache_len: Optional[int] = None, q_chunk: int = 2048,
@@ -330,16 +380,18 @@ def attn_apply(p, x, cfg, *, positions, causal: bool = True,
     slot ``cache_len % alloc`` and attends over the ring; prefill
     (``cache`` without ``cache_len``) attends over the sequence and writes
     its tail into the ring.  The caches are written in place.  Under a
-    mesh ``p`` holds this rank's heads (K/V heads fewer than "model":
-    parts of one, gathered whole here), and wo's partial sums are summed
-    over "model"."""
+    mesh ``p`` holds this rank's heads (query heads "model" does not
+    divide, or K/V heads fewer than "model": parts of them, gathered
+    whole here), and wo's partial sums are summed over "model"."""
     B, S, _ = x.shape
     Dh = cfg.head_dim
-    wk, wv = _kv_weights(p, cfg, current_ctx())
-    H, KV = p["wq"].shape[-1] // Dh, wk.shape[-1] // Dh
+    ctx = current_ctx()
+    wq, cut = _q_weights(p, cfg, ctx)
+    wk, wv = _kv_weights(p, cfg, ctx)
+    H, KV = wq.shape[-1] // Dh, wk.shape[-1] // Dh
     dt = x.dtype
     x = copy_to_model(x)
-    q = (x @ p["wq"].to(dt)).reshape(B, S, H, Dh)
+    q = (x @ wq.to(dt)).reshape(B, S, H, Dh)
     k = (x @ wk.to(dt)).reshape(B, S, KV, Dh)
     v = (x @ wv.to(dt)).reshape(B, S, KV, Dh)
     if cfg.qk_norm:
@@ -365,7 +417,7 @@ def attn_apply(p, x, cfg, *, positions, causal: bool = True,
         if cache is not None:
             ring_write_prefill(cache["k"], k)
             ring_write_prefill(cache["v"], v)
-    return reduce_model(o.reshape(B, S, H * Dh) @ p["wo"].to(dt))
+    return _out_proj(o, p["wo"], cut)
 
 
 def cross_attn_apply(p, x, mem, cfg, *, cache=None, q_chunk: int = 2048,
@@ -383,19 +435,20 @@ def cross_attn_apply(p, x, mem, cfg, *, cache=None, q_chunk: int = 2048,
     B, S, _ = x.shape
     Sm = mem.shape[1]
     Dh = cfg.head_dim
-    wk, wv = _kv_weights(p, cfg, current_ctx())
-    H, KV = p["wq"].shape[-1] // Dh, wk.shape[-1] // Dh
+    ctx = current_ctx()
+    wq, cut = _q_weights(p, cfg, ctx)
+    wk, wv = _kv_weights(p, cfg, ctx)
+    H, KV = wq.shape[-1] // Dh, wk.shape[-1] // Dh
     dt = x.dtype
     x, mem = copy_to_model(x), copy_to_model(mem)
-    q = (x @ p["wq"].to(dt)).reshape(B, S, H, Dh)
+    q = (x @ wq.to(dt)).reshape(B, S, H, Dh)
     k = (mem @ wk.to(dt)).reshape(B, Sm, KV, Dh)
     v = (mem @ wv.to(dt)).reshape(B, Sm, KV, Dh)
     if cache is not None:
         cache["k"].copy_(k)
         cache["v"].copy_(v)
     check_chunks(S, Sm, q_chunk, kv_chunk)
-    o = full_attention(q, k, v)
-    return reduce_model(o.reshape(B, S, H * Dh) @ p["wo"].to(dt))
+    return _out_proj(full_attention(q, k, v), p["wo"], cut)
 
 
 def cross_attn_decode(p, x, cache, cfg):
@@ -406,11 +459,12 @@ def cross_attn_decode(p, x, cache, cfg):
     summed over "model"."""
     B = x.shape[0]
     dt = x.dtype
-    H = p["wq"].shape[-1] // cfg.head_dim
-    q = (x @ p["wq"].to(dt)).reshape(B, 1, H, cfg.head_dim)
+    wq, cut = _q_weights(p, cfg, current_ctx())
+    H = wq.shape[-1] // cfg.head_dim
+    q = (x @ wq.to(dt)).reshape(B, 1, H, cfg.head_dim)
     F_ = cache["k"].shape[1]
     o = decode_attention(q, cache["k"].to(dt), cache["v"].to(dt), F_ - 1)
-    return reduce_model(o.reshape(B, 1, -1) @ p["wo"].to(dt))
+    return _out_proj(o, p["wo"], cut)
 
 
 # ---------------------------------------------------------------------------

@@ -22,8 +22,9 @@ square ``w_a`` / ``w_i`` are column-parallel on an input split over
 D_rnn, so :func:`rec_mix` gathers the conv's output over "model" for
 them (its gradient reduce-scattered back); the scan and everything else
 per channel runs on the rank's channels, and ``w_out``'s partial sums
-are summed over "model".  The attention slot's single K/V head is split
-by columns as the reference splits it and gathered whole at use
+are summed over "model".  The attention slot's single K/V head, and its
+query heads where "model" does not divide them, are split by columns as
+the reference splits them and gathered whole at use
 (``layers.attn_apply``).
 """
 from __future__ import annotations
@@ -188,12 +189,15 @@ class GriffinLM(RecurrentLM):
                                    blocks.items() if pre.startswith("tail/")})
 
     def _check_mesh(self, ctx: ShardCtx) -> None:
-        """The mesh splits the heads, d_ff, D_rnn and the vocabulary
-        evenly over "model", and the K/V heads over it or it over them:
-        anything else raises (no fall back) — recurrentgemma-2b's 10
-        heads over model = 4, say."""
+        """The mesh splits the heads' H * Dh columns (parts of heads
+        where it does not divide the heads: recurrentgemma-2b's 10 over
+        model = 4 or 16), d_ff, D_rnn and the vocabulary evenly over
+        "model", and the K/V heads over it or it over them: anything else
+        raises (no fall back)."""
         cfg = self.cfg
-        self._check_divides(ctx, {"heads": cfg.n_heads, "d_ff": cfg.d_ff,
+        self._check_divides(ctx, {"heads x head_dim":
+                                  cfg.n_heads * cfg.head_dim,
+                                  "d_ff": cfg.d_ff,
                                   "lru_width": cfg.lru_width,
                                   "padded vocab": cfg.padded_vocab})
         L.kv_heads_local(cfg, ctx)

@@ -536,11 +536,13 @@ class DenseTransformer(LanguageModel):
             (cfg.d_model,), dtype=torch.float32, device=self.device))
 
     def _check_mesh(self, ctx: ShardCtx) -> None:
-        """The mesh splits heads, d_ff (dense) and the vocabulary evenly
-        over "model", and the K/V heads over it or it over them: anything
-        else raises (no fall back)."""
+        """The mesh splits the heads' H * Dh columns (whole heads or, as
+        the reference splits them, parts of heads), d_ff (dense) and the
+        vocabulary evenly over "model", and the K/V heads over it or it
+        over them: anything else raises (no fall back)."""
         cfg = self.cfg
-        need = {"heads": cfg.n_heads, "padded vocab": cfg.padded_vocab}
+        need = {"heads x head_dim": cfg.n_heads * cfg.head_dim,
+                "padded vocab": cfg.padded_vocab}
         if self.family == "dense":
             need["d_ff"] = cfg.d_ff
         self._check_divides(ctx, need)

@@ -32,9 +32,14 @@ tests/test_torch_mesh_recurrent_ckpt.py.
   rank's reduced gradient against the unsharded model (f32, ``F32_RTOL``
   = 1e-5); a ``local`` Trainer step's loss, grad norm and parameter
   shards against one process's.
-* The refusals: recurrentgemma-2b (10 heads) on model = 4 and
+* The refusals: recurrentgemma-2b (10 heads of 256 columns) and
   falcon-mamba-7b (d_inner 8192) on model = 3, naming the config; the
   encoder-decoder and the VLM (which build on a mesh) on model = 3.
+  recurrentgemma-2b's 10 heads build on model = 4.
+* Query heads that "model" does not divide (SMOKE recurrentgemma-2b
+  with 3 heads of 16 columns on (1, 2), ``tests/torch_mesh_heads_ref.py``):
+  served and one train step against the live reference on the same
+  mesh, and its checkpoint restored onto one card.
 * ``launch.memory.mesh_train_bytes`` counts a rank's scan bytes over its
   d_inner / M channels, and ``mesh_train_depth`` the layers that fit.
 """
@@ -256,11 +261,16 @@ def test_kv_heads_fewer_than_model_train_on_1x4(ranks):
 
 
 def test_meshes_that_do_not_split_refuse():
-    """recurrentgemma-2b's 10 heads over model = 4, falcon-mamba-7b's
-    d_inner over model = 3: ``ValueError`` naming the config."""
+    """recurrentgemma-2b's 10 x 256 head columns over model = 3,
+    falcon-mamba-7b's d_inner over model = 3: ``ValueError`` naming the
+    config.  Its 10 heads over model = 4 (or 16) build since the heads'
+    columns split as the reference splits them: 640 a rank."""
     with pytest.raises(ValueError, match="recurrentgemma-2b.*heads"):
         build_model(ARCHS["recurrentgemma-2b"], device="meta",
+                    ctx=SC.ShardCtx(1, 3))
+    m = build_model(ARCHS["recurrentgemma-2b"], device="meta",
                     ctx=SC.ShardCtx(1, 4))
+    assert m.blocks["slot2"].mix["wq"].shape[-1] == 640
     with pytest.raises(ValueError, match="falcon-mamba-7b.*d_inner"):
         build_model(ARCHS["falcon-mamba-7b"], device="meta",
                     ctx=SC.ShardCtx(1, 3))
@@ -298,3 +308,33 @@ def test_mesh_train_bytes_count_a_ranks_scan_channels():
     assert memory.mesh_train_depth(
         dataclasses.replace(cfg, n_layers=64), 1, 4, limit, 52.0,
         batch=8, seq=1024) == 2
+
+
+# ---- query heads that "model" does not divide ------------------------------
+
+@pytest.fixture(scope="module")
+def heads_run(tmp_path_factory):
+    import torch_mesh_heads_ref as H
+    return H.run(tmp_path_factory.mktemp("heads"), "recurrentgemma-2b")
+
+
+def test_heads_model_does_not_divide_serve(heads_run):
+    """SMOKE recurrentgemma-2b at 3 query heads on (1, 2): the prefill's
+    and decode steps' logits against the live reference's
+    ``Server(mesh=)`` (``tests/torch_mesh_heads_ref.py``)."""
+    import torch_mesh_heads_ref as H
+    H.check_serve(*heads_run[:2])
+
+
+def test_heads_model_does_not_divide_train(heads_run):
+    """... one ``local`` step against the live reference's
+    ``Trainer(mesh=)``: loss, grad norm, the parameters' shards."""
+    import torch_mesh_heads_ref as H
+    H.check_train(*heads_run[:2])
+
+
+def test_heads_model_does_not_divide_checkpoint_restores_on_one(heads_run):
+    """... the state the ranks saved restores onto one process without a
+    mesh, every parameter the ranks' shards bit for bit."""
+    import torch_mesh_heads_ref as H
+    H.check_restore(*heads_run[1:])

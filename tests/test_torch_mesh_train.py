@@ -29,6 +29,10 @@ reference: tests/test_torch_mesh_train_ref_<D>x<M>.py.
 * The refusal of a two-tier fleet of meshes (pods x mesh trains), and
   the train CLI on a (1, 2) mesh, which
   checkpoints and, run again over the same directory, resumes.
+* Query heads that "model" does not divide (SMOKE starcoder2-3b with 3
+  heads of 16 columns on (1, 2), ``tests/torch_mesh_heads_ref.py``):
+  served and one train step against the live reference on the same
+  mesh, and its checkpoint restored onto one card.
 """
 from torch_env import process_settings  # noqa: F401  (tests/torch_env.py)
 import dataclasses
@@ -408,3 +412,33 @@ def test_training_cli_on_a_mesh(tmp_path):
     assert res2["start_step"] == 3 and res2["steps"] == 3
     assert so2.count("restored checkpoint @ step 3") == 1
     assert (tmp_path / "ck" / "step_00000006").is_dir()
+
+
+# ---- query heads that "model" does not divide ------------------------------
+
+@pytest.fixture(scope="module")
+def heads_run(tmp_path_factory):
+    import torch_mesh_heads_ref as H
+    return H.run(tmp_path_factory.mktemp("heads"), "starcoder2-3b")
+
+
+def test_heads_model_does_not_divide_serve(heads_run):
+    """SMOKE starcoder2-3b at 3 query heads on (1, 2): the prefill's and
+    decode steps' logits against the live reference's ``Server(mesh=)``
+    (``tests/torch_mesh_heads_ref.py``)."""
+    import torch_mesh_heads_ref as H
+    H.check_serve(*heads_run[:2])
+
+
+def test_heads_model_does_not_divide_train(heads_run):
+    """... one ``local`` step against the live reference's
+    ``Trainer(mesh=)``: loss, grad norm, the parameters' shards."""
+    import torch_mesh_heads_ref as H
+    H.check_train(*heads_run[:2])
+
+
+def test_heads_model_does_not_divide_checkpoint_restores_on_one(heads_run):
+    """... the state the ranks saved restores onto one process without a
+    mesh, every parameter the ranks' shards bit for bit."""
+    import torch_mesh_heads_ref as H
+    H.check_restore(*heads_run[1:])
